@@ -8,16 +8,17 @@
 2. Kernel phase: each hand-written kernel against its plain PyTorch twin on
    the same bf16 inputs at the main path's shapes, with ragged lengths:
    K2 `attention_rope` (rel-L2 <= 2e-2 over valid query rows) and K3
-   `antialias_snake` (rel-L2 <= 1e-2 over valid rows); kernel and plain
-   times from CUDA events after warm-up.
+   `antialias_snake` (rel-L2 <= 1e-3 over valid rows, and within 2 bf16
+   ulps on the 4 rows at each edge); kernel and plain times from CUDA events
+   after warm-up.
 3. Pipeline phase: `IndexTTS2(cfg_path=None, device="cuda")` at the shipped
    widths with seeded random weights, a synthetic bpe.model and a 5 s prompt
    wav; three single-segment requests with the default generation kwargs
    (beam sampling, num_beams=3), decode pinned to 400 codes as the JAX
    bench pins it. Checks: finite wavs of int(codes * 1.72) * 256 samples,
    launch counts of both kernels equal to what three requests must make,
-   and, on a small input, the DiT and BigVGAN with their kernels against
-   the same networks with the plain twins swapped in.
+   and, on a small input, every kernel call of the DiT and BigVGAN against
+   its plain twin on the same inputs.
 
 Prints per-stage times and RTF beside the card, then (second to last line)
 one JSON object describing the kernels, and as the last line
@@ -32,6 +33,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import wave
 
 import numpy as np
 
@@ -40,6 +42,21 @@ SENTENCE = ("the quick brown fox jumps over the lazy dog and runs into "
 K2_TS = (1280, 2304)                       # prompt bucket + mel bucket
 MEL_FRAMES = 768                           # the 400-code mel bucket
 K3_SHAPES = ((768, 4), (384, 16), (192, 32), (96, 64), (48, 128), (24, 256))
+K2_REL_L2 = 2e-2                           # the repo's packed_attn_rel_l2 gate
+K3_REL_L2 = 1e-3                           # bf16 output rounding is ~2e-5 here
+EDGE_ROWS = 4                              # the halo a K3 output row reads: 3
+
+
+def edge_err(out, ref, L: int) -> float:
+    """K3 at the rows whose taps reach the replicated edges, [0, 4) and
+    [L-4, L): the largest error over the larger of the two blocks' magnitudes
+    in units of 2 bf16 ulps (2**-6 relative): <= 1 passes."""
+    worst = 0.0
+    for rows in (slice(0, EDGE_ROWS), slice(L - EDGE_ROWS, L)):
+        o, r = out[rows].float(), ref[rows].float()
+        worst = max(worst, ((o - r).abs().max()
+                            / (2 ** -6 * r.abs().max()).clamp_min(1e-30)).item())
+    return worst
 
 
 def card_line() -> str:
@@ -72,8 +89,7 @@ def rel_l2(a, b) -> float:
 
 def build_fake_assets(d: str) -> str:
     """A tiny bpe.model and a 5 s 16 kHz prompt wav (the JAX bench's assets)."""
-    from indextts_tpu.text.spm import build_model_file
-    from indextts_tpu.utils.wav_io import write_wav
+    from indextts_tpu_torch.text import build_model_file
 
     pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
     words = ["▁THE", "▁QUICK", "▁BROWN", "▁FOX", "▁JUMPS", "▁OVER", "▁LAZY",
@@ -91,7 +107,11 @@ def build_fake_assets(d: str) -> str:
     wav = 0.25 * np.sin(2 * np.pi * 170 * t) * (1 + 0.3 * np.sin(2 * np.pi * 3 * t))
     wav += 0.02 * np.random.default_rng(0).standard_normal(len(t))
     path = os.path.join(d, "prompt.wav")
-    write_wav(path, wav.astype(np.float32), sr)
+    with wave.open(path, "wb") as f:                    # 16-bit PCM, mono
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes(np.round(np.clip(wav, -1, 1) * 32767).astype("<i2").tobytes())
     return path
 
 
@@ -122,7 +142,7 @@ def kernel_phase(card: str) -> dict:
         pms = time_ms(lambda: attention_rope_plain(q, k, v, lens, fc, H))
         print(f"K2 attention_rope B=2 H={H} D={D} T={T}: rel_l2 {err:.3e} max_abs {mab:.3e}"
               f" kernel {ms:.4f} ms plain {pms:.4f} ms [{card}]", flush=True)
-        assert err <= 2e-2 and np.isfinite(err), f"K2 rel-L2 {err} > 2e-2 at T={T}"
+        assert err <= K2_REL_L2 and np.isfinite(err), f"K2 rel-L2 {err} > {K2_REL_L2} at T={T}"
         r = res["attention_rope"]
         r["err"], r["abs"] = max(r["err"], err), max(r["abs"], mab)
         if T == K2_TS[0]:
@@ -140,13 +160,16 @@ def kernel_phase(card: str) -> dict:
         ref = antialias_snake_plain(x, alpha, beta, lens)
         torch.cuda.synchronize()
         err = rel_l2(out[0, :L], ref[0, :L])
+        edge = edge_err(out[0], ref[0], L)
         mab = (out[0, :L].float() - ref[0, :L].float()).abs().max().item()
         ms = time_ms(lambda: antialias_snake(x, alpha, beta, lens))
         pms = time_ms(lambda: antialias_snake_plain(x, alpha, beta, lens))
         tot_ms, tot_pms = tot_ms + ms, tot_pms + pms
         print(f"K3 antialias_snake B=1 C={C} T={T} L={L}: rel_l2 {err:.3e} max_abs {mab:.3e}"
-              f" kernel {ms:.4f} ms plain {pms:.4f} ms [{card}]", flush=True)
-        assert err <= 1e-2 and np.isfinite(err), f"K3 rel-L2 {err} > 1e-2 at C={C}"
+              f" edge rows {edge:.3f} of 2 ulps kernel {ms:.4f} ms plain {pms:.4f} ms"
+              f" [{card}]", flush=True)
+        assert err <= K3_REL_L2 and np.isfinite(err), f"K3 rel-L2 {err} > {K3_REL_L2} at C={C}"
+        assert edge <= 1.0, f"K3 edge rows off by {edge} x 2 ulps at C={C}"
         r = res["antialias_snake"]
         r["err"], r["abs"] = max(r["err"], err), max(r["abs"], mab)
     res["antialias_snake"]["ms"], res["antialias_snake"]["plain_ms"] = tot_ms, tot_pms
@@ -156,12 +179,10 @@ def kernel_phase(card: str) -> dict:
 
 
 def reference_check(tts, card: str) -> None:
-    """DiT and BigVGAN on a small input. Every kernel call is also run
-    through its plain twin on the same input (rel-L2 over valid rows within
-    the kernel-phase bounds); then the whole networks with the plain twins
-    swapped in are compared with the kernel path. The network-level bound is
-    looser (5e-2): one-ulp bf16 differences at the kernels' outputs compound
-    through the DiT's 13 layers and BigVGAN's 109 activations."""
+    """The DiT velocity and BigVGAN on a small input with ragged lengths.
+    Every kernel call is also run through its plain twin on the same inputs
+    as it happens (rel-L2 over valid rows within the kernel-phase bounds,
+    and K3's edge rows within 2 ulps); both outputs must be finite."""
     import torch
 
     from indextts_tpu_torch.models.s2mel import dit as dit_mod
@@ -170,14 +191,15 @@ def reference_check(tts, card: str) -> None:
     from indextts_tpu_torch.ops.rope import precompute_freqs_cis
     from indextts_tpu_torch.ops.snake import antialias_snake, antialias_snake_plain
 
-    site_err = {"attention_rope": 0.0, "antialias_snake": 0.0}
+    site = {"attention_rope": 0.0, "antialias_snake": 0.0, "edge": 0.0}
 
-    def at_each_site(name, kernel, plain, len_arg):
+    def checked(name, kernel, plain):
         def run(*args):
             out, ref = kernel(*args), plain(*args)
-            lens = args[len_arg].tolist()
-            err = max(rel_l2(out[b, :L], ref[b, :L]) for b, L in enumerate(lens))
-            site_err[name] = max(site_err[name], err)
+            for b, L in enumerate(args[3].tolist()):        # lengths
+                site[name] = max(site[name], rel_l2(out[b, :L], ref[b, :L]))
+                if name == "antialias_snake":
+                    site["edge"] = max(site["edge"], edge_err(out[b], ref[b], L))
             return out
         return run
 
@@ -195,33 +217,23 @@ def reference_check(tts, card: str) -> None:
     mel = torch.randn((1, 64, 80), generator=g, device=dev).to(dt)
     mel_lens = torch.tensor([60], device=dev)
 
-    def run():
+    saved = dit_mod.attention_rope, bv_mod.antialias_snake
+    dit_mod.attention_rope = checked("attention_rope", attention_rope, attention_rope_plain)
+    bv_mod.antialias_snake = checked("antialias_snake", antialias_snake, antialias_snake_plain)
+    try:
         with torch.inference_mode():
             v = dit_mod.dit_forward(tts.s2mel_params["cfm"], s2, x, prompt, lens, t, style,
                                     cond, fc)
             w = bv_mod.bigvgan_forward(tts.bigvgan_params, cfg.bigvgan, mel, mel_lens)
-        return v, w
-
-    def swapped(att, aa):
-        saved = dit_mod.attention_rope, bv_mod.antialias_snake
-        dit_mod.attention_rope, bv_mod.antialias_snake = att, aa
-        try:
-            return run()
-        finally:
-            dit_mod.attention_rope, bv_mod.antialias_snake = saved
-
-    v_k, w_k = swapped(at_each_site("attention_rope", attention_rope, attention_rope_plain, 3),
-                       at_each_site("antialias_snake", antialias_snake,
-                                    antialias_snake_plain, 3))
-    v_p, w_p = swapped(attention_rope_plain, antialias_snake_plain)
-    e_v = max(rel_l2(v_k[b, :L], v_p[b, :L]) for b, L in enumerate(lens.tolist()))
-    e_w = rel_l2(w_k[0, :60 * 256], w_p[0, :60 * 256])
-    print(f"reference check (small input): per call site, kernel vs plain twin rel_l2 "
-          f"attention_rope {site_err['attention_rope']:.3e}, antialias_snake "
-          f"{site_err['antialias_snake']:.3e}; whole network, kernels vs twins: DiT "
-          f"velocity {e_v:.3e}, BigVGAN wav {e_w:.3e} [{card}]", flush=True)
-    assert site_err["attention_rope"] <= 2e-2 and site_err["antialias_snake"] <= 1e-2, site_err
-    assert e_v <= 5e-2 and e_w <= 5e-2, (e_v, e_w)
+    finally:
+        dit_mod.attention_rope, bv_mod.antialias_snake = saved
+    print(f"reference check (small input), kernel vs plain twin at every call: rel_l2 "
+          f"attention_rope {site['attention_rope']:.3e}, antialias_snake "
+          f"{site['antialias_snake']:.3e}, K3 edge rows {site['edge']:.3f} of 2 ulps "
+          f"[{card}]", flush=True)
+    assert site["attention_rope"] <= K2_REL_L2 and site["antialias_snake"] <= K3_REL_L2, site
+    assert site["edge"] <= 1.0, site
+    assert bool(torch.isfinite(v).all()) and bool(torch.isfinite(w[0, :60 * 256]).all())
 
 
 def pipeline_phase(card: str) -> dict:

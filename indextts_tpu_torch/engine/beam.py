@@ -15,12 +15,15 @@ per row of a left-padded (B, P, D) prefix batch:
 - at the end the live beams of unfinished rows are closed; the best
   hypothesis wins.
 
-Device work: the GPT step for all B*K beams, the warpers and the candidate
-draw. The K/V cache is reordered by a gather over the beam axis every step
-(the JAX package's unquantized path; its in-kernel ancestry map belongs to
-the fused int8 decode kernel, not ported yet). The scorer bookkeeping runs
-on the host over the 2K candidates of each row: one small device->host copy
-per step.
+Everything runs on the device, the scorer included: `_scorer_process` and
+`_hyps_done` are the JAX engine's functions as tensor ops over the B rows,
+so a step makes no device->host copy. The K/V cache is reordered by a
+gather over the beam axis every step (the JAX package's unquantized path;
+its in-kernel ancestry map belongs to the fused int8 decode kernel, not
+ported yet). Whether every row is done is read back once every
+``_DONE_POLL`` steps: a done row is frozen (identity reorder, stop token,
+unchanged scores and hypotheses), so the steps run past the JAX loop's exit
+change nothing in the result.
 """
 
 from __future__ import annotations
@@ -45,11 +48,10 @@ NEG = -1e9
 def _length_norm(lp: float):
     """score / generated_len ** lp with generated_len = step + 1 (the closing
     EOS counts), in f32; the identity for lp == 0."""
-    def norm(score, step):
+    def norm(score: torch.Tensor, step: int) -> torch.Tensor:
         if lp == 0:
-            return np.float32(score)
-        return np.float32(np.float32(score) / max(np.float32(step + 1) ** np.float32(lp),
-                                                 np.float32(1e-9)))
+            return score
+        return score / float(max(np.float32(step + 1) ** np.float32(lp), np.float32(1e-9)))
     return norm
 
 
@@ -89,53 +91,57 @@ def _select_candidates(combined: torch.Tensor, K: int, sampling: SamplingConfig,
     return idx // V, idx % V, scores
 
 
-class _RowScorer:
-    """One row's hypotheses and live-beam token history (host side)."""
+def _add_hyps(hyp_scores, hyp_tokens, hyp_lens, take, score, seq, step: int):
+    """Per row where ``take``: the (score, seq (B, L), step) hypothesis
+    replaces the row's worst one if it scores higher."""
+    K = hyp_scores.shape[1]
+    worst = hyp_scores.argmin(1, keepdim=True)
+    take = take & (score > hyp_scores.gather(1, worst)[:, 0])
+    slot = (torch.arange(K, device=worst.device)[None, :] == worst) & take[:, None]
+    return (torch.where(slot, score[:, None].expand_as(hyp_scores), hyp_scores),
+            torch.where(slot[:, :, None], seq[:, None, :].expand_as(hyp_tokens), hyp_tokens),
+            hyp_lens.masked_fill(slot, step))
 
-    def __init__(self, K: int, L: int, stop: int, norm):
-        self.K, self.stop, self.norm = K, stop, norm
-        self.tokens = np.full((K, L), stop, np.int64)
-        self.hyp_scores = np.full(K, -np.inf, np.float32)
-        self.hyp_tokens = np.full((K, L), stop, np.int64)
-        self.hyp_lens = np.zeros(K, np.int64)
-        self.done = False
 
-    def _add(self, score, seq, step):
-        worst = int(np.argmin(self.hyp_scores))
-        if score > self.hyp_scores[worst]:
-            self.hyp_scores[worst] = score
-            self.hyp_tokens[worst] = seq
-            self.hyp_lens[worst] = step
+def _scorer_process(cb, ct, cs, step: int, beam_scores, hyp_scores, hyp_tokens, hyp_lens,
+                    tokens, done, *, stop: int, norm):
+    """BeamSearchScorer.process for B rows over their 2K candidates (B, 2K),
+    best first: EOS candidates of rank < K close hypotheses, the first K
+    others become the live beams. Rows already ``done`` keep their
+    hypotheses and get the identity reorder, the stop token and their old
+    scores. Returns (parent beam, token, score) (B, K) and the hypotheses."""
+    B, K = beam_scores.shape
+    dev = cb.device
+    ar_b, ar_k = torch.arange(B, device=dev), torch.arange(K, device=dev)
+    is_eos = ct == stop
+    for i in range(K):
+        hyp_scores, hyp_tokens, hyp_lens = _add_hyps(
+            hyp_scores, hyp_tokens, hyp_lens, is_eos[:, i] & ~done, norm(cs[:, i], step),
+            tokens[ar_b, cb[:, i]], step)
+    live = ~is_eos
+    slot_of_cand = torch.where(live, live.cumsum(1) - 1, torch.full_like(cb, 2 * K))
+    cand_of_slot = (slot_of_cand[:, None, :] == ar_k[None, :, None]).int().argmax(2)
+    nb, nt, ns = (t.gather(1, cand_of_slot) for t in (cb, ct, cs))
+    # fewer than K live candidates (degenerate): pad with the first one's beam
+    valid = ar_k[None, :] < live.sum(1, keepdim=True)
+    nb = torch.where(valid, nb, cb.gather(1, cand_of_slot[:, :1]))
+    nt, ns = nt.masked_fill(~valid, stop), ns.masked_fill(~valid, NEG)
+    d = done[:, None]
+    nb = torch.where(d, ar_k[None, :].expand_as(nb), nb)
+    return (nb, nt.masked_fill(d, stop), torch.where(d, beam_scores, ns),
+            hyp_scores, hyp_tokens, hyp_lens)
 
-    def process(self, cb, ct, cs, step):
-        """BeamSearchScorer.process over 2K sorted candidates. Returns the
-        K (parent beam, token, score) live slots."""
-        K, stop = self.K, self.stop
-        if self.done:  # frozen: identity reorder, stop token, same scores
-            return np.arange(K), np.full(K, stop), None
-        for i in range(2 * K):
-            if ct[i] == stop and i < K:
-                self._add(self.norm(cs[i], step), self.tokens[cb[i]].copy(), step)
-        live = [i for i in range(2 * K) if ct[i] != stop][:K]
-        fallback = live[0] if live else 0
-        nb = np.array([cb[i] for i in live] + [cb[fallback]] * (K - len(live)))
-        nt = np.array([ct[i] for i in live] + [stop] * (K - len(live)))
-        ns = np.array([cs[i] for i in live] + [NEG] * (K - len(live)), np.float32)
-        self.tokens = self.tokens[nb]
-        self.tokens[:, step] = nt
-        full = np.all(np.isfinite(self.hyp_scores))
-        self.done = bool(full and self.hyp_scores.min() >= self.norm(cs[0], step))
-        return nb, nt, ns
 
-    def finalize(self, live_scores, step):
-        """Close the live beams of an unfinished row; best hypothesis."""
-        if not self.done:
-            for k in range(self.K):
-                self._add(np.float32(live_scores[k]), self.tokens[k].copy(), step)
-        best = int(np.argmax(self.hyp_scores))
-        n = int(self.hyp_lens[best])
-        codes = np.where(np.arange(self.tokens.shape[1]) < n, self.hyp_tokens[best], self.stop)
-        return codes, n
+def _hyps_done(cand_max, hyp_scores, step: int, *, norm):
+    """BeamHypotheses.is_done (early_stopping=False): all K slots full and
+    the worst no lower than the step's best candidate at the current length."""
+    return (torch.isfinite(hyp_scores).all(1)
+            & (hyp_scores.min(1).values >= norm(cand_max, step)))
+
+
+# steps between two reads of the all-rows-done flag (the decode loop's only
+# device->host copy)
+_DONE_POLL = 8
 
 
 @torch.no_grad()
@@ -168,43 +174,50 @@ def generate_beam(params: Params, cfg: GPTConfig, dims: GPT2Dims,
     counts = torch.zeros((B, K, V), dtype=torch.int32, device=dev)
     counts[:, :, 1] += P
     counts[:, :, cfg.start_mel_token] += 1
-    scores_host = np.full((B, K), NEG, np.float32)
-    scores_host[:, 0] = 0.0
-    beam_scores = torch.as_tensor(scores_host, device=dev)
-    rows = [_RowScorer(K, L, stop, norm) for _ in range(B)]
-    arange_b = torch.arange(B, device=dev)[:, None]
+    beam_scores = torch.full((B, K), NEG, device=dev)
+    beam_scores[:, 0] = 0.0
+    tokens = torch.full((B, K, L), stop, dtype=torch.long, device=dev)
+    hyp_scores = torch.full((B, K), float("-inf"), device=dev)
+    hyp_tokens = torch.full((B, K, L), stop, dtype=torch.long, device=dev)
+    hyp_lens = torch.zeros((B, K), dtype=torch.long, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    row_base = torch.arange(B, device=dev)[:, None] * K
+    ones = torch.ones((B, K, 1), dtype=torch.int32, device=dev)
 
     step = 0
     while True:
         combined = beam_step_scores(logits, counts, beam_scores, step, stop, sampling)
-        cb, ct, cs = (t.cpu().numpy() for t in _select_candidates(combined, K, sampling,
-                                                                  generator))
-        nb, nt, ns = np.zeros((B, K), np.int64), np.zeros((B, K), np.int64), scores_host.copy()
-        for b, row in enumerate(rows):
-            nb[b], nt[b], s = row.process(cb[b], ct[b], cs[b], step)
-            if s is not None:
-                ns[b] = s
-        nb_t = torch.as_tensor(nb, device=dev)
-        nt_t = torch.as_tensor(nt, device=dev)
-        gidx = (arange_b * K + nb_t).reshape(-1)
+        cb, ct, cs = _select_candidates(combined, K, sampling, generator)
+        nb, nt, beam_scores, hyp_scores, hyp_tokens, hyp_lens = _scorer_process(
+            cb, ct, cs, step, beam_scores, hyp_scores, hyp_tokens, hyp_lens, tokens, done,
+            stop=stop, norm=norm)
+        gidx = (row_base + nb).reshape(-1)
+        tokens = tokens.reshape(B * K, L)[gidx].reshape(B, K, L)
+        tokens[:, :, step] = nt
         counts = counts.reshape(B * K, V)[gidx].reshape(B, K, V)
-        counts.scatter_add_(2, nt_t[:, :, None], torch.ones_like(nt_t[:, :, None], dtype=torch.int32))
-        scores_host = ns
-        beam_scores = torch.as_tensor(ns, device=dev)
+        counts.scatter_add_(2, nt[:, :, None], ones)
         if K > 1:
             kv = {name: buf[:, gidx] for name, buf in kv.items()}
             kv_valid = kv_valid[gidx]
+        done = done | _hyps_done(cs[:, 0], hyp_scores, step, norm=norm)
         step += 1
-        if step >= max_new_tokens or all(r.done for r in rows):
+        if step >= max_new_tokens or (step % _DONE_POLL == 0 and bool(done.all())):
             break
         # token i is embedded at mel position i + 2 (prev token i = step - 1)
-        x = _embed_mel_token(params, nt_t.reshape(B * K), step + 1, dtype)
+        x = _embed_mel_token(params, nt.reshape(B * K), step + 1, dtype)
         pos = P + 1 + step
         kv_valid[:, pos] = True
         h = gpt2_decode_step(params["gpt"], x, dims, pos, kv, kv_valid)
         logits = mel_logits_from_hidden(params, h).reshape(B, K, V)
 
-    out = [row.finalize(np.array([norm(s, step - 1) for s in scores_host[b]], np.float32),
-                        step) for b, row in enumerate(rows)]
-    codes = torch.as_tensor(np.stack([c for c, _ in out]), device=dev)
-    return codes, np.array([n for _, n in out], np.int64)
+    # HF finalize: close the live beams of rows not done; the best hypothesis
+    final = norm(beam_scores, step - 1)
+    for k in range(K):
+        hyp_scores, hyp_tokens, hyp_lens = _add_hyps(hyp_scores, hyp_tokens, hyp_lens, ~done,
+                                                     final[:, k], tokens[:, k], step)
+    best = hyp_scores.argmax(1, keepdim=True)
+    lens = hyp_lens.gather(1, best)
+    best_tokens = hyp_tokens.gather(1, best[:, :, None].expand(B, 1, L))[:, 0]
+    codes = torch.where(torch.arange(L, device=dev)[None, :] < lens, best_tokens,
+                        torch.full_like(best_tokens, stop))
+    return codes, lens[:, 0].cpu().numpy()

@@ -9,10 +9,13 @@ skip  = skip_linear(concat[body, noisy mel]);
 head  = WaveNet (gated tanh/sigmoid, reflect padding around each row's
         valid region) + FinalLayer (adaLN LayerNorm + linear) + 1x1 conv.
 
-Activations are (B, T, C). The network runs in the dtype of ``cond`` (the
-pipeline's dtype: bf16 on the card, where K2 takes bf16); the timestep
-embeddings and adaLN modulations are f32 and the velocity is returned in
-f32 for the caller's f32 Euler state.
+Activations are (B, T, C). As in the JAX package, the input concat promotes
+the stream to the widest of its parts: the f32 Euler state makes the
+residual stream, the WaveNet head and the velocity f32 even when ``cond``,
+the prompt mel and the style come in the pipeline's bf16. Only K2 takes
+q, k, v in ``cond``'s dtype (bf16 on the card, the kernel's input type) and
+its output goes back to the stream's dtype. The timestep embeddings and
+adaLN modulations are f32.
 """
 
 from __future__ import annotations
@@ -75,17 +78,18 @@ def init_dit_backbone(rng: InitRng, cfg: DiTConfig) -> Params:
 
 
 def dit_backbone_forward(p: Params, cfg: DiTConfig, x: torch.Tensor, c: torch.Tensor,
-                         freqs_cis: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+                         freqs_cis: torch.Tensor, lengths: torch.Tensor,
+                         attn_dtype: torch.dtype) -> torch.Tensor:
     """x (B, T, D), c (B, 1, D) f32 time conditioning, lengths (B,) valid
-    frames (keys past them are masked)."""
+    frames (keys past them are masked). Attention runs in ``attn_dtype``."""
     if cfg.is_causal:
         raise NotImplementedError("causal DiT is not ported (the shipped DiT is non-causal)")
     for lp in p["layers"]:
         h = _ada_ln(lp["attention_norm"], x, c, cfg.norm_eps)
         q, k, v = torch.chunk(nn.dense(lp["attn"]["wqkv"], h), 3, dim=-1)
-        out = attention_rope(q.contiguous(), k.contiguous(), v.contiguous(), lengths,
-                             freqs_cis, cfg.num_heads)
-        x = x + nn.dense(lp["attn"]["wo"], out)
+        q, k, v = (a.to(attn_dtype).contiguous() for a in (q, k, v))
+        out = attention_rope(q, k, v, lengths, freqs_cis, cfg.num_heads)
+        x = x + nn.dense(lp["attn"]["wo"], out.to(x.dtype))
         h = _ada_ln(lp["ffn_norm"], x, c, cfg.norm_eps)
         ff = lp["ff"]
         x = x + nn.dense(ff["w2"], F.silu(nn.dense(ff["w1"], h)) * nn.dense(ff["w3"], h))
@@ -159,14 +163,15 @@ def dit_forward(p: Params, s2: S2MelConfig, x: torch.Tensor, prompt_x: torch.Ten
     (B, T, content_dim); freqs_cis (>= T, head_dim/2, 2)."""
     cfg, w = s2.DiT, s2.wavenet
     B, T, _ = x.shape
-    dt = cond.dtype
     t1 = timestep_embed(p["t_embedder"], t)                         # (B, D) f32
-    x_in = torch.cat([x.to(dt), prompt_x.to(dt), nn.dense(p["cond_projection"], cond),
+    cond_p = nn.dense(p["cond_projection"], cond)
+    dt = torch.promote_types(torch.promote_types(x.dtype, prompt_x.dtype), cond_p.dtype)
+    x_in = torch.cat([x.to(dt), prompt_x.to(dt), cond_p.to(dt),
                       style[:, None, :].to(dt).expand(B, T, style.shape[-1])], dim=-1)
     x_in = nn.dense(p["cond_x_merge_linear"], x_in)
     mask = nn.sequence_mask(x_lens, T)
     x_res = dit_backbone_forward(p["transformer"], cfg, x_in, t1[:, None, :],
-                                 freqs_cis, x_lens)
+                                 freqs_cis, x_lens, cond.dtype)
     x_res = nn.dense(p["skip_linear"], torch.cat([x_res, x.to(dt)], dim=-1))
     h = nn.dense(p["conv1"], x_res)
     t2 = timestep_embed(p["t_embedder2"], t)

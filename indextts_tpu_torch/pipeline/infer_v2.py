@@ -39,7 +39,6 @@ import torch
 
 from indextts_tpu.config import IndexTTS2Config, load_config
 from indextts_tpu.pipeline.buckets import pad_to, pick_bucket
-from indextts_tpu.text.front import TextNormalizer, TextTokenizer
 from indextts_tpu.utils.resample import resample_audio
 from indextts_tpu.utils.wav_io import read_wav_mono, write_wav
 from indextts_tpu_torch import nn
@@ -56,6 +55,7 @@ from indextts_tpu_torch.models.s2mel.length_regulator import length_regulate
 from indextts_tpu_torch.models.s2mel.s2mel import gpt_layer_forward, init_s2mel
 from indextts_tpu_torch.models.vocoder.bigvgan import bigvgan_forward, init_bigvgan
 from indextts_tpu_torch.ops.mel import kaldi_fbank, mel_spectrogram, seamless_m4t_features
+from indextts_tpu_torch.text import TextNormalizer, TextTokenizer
 from indextts_tpu_torch.utils.jax_params import to_torch
 
 _ROADMAP = "see ROADMAP.md, queue 1 (modules still to port)"

@@ -245,6 +245,38 @@ def test_greedy_beam_token_equal(cfg, uv_params, rng):
     np.testing.assert_array_equal(tcodes.numpy(), np.asarray(codes))
 
 
+@pytest.mark.parametrize("seed,stop_bias,want_lens", [(2, -0.05, [16, 2]), (3, 0.0, [2, 10])])
+def test_beam_scorer_rows_finishing_apart_token_equal(cfg, uv_params, seed, stop_bias,
+                                                      want_lens):
+    """The device-side scorer against JAX where hypotheses close early and
+    the two rows finish at different steps (one row frozen while the other
+    decodes, length penalty 1): a stop-logit bias picks such cases."""
+    from indextts_tpu.engine.beam import generate_beam as jbeam
+    from indextts_tpu.engine.decode import SamplingConfig as JS
+    from indextts_tpu.models.gpt.gpt2 import GPT2Dims as JD
+    from indextts_tpu_torch.engine.beam import generate_beam as tbeam
+    from indextts_tpu_torch.engine.decode import SamplingConfig as TS
+    from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims as TD
+
+    g = cfg.gpt
+    p = jax.tree_util.tree_map(np.array, uv_params[0])
+    p["mel_head"]["bias"][g.stop_mel_token] += stop_bias
+    rng = np.random.default_rng(seed)
+    pe = rng.standard_normal((2, 20, g.model_dim)).astype(np.float32)
+    pm = np.ones((2, 20), bool)
+    pm[1, :6] = False
+    pe[1, :6] = 0
+    kw = dict(do_sample=False, num_beams=3, min_new_tokens=2, length_penalty=1.0)
+    codes, lens = jbeam(p, g, JD(g.layers, g.model_dim, g.heads), jnp.asarray(pe),
+                        jnp.asarray(pm), jax.random.PRNGKey(0), max_new_tokens=24,
+                        sampling=JS(**kw), dtype=jnp.float32)
+    tcodes, tlens = tbeam(to_torch(p), g, TD(g.layers, g.model_dim, g.heads), t(pe), t(pm),
+                          torch.Generator().manual_seed(0), 24, TS(**kw), torch.float32)
+    np.testing.assert_array_equal(np.asarray(lens), want_lens)
+    np.testing.assert_array_equal(tlens, np.asarray(lens))
+    np.testing.assert_array_equal(tcodes.numpy(), np.asarray(codes))
+
+
 @pytest.fixture(scope="module")
 def s2_params(cfg):
     from indextts_tpu.models.s2mel.s2mel import init_s2mel
@@ -301,6 +333,39 @@ def test_cfm_inference_with_injected_noise(cfg, s2_params, rng):
     out = tcfm.cfm_inference(tp["cfm"], s2, t(a["cond"]), t([40]), t(a["prompt"]),
                              t(a["style"]), n_timesteps=6, prompt_len=t(plen), z=t(z))
     close(out[:, :40], np.asarray(ref)[:, :40], atol=5e-4, rtol=2e-3)
+
+
+def test_cfm_inference_bf16_pipeline_dtype(cfg, s2_params, rng):
+    """The main path's dtypes: bf16 weights, cond, prompt mel and style with
+    the f32 noise, as the pipelines pass them. JAX promotes the DiT stream
+    to f32 and attends in f32; the port keeps the f32 stream and attends
+    in bf16 (K2's input type). The gap is that rounding of q, k, v and the
+    probabilities, carried through 25 Euler steps: rel-L2 <= 5e-5 over the
+    generated rows (1.9e-6 measured on CPU; a DiT whose whole stream runs
+    in bf16 measures 5.4e-4 here and fails)."""
+    from indextts_tpu.models.s2mel.cfm import cfm_inference
+    from indextts_tpu_torch.models.s2mel import cfm as tcfm
+
+    s2 = cfg.s2mel
+    p = jax.tree_util.tree_map(
+        lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)), s2_params[0])
+    a = _dit_inputs(cfg, rng, B=1, T=64)
+    T, plen, L = 64, np.array([12]), 56
+    key = jax.random.PRNGKey(4)
+    z = np.asarray(jax.random.normal(key, (1, T, 80), dtype=jnp.float32))
+    bf = {k: jnp.asarray(a[k], jnp.bfloat16) for k in ("cond", "prompt", "style")}
+    ref = jax.jit(lambda p, *b: cfm_inference(p, s2, *b[:-1], n_timesteps=25,
+                                              prompt_len=b[-1]))(
+        p["cfm"], bf["cond"], jnp.asarray([L]), bf["prompt"], bf["style"], key,
+        jnp.asarray(plen))
+    tb = {k: t(np.asarray(v.astype(jnp.float32))).to(torch.bfloat16) for k, v in bf.items()}
+    out = tcfm.cfm_inference(to_torch(p["cfm"], dtype=torch.bfloat16), s2, tb["cond"],
+                             t([L]), tb["prompt"], tb["style"], n_timesteps=25,
+                             prompt_len=t(plen), z=t(z))
+    assert out.dtype == torch.float32
+    ref = np.asarray(ref)[0, 12:L]
+    err = np.linalg.norm(out[0, 12:L].numpy() - ref) / np.linalg.norm(ref)
+    assert err <= 5e-5, err
 
 
 def test_bigvgan(cfg, rng):
