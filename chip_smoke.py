@@ -4,21 +4,51 @@
     python3 chip_smoke.py            # from the repository root, one card
 
 1. Set-up: prints the card's name and power limit, builds the CUDA kernels
-   from `indextts_tpu_torch/csrc` (nvcc, sm_90a).
+   from `indextts_tpu_torch/csrc` (one nvcc per source, in parallel, sm_90a).
 2. Kernel phase: each hand-written kernel against its plain PyTorch twin on
-   the same bf16 inputs at the main path's shapes, with ragged lengths:
-   K2 `attention_rope` (rel-L2 <= 2e-2 over valid query rows) and K3
-   `antialias_snake` (rel-L2 <= 1e-3 over valid rows, and within 2 bf16
-   ulps on the 4 rows at each edge); kernel and plain times from CUDA events
-   after warm-up.
-3. Pipeline phase: `IndexTTS2(cfg_path=None, device="cuda")` at the shipped
-   widths with seeded random weights, a synthetic bpe.model and a 5 s prompt
-   wav; three single-segment requests with the default generation kwargs
-   (beam sampling, num_beams=3), decode pinned to 400 codes as the JAX
-   bench pins it. Checks: finite wavs of int(codes * 1.72) * 256 samples,
-   launch counts of both kernels equal to what three requests must make,
+   the same inputs at the main paths' shapes, with kernel, twin and (where
+   one PyTorch call computes the same function) library times from CUDA
+   events after warm-up, and each kernel's bound from the bytes and
+   operations of this run's inputs:
+   - K2 `attention_rope` (rel-L2 <= 2e-2 over valid query rows; library:
+     SDPA on pre-roped q and k, attention only) and K3 `antialias_snake`
+     (rel-L2 <= 1e-3 over valid rows, and within 2 bf16 ulps on the 4 rows
+     at each edge);
+   - K7a `int8_matvec` at the qkv, attn-proj, fc and mlp-proj shapes and K7b
+     `int8_mlp` at the MLP shape, M = 3 (rel-L2 <= 1e-3; yardstick: F.linear
+     with the bf16 weight the int8 one replaces). These and K1 are short
+     launches: their kernel, twin and library times are device times, from
+     CUDA events around the replay of a CUDA graph of 20 calls (an eager
+     call, host included, is printed beside them);
+   - K1 `fused_decode_step` at L=24, D=1280, H=20, B*K=3, S=512, pos=300,
+     staggered starts and a random ancestry map (hidden state rel-L2 <= 1e-2;
+     written k/v rows of layer 0 within 1 bf16 ulp, of every layer rel-L2 <=
+     1e-2), and bit-identical to K1 on the physically gathered cache;
+     yardstick: the port's bf16 `gpt2_decode_step` at the same shape.
+3. bf16 pipeline pass: `IndexTTS2(cfg_path=None, device="cuda")` at the
+   shipped widths with seeded random weights, a synthetic bpe.model and a 5 s
+   prompt wav; three single-segment requests with the default generation
+   kwargs (beam sampling, num_beams=3), decode pinned to 400 codes as the
+   JAX bench pins it. Checks: finite wavs of int(codes * 1.72) * 256
+   samples, K2 / K3 launch counts equal to what three requests must make,
    and, on a small input, every kernel call of the DiT and BigVGAN against
    its plain twin on the same inputs.
+4. int8 pipeline pass: the same with `quantization="int8"` (the serving
+   configuration), two requests. Checks: the wavs as above; K1 launched once
+   per decode step (399 a request), K7a twice, K7b and the attention kernel
+   once per layer and step; the bf16 decode step and the per-step K/V
+   gather never ran (the ancestry route did). The first 8 K1 calls of the
+   first request are also run through the twin on the same inputs, layer
+   by layer (each layer's twin takes the kernel path's input of that layer):
+   every layer's output and the hidden state after ln_f within rel-L2 1e-2,
+   every layer's written k/v rows within 1 bf16 ulp. The 24-layer chain of
+   the twin alone is printed beside it, with the noise floor of that chain:
+   the twin against itself with f64 instead of f32 sums (the random-weight
+   decoder amplifies f32 summation-order noise to about 1e-2 over 24
+   layers, so the end-to-end difference is reported, not gated).
+5. Decode profile, after each pass: one request's `generate_beam` (399
+   steps) timed unprofiled, then under `torch.profiler`: the device's busy
+   share, kernel launches per step and the largest device consumers.
 
 Prints per-stage times and RTF beside the card, then (second to last line)
 one JSON object describing the kernels, and as the last line
@@ -28,6 +58,7 @@ package cannot be imported (e.g. run outside the repository).
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -44,7 +75,17 @@ MEL_FRAMES = 768                           # the 400-code mel bucket
 K3_SHAPES = ((768, 4), (384, 16), (192, 32), (96, 64), (48, 128), (24, 256))
 K2_REL_L2 = 2e-2                           # the repo's packed_attn_rel_l2 gate
 K3_REL_L2 = 1e-3                           # bf16 output rounding is ~2e-5 here
+K7_REL_L2 = 1e-3                           # f32 sums in another order
+K1_REL_L2 = 1e-2                           # bf16 chain over 24 layers
 EDGE_ROWS = 4                              # the halo a K3 output row reads: 3
+K3_OPS_PER_ELEMENT = 56                    # 2x6-tap up, 2 snakes, 12-tap down
+# the GPT decoder of the shipped config, and the K1 kernel-phase shape
+K1_L, K1_D, K1_H, K1_ROWS, K1_S, K1_POS = 24, 1280, 20, 3, 512, 300
+INT8_REQUESTS, DECODE_STEPS = 2, 399       # 400 codes: 399 steps after prefill
+TWIN_CHECKED_STEPS = 8
+# H100 SXM datasheet peaks: HBM bytes/s, bf16 tensor-core
+# and f32 FLOP/s
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 
 
 def edge_err(out, ref, L: int) -> float:
@@ -57,6 +98,15 @@ def edge_err(out, ref, L: int) -> float:
         worst = max(worst, ((o - r).abs().max()
                             / (2 ** -6 * r.abs().max()).clamp_min(1e-30)).item())
     return worst
+
+
+def ulp_err(out, ref) -> float:
+    """Largest |out - ref| in bf16 ulps of |ref|, the ulp taken at no less
+    than 1e-3 of ref's largest magnitude (a value the bias cancels to near
+    zero keeps the absolute error of the f32 sum it came from): <= 1 passes."""
+    o, r = out.float(), ref.float()
+    mag = r.abs().clamp_min(1e-3 * r.abs().max().item()).clamp_min(1e-30)
+    return ((o - r).abs() / 2.0 ** (mag.log2().floor() - 7)).max().item()
 
 
 def card_line() -> str:
@@ -81,10 +131,43 @@ def time_ms(fn, iters=10, warmup=2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=20, replays=5) -> float:
+    """Device time of one ``fn`` call: a CUDA graph of ``iters`` calls,
+    replayed ``replays`` times between CUDA events (no host time inside)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def rel_l2(a, b) -> float:
     import torch
 
     return (torch.linalg.norm((a - b).float()) / torch.linalg.norm(b.float())).item()
+
+
+def bound(nbytes: float, ops: float, peak_ops: float) -> dict:
+    """The least time for the work: the larger of bytes over the HBM rate and
+    operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak_ops * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def build_fake_assets(d: str) -> str:
@@ -117,9 +200,10 @@ def build_fake_assets(d: str) -> str:
 
 def kernel_phase(card: str) -> dict:
     import torch
+    import torch.nn.functional as F
 
     from indextts_tpu_torch.ops.attn import attention_rope, attention_rope_plain
-    from indextts_tpu_torch.ops.rope import precompute_freqs_cis
+    from indextts_tpu_torch.ops.rope import apply_rotary_emb_half, precompute_freqs_cis
     from indextts_tpu_torch.ops.snake import antialias_snake, antialias_snake_plain
 
     dev = torch.device("cuda")
@@ -140,15 +224,26 @@ def kernel_phase(card: str) -> dict:
                   for b, L in enumerate(lens.tolist()))
         ms = time_ms(lambda: attention_rope(q, k, v, lens, fc, H))
         pms = time_ms(lambda: attention_rope_plain(q, k, v, lens, fc, H))
+        # yardstick: SDPA on q and k roped beforehand (attention only)
+        qr, kr = (apply_rotary_emb_half(t.reshape(2, T, H, D), fc).transpose(1, 2).contiguous()
+                  for t in (q, k))
+        vh = v.reshape(2, T, H, D).transpose(1, 2).contiguous()
+        key_ok = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        lms = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vh, attn_mask=key_ok))
+        # QK^T and PV over each row's valid keys for all T query rows
+        b = bound(4 * 2 * T * H * D * 2 + 2 * 4 + T * D * 4,
+                  sum(4 * H * D * T * L for L in lens.tolist()), BF16_FLOPS)
         print(f"K2 attention_rope B=2 H={H} D={D} T={T}: rel_l2 {err:.3e} max_abs {mab:.3e}"
-              f" kernel {ms:.4f} ms plain {pms:.4f} ms [{card}]", flush=True)
+              f" kernel {ms:.4f} ms plain {pms:.4f} ms SDPA (attention only) {lms:.4f} ms"
+              f" bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
         assert err <= K2_REL_L2 and np.isfinite(err), f"K2 rel-L2 {err} > {K2_REL_L2} at T={T}"
         r = res["attention_rope"]
         r["err"], r["abs"] = max(r["err"], err), max(r["abs"], mab)
         if T == K2_TS[0]:
-            r["ms"], r["plain_ms"] = ms, pms
+            r.update(ms=ms, plain_ms=pms, library_ms=lms, **b)
 
     tot_ms = tot_pms = 0.0
+    k3_bytes = k3_ops = 0
     for C, up in K3_SHAPES:
         T = MEL_FRAMES * up
         x = (2 * torch.randn((1, T, C), generator=g, device=dev)).to(torch.bfloat16)
@@ -165,6 +260,8 @@ def kernel_phase(card: str) -> dict:
         ms = time_ms(lambda: antialias_snake(x, alpha, beta, lens))
         pms = time_ms(lambda: antialias_snake_plain(x, alpha, beta, lens))
         tot_ms, tot_pms = tot_ms + ms, tot_pms + pms
+        k3_bytes += 2 * T * C * 2 + 2 * C * 4
+        k3_ops += K3_OPS_PER_ELEMENT * T * C
         print(f"K3 antialias_snake B=1 C={C} T={T} L={L}: rel_l2 {err:.3e} max_abs {mab:.3e}"
               f" edge rows {edge:.3f} of 2 ulps kernel {ms:.4f} ms plain {pms:.4f} ms"
               f" [{card}]", flush=True)
@@ -172,9 +269,190 @@ def kernel_phase(card: str) -> dict:
         assert edge <= 1.0, f"K3 edge rows off by {edge} x 2 ulps at C={C}"
         r = res["antialias_snake"]
         r["err"], r["abs"] = max(r["err"], err), max(r["abs"], mab)
-    res["antialias_snake"]["ms"], res["antialias_snake"]["plain_ms"] = tot_ms, tot_pms
+    b = bound(k3_bytes, k3_ops, F32_FLOPS)
+    res["antialias_snake"].update(ms=tot_ms, plain_ms=tot_pms, library_ms=None, **b)
     print(f"K3 sum over the six stage shapes: kernel {tot_ms:.4f} ms plain {tot_pms:.4f} ms"
+          f" bound {b['bound_ms']:.4f} ms ({b['bound_by']}: {k3_bytes} B, {k3_ops} f32 ops)"
           f" [{card}]", flush=True)
+    return res
+
+
+def _matvec_f64(x, q, *, ln=None, scale=None, bias=None, residual=None):
+    """`int8_matvec_plain` with f64 sums: a second summation order."""
+    import torch
+
+    from indextts_tpu_torch.ops.int8 import layer_norm_bf16
+
+    if ln is not None:
+        x = layer_norm_bf16(x, *ln)
+    acc = (x.double() @ q.double().t()).float()
+    if scale is None:
+        return acc
+    v = (acc * scale + bias.float()).to(torch.bfloat16)
+    return v if residual is None else residual + v
+
+
+def _mlp_f64(x, w1q, s1, b1, w2q, *, ln=None, scale2=None, bias2=None, residual=None):
+    from indextts_tpu_torch.ops.int8 import gelu_new_bf16
+
+    h = gelu_new_bf16(_matvec_f64(x, w1q, ln=ln, scale=s1, bias=b1))
+    return _matvec_f64(h, w2q, scale=scale2, bias=bias2, residual=residual)
+
+
+def _f64_twins():
+    from indextts_tpu_torch.ops.decode_step import decode_attention_plain
+
+    return (_matvec_f64, _mlp_f64, decode_attention_plain)
+
+
+def int8_operands(g, M: int, K: int, N: int):
+    import torch
+
+    dev = torch.device("cuda")
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    w = 0.02 * torch.randn((N, K), generator=g, device=dev)
+    scale = w.abs().amax(1) / 127.0
+    q = torch.round(w / scale[:, None]).to(torch.int8)
+    bias = (0.02 * torch.randn((N,), generator=g, device=dev)).to(torch.bfloat16)
+    return x, q, scale, bias
+
+
+def k1_case(g):
+    """K1 at the shipped decoder's widths: int8 weights from seeded random
+    bf16 ones, a (L, 3, 512, 1280) cache filled below pos 300, rows starting
+    at 0, 41 and 97 (left padding), a random in-group ancestry map."""
+    import torch
+
+    from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims, init_gpt2, quantize_gpt2_int8
+    from indextts_tpu_torch.nn import InitRng
+    from indextts_tpu_torch.utils.jax_params import to_torch
+
+    dev = torch.device("cuda")
+    dims = GPT2Dims(K1_L, K1_D, K1_H)
+    bf16_params = to_torch(init_gpt2(InitRng(0, dev), dims), dev, torch.bfloat16)
+    params = quantize_gpt2_int8(bf16_params)
+    shape = (K1_L, K1_ROWS, K1_S, K1_D)
+    kv = [torch.randn(shape, generator=g, device=dev).to(torch.bfloat16) for _ in range(2)]
+    for t in kv:
+        t[:, :, K1_POS:] = 0
+    starts = [0, 41, 97]
+    valid = torch.zeros((K1_ROWS, K1_S), dtype=torch.bool, device=dev)
+    for r, s in enumerate(starts):
+        valid[r, s:K1_POS + 1] = True
+    x = torch.randn((K1_ROWS, K1_D), generator=g, device=dev).to(torch.bfloat16)
+    anc = torch.randint(0, K1_ROWS, (K1_ROWS, K1_S), generator=g, device=dev,
+                        dtype=torch.int32)
+    return dims, bf16_params, params, kv, valid, x, anc, starts
+
+
+def k1_bound(starts, params, M: int, S: int, L: int, D: int) -> dict:
+    """Bytes K1 must move at this run's inputs: every weight, scale, bias and
+    LayerNorm vector once, x in and out, kv_valid and the ancestry map, each
+    row's valid cached k and v of every layer, the new k/v rows written;
+    operations: two per weight and row, plus the attention's products."""
+    wbytes = sum(t.numel() * t.element_size() for lp in params["h"]
+                 for grp in (lp["attn"], lp["mlp"]) for d in grp.values() for t in d.values())
+    wbytes += sum(t.numel() * t.element_size() for lp in params["h"]
+                  for ln in (lp["ln_1"], lp["ln_2"]) for t in ln.values())
+    n_weights = sum(d["q"].numel() for lp in params["h"] for d in (*lp["attn"].values(),
+                                                                  *lp["mlp"].values()))
+    cached = sum(K1_POS - s for s in starts)
+    nbytes = (wbytes + 2 * M * D * 2 + M * S * (1 + 4)
+              + L * cached * 2 * D * 2 + L * M * 2 * D * 2)
+    ops = 2 * M * n_weights + L * 4 * (cached + M) * D
+    return bound(nbytes, ops, BF16_FLOPS)
+
+
+def int8_kernel_phase(card: str) -> dict:
+    """K7a, K7b and K1 against their twins at the int8 decode's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from indextts_tpu_torch.models.gpt.gpt2 import gpt2_decode_step
+    from indextts_tpu_torch.ops.decode_step import fused_decode_step, fused_decode_step_plain
+    from indextts_tpu_torch.ops.int8 import (int8_matvec, int8_matvec_plain, int8_mlp,
+                                             int8_mlp_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(2)
+    res = {}
+    D, M = K1_D, K1_ROWS
+    mv = {"err": 0.0, "abs": 0.0}
+    for name, N, K in (("qkv", 3 * D, D), ("attn-proj", D, D), ("fc", 4 * D, D),
+                       ("mlp-proj", D, 4 * D)):
+        x, q, scale, bias = int8_operands(g, M, K, N)
+        out, ref = int8_matvec(x, q), int8_matvec_plain(x, q)
+        ep = int8_matvec(x, q, scale=scale, bias=bias)
+        ep_ref = int8_matvec_plain(x, q, scale=scale, bias=bias)
+        torch.cuda.synchronize()
+        err = max(rel_l2(out, ref), rel_l2(ep, ep_ref))
+        mab = (out - ref).abs().max().item()
+        ms = graph_ms(lambda: int8_matvec(x, q))
+        pms = graph_ms(lambda: int8_matvec_plain(x, q))
+        w_bf16 = (q.float() * scale[:, None]).to(torch.bfloat16)
+        lms = graph_ms(lambda: F.linear(x, w_bf16))
+        eager = time_ms(lambda: int8_matvec(x, q), iters=50)
+        b = bound(N * K + M * K * 2 + M * N * 4, 2 * M * N * K, BF16_FLOPS)
+        print(f"K7a int8_matvec {name} M={M} K={K} N={N}: rel_l2 {err:.3e} max_abs {mab:.3e}"
+              f" device: kernel {ms:.4f} ms plain {pms:.4f} ms F.linear(bf16 weight) {lms:.4f}"
+              f" ms bound {b['bound_ms']:.4f} ms ({b['bound_by']}); eager call {eager:.4f} ms"
+              f" [{card}]", flush=True)
+        assert err <= K7_REL_L2 and np.isfinite(err), f"K7a rel-L2 {err} at {name}"
+        mv["err"], mv["abs"] = max(mv["err"], err), max(mv["abs"], mab)
+        if name == "qkv":
+            mv.update(ms=ms, plain_ms=pms, library_ms=lms, **b)
+    res["int8_matvec"] = mv
+
+    x, w1, s1, b1 = int8_operands(g, M, D, 4 * D)
+    _, w2, _, _ = int8_operands(g, M, 4 * D, D)
+    out, ref = int8_mlp(x, w1, s1, b1, w2), int8_mlp_plain(x, w1, s1, b1, w2)
+    torch.cuda.synchronize()
+    err, mab = rel_l2(out, ref), (out - ref).abs().max().item()
+    ms = graph_ms(lambda: int8_mlp(x, w1, s1, b1, w2))
+    pms = graph_ms(lambda: int8_mlp_plain(x, w1, s1, b1, w2))
+    eager = time_ms(lambda: int8_mlp(x, w1, s1, b1, w2), iters=50)
+    b = bound(2 * 4 * D * D + 4 * D * (4 + 2) + M * D * (2 + 4), 4 * M * 4 * D * D, BF16_FLOPS)
+    print(f"K7b int8_mlp M={M} D={D} F={4 * D}: rel_l2 {err:.3e} max_abs {mab:.3e}"
+          f" device: kernel {ms:.4f} ms plain {pms:.4f} ms bound {b['bound_ms']:.4f} ms"
+          f" ({b['bound_by']}); eager call {eager:.4f} ms [{card}]", flush=True)
+    assert err <= K7_REL_L2 and np.isfinite(err), f"K7b rel-L2 {err}"
+    res["int8_mlp"] = dict(err=err, abs=mab, ms=ms, plain_ms=pms, library_ms=None, **b)
+
+    dims, bf16_params, params, kv, valid, x, anc, starts = k1_case(g)
+    caches = [{"k": kv[0].clone(), "v": kv[1].clone()} for _ in range(3)]
+    h = fused_decode_step(params, x, dims, K1_POS, caches[0], valid, anc, M)
+    ref = fused_decode_step_plain(params, x, dims, K1_POS, caches[1], valid, anc, M)
+    rows = (torch.arange(M, device=x.device)[:, None] // M) * M + anc.long()
+    slot = torch.arange(K1_S, device=x.device)[None, :]
+    gathered = {k: t[:, rows, slot].contiguous() for k, t in zip("kv", kv)}
+    h_gat = fused_decode_step(params, x, dims, K1_POS, gathered, valid)
+    torch.cuda.synchronize()
+    err, mab = rel_l2(h, ref), (h.float() - ref.float()).abs().max().item()
+    row_ulps = max(ulp_err(caches[0][k][0, :, K1_POS], caches[1][k][0, :, K1_POS]) for k in "kv")
+    row_err = max(rel_l2(caches[0][k][:, :, K1_POS], caches[1][k][:, :, K1_POS]) for k in "kv")
+    exact = torch.equal(h, h_gat) and all(
+        torch.equal(caches[0][k][:, :, K1_POS], gathered[k][:, :, K1_POS]) for k in "kv")
+    cache = caches[2]
+    ms = graph_ms(lambda: fused_decode_step(params, x, dims, K1_POS, cache, valid, anc, M))
+    pms = graph_ms(lambda: fused_decode_step_plain(params, x, dims, K1_POS, cache, valid, anc,
+                                                   M), iters=3, replays=2)
+    yms = graph_ms(lambda: gpt2_decode_step(bf16_params, x, dims, K1_POS, cache, valid),
+                   iters=5, replays=2)
+    eager = time_ms(lambda: fused_decode_step(params, x, dims, K1_POS, cache, valid, anc, M),
+                    iters=20)
+    b = k1_bound(starts, params, M, K1_S, K1_L, K1_D)
+    print(f"K1 fused_decode_step L={K1_L} D={K1_D} H={K1_H} B*K={M} S={K1_S} pos={K1_POS} "
+          f"starts={starts}: hidden rel_l2 {err:.3e} max_abs {mab:.3e}, k/v rows layer 0 "
+          f"{row_ulps:.3f} ulps, all layers rel_l2 {row_err:.3e}, ancestry bit-identical to "
+          f"the gathered cache: {exact}; device: kernel {ms:.4f} ms plain {pms:.4f} ms bf16 "
+          f"gpt2_decode_step (yardstick) {yms:.4f} ms bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}); eager call {eager:.4f} ms [{card}]", flush=True)
+    assert err <= K1_REL_L2 and np.isfinite(err), f"K1 hidden rel-L2 {err}"
+    assert row_ulps <= 1.0 and row_err <= K1_REL_L2, (row_ulps, row_err)
+    assert exact, "K1 with the ancestry map differs from K1 on the gathered cache"
+    assert gpt2_decode_step.calls > 0                       # the yardstick ran
+    res["fused_decode_step"] = dict(err=err, abs=mab, ms=ms, plain_ms=pms, library_ms=None,
+                                    **b)
     return res
 
 
@@ -236,49 +514,205 @@ def reference_check(tts, card: str) -> None:
     assert bool(torch.isfinite(v).all()) and bool(torch.isfinite(w[0, :60 * 256]).all())
 
 
-def pipeline_phase(card: str) -> dict:
+def run_requests(tts, prompt: str, n: int, card: str, label: str) -> list:
+    """``n`` requests pinned to 400 codes; checks and prints each."""
+    reports = []
+    for i in range(n):
+        sr, wav = tts.infer(spk_audio_prompt=prompt, text=SENTENCE, output_path=None,
+                            max_mel_tokens=400, min_new_tokens=399)
+        st = dict(tts.last_stage_times)
+        clen = st["codes"]
+        expect = int(np.float32(clen) * np.float32(1.72)) * 256
+        assert sr == 22050 and wav.shape == (expect, 1), (wav.shape, expect)
+        assert np.all(np.isfinite(wav)) and np.abs(wav).max() > 0
+        reports.append(st)
+        stages = " ".join(f"{k}={st[k]:.4f}s" for k in
+                          ("prompt", "gpt", "gpt_forward", "s2mel", "bigvgan", "total"))
+        print(f"{label} request {i + 1}: codes={clen} audio={st['audio_s']:.4f}s {stages} "
+              f"RTF={st['rtf']:.4f} [{card}]", flush=True)
+    return reports
+
+
+def kernel_counters() -> dict:
+    """Every launch counter of the port's kernels, by kernel name."""
+    from indextts_tpu_torch.ops.attn import attention_rope
+    from indextts_tpu_torch.ops.decode_step import decode_attention, fused_decode_step
+    from indextts_tpu_torch.ops.int8 import int8_matvec, int8_mlp
+    from indextts_tpu_torch.ops.snake import antialias_snake
+
+    return {f.__name__: f for f in (attention_rope, antialias_snake, fused_decode_step,
+                                    int8_matvec, int8_mlp, decode_attention)}
+
+
+def reset_counts() -> None:
+    from indextts_tpu_torch.engine import beam
+    from indextts_tpu_torch.models.gpt.gpt2 import gpt2_decode_step
+
+    for f in kernel_counters().values():
+        f.launches = 0
+    gpt2_decode_step.calls = 0
+    beam.kv_gathers = 0
+
+
+def read_counts() -> dict:
+    from indextts_tpu_torch.engine import beam
+    from indextts_tpu_torch.models.gpt.gpt2 import gpt2_decode_step
+
+    counts = {name: f.launches for name, f in kernel_counters().items()}
+    counts.update(gpt2_decode_step=gpt2_decode_step.calls, kv_gathers=beam.kv_gathers)
+    return counts
+
+
+def profile_decode(tts, prompt: str, card: str, label: str) -> None:
+    """The decode of one request (`generate_beam`, 399 steps after the
+    prefill) with the request's own prefix: unprofiled wall (best of two),
+    then under `torch.profiler` (device activity only: recording every host
+    op of the bf16 decode costs minutes): device time, kernels and copies,
+    over that wall (the busy share), kernels launched per step, and the
+    largest consumers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from indextts_tpu_torch.engine.beam import generate_beam
+    from indextts_tpu_torch.pipeline.buckets import pick_bucket
+
+    spk, emo = tts._prepare_spk_prompt(prompt), tts._prepare_emo_cond(prompt)
+    ids = tts.tokenizer.convert_tokens_to_ids(tts.tokenizer.tokenize(SENTENCE))
+    text_ids = np.zeros((1, pick_bucket(len(ids), tts.cfg.engine.text_buckets)), np.int64)
+    text_ids[0, :len(ids)] = ids
+    _, _, embeds, mask = tts.prefix(spk, emo, 1.0, text_ids, len(ids))
+    sampling = tts._sampling({"min_new_tokens": DECODE_STEPS})
+
+    def run():
+        with torch.inference_mode():
+            generate_beam(tts.gpt_params, tts.cfg.gpt, tts.gpt_dims, embeds, mask,
+                          tts.generator, DECODE_STEPS + 1, sampling, tts.dtype)
+        torch.cuda.synchronize()
+
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    device = [e for e in prof.key_averages() if e.self_device_time_total > 0
+              and str(e.device_type).endswith("CUDA")]
+    kernels = [e for e in device if not e.key.startswith(("Memcpy", "Memset"))]
+    device_s = sum(e.self_device_time_total for e in device) / 1e6
+    launches = sum(e.count for e in kernels)
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"{label} decode profile ({DECODE_STEPS} steps): wall {min(walls):.4f} s unprofiled "
+          f"(runs {walls[0]:.4f}, {walls[1]:.4f}), device time {device_s:.4f} s, busy "
+          f"{100 * device_s / min(walls):.1f} %, {launches} launches "
+          f"({launches / DECODE_STEPS:.0f} per step) [{card}]", flush=True)
+    for e in top:
+        print(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} x  {e.key[:90]}",
+              flush=True)
+
+
+def pipeline_phase(card: str, prompt: str, model_dir: str) -> dict:
+    """The bf16 pass (the first slice's main path): three requests."""
     import torch
 
     from indextts_tpu_torch.models.vocoder.bigvgan import activation1d_calls
-    from indextts_tpu_torch.ops.attn import attention_rope
-    from indextts_tpu_torch.ops.snake import antialias_snake
     from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
 
-    with tempfile.TemporaryDirectory(prefix="indextts_smoke_") as d:
-        prompt = build_fake_assets(d)
-        t0 = time.perf_counter()
-        tts = IndexTTS2(cfg_path=None, model_dir=d, device="cuda", seed=0)
-        torch.cuda.synchronize()
-        print(f"model build (random weights, shipped widths): "
-              f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
-        n_tok = len(tts.tokenizer.split_segments(tts.tokenizer.tokenize(SENTENCE), 120))
-        assert n_tok == 1, f"smoke text must be one segment, got {n_tok}"
+    t0 = time.perf_counter()
+    tts = IndexTTS2(cfg_path=None, model_dir=model_dir, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    print(f"bf16 model build (random weights, shipped widths): "
+          f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+    n_tok = len(tts.tokenizer.split_segments(tts.tokenizer.tokenize(SENTENCE), 120))
+    assert n_tok == 1, f"smoke text must be one segment, got {n_tok}"
 
-        attention_rope.launches = 0
-        antialias_snake.launches = 0
-        reports = []
-        for i in range(3):
-            sr, wav = tts.infer(spk_audio_prompt=prompt, text=SENTENCE, output_path=None,
-                                max_mel_tokens=400, min_new_tokens=399)
-            st = dict(tts.last_stage_times)
-            clen = st["codes"]
-            expect = int(np.float32(clen) * np.float32(1.72)) * 256
-            assert sr == 22050 and wav.shape == (expect, 1), (wav.shape, expect)
-            assert np.all(np.isfinite(wav)) and np.abs(wav).max() > 0
-            reports.append(st)
-            stages = " ".join(f"{k}={st[k]:.4f}s" for k in
-                              ("prompt", "gpt", "gpt_forward", "s2mel", "bigvgan", "total"))
-            print(f"request {i + 1}: codes={clen} audio={st['audio_s']:.4f}s {stages} "
-                  f"RTF={st['rtf']:.4f} [{card}]", flush=True)
-        k2, k3 = attention_rope.launches, antialias_snake.launches
-        cfg = tts.cfg
-        want_k2 = 3 * cfg.s2mel.DiT.depth * 25      # depth x CFG-stacked Euler steps
-        want_k3 = 3 * activation1d_calls(cfg.bigvgan)
-        print(f"launches over 3 requests: attention_rope {k2} (expect {want_k2}), "
-              f"antialias_snake {k3} (expect {want_k3})", flush=True)
-        assert k2 == want_k2 and k3 == want_k3, (k2, want_k2, k3, want_k3)
-        reference_check(tts, card)
-    return {"attention_rope": k2, "antialias_snake": k3}
+    reset_counts()
+    run_requests(tts, prompt, 3, card, "bf16")
+    counts = read_counts()
+    cfg = tts.cfg
+    want_k2 = 3 * cfg.s2mel.DiT.depth * 25      # depth x CFG-stacked Euler steps
+    want_k3 = 3 * activation1d_calls(cfg.bigvgan)
+    print(f"launches over 3 bf16 requests: {counts} (expect attention_rope {want_k2}, "
+          f"antialias_snake {want_k3})", flush=True)
+    assert counts["attention_rope"] == want_k2 and counts["antialias_snake"] == want_k3, counts
+    assert counts["fused_decode_step"] == 0 and counts["kv_gathers"] > 0, counts
+    reference_check(tts, card)
+    profile_decode(tts, prompt, card, "bf16")
+    return counts
+
+
+def int8_pipeline_phase(card: str, prompt: str, model_dir: str) -> dict:
+    """The int8 serving pass: two requests through K1 with the ancestry map;
+    the first 8 K1 calls held against the twin at the call site."""
+    import torch
+
+    from indextts_tpu_torch import nn
+    from indextts_tpu_torch.engine import beam
+    from indextts_tpu_torch.models.vocoder.bigvgan import activation1d_calls
+    from indextts_tpu_torch.ops.decode_step import TWINS, decode_layer
+    from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
+
+    t0 = time.perf_counter()
+    tts = IndexTTS2(cfg_path=None, model_dir=model_dir, device="cuda", seed=0,
+                    quantization="int8")
+    torch.cuda.synchronize()
+    print(f"int8 model build (random weights, shipped widths): "
+          f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+    site = {"n": 0, "layer": 0.0, "hidden": 0.0, "row_ulps": 0.0, "chain": 0.0, "floor": 0.0}
+
+    def check(args, h):
+        """Twin on the same inputs, layer by layer. The kernel wrote only the
+        rows at pos, which attention does not read, so a copy of the cache
+        holds the inputs; the twin writes its own rows into the copy."""
+        if site["n"] >= TWIN_CHECKED_STEPS:
+            return
+        site["n"] += 1
+        pos, kv, xs = args["pos"], args["kv_cache"], args["layer_inputs"]
+        lf = args["params"]["ln_f"]
+        rest = dict(heads=args["dims"].heads, pos=pos, kv_valid=args["kv_valid"],
+                    anc=args["anc"], group=args["group"])
+        twin = {k: t.clone() for k, t in kv.items()}
+        for li, lp in enumerate(args["params"]["h"]):
+            y = decode_layer(TWINS, lp, xs[li], ck=twin["k"][li], cv=twin["v"][li], **rest)
+            site["layer"] = max(site["layer"], rel_l2(xs[li + 1], y))
+            site["row_ulps"] = max(site["row_ulps"], *(ulp_err(kv[k][li, :, pos],
+                                                               twin[k][li, :, pos]) for k in "kv"))
+        site["hidden"] = max(site["hidden"], rel_l2(h, nn.layer_norm(lf, y)))
+        chains = []
+        for ops in (TWINS, _f64_twins()):
+            x, twin = args["x"], {k: t.clone() for k, t in kv.items()}
+            for li, lp in enumerate(args["params"]["h"]):
+                x = decode_layer(ops, lp, x, ck=twin["k"][li], cv=twin["v"][li], **rest)
+            chains.append(nn.layer_norm(lf, x))
+        site["chain"] = max(site["chain"], rel_l2(h, chains[0]))
+        site["floor"] = max(site["floor"], rel_l2(chains[1], chains[0]))
+
+    reset_counts()
+    tts.decode_check = check
+    run_requests(tts, prompt, 1, card, "int8 (first 8 K1 steps twin-checked)")
+    tts.decode_check = None
+    run_requests(tts, prompt, INT8_REQUESTS - 1, card, "int8")
+    counts = read_counts()
+    steps = INT8_REQUESTS * DECODE_STEPS
+    L = tts.cfg.gpt.layers
+    want = {"fused_decode_step": steps, "int8_matvec": 2 * L * steps, "int8_mlp": L * steps,
+            "decode_attention": L * steps, "gpt2_decode_step": 0, "kv_gathers": 0,
+            "attention_rope": INT8_REQUESTS * tts.cfg.s2mel.DiT.depth * 25,
+            "antialias_snake": INT8_REQUESTS * activation1d_calls(tts.cfg.bigvgan)}
+    print(f"launches over {INT8_REQUESTS} int8 requests: {counts} (expect {want}); "
+          f"ancestry route: {beam.last_use_anc}", flush=True)
+    print(f"int8 twin check of the first {site['n']} K1 calls, layer by layer on the kernel "
+          f"path's inputs: layer outputs rel_l2 <= {site['layer']:.3e}, hidden after ln_f "
+          f"{site['hidden']:.3e}, k/v rows {site['row_ulps']:.3f} ulps; the 24-layer chain "
+          f"of the twin: {site['chain']:.3e} (noise floor, twin with f64 against f32 sums: "
+          f"{site['floor']:.3e}) [{card}]", flush=True)
+    assert counts == want, (counts, want)
+    assert beam.last_use_anc is True
+    assert site["n"] == TWIN_CHECKED_STEPS, site
+    assert site["layer"] <= K1_REL_L2 and site["hidden"] <= K1_REL_L2, site
+    assert site["row_ulps"] <= 1.0, site
+    profile_decode(tts, prompt, card, "int8")
+    return counts
 
 
 def main() -> int:
@@ -306,23 +740,30 @@ def main() -> int:
     print((lib.parent / "build.log").read_text(), flush=True)
 
     kres = kernel_phase(card)
-    launches = pipeline_phase(card)
+    kres.update(int8_kernel_phase(card))
+    with tempfile.TemporaryDirectory(prefix="indextts_smoke_") as d:
+        prompt = build_fake_assets(d)
+        bf16_counts = pipeline_phase(card, prompt, d)
+        torch.cuda.empty_cache()
+        int8_counts = int8_pipeline_phase(card, prompt, d)
     assert "jax" not in sys.modules, "the port imported jax"
+    assert not any(m == "indextts_tpu" or m.startswith("indextts_tpu.") for m in sys.modules)
 
-    kernels = [
-        {"name": "attention_rope", "route": "cuda",
-         "source": "indextts_tpu_torch/csrc/attention_rope.cu",
-         "replaces": "indextts_tpu/ops/pallas/attn.py:188",
-         "launches": launches["attention_rope"],
-         "max_abs_err": kres["attention_rope"]["abs"],
-         "ms": kres["attention_rope"]["ms"], "plain_ms": kres["attention_rope"]["plain_ms"]},
-        {"name": "antialias_snake", "route": "cuda",
-         "source": "indextts_tpu_torch/csrc/antialias_snake.cu",
-         "replaces": "indextts_tpu/ops/pallas/antialias.py:269",
-         "launches": launches["antialias_snake"],
-         "max_abs_err": kres["antialias_snake"]["abs"],
-         "ms": kres["antialias_snake"]["ms"], "plain_ms": kres["antialias_snake"]["plain_ms"]},
-    ]
+    specs = (("attention_rope", "attention_rope.cu", "attn.py:188", bf16_counts),
+             ("antialias_snake", "antialias_snake.cu", "antialias.py:269", bf16_counts),
+             ("fused_decode_step", "decode_attention.cu", "decode_step.py:460", int8_counts),
+             ("int8_matvec", "int8_gemv.cu", "int8_matmul.py:104", int8_counts),
+             ("int8_mlp", "int8_gemv.cu", "int8_matmul.py:71", int8_counts))
+    kernels = []
+    for name, src, tpu, counts in specs:
+        r = kres[name]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"indextts_tpu_torch/csrc/{src}",
+                        "replaces": f"indextts_tpu/ops/pallas/{tpu}",
+                        "launches": counts[name], "max_abs_err": r["abs"],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    assert all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels), kernels
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,13 +17,24 @@ per row of a left-padded (B, P, D) prefix batch:
 
 Everything runs on the device, the scorer included: `_scorer_process` and
 `_hyps_done` are the JAX engine's functions as tensor ops over the B rows,
-so a step makes no device->host copy. The K/V cache is reordered by a
-gather over the beam axis every step (the JAX package's unquantized path;
-its in-kernel ancestry map belongs to the fused int8 decode kernel, not
-ported yet). Whether every row is done is read back once every
-``_DONE_POLL`` steps: a done row is frozen (identity reorder, stop token,
-unchanged scores and hypotheses), so the steps run past the JAX loop's exit
-change nothing in the result.
+so a step makes no device->host copy. Whether every row is done is read
+back once every ``_DONE_POLL`` steps: a done row is frozen (identity
+reorder, stop token, unchanged scores and hypotheses), so the steps run
+past the JAX loop's exit change nothing in the result.
+
+How the cache follows the beams depends on the decode route
+(`engine/decode.py::decode_route`), as in the JAX engine:
+- float weights ("plain"): the K/V cache and ``kv_valid`` are gathered over
+  the beam axis every step;
+- int8 weights ("fused", kernel K1): the cache rows never move. An in-group
+  ancestry map ``anc`` (B*K, S) int32 stays on the device: before each step
+  ``anc[:, pos]`` is stamped with each row's own index (the row computes
+  its k/v there), and after the scorer ``anc = anc[gidx]``, so row r's
+  entry at position g lives in physical row (r // K) * K + anc[r, g]; the
+  kernel reads it there. ``kv_valid`` rows are equal within a group (same
+  prefix, lock-step writes) and are not gathered either.
+`last_use_anc` records which of the two the last call took, and
+`kv_gathers` counts the cache gathers made.
 """
 
 from __future__ import annotations
@@ -33,16 +44,21 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from indextts_tpu.config import GPTConfig
-from indextts_tpu_torch.engine.decode import SamplingConfig, _cache_len, _embed_mel_token
-from indextts_tpu_torch.models.gpt.gpt2 import (GPT2Dims, gpt2_decode_step, gpt2_prefill,
-                                                init_kv_cache)
+from indextts_tpu_torch.config import GPTConfig
+from indextts_tpu_torch.engine.decode import (SamplingConfig, StepCheck, _cache_len,
+                                              _embed_mel_token, decode_route, decode_step)
+from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims, gpt2_prefill, init_kv_cache
 from indextts_tpu_torch.models.gpt.unified_voice import mel_logits_from_hidden
 from indextts_tpu_torch.nn import Params
 from indextts_tpu_torch.ops.sampling import (apply_repetition_penalty, apply_temperature,
                                              apply_top_k, apply_top_p)
 
 NEG = -1e9
+
+# the cache-reorder route of the last `generate_beam` call (True: ancestry
+# map, no cache gather) and the number of per-step cache gathers made
+last_use_anc = None
+kv_gathers = 0
 
 
 def _length_norm(lp: float):
@@ -149,10 +165,16 @@ def generate_beam(params: Params, cfg: GPTConfig, dims: GPT2Dims,
                   prefix_embeds: torch.Tensor, prefix_mask: torch.Tensor,
                   generator: torch.Generator, max_new_tokens: int,
                   sampling: SamplingConfig = SamplingConfig(),
-                  dtype=torch.bfloat16) -> Tuple[torch.Tensor, np.ndarray]:
+                  dtype=torch.bfloat16, step_check: StepCheck = None,
+                  cache_gather: bool = False) -> Tuple[torch.Tensor, np.ndarray]:
     """Beam decode for B rows of K beams. prefix_embeds (B, P, D) left-padded,
     prefix_mask (B, P) bool. Returns (codes (B, max_new_tokens) on the
-    device, stop-padded past each length; lengths (B,) numpy)."""
+    device, stop-padded past each length; lengths (B,) numpy).
+    ``step_check`` is handed to every fused decode step
+    (`engine/decode.py::decode_step`). ``cache_gather`` reorders the cache
+    by the per-step gather on the fused route too (the JAX engine's
+    INDEXTTS_BEAM_ANC=0), for checks that the two routes agree."""
+    global last_use_anc, kv_gathers
     K = sampling.num_beams
     B, P, _ = prefix_embeds.shape
     V = cfg.number_mel_codes
@@ -160,6 +182,9 @@ def generate_beam(params: Params, cfg: GPTConfig, dims: GPT2Dims,
     stop, L = cfg.stop_mel_token, max_new_tokens
     S = _cache_len(P, max_new_tokens)
     norm = _length_norm(sampling.length_penalty)
+    route = decode_route(params, B * K)
+    use_anc = route == "fused" and K > 1 and not cache_gather
+    last_use_anc = use_anc
 
     pe = prefix_embeds.to(dtype).repeat_interleave(K, dim=0)
     pm = prefix_mask.bool().repeat_interleave(K, dim=0)
@@ -183,6 +208,8 @@ def generate_beam(params: Params, cfg: GPTConfig, dims: GPT2Dims,
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     row_base = torch.arange(B, device=dev)[:, None] * K
     ones = torch.ones((B, K, 1), dtype=torch.int32, device=dev)
+    own_idx = torch.arange(B * K, dtype=torch.int32, device=dev) % K
+    anc = own_idx[:, None].repeat(1, S) if use_anc else None
 
     step = 0
     while True:
@@ -196,9 +223,12 @@ def generate_beam(params: Params, cfg: GPTConfig, dims: GPT2Dims,
         tokens[:, :, step] = nt
         counts = counts.reshape(B * K, V)[gidx].reshape(B, K, V)
         counts.scatter_add_(2, nt[:, :, None], ones)
-        if K > 1:
+        if use_anc:
+            anc = anc[gidx]
+        elif K > 1:
             kv = {name: buf[:, gidx] for name, buf in kv.items()}
             kv_valid = kv_valid[gidx]
+            kv_gathers += 1
         done = done | _hyps_done(cs[:, 0], hyp_scores, step, norm=norm)
         step += 1
         if step >= max_new_tokens or (step % _DONE_POLL == 0 and bool(done.all())):
@@ -207,7 +237,10 @@ def generate_beam(params: Params, cfg: GPTConfig, dims: GPT2Dims,
         x = _embed_mel_token(params, nt.reshape(B * K), step + 1, dtype)
         pos = P + 1 + step
         kv_valid[:, pos] = True
-        h = gpt2_decode_step(params["gpt"], x, dims, pos, kv, kv_valid)
+        if use_anc:
+            anc[:, pos] = own_idx
+        h = decode_step(route, params, x, dims, pos, kv, kv_valid, anc, K if use_anc else 1,
+                        step_check)
         logits = mel_logits_from_hidden(params, h).reshape(B, K, V)
 
     # HF finalize: close the live beams of rows not done; the best hypothesis

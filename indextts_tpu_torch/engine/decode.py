@@ -10,10 +10,14 @@ start_mel are penalized from the first step.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable, Dict, Optional
 
 import torch
 
+from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims, gpt2_decode_step, is_int8
 from indextts_tpu_torch.nn import Params
+from indextts_tpu_torch.ops.decode_step import fused_decode_step
+from indextts_tpu_torch.ops.int8 import MAX_ROWS
 
 
 @dataclass(frozen=True)
@@ -40,3 +44,42 @@ def _embed_mel_token(params: Params, token: torch.Tensor, pos: int, dtype) -> to
     """mel_embedding(token) + mel_pos_embedding(pos); token (B,), pos int."""
     emb = params["mel_embedding"]["weight"].to(dtype)[token.long()]
     return emb + params["mel_pos_embedding"]["weight"][pos].to(dtype)[None, :]
+
+
+def decode_route(params: Params, batch: int) -> str:
+    """The decode step a (B*K)-row batch takes (`engine/decode.py::
+    _fused_decode_ok` of the JAX package): "fused" (kernel K1) for int8
+    GPT-2 weights and B*K <= 24, "plain" (`gpt2_decode_step`) for float
+    weights. Int8 weights at a batch K1 does not take raise: the port has no
+    plain int8 decode. The JAX package's D % 640 and S % 128 gates come
+    from TPU memory tiling; the port's kernels mask ragged tiles."""
+    if not is_int8(params["gpt"]):
+        return "plain"
+    if batch > MAX_ROWS:
+        raise NotImplementedError(
+            f"int8 decode of {batch} rows: kernel K1 takes at most {MAX_ROWS} "
+            "(larger batches are not ported; see ROADMAP.md, queue 2)")
+    return "fused"
+
+
+# called as check(args, hidden) after each fused step when set by the caller
+StepCheck = Optional[Callable[[Dict, torch.Tensor], None]]
+
+
+def decode_step(route: str, params: Params, x: torch.Tensor, dims: GPT2Dims, pos: int,
+                kv: Dict[str, torch.Tensor], kv_valid: torch.Tensor,
+                anc: Optional[torch.Tensor] = None, group: int = 1,
+                check: StepCheck = None) -> torch.Tensor:
+    """One token through the GPT-2 backbone by ``route``; returns (B, D)
+    after ln_f. ``check`` sees every fused call's arguments, with each
+    layer's input under "layer_inputs", and its output (the smoke test holds
+    the kernel against its plain twin there)."""
+    if route == "fused":
+        args = dict(params=params["gpt"], x=x, dims=dims, pos=pos, kv_cache=kv,
+                    kv_valid=kv_valid, anc=anc, group=group,
+                    layer_inputs=None if check is None else [])
+        h = fused_decode_step(**args)
+        if check is not None:
+            check(args, h)
+        return h
+    return gpt2_decode_step(params["gpt"], x, dims, pos, kv, kv_valid)

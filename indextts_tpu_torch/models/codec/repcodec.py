@@ -10,8 +10,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from indextts_tpu.config import SemanticCodecConfig
 from indextts_tpu_torch import nn
+from indextts_tpu_torch.config import SemanticCodecConfig
 from indextts_tpu_torch.nn import InitRng, Params
 
 

@@ -14,8 +14,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from indextts_tpu.config import W2VBertConfig
 from indextts_tpu_torch import nn
+from indextts_tpu_torch.config import W2VBertConfig
 from indextts_tpu_torch.nn import InitRng, Params
 
 

@@ -46,6 +46,23 @@ def init_gpt2(rng: InitRng, dims: GPT2Dims) -> Params:
     return {"h": nn.stack_layers(layers), "ln_f": nn.layer_norm_init(rng, D)}
 
 
+def quantize_gpt2_int8(params: Params) -> Params:
+    """Weight-only int8 of the four dense layers of every block (the
+    decode loop reads every weight once a step; int8 halves that against
+    bf16). Called on the tree after its cast to the pipeline dtype, the
+    JAX pipeline's order, so the scales come from the bf16 weights."""
+    def block(lp):
+        return {**lp,
+                "attn": {k: nn.quantize_dense_int8(v) for k, v in lp["attn"].items()},
+                "mlp": {k: nn.quantize_dense_int8(v) for k, v in lp["mlp"].items()}}
+    return {**params, "h": [block(lp) for lp in params["h"]]}
+
+
+def is_int8(params: Params) -> bool:
+    """Whether a GPT-2 tree carries `quantize_gpt2_int8` weights."""
+    return "q" in params["h"][0]["attn"]["c_attn"]
+
+
 def init_kv_cache(dims: GPT2Dims, batch: int, max_len: int, dtype=torch.bfloat16,
                   device="cpu") -> Dict[str, torch.Tensor]:
     """Flat (L, B, S, D) K and V caches, heads merged on the last axis."""
@@ -110,7 +127,10 @@ def gpt2_decode_step(params: Params, x: torch.Tensor, dims: GPT2Dims, pos: int,
                      kv_cache: Dict[str, torch.Tensor],
                      kv_valid: torch.Tensor) -> torch.Tensor:
     """One token x (B, D): writes its K/V at slot ``pos`` (in place) and
-    attends every slot ``kv_valid`` (B, S) marks. Returns (B, D) after ln_f."""
+    attends every slot ``kv_valid`` (B, S) marks. Returns (B, D) after ln_f.
+    ``gpt2_decode_step.calls`` counts the calls (int8 decode must not come
+    here: it runs the fused kernel K1)."""
+    gpt2_decode_step.calls += 1
     B, D = x.shape
     mask = kv_valid[:, None, None, :]
     xc = x[:, None, :]
@@ -123,3 +143,6 @@ def gpt2_decode_step(params: Params, x: torch.Tensor, dims: GPT2Dims, pos: int,
         xc = xc + nn.dense(lp["attn"]["c_proj"], out.transpose(1, 2).reshape(B, 1, D))
         xc = _mlp(lp, xc)
     return nn.layer_norm(params["ln_f"], xc[:, 0])
+
+
+gpt2_decode_step.calls = 0

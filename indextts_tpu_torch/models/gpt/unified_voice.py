@@ -13,8 +13,8 @@ from typing import Tuple
 
 import torch
 
-from indextts_tpu.config import GPTConfig
 from indextts_tpu_torch import nn
+from indextts_tpu_torch.config import GPTConfig
 from indextts_tpu_torch.models.gpt.conformer import (ConformerDims, conformer_encode,
                                                      init_conformer)
 from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims, gpt2_forward, init_gpt2

@@ -9,8 +9,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from indextts_tpu.config import S2MelConfig
 from indextts_tpu_torch import nn
+from indextts_tpu_torch.config import S2MelConfig
 from indextts_tpu_torch.models.s2mel.dit import dit_forward
 from indextts_tpu_torch.nn import Params
 from indextts_tpu_torch.ops.rope import precompute_freqs_cis

@@ -25,8 +25,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from indextts_tpu.config import DiTConfig, S2MelConfig, WaveNetConfig
 from indextts_tpu_torch import nn
+from indextts_tpu_torch.config import DiTConfig, S2MelConfig, WaveNetConfig
 from indextts_tpu_torch.nn import InitRng, Params
 from indextts_tpu_torch.ops.attn import attention_rope
 

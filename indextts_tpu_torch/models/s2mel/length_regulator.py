@@ -7,8 +7,8 @@ from __future__ import annotations
 
 import torch
 
-from indextts_tpu.config import LengthRegulatorConfig
 from indextts_tpu_torch import nn
+from indextts_tpu_torch.config import LengthRegulatorConfig
 from indextts_tpu_torch.nn import InitRng, Params
 
 

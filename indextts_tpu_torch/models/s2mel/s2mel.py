@@ -6,8 +6,8 @@ from __future__ import annotations
 
 import torch
 
-from indextts_tpu.config import S2MelConfig
 from indextts_tpu_torch import nn
+from indextts_tpu_torch.config import S2MelConfig
 from indextts_tpu_torch.models.s2mel.dit import init_dit
 from indextts_tpu_torch.models.s2mel.length_regulator import init_length_regulator
 from indextts_tpu_torch.nn import InitRng, Params

@@ -13,8 +13,8 @@ from typing import Optional
 
 import torch
 
-from indextts_tpu.config import BigVGANConfig
 from indextts_tpu_torch import nn
+from indextts_tpu_torch.config import BigVGANConfig
 from indextts_tpu_torch.nn import InitRng, Params
 from indextts_tpu_torch.ops.snake import antialias_snake
 

@@ -133,9 +133,34 @@ def stack_layers(layers: Sequence[Params]) -> Params:
 # ---------------------------------------------------------------------------
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x @ W + b. A weight-only int8 layer (``{"q": (out, in) int8, "scale":
+    (out,) f32, "bias"}``, see `quantize_dense_int8`) computes x @ q with an
+    f32 result, then ``* scale + bias`` in f32, and rounds to x's dtype once,
+    as the JAX package's `nn.dense` does."""
     b = p.get("bias")
+    if "q" in p:
+        y = torch.matmul(x.float(), p["q"].t().float()) * p["scale"]
+        if b is not None:
+            y = y + b.float()
+        return y.to(x.dtype)
     return F.linear(x, p["weight"].to(x.dtype),
                     None if b is None else b.to(x.dtype))
+
+
+def quantize_dense_int8(p: Params) -> Params:
+    """Per-output-channel symmetric int8 of a torch-layout dense layer:
+    scale = max|w| / 127 over the input axis in f32 (at least 1e-8 / 127),
+    q = clip(round_half_even(w / scale), -127, 127). The same bytes as the
+    JAX package's `nn.quantize_dense_int8` on the same weights."""
+    if "weight" not in p:
+        return p
+    w = p["weight"].float()
+    scale = torch.clamp(w.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(w / scale[:, None]), -127, 127).to(torch.int8)
+    out = {"q": q.contiguous(), "scale": scale.contiguous()}
+    if "bias" in p:
+        out["bias"] = p["bias"]
+    return out
 
 
 def embedding(p: Params, ids: torch.Tensor, dtype=torch.float32) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels (`csrc/*.cu`).
 
-The sources compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, loaded with `ctypes`. The build happens at
+The sources compile with ``nvcc`` for Hopper (``sm_90a``), one compiler
+process per source, all started together, and link into one shared library
+with a plain C interface, loaded with `ctypes`. The build happens at
 first use, from the package's own sources, into ``build/kernels/<hash>/``
 beside the package (a directory git ignores); a change to any source gives a
 new hash and so a rebuild. Nothing is built or loaded at import time.
@@ -26,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -34,6 +35,11 @@ _SIGNATURES = {
     "attention_rope_launch": [_P] * 7 + [_I] * 4 + [_F, _P],
     # x, alpha, beta, lengths, taps, out, B, T, C, stream
     "antialias_snake_launch": [_P] * 6 + [_I] * 3 + [_P],
+    # x, q, ln_w, ln_b, scale, bias, res, out, M, N, K, epilogue, stream
+    "int8_gemv_launch": [_P] * 8 + [_I] * 4 + [_P],
+    # qkv, ck, cv, kv_valid, anc, part_ml, part_o, out, M, S, D, H, pos,
+    # group, scale, stream
+    "decode_attention_launch": [_P] * 8 + [_I] * 6 + [_F, _P],
 }
 
 
@@ -69,16 +75,28 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))
+    srcs = [src for src in _sources() if src.suffix == ".cu"]
+    objs = [tmp_dir / (src.stem + ".o") for src in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [(obj.stem, proc.returncode) for obj, proc in zip(objs, procs) if proc.returncode]
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp_dir / lib.name),
+                               *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode:
+            failed.append(("link", link.returncode))
+    (out_dir / "build.log").write_text("".join(logs))
+    if failed:
+        shutil.rmtree(tmp_dir)
+        raise RuntimeError(f"nvcc failed {failed}:\n" + "".join(logs))
+    os.replace(tmp_dir / lib.name, lib)
+    shutil.rmtree(tmp_dir)
     return lib
 
 

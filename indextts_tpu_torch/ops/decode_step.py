@@ -1,0 +1,223 @@
+"""Fused GPT-2 decode step on int8 weights: kernel K1 and its plain twin.
+
+`fused_decode_step` is the port of `indextts_tpu/ops/pallas/decode_step.py::
+fused_decode_step` for int8 weights and the flat bf16 (L, B, S, D) cache, at
+``group=1`` and with the beam ancestry map at ``group=K``. On the TPU it is
+one kernel over the layers; here every operation of a layer runs in one of
+the hand-written Hopper kernels, with no library call between them:
+
+- ``ln_1`` + qkv projection: `int8_matvec` with the LayerNorm prologue
+  (K7a, `csrc/int8_gemv.cu`);
+- attention over the cache plus the current token, which also writes the
+  token's k and v into the cache at ``pos``: `decode_attention`
+  (`csrc/decode_attention.cu`, a split pass and a combine pass);
+- attention out-projection + residual: `int8_matvec` with the residual
+  epilogue;
+- ``ln_2`` + MLP + residual: `int8_mlp` (K7b, two GEMV launches).
+
+``ln_f`` is applied after the layers, outside the kernels, as in the TPU
+kernel's wrapper. The rounding chain is the TPU kernel's (see the two CUDA
+sources); `fused_decode_step_plain` repeats it in plain PyTorch with the
+same split of the positions into chunks of `CHUNK`.
+
+Unlike the JAX kernel, which returns the new k/v rows for the caller to
+write, the cache is updated in place (the port's cache is always updated in
+place: the decode loop never holds two copies of it).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+from indextts_tpu_torch import nn
+from indextts_tpu_torch.ops import cuda
+from indextts_tpu_torch.ops.int8 import (MAX_ROWS, int8_matvec, int8_matvec_plain, int8_mlp,
+                                         int8_mlp_plain)
+
+CHUNK = 64          # positions per split block of `decode_attention`
+HEAD_DIM = 64       # the CUDA kernel's head dim
+NEG = -1e9          # the TPU kernel's mask value
+
+
+def decode_attention_plain(qkv: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                           kv_valid: torch.Tensor, pos: int, heads: int,
+                           anc: Optional[torch.Tensor] = None, group: int = 1) -> torch.Tensor:
+    """The plain twin of `decode_attention` (any device); writes the cache
+    rows at ``pos`` in place like the kernel."""
+    M, D = qkv.shape[0], qkv.shape[1] // 3
+    Dh, S, dev = D // heads, ck.shape[1], qkv.device
+    bf16 = torch.bfloat16
+    q = (qkv[:, :D].float() * (1.0 / math.sqrt(Dh))).to(bf16)
+    kc, vc = qkv[:, D:2 * D], qkv[:, 2 * D:]
+    start = pos + 1 - kv_valid.sum(1)
+    n_chunks = -(-pos // CHUNK)
+    G = n_chunks * CHUNK
+    g = torch.arange(G, device=dev)
+    gi = g.clamp(max=S - 1)
+    rows = torch.arange(M, device=dev)[:, None]
+    phys = rows.expand(M, G) if anc is None else (rows // group) * group + anc[:, gi].long()
+    ks, vs = ck[phys, gi[None, :]], cv[phys, gi[None, :]]                  # (M, G, D)
+    valid = (g[None, :] >= start[:, None]) & (g[None, :] < pos)            # (M, G)
+    s = (ks * q[:, None, :]).float().reshape(M, G, heads, Dh).sum(-1)     # bf16 products
+    s = torch.where(valid[..., None], s, NEG).reshape(M, n_chunks, CHUNK, heads)
+    m_c = s.amax(2) if n_chunks else torch.full((M, 0, heads), NEG, device=dev)
+    p = torch.where(valid.reshape(M, n_chunks, CHUNK, 1), torch.exp(s - m_c[:, :, None]), 0.0)
+    l_c = p.sum(2)
+    o_c = (p.to(bf16)[..., None] * vs.reshape(M, n_chunks, CHUNK, heads, Dh)).float().sum(2)
+
+    s_cur = (q * kc).float().reshape(M, heads, Dh).sum(-1)
+    cur_valid = (start <= pos)[:, None]
+    s_cur = torch.where(cur_valid, s_cur, NEG)
+    m = torch.full((M, heads), NEG, device=dev)
+    if n_chunks:
+        m = torch.maximum(m, m_c.amax(1))
+    m = torch.maximum(m, s_cur)
+    w = torch.exp(m_c - m[:, None])
+    p_cur = torch.where(cur_valid, torch.exp(s_cur - m), 0.0)
+    l = (l_c * w).sum(1) + p_cur
+    o = (o_c * w[..., None]).sum(1) \
+        + p_cur.to(bf16).float()[..., None] * vc.float().reshape(M, heads, Dh)
+    ck[:, pos] = kc
+    cv[:, pos] = vc
+    return (o / l.clamp(min=1e-30)[..., None]).to(bf16).reshape(M, D)
+
+
+def decode_attention(qkv: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                     kv_valid: torch.Tensor, pos: int, heads: int,
+                     anc: Optional[torch.Tensor] = None, group: int = 1) -> torch.Tensor:
+    """K1's attention. qkv (M, 3D) bf16 of the current token; ck, cv (M, S, D)
+    bf16, one layer of the cache (the token's k and v are written at
+    ``pos``); kv_valid (M, S) bool; anc (M, S) int32 in-group ancestry for
+    ``group`` > 1. Returns (M, D) bf16. CPU tensors run the plain twin; CUDA
+    tensors launch the kernel; anything else raises."""
+    if qkv.device.type == "cpu":
+        return decode_attention_plain(qkv, ck, cv, kv_valid, pos, heads, anc, group)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {qkv.device}")
+    dev = qkv.device
+    M, D3 = qkv.shape
+    D = D3 // 3
+    S = ck.shape[1]
+    if D != heads * HEAD_DIM:
+        raise ValueError(f"decode_attention: kernel takes head dim {HEAD_DIM}, got {D}/{heads}")
+    if not 0 <= pos < S:
+        raise ValueError(f"decode_attention: pos {pos} outside the cache of {S} slots")
+    for name, t, dtype, shape in (("qkv", qkv, torch.bfloat16, (M, 3 * D)),
+                                  ("k cache", ck, torch.bfloat16, (M, S, D)),
+                                  ("v cache", cv, torch.bfloat16, (M, S, D)),
+                                  ("kv_valid", kv_valid, torch.bool, (M, S))):
+        if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"decode_attention: {name} must be contiguous {dtype} {shape} "
+                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if group > 1:
+        if anc is None or anc.dtype != torch.int32 or tuple(anc.shape) != (M, S) \
+                or anc.device != dev or not anc.is_contiguous() or M % group:
+            raise ValueError(f"decode_attention: group={group} needs anc, contiguous int32 "
+                             f"({M}, {S}) on {dev}")
+    n_chunks = -(-pos // CHUNK)
+    part_ml = torch.empty((M, heads, max(n_chunks, 1), 2), dtype=torch.float32, device=dev)
+    part_o = torch.empty((M, heads, max(n_chunks, 1), HEAD_DIM), dtype=torch.float32,
+                         device=dev)
+    out = torch.empty((M, D), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        code = cuda.library().decode_attention_launch(
+            qkv.data_ptr(), ck.data_ptr(), cv.data_ptr(), kv_valid.data_ptr(),
+            anc.data_ptr() if group > 1 else None, part_ml.data_ptr(), part_o.data_ptr(),
+            out.data_ptr(), M, S, D, heads, pos, group, 1.0 / math.sqrt(HEAD_DIM),
+            cuda.stream_ptr(qkv))
+    cuda.check(code, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+
+
+def _check_step(params, x, kv_cache, group: int, anc) -> None:
+    if "q4" in params["h"][0]["attn"]["c_attn"] or kv_cache["k"].dtype != torch.bfloat16:
+        raise NotImplementedError("fused_decode_step: int4 weights and the int8 cache "
+                                  "(K1's W4 / KVQ variants) are not ported (ROADMAP.md)")
+    if "q" not in params["h"][0]["attn"]["c_attn"]:
+        raise ValueError("fused_decode_step takes int8 weights (quantize_gpt2_int8)")
+    B = x.shape[0]
+    if B > MAX_ROWS:
+        raise ValueError(f"fused_decode_step takes at most {MAX_ROWS} rows, got {B}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"fused_decode_step takes bf16 activations, got {x.dtype}")
+    if group > 1 and anc is None:
+        raise ValueError("fused_decode_step: group > 1 needs the ancestry map")
+
+
+def decode_layer(ops, lp, x: torch.Tensor, heads: int, pos: int, ck: torch.Tensor,
+                 cv: torch.Tensor, kv_valid: torch.Tensor, anc: Optional[torch.Tensor] = None,
+                 group: int = 1) -> torch.Tensor:
+    """One block of the step (before ``ln_f``) on one layer ``lp`` of the
+    cache (ck, cv), with ``ops`` = (matvec, mlp, attention): `KERNELS` or
+    `TWINS`. Checks hold each layer of the kernel path against the twins on
+    that layer's input."""
+    matvec, mlp, attention = ops
+    a, f = lp["attn"], lp["mlp"]
+    qkv = matvec(x, a["c_attn"]["q"], ln=(lp["ln_1"]["weight"], lp["ln_1"]["bias"]),
+                 scale=a["c_attn"]["scale"], bias=a["c_attn"]["bias"])
+    att = attention(qkv, ck, cv, kv_valid, pos, heads, anc, group)
+    x = matvec(att, a["c_proj"]["q"], scale=a["c_proj"]["scale"], bias=a["c_proj"]["bias"],
+               residual=x)
+    return mlp(x, f["c_fc"]["q"], f["c_fc"]["scale"], f["c_fc"]["bias"], f["c_proj"]["q"],
+               ln=(lp["ln_2"]["weight"], lp["ln_2"]["bias"]), scale2=f["c_proj"]["scale"],
+               bias2=f["c_proj"]["bias"], residual=x)
+
+
+KERNELS = (int8_matvec, int8_mlp, decode_attention)
+TWINS = (int8_matvec_plain, int8_mlp_plain, decode_attention_plain)
+
+
+def _step(ops, params, x, heads: int, pos: int, kv_cache, kv_valid, anc, group: int,
+          layer_inputs: Optional[list]) -> torch.Tensor:
+    for li, lp in enumerate(params["h"]):
+        if layer_inputs is not None:
+            layer_inputs.append(x)
+        x = decode_layer(ops, lp, x, heads, pos, kv_cache["k"][li], kv_cache["v"][li],
+                         kv_valid, anc, group)
+    if layer_inputs is not None:
+        layer_inputs.append(x)
+    return nn.layer_norm(params["ln_f"], x)
+
+
+def fused_decode_step_plain(params, x: torch.Tensor, dims, pos: int,
+                            kv_cache: Dict[str, torch.Tensor], kv_valid: torch.Tensor,
+                            anc: Optional[torch.Tensor] = None, group: int = 1,
+                            layer_inputs: Optional[list] = None) -> torch.Tensor:
+    """The plain twin of `fused_decode_step` (any device), made of the
+    kernels' plain twins."""
+    _check_step(params, x, kv_cache, group, anc)
+    return _step(TWINS, params, x, dims.heads, pos, kv_cache, kv_valid, anc, group,
+                 layer_inputs)
+
+
+def fused_decode_step(params, x: torch.Tensor, dims, pos: int,
+                      kv_cache: Dict[str, torch.Tensor], kv_valid: torch.Tensor,
+                      anc: Optional[torch.Tensor] = None, group: int = 1,
+                      layer_inputs: Optional[list] = None) -> torch.Tensor:
+    """K1: one token x (B, D) bf16 through every layer of the int8 GPT-2
+    tree ``params`` against the flat bf16 cache {"k", "v"} (L, B, S, D),
+    B <= 24. Writes each layer's k and v at slot ``pos`` in place and
+    attends [start_b, pos) plus the token itself, start_b = pos + 1 -
+    popcount(kv_valid[b]). With ``group=K`` > 1 the cache is unordered and
+    ``anc`` (B, S) int32 names, for each row and position, the row of its
+    beam group that holds the entry. Returns (B, D) after ``ln_f``; a
+    ``layer_inputs`` list receives each layer's input and the last layer's
+    output. Raises on what it does not take: float weights, int4 weights or
+    an int8 cache, B > 24."""
+    _check_step(params, x, kv_cache, group, anc)
+    h = _step(KERNELS, params, x, dims.heads, pos, kv_cache, kv_valid, anc, group,
+              layer_inputs)
+    if x.device.type == "cuda":
+        fused_decode_step.launches += 1
+    return h
+
+
+fused_decode_step.launches = 0

@@ -10,12 +10,17 @@ One request runs, on ``device``:
   [E] conformer + perceiver speaker latents, merged emotion vector (the
       emotion prompt defaults to the speaker prompt, alpha 1), left-padded
       prefix embeddings
-  [G] GPT-2 prefill + beam decode (`engine/beam.py`, K = num_beams)
+  [G] GPT-2 prefill + beam decode (`engine/beam.py`, K = num_beams); with
+      ``quantization="int8"`` every decode step runs kernel K1 with the
+      in-kernel beam ancestry map
   [S1] teacher-forced GPT latents -> gpt_layer + vq2emb
   [S2] length regulator -> 25-step CFM Euler solve under CFG (DiT, kernel K2)
   [V] BigVGAN-v2 (kernel K3) -> 22.05 kHz wav
 
-This slice covers one text segment with beam decode (num_beams > 1). Paths
+This slice covers one text segment with beam decode (num_beams > 1), with
+bf16 weights or with the int8 serving configuration (``quantization=
+"int8"``: weight-only int8 for the four dense layers of every GPT-2 block,
+quantized after the cast to bf16 as the JAX pipeline does). Paths
 of the JAX pipeline that are not ported yet raise NotImplementedError naming
 their ROADMAP item. Weights are random at the configured architecture (drawn
 on the device from ``seed``) or handed over from the JAX package through
@@ -37,26 +42,26 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from indextts_tpu.config import IndexTTS2Config, load_config
-from indextts_tpu.pipeline.buckets import pad_to, pick_bucket
-from indextts_tpu.utils.resample import resample_audio
-from indextts_tpu.utils.wav_io import read_wav_mono, write_wav
 from indextts_tpu_torch import nn
+from indextts_tpu_torch.config import IndexTTS2Config, load_config
 from indextts_tpu_torch.engine.beam import generate_beam
 from indextts_tpu_torch.engine.decode import SamplingConfig
 from indextts_tpu_torch.models.codec.repcodec import (init_repcodec, repcodec_quantize,
                                                       repcodec_vq2emb)
 from indextts_tpu_torch.models.codec.w2vbert import init_w2vbert, w2vbert_forward
 from indextts_tpu_torch.models.gpt import unified_voice as uv
-from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims
+from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims, is_int8, quantize_gpt2_int8
 from indextts_tpu_torch.models.s2mel.campplus import campplus_forward, init_campplus
 from indextts_tpu_torch.models.s2mel.cfm import cfm_inference
 from indextts_tpu_torch.models.s2mel.length_regulator import length_regulate
 from indextts_tpu_torch.models.s2mel.s2mel import gpt_layer_forward, init_s2mel
 from indextts_tpu_torch.models.vocoder.bigvgan import bigvgan_forward, init_bigvgan
 from indextts_tpu_torch.ops.mel import kaldi_fbank, mel_spectrogram, seamless_m4t_features
+from indextts_tpu_torch.pipeline.buckets import pad_to, pick_bucket
 from indextts_tpu_torch.text import TextNormalizer, TextTokenizer
 from indextts_tpu_torch.utils.jax_params import to_torch
+from indextts_tpu_torch.utils.resample import resample_audio
+from indextts_tpu_torch.utils.wav_io import read_wav_mono, write_wav
 
 _ROADMAP = "see ROADMAP.md, queue 1 (modules still to port)"
 
@@ -76,8 +81,12 @@ class IndexTTS2:
                  dtype: torch.dtype = torch.bfloat16, seed: int = 0,
                  cfg: Optional[IndexTTS2Config] = None,
                  quantization: Optional[str] = None, mesh=None):
-        if quantization is not None:
-            _not_ported(f"quantization={quantization!r} (int8 serving config, kernel K1)")
+        if quantization not in (None, "int8"):
+            _not_ported(f"quantization={quantization!r} (K1's int8-cache / int4 variants)")
+        if quantization == "int8" and dtype != torch.bfloat16:
+            raise ValueError("quantization='int8' runs kernel K1, which takes bf16 "
+                             f"activations and cache; got dtype={dtype}")
+        self.quantization = quantization
         if mesh is not None:
             _not_ported("multi-device (mesh)")
         self.device = torch.device(device)
@@ -104,6 +113,9 @@ class IndexTTS2:
         self.cache_spk_audio_prompt = self.cache_spk = None
         self.cache_emo_audio_prompt = self.cache_emo_cond = None
         self.last_stage_times: Dict[str, float] = {}
+        # optional check(args, hidden) after every fused decode step
+        # (`engine/decode.py::decode_step`)
+        self.decode_check = None
 
     # ------------------------------------------------------------------ params
     def random_params(self, seed: int) -> dict:
@@ -121,9 +133,13 @@ class IndexTTS2:
     def load_params(self, trees: dict) -> None:
         """Take JAX-layout parameter trees (keys gpt, s2mel, codec, campplus,
         bigvgan, w2v; optional w2v_mean / w2v_std) through the weight bridge.
-        CAMPPlus stays f32; everything else is cast to the pipeline dtype."""
+        CAMPPlus stays f32; everything else is cast to the pipeline dtype.
+        Under ``quantization="int8"`` the GPT-2 backbone is then quantized,
+        unless the tree handed over already is."""
         dev, dt = self.device, self.dtype
         self.gpt_params = to_torch(trees["gpt"], dev, dt)
+        if self.quantization == "int8" and not is_int8(self.gpt_params["gpt"]):
+            self.gpt_params["gpt"] = quantize_gpt2_int8(self.gpt_params["gpt"])
         self.s2mel_params = to_torch(trees["s2mel"], dev, dt)
         self.codec_params = to_torch(trees["codec"], dev, dt)
         self.bigvgan_params = to_torch(trees["bigvgan"], dev, dt)
@@ -328,7 +344,7 @@ class IndexTTS2:
                                                          text_ids, tlen)
         codes, code_lens = generate_beam(self.gpt_params, self.cfg.gpt, self.gpt_dims,
                                          embeds, mask, self.generator, max_mel_tokens,
-                                         sampling, self.dtype)
+                                         sampling, self.dtype, self.decode_check)
         clen = max(int(code_lens[0]), 1)
         times["gpt"] = time.perf_counter() - t0
         if verbose:

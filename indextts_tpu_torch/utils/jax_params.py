@@ -7,6 +7,9 @@ the same nesting with torch tensors in the layouts the port's layer
 functions consume. Every layout change of the port lives here:
 
 - dense ``{"kernel": (in, out)}`` -> ``{"weight": (out, in)}`` (nn.Linear);
+- weight-only int8 dense ``{"q": (in, out) int8, "scale": (1, out) f32}``
+  -> ``{"q": (out, in) int8, "scale": (out,) f32}``: the int8 values and the
+  f32 scales keep their types (only the bias takes ``dtype``);
 - conv1d ``{"kernel": (W, in/g, out)}`` -> ``{"weight": (out, in/g, W)}``;
 - conv-transpose ``{"kernel": (W, in, out)}``, stored flipped for the
   lhs-dilated form -> ``{"weight": (in, out, W)}`` (nn.ConvTranspose1d);
@@ -33,7 +36,14 @@ _STACKED = ("h", "layers")
 
 
 def _tensor(x, device, dtype) -> torch.Tensor:
-    t = torch.as_tensor(np.asarray(x)) if not isinstance(x, torch.Tensor) else x
+    if isinstance(x, torch.Tensor):
+        t = x
+    else:
+        a = np.asarray(x)
+        # JAX's numpy bfloat16 (ml_dtypes) has no torch counterpart to
+        # convert from: carry its bits
+        t = (torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+             if a.dtype.name == "bfloat16" else torch.as_tensor(a))
     t = t.to(device) if device is not None else t
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
@@ -78,6 +88,10 @@ def to_torch(tree: Any, device=None, dtype: Optional[torch.dtype] = None,
     if not isinstance(tree, dict):
         return _tensor(tree, device, dtype)
     out = {}
+    if "q" in tree:
+        out["q"] = _tensor(tree["q"], device, None).t().contiguous()
+        out["scale"] = _tensor(tree["scale"], device, torch.float32).reshape(-1)
+        tree = {k: v for k, v in tree.items() if k not in ("q", "scale")}
     for key, val in tree.items():
         if key == "kernel":
             out["weight"] = _kernel(_tensor(val, device, dtype),

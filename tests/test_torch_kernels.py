@@ -8,14 +8,20 @@ This file imports no jax, so on a machine with the card it runs on its own:
 Tolerances are the ones `chip_smoke.py` holds at the main path's shapes:
 rel-L2 over valid rows <= 2e-2 for K2 (attention_rope, bf16 probabilities
 before PV, online vs whole-row softmax) and <= 1e-2 for K3 (antialias_snake,
-f32 inside, one bf16 rounding at the output).
+f32 inside, one bf16 rounding at the output); rel-L2 <= 1e-3 for K7a / K7b
+(int8 products, f32 sums in another order) and <= 1e-2 on the hidden state
+for K1 (fused_decode_step), whose ancestry route is bit-identical to the
+physically gathered cache.
 """
 
 import pytest
 import torch
 
-from indextts_tpu_torch.ops import attn, snake
+from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims, init_gpt2, quantize_gpt2_int8
+from indextts_tpu_torch.nn import InitRng
+from indextts_tpu_torch.ops import attn, decode_step, int8, snake
 from indextts_tpu_torch.ops.rope import precompute_freqs_cis
+from indextts_tpu_torch.utils.jax_params import to_torch
 
 
 @pytest.fixture
@@ -99,3 +105,102 @@ def test_antialias_snake_kernel_rejects_non_contiguous(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         snake.antialias_snake(x.transpose(1, 2).contiguous().transpose(1, 2),
                               alpha, beta, lens)
+
+
+def _int8_args(M, K, N, device):
+    g = torch.Generator().manual_seed(M * K + N)
+    x = torch.randn((M, K), generator=g).to(device, torch.bfloat16)
+    q = torch.randint(-127, 128, (N, K), generator=g, dtype=torch.int8).to(device)
+    scale = (torch.rand(N, generator=g) / 127 / 30).to(device)
+    bias = (0.1 * torch.randn(N, generator=g)).to(device, torch.bfloat16)
+    return x, q, scale, bias
+
+
+def _k1_case(device, B=3, S=256, pos=150, dims=GPT2Dims(2, 640, 10)):
+    params = quantize_gpt2_int8(to_torch(init_gpt2(InitRng(0, device), dims), device,
+                                         torch.bfloat16))
+    g = torch.Generator().manual_seed(1)
+    kv = torch.randn((2, dims.layers, B, S, dims.dim), generator=g)
+    kv[:, :, :, pos:] = 0
+    valid = torch.zeros((B, S), dtype=torch.bool)
+    for b in range(B):
+        valid[b, 7 * b:pos + 1] = True
+    x = torch.randn((B, dims.dim), generator=g).to(device, torch.bfloat16)
+    anc = torch.randint(0, B, (B, S), generator=g, dtype=torch.int32).to(device)
+    return params, dims, x, kv.to(device, torch.bfloat16), valid.to(device), anc, pos
+
+
+def test_cpu_tensors_run_the_int8_twins_without_counting():
+    before = (int8.int8_matvec.launches, int8.int8_mlp.launches,
+              decode_step.decode_attention.launches, decode_step.fused_decode_step.launches)
+    x, q, scale, bias = _int8_args(3, 64, 48, "cpu")
+    torch.testing.assert_close(int8.int8_matvec(x, q), int8.int8_matvec_plain(x, q))
+    params, dims, x, kv, valid, anc, pos = _k1_case("cpu", S=32, pos=20,
+                                                    dims=GPT2Dims(1, 64, 4))
+    cache = {"k": kv[0].clone(), "v": kv[1].clone()}
+    h = decode_step.fused_decode_step(params, x, dims, pos, cache, valid, anc, 3)
+    ref = decode_step.fused_decode_step_plain(params, x, dims, pos,
+                                              {"k": kv[0].clone(), "v": kv[1].clone()},
+                                              valid, anc, 3)
+    assert torch.equal(h, ref)
+    assert (int8.int8_matvec.launches, int8.int8_mlp.launches,
+            decode_step.decode_attention.launches,
+            decode_step.fused_decode_step.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(3, 1280, 3840), (3, 5120, 1280), (24, 1280, 5120),
+                                   (5, 640, 1000)])
+def test_int8_matvec_kernel_matches_plain(cuda_device, M, K, N):
+    x, q, scale, bias = _int8_args(M, K, N, cuda_device)
+    before = int8.int8_matvec.launches
+    out = int8.int8_matvec(x, q)
+    assert int8.int8_matvec.launches == before + 1
+    assert out.dtype == torch.float32
+    assert rel_l2(out, int8.int8_matvec_plain(x, q)) <= 1e-3
+    ln = (torch.ones(K, device=cuda_device, dtype=torch.bfloat16),
+          torch.zeros(K, device=cuda_device, dtype=torch.bfloat16))
+    res = torch.randn((M, N), device=cuda_device).to(torch.bfloat16)
+    for kw in (dict(scale=scale, bias=bias), dict(ln=ln, scale=scale, bias=bias),
+               dict(scale=scale, bias=bias, residual=res)):
+        assert rel_l2(int8.int8_matvec(x, q, **kw), int8.int8_matvec_plain(x, q, **kw)) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_int8_mlp_kernel_matches_plain(cuda_device):
+    x, w1, s1, b1 = _int8_args(3, 1280, 5120, cuda_device)
+    _, w2, s2, b2 = _int8_args(3, 5120, 1280, cuda_device)
+    before = int8.int8_mlp.launches
+    out = int8.int8_mlp(x, w1, s1, b1, w2)
+    assert int8.int8_mlp.launches == before + 1
+    assert rel_l2(out, int8.int8_mlp_plain(x, w1, s1, b1, w2)) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_int8_kernels_reject_what_they_do_not_take(cuda_device):
+    x, q, _, _ = _int8_args(25, 64, 32, cuda_device)
+    with pytest.raises(ValueError, match="rows"):
+        int8.int8_matvec(x, q)
+    x, q, _, _ = _int8_args(3, 64, 32, cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        int8.int8_matvec(x.float(), q)
+
+
+@pytest.mark.cuda
+def test_fused_decode_step_kernel_matches_plain_and_ancestry_is_exact(cuda_device):
+    params, dims, x, kv, valid, anc, pos = _k1_case(cuda_device)
+    caches = [{"k": kv[0].clone(), "v": kv[1].clone()} for _ in range(2)]
+    before = decode_step.fused_decode_step.launches
+    h = decode_step.fused_decode_step(params, x, dims, pos, caches[0], valid, anc, 3)
+    assert decode_step.fused_decode_step.launches == before + 1
+    ref = decode_step.fused_decode_step_plain(params, x, dims, pos, caches[1], valid, anc, 3)
+    torch.cuda.synchronize()
+    assert rel_l2(h, ref) <= 1e-2
+    assert rel_l2(caches[0]["k"][:, :, pos], caches[1]["k"][:, :, pos]) <= 1e-2
+    rows = (torch.arange(3, device=cuda_device)[:, None] // 3) * 3 + anc.long()
+    pos_ix = torch.arange(kv.shape[3], device=cuda_device)[None, :]
+    gathered = {"k": kv[0][:, rows, pos_ix].contiguous(), "v": kv[1][:, rows, pos_ix].contiguous()}
+    h_gat = decode_step.fused_decode_step(params, x, dims, pos, gathered, valid)
+    assert torch.equal(h, h_gat)
+    for key in ("k", "v"):
+        assert torch.equal(caches[0][key][:, :, pos], gathered[key][:, :, pos])

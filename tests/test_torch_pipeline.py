@@ -166,7 +166,7 @@ def test_unported_paths_raise(torch_tts, model_dir, kwargs, what):
         torch_tts.infer(**kw)
 
 
-@pytest.mark.parametrize("kwargs,what", [({"quantization": "int8"}, "K1"),
+@pytest.mark.parametrize("kwargs,what", [({"quantization": "int4"}, "K1"),
                                          ({"mesh": 2}, "mesh")])
 def test_unported_constructor_options_raise(model_dir, kwargs, what):
     from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
