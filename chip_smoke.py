@@ -27,10 +27,10 @@
      yardstick: the port's bf16 `gpt2_decode_step` at the same shape.
 3. bf16 pipeline pass: `IndexTTS2(cfg_path=None, device="cuda")` at the
    shipped widths with seeded random weights, a synthetic bpe.model and a 5 s
-   prompt wav; three single-segment requests with the default generation
+   prompt wav; two single-segment requests with the default generation
    kwargs (beam sampling, num_beams=3), decode pinned to 400 codes as the
    JAX bench pins it. Checks: finite wavs of int(codes * 1.72) * 256
-   samples, K2 / K3 launch counts equal to what three requests must make,
+   samples, K2 / K3 launch counts equal to what two requests must make,
    and, on a small input, every kernel call of the DiT and BigVGAN against
    its plain twin on the same inputs.
 4. int8 pipeline pass: the same with `quantization="int8"` (the serving
@@ -41,14 +41,32 @@
    first request are also run through the twin on the same inputs, layer
    by layer (each layer's twin takes the kernel path's input of that layer):
    every layer's output and the hidden state after ln_f within rel-L2 1e-2,
-   every layer's written k/v rows within 1 bf16 ulp. The 24-layer chain of
+   every layer's written k/v rows bit-identical to what the twin attention
+   writes from the kernel's own qkv (`twin_by_layer`). The 24-layer chain of
    the twin alone is printed beside it, with the noise floor of that chain:
    the twin against itself with f64 instead of f32 sums (the random-weight
    decoder amplifies f32 summation-order noise to about 1e-2 over 24
    layers, so the end-to-end difference is reported, not gated).
-5. Decode profile, after each pass: one request's `generate_beam` (399
-   steps) timed unprofiled, then under `torch.profiler`: the device's busy
-   share, kernel launches per step and the largest device consumers.
+5. Memory-knob passes, the same way: `quantization="int8kv"` (int8 weights,
+   the flat int8 KV cache: K1's KVQ variant) and `"int4"` (nibble-packed int4
+   weights: K1's W4 variant, the int4 GEMVs) with two requests each, the
+   first 8 K1 calls twin-checked as in the int8 pass (the written int8 rows
+   and their scale rows bit-identical), and `"int4kv"` (both) with one
+   request; exact launch counts per pass (the int4 GEMVs replace K7a / K7b,
+   the int8-cache attention replaces the bf16-cache one).
+   The kernel phase holds the int4 GEMV at the four K7a shapes and the MLP
+   (rel-L2 <= 1e-3, yardstick F.linear on the bf16 weight), and K1-KVQ,
+   K1-W4 and K1 int4kv at the K1 shape layer by layer against the twin, and
+   bit-identical to the same kernel on the gathered cache (scale rows
+   gathered too); yardsticks: the int8 K1 and the bf16 step.
+6. Decode profile, after the bf16, int8, int8kv and int4 passes: one
+   request's `generate_beam` (399 steps) timed unprofiled, then under
+   `torch.profiler` (its window opens after a discarded warm-up step and
+   closes after a pad of spin kernels, on which the records the profiler
+   drops at a window's end then fall): the device's busy share, kernel
+   launches per step and the largest device consumers; the recorded
+   launches of the port's kernels and of the scorer's top-k equal the
+   counters of that run.
 
 Prints per-stage times and RTF beside the card, then (second to last line)
 one JSON object describing the kernels, and as the last line
@@ -81,8 +99,14 @@ EDGE_ROWS = 4                              # the halo a K3 output row reads: 3
 K3_OPS_PER_ELEMENT = 56                    # 2x6-tap up, 2 snakes, 12-tap down
 # the GPT decoder of the shipped config, and the K1 kernel-phase shape
 K1_L, K1_D, K1_H, K1_ROWS, K1_S, K1_POS = 24, 1280, 20, 3, 512, 300
-INT8_REQUESTS, DECODE_STEPS = 2, 399       # 400 codes: 399 steps after prefill
+BF16_REQUESTS, INT8_REQUESTS = 2, 2
+DECODE_STEPS = 399                         # 400 codes: 399 steps after prefill
 TWIN_CHECKED_STEPS = 8
+# the memory-knob passes: quantization -> (requests, profiled)
+QUANT_PASSES = {"int8kv": (2, True), "int4": (2, True), "int4kv": (1, False)}
+# K1's variants in the kernel phase: name -> (int4 weights, int8 cache)
+K1_VARIANTS = {"fused_decode_step_kvq": (False, True), "fused_decode_step_w4": (True, False),
+               "fused_decode_step_w4_kvq": (True, True)}
 # H100 SXM datasheet peaks: HBM bytes/s, bf16 tensor-core
 # and f32 FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -300,9 +324,16 @@ def _mlp_f64(x, w1q, s1, b1, w2q, *, ln=None, scale2=None, bias2=None, residual=
 
 
 def _f64_twins():
-    from indextts_tpu_torch.ops.decode_step import decode_attention_plain
+    from indextts_tpu_torch.nn import unpack_int4
+    from indextts_tpu_torch.ops.decode_step import StepOps, decode_attention_plain
 
-    return (_matvec_f64, _mlp_f64, decode_attention_plain)
+    def matvec4(x, q4, **kw):
+        return _matvec_f64(x, unpack_int4(q4), **kw)
+
+    def mlp4(x, w1, s1, b1, w2, **kw):
+        return _mlp_f64(x, unpack_int4(w1), s1, b1, unpack_int4(w2), **kw)
+
+    return StepOps(_matvec_f64, _mlp_f64, matvec4, mlp4, decode_attention_plain)
 
 
 def int8_operands(g, M: int, K: int, N: int):
@@ -315,6 +346,21 @@ def int8_operands(g, M: int, K: int, N: int):
     q = torch.round(w / scale[:, None]).to(torch.int8)
     bias = (0.02 * torch.randn((N,), generator=g, device=dev)).to(torch.bfloat16)
     return x, q, scale, bias
+
+
+def int4_operands(g, M: int, K: int, N: int):
+    """x, an int4 weight (N, K/2) from seeded random bf16 values, its scale,
+    a bias, and the bf16 weight the int4 one replaces (unpacked x scale)."""
+    import torch
+
+    from indextts_tpu_torch.nn import quantize_dense_int4, unpack_int4
+
+    dev = torch.device("cuda")
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    p = quantize_dense_int4({"weight": 0.02 * torch.randn((N, K), generator=g, device=dev)})
+    bias = (0.02 * torch.randn((N,), generator=g, device=dev)).to(torch.bfloat16)
+    w_bf16 = (unpack_int4(p["q4"]).float() * p["scale"][:, None]).to(torch.bfloat16)
+    return x, p["q4"], p["scale"], bias, w_bf16
 
 
 def k1_case(g):
@@ -345,20 +391,27 @@ def k1_case(g):
     return dims, bf16_params, params, kv, valid, x, anc, starts
 
 
-def k1_bound(starts, params, M: int, S: int, L: int, D: int) -> dict:
-    """Bytes K1 must move at this run's inputs: every weight, scale, bias and
-    LayerNorm vector once, x in and out, kv_valid and the ancestry map, each
-    row's valid cached k and v of every layer, the new k/v rows written;
-    operations: two per weight and row, plus the attention's products."""
+def k1_bound(starts, params, M: int, S: int, L: int, D: int, H: int = K1_H,
+             kvq: bool = False) -> dict:
+    """Bytes K1 must move at this run's inputs: every weight (int8, or int4
+    packed two a byte), scale, bias and LayerNorm vector once, x in and out,
+    kv_valid and the ancestry map, each row's valid cached k and v of every
+    layer (bf16; or int8 plus the 2H bf16 scales of the position that the
+    heads use), the new k/v rows written (the int8 cache: with their
+    256-lane scale row); operations: two per weight value and row, plus the
+    attention's products."""
+    from indextts_tpu_torch.models.gpt.gpt2 import SCALE_LANES
+
     wbytes = sum(t.numel() * t.element_size() for lp in params["h"]
                  for grp in (lp["attn"], lp["mlp"]) for d in grp.values() for t in d.values())
     wbytes += sum(t.numel() * t.element_size() for lp in params["h"]
                   for ln in (lp["ln_1"], lp["ln_2"]) for t in ln.values())
-    n_weights = sum(d["q"].numel() for lp in params["h"] for d in (*lp["attn"].values(),
-                                                                  *lp["mlp"].values()))
+    n_weights = sum(d["q"].numel() if "q" in d else 2 * d["q4"].numel() for lp in params["h"]
+                    for d in (*lp["attn"].values(), *lp["mlp"].values()))
     cached = sum(K1_POS - s for s in starts)
+    per_pos, per_row = (2 * D + 2 * H * 2, 2 * D + SCALE_LANES * 2) if kvq else (4 * D, 4 * D)
     nbytes = (wbytes + 2 * M * D * 2 + M * S * (1 + 4)
-              + L * cached * 2 * D * 2 + L * M * 2 * D * 2)
+              + L * cached * per_pos + L * M * per_row)
     ops = 2 * M * n_weights + L * 4 * (cached + M) * D
     return bound(nbytes, ops, BF16_FLOPS)
 
@@ -452,7 +505,143 @@ def int8_kernel_phase(card: str) -> dict:
     assert exact, "K1 with the ancestry map differs from K1 on the gathered cache"
     assert gpt2_decode_step.calls > 0                       # the yardstick ran
     res["fused_decode_step"] = dict(err=err, abs=mab, ms=ms, plain_ms=pms, library_ms=None,
-                                    **b)
+                                    bf16_step_ms=yms, **b)
+    return res
+
+
+def twin_by_layer(args, h) -> dict:
+    """K1's call ``args`` (each layer's input under "layer_inputs") and its
+    output ``h`` against the twins, layer by layer on the kernel path's
+    inputs. The kernel wrote only the rows at pos, which attention does not
+    read, so a copy of the cache holds the inputs. Returns the largest
+    layer-output rel-L2, the hidden state's after ln_f, and whether every
+    layer's written rows (k, v and the int8 cache's scale rows) are
+    bit-identical to what the twin attention writes from the kernel's own
+    qkv: the qkv GEMV is launched again for that, uncounted (it repeats its
+    result exactly), since the twin's qkv differs from the kernel's by the
+    f32 summation order, and a LayerNorm value that rounds the other way
+    moves a near-zero k/v value by several of its ulps."""
+    import torch
+
+    from indextts_tpu_torch import nn
+    from indextts_tpu_torch.ops.decode_step import TWINS, decode_layer
+    from indextts_tpu_torch.ops.int8 import EPI_BIAS, _gemv_cuda
+
+    pos, kv, xs = args["pos"], args["kv_cache"], args["layer_inputs"]
+    rest = dict(heads=args["dims"].heads, pos=pos, kv_valid=args["kv_valid"],
+                anc=args["anc"], group=args["group"])
+    twin = {k: t.clone() for k, t in kv.items()}
+    out = {"layer": 0.0, "rows_exact": True}
+    for li, lp in enumerate(args["params"]["h"]):
+        layer = {k: t[li].clone() for k, t in twin.items()}
+        y = decode_layer(TWINS, lp, xs[li], ck=twin["k"][li], cv=twin["v"][li],
+                         kvs=twin["kvs"][li] if "kvs" in twin else None, **rest)
+        out["layer"] = max(out["layer"], rel_l2(xs[li + 1], y))
+        c_attn, ln = lp["attn"]["c_attn"], (lp["ln_1"]["weight"], lp["ln_1"]["bias"])
+        w4 = "q4" in c_attn
+        qkv = _gemv_cuda(xs[li], c_attn["q4" if w4 else "q"], ln, c_attn["scale"],
+                         c_attn["bias"], EPI_BIAS, None, w4=w4)
+        TWINS.attention(qkv, layer["k"], layer["v"], kvs=layer.get("kvs"), **rest)
+        out["rows_exact"] &= all(torch.equal(kv[k][li, :, pos], layer[k][:, pos]) for k in kv)
+    out["hidden"] = rel_l2(h, nn.layer_norm(args["params"]["ln_f"], y))
+    return out
+
+
+def quant_kernel_phase(card: str, int8_k1: dict) -> dict:
+    """The int4 GEMVs and K1's KVQ, W4 and int4kv variants against their
+    twins at the decode's shapes (yardsticks: F.linear on the bf16 weight;
+    the int8 K1 and the bf16 step of ``int8_k1``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from indextts_tpu_torch.models.gpt.gpt2 import kv_quantize_flat, quantize_gpt2_int4
+    from indextts_tpu_torch.ops.decode_step import fused_decode_step, fused_decode_step_plain
+    from indextts_tpu_torch.ops.int8 import (int4_matvec, int4_matvec_plain, int4_mlp,
+                                             int4_mlp_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    res = {}
+    D, M = K1_D, K1_ROWS
+    mv = {"err": 0.0, "abs": 0.0}
+    for name, N, K in (("qkv", 3 * D, D), ("attn-proj", D, D), ("fc", 4 * D, D),
+                       ("mlp-proj", D, 4 * D)):
+        x, q4, scale, bias, w_bf16 = int4_operands(g, M, K, N)
+        out, ref = int4_matvec(x, q4), int4_matvec_plain(x, q4)
+        ep = int4_matvec(x, q4, scale=scale, bias=bias)
+        ep_ref = int4_matvec_plain(x, q4, scale=scale, bias=bias)
+        torch.cuda.synchronize()
+        err = max(rel_l2(out, ref), rel_l2(ep, ep_ref))
+        mab = (out - ref).abs().max().item()
+        ms = graph_ms(lambda: int4_matvec(x, q4))
+        pms = graph_ms(lambda: int4_matvec_plain(x, q4))
+        lms = graph_ms(lambda: F.linear(x, w_bf16))
+        b = bound(N * K // 2 + M * K * 2 + M * N * 4, 2 * M * N * K, BF16_FLOPS)
+        print(f"W4 int4_matvec {name} M={M} K={K} N={N}: rel_l2 {err:.3e} max_abs {mab:.3e}"
+              f" device: kernel {ms:.4f} ms plain {pms:.4f} ms F.linear(bf16 weight) {lms:.4f}"
+              f" ms bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
+        assert err <= K7_REL_L2 and np.isfinite(err), f"W4 GEMV rel-L2 {err} at {name}"
+        mv["err"], mv["abs"] = max(mv["err"], err), max(mv["abs"], mab)
+        if name == "qkv":
+            mv.update(ms=ms, plain_ms=pms, library_ms=lms, **b)
+    res["int4_matvec"] = mv
+
+    x, w1, s1, b1, _ = int4_operands(g, M, D, 4 * D)
+    _, w2, _, _, _ = int4_operands(g, M, 4 * D, D)
+    out, ref = int4_mlp(x, w1, s1, b1, w2), int4_mlp_plain(x, w1, s1, b1, w2)
+    torch.cuda.synchronize()
+    err, mab = rel_l2(out, ref), (out - ref).abs().max().item()
+    ms = graph_ms(lambda: int4_mlp(x, w1, s1, b1, w2))
+    pms = graph_ms(lambda: int4_mlp_plain(x, w1, s1, b1, w2))
+    b = bound(4 * D * D + 4 * D * (4 + 2) + M * D * (2 + 4), 4 * M * 4 * D * D, BF16_FLOPS)
+    print(f"W4 int4_mlp M={M} D={D} F={4 * D}: rel_l2 {err:.3e} max_abs {mab:.3e} device: "
+          f"kernel {ms:.4f} ms plain {pms:.4f} ms bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}) [{card}]", flush=True)
+    assert err <= K7_REL_L2 and np.isfinite(err), f"W4 MLP rel-L2 {err}"
+    res["int4_mlp"] = dict(err=err, abs=mab, ms=ms, plain_ms=pms, library_ms=None, **b)
+
+    dims, bf16_params, params8, kv, valid, x, anc, starts = k1_case(g)
+    params4 = quantize_gpt2_int4(bf16_params)
+    del bf16_params
+    kq, vq, kvs = kv_quantize_flat(kv[0], kv[1], K1_H)
+    rows = (torch.arange(M, device=x.device)[:, None] // M) * M + anc.long()
+    slot = torch.arange(K1_S, device=x.device)[None, :]
+    for name, (w4, kvq) in K1_VARIANTS.items():
+        params = params4 if w4 else params8
+        base = {"k": kq, "v": vq, "kvs": kvs} if kvq else {"k": kv[0], "v": kv[1]}
+
+        def cache():
+            return {k: t.clone() for k, t in base.items()}
+
+        args = dict(params=params, x=x, dims=dims, pos=K1_POS, kv_cache=cache(), kv_valid=valid,
+                    anc=anc, group=M, layer_inputs=[])
+        h = fused_decode_step(**args)
+        ref = fused_decode_step_plain(params, x, dims, K1_POS, cache(), valid, anc, M)
+        gathered = {k: t[:, rows, slot].contiguous() for k, t in base.items()}
+        h_gat = fused_decode_step(params, x, dims, K1_POS, gathered, valid)
+        torch.cuda.synchronize()
+        tw = twin_by_layer(args, h)
+        chain, mab = rel_l2(h, ref), (h.float() - ref.float()).abs().max().item()
+        exact = torch.equal(h, h_gat) and all(
+            torch.equal(args["kv_cache"][k][:, :, K1_POS], gathered[k][:, :, K1_POS])
+            for k in base)
+        c = cache()
+        ms = graph_ms(lambda: fused_decode_step(params, x, dims, K1_POS, c, valid, anc, M))
+        pms = graph_ms(lambda: fused_decode_step_plain(params, x, dims, K1_POS, c, valid, anc,
+                                                       M), iters=3, replays=2)
+        b = k1_bound(starts, params, M, K1_S, K1_L, K1_D, K1_H, kvq)
+        print(f"K1 {name} L={K1_L} D={K1_D} H={K1_H} B*K={M} S={K1_S} pos={K1_POS}: layer by "
+              f"layer on the kernel path's inputs: layer outputs rel_l2 <= {tw['layer']:.3e}, "
+              f"hidden after ln_f {tw['hidden']:.3e}, written rows bit-identical to the twin's"
+              f" write of the kernel's qkv: {tw['rows_exact']}; 24-layer chain against the "
+              f"twin {chain:.3e}"
+              f" (max_abs {mab:.3e}); ancestry bit-identical to the gathered cache: {exact};"
+              f" device: kernel {ms:.4f} ms plain {pms:.4f} ms bound {b['bound_ms']:.4f} ms"
+              f" ({b['bound_by']}); yardsticks: int8 K1 {int8_k1['ms']:.4f} ms, bf16 "
+              f"gpt2_decode_step {int8_k1['bf16_step_ms']:.4f} ms [{card}]", flush=True)
+        assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2, (name, tw)
+        assert tw["rows_exact"], (name, tw)
+        assert exact, f"K1 {name} with the ancestry map differs from the gathered cache"
+        res[name] = dict(err=tw["hidden"], abs=mab, ms=ms, plain_ms=pms, library_ms=None, **b)
     return res
 
 
@@ -534,22 +723,26 @@ def run_requests(tts, prompt: str, n: int, card: str, label: str) -> list:
 
 
 def kernel_counters() -> dict:
-    """Every launch counter of the port's kernels, by kernel name."""
+    """Every launch counter of the port's kernels, by kernel name: (object,
+    attribute)."""
     from indextts_tpu_torch.ops.attn import attention_rope
     from indextts_tpu_torch.ops.decode_step import decode_attention, fused_decode_step
-    from indextts_tpu_torch.ops.int8 import int8_matvec, int8_mlp
+    from indextts_tpu_torch.ops.int8 import int4_matvec, int4_mlp, int8_matvec, int8_mlp
     from indextts_tpu_torch.ops.snake import antialias_snake
 
-    return {f.__name__: f for f in (attention_rope, antialias_snake, fused_decode_step,
-                                    int8_matvec, int8_mlp, decode_attention)}
+    counters = {f.__name__: (f, "launches") for f in (
+        attention_rope, antialias_snake, fused_decode_step, int8_matvec, int8_mlp,
+        int4_matvec, int4_mlp, decode_attention)}
+    counters["decode_attention_kvq"] = (decode_attention, "kvq_launches")
+    return counters
 
 
 def reset_counts() -> None:
     from indextts_tpu_torch.engine import beam
     from indextts_tpu_torch.models.gpt.gpt2 import gpt2_decode_step
 
-    for f in kernel_counters().values():
-        f.launches = 0
+    for f, attr in kernel_counters().values():
+        setattr(f, attr, 0)
     gpt2_decode_step.calls = 0
     beam.kv_gathers = 0
 
@@ -558,9 +751,23 @@ def read_counts() -> dict:
     from indextts_tpu_torch.engine import beam
     from indextts_tpu_torch.models.gpt.gpt2 import gpt2_decode_step
 
-    counts = {name: f.launches for name, f in kernel_counters().items()}
+    counts = {name: getattr(f, attr) for name, (f, attr) in kernel_counters().items()}
     counts.update(gpt2_decode_step=gpt2_decode_step.calls, kv_gathers=beam.kv_gathers)
     return counts
+
+
+# spin kernels after the profiled run, inside the profiler's window: the
+# profiler can drop the last records of a window (measured on the card: up to
+# the last 9 layer steps of a 399-step decode), so the drop falls on these
+PROFILE_PAD_LAUNCHES = 4000
+
+
+def _spin_pad() -> None:
+    import torch
+
+    for _ in range(PROFILE_PAD_LAUNCHES):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
 
 
 def profile_decode(tts, prompt: str, card: str, label: str) -> None:
@@ -569,9 +776,12 @@ def profile_decode(tts, prompt: str, card: str, label: str) -> None:
     then under `torch.profiler` (device activity only: recording every host
     op of the bf16 decode costs minutes): device time, kernels and copies,
     over that wall (the busy share), kernels launched per step, and the
-    largest consumers."""
+    largest consumers. The profiler's window opens after a discarded warm-up
+    step and closes after a pad of spin kernels (`_spin_pad`, left out of
+    every figure); the recorded launches of the port's GEMV and attention
+    kernels and of the scorer's top-k must equal the counters of the run."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from indextts_tpu_torch.engine.beam import generate_beam
     from indextts_tpu_torch.pipeline.buckets import pick_bucket
@@ -594,25 +804,47 @@ def profile_decode(tts, prompt: str, card: str, label: str) -> None:
         t0 = time.perf_counter()
         run()
         walls.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        _spin_pad()
+        prof.step()
+        reset_counts()
         run()
+        counts = read_counts()
+        _spin_pad()
+        prof.step()
     device = [e for e in prof.key_averages() if e.self_device_time_total > 0
-              and str(e.device_type).endswith("CUDA")]
+              and str(e.device_type).endswith("CUDA") and "spin_kernel" not in e.key]
     kernels = [e for e in device if not e.key.startswith(("Memcpy", "Memset"))]
     device_s = sum(e.self_device_time_total for e in device) / 1e6
     launches = sum(e.count for e in kernels)
+
+    def recorded(name):
+        return sum(e.count for e in kernels if name in e.key)
+
+    # each scorer step (the prefill's and the 399 decode steps') calls
+    # torch.topk twice: the top-k warper and the candidate draw
+    got = {"gemv": recorded("int8_gemv_kernel"), "attention": recorded("combine_kernel"),
+           "topk": recorded("gatherTopK")}
+    # one GEMV launch a matvec, two an MLP
+    want = {"gemv": counts["int8_matvec"] + counts["int4_matvec"]
+            + 2 * (counts["int8_mlp"] + counts["int4_mlp"]),
+            "attention": counts["decode_attention"] + counts["decode_attention_kvq"],
+            "topk": 2 * (DECODE_STEPS + 1)}
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:6]
     print(f"{label} decode profile ({DECODE_STEPS} steps): wall {min(walls):.4f} s unprofiled "
           f"(runs {walls[0]:.4f}, {walls[1]:.4f}), device time {device_s:.4f} s, busy "
           f"{100 * device_s / min(walls):.1f} %, {launches} launches "
-          f"({launches / DECODE_STEPS:.0f} per step) [{card}]", flush=True)
+          f"({launches / DECODE_STEPS:.0f} per step); recorded launches {got}, counters "
+          f"{want} [{card}]", flush=True)
     for e in top:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} x  {e.key[:90]}",
               flush=True)
+    assert got == want, f"{label} profile recorded {got}, the counters say {want}"
 
 
 def pipeline_phase(card: str, prompt: str, model_dir: str) -> dict:
-    """The bf16 pass (the first slice's main path): three requests."""
+    """The bf16 pass (the first slice's main path): two requests."""
     import torch
 
     from indextts_tpu_torch.models.vocoder.bigvgan import activation1d_calls
@@ -627,91 +859,110 @@ def pipeline_phase(card: str, prompt: str, model_dir: str) -> dict:
     assert n_tok == 1, f"smoke text must be one segment, got {n_tok}"
 
     reset_counts()
-    run_requests(tts, prompt, 3, card, "bf16")
+    run_requests(tts, prompt, BF16_REQUESTS, card, "bf16")
     counts = read_counts()
     cfg = tts.cfg
-    want_k2 = 3 * cfg.s2mel.DiT.depth * 25      # depth x CFG-stacked Euler steps
-    want_k3 = 3 * activation1d_calls(cfg.bigvgan)
-    print(f"launches over 3 bf16 requests: {counts} (expect attention_rope {want_k2}, "
-          f"antialias_snake {want_k3})", flush=True)
+    want_k2 = BF16_REQUESTS * cfg.s2mel.DiT.depth * 25   # depth x CFG-stacked Euler steps
+    want_k3 = BF16_REQUESTS * activation1d_calls(cfg.bigvgan)
+    print(f"launches over {BF16_REQUESTS} bf16 requests: {counts} (expect attention_rope "
+          f"{want_k2}, antialias_snake {want_k3})", flush=True)
     assert counts["attention_rope"] == want_k2 and counts["antialias_snake"] == want_k3, counts
     assert counts["fused_decode_step"] == 0 and counts["kv_gathers"] > 0, counts
     reference_check(tts, card)
     profile_decode(tts, prompt, card, "bf16")
+    del tts
+    torch.cuda.empty_cache()
     return counts
 
 
-def int8_pipeline_phase(card: str, prompt: str, model_dir: str) -> dict:
-    """The int8 serving pass: two requests through K1 with the ancestry map;
-    the first 8 K1 calls held against the twin at the call site."""
+def want_counts(tts, quantization: str, n: int) -> dict:
+    """The launches ``n`` requests of a quantized pass must make: K1 once a
+    decode step; per layer and step the int8 or int4 GEMVs (qkv and
+    attn-proj, and the MLP) and the bf16- or int8-cache attention; K2 / K3
+    as in the bf16 pass; no bf16 step and no cache gather."""
+    from indextts_tpu_torch.models.vocoder.bigvgan import activation1d_calls
+
+    steps, L = n * DECODE_STEPS, tts.cfg.gpt.layers
+    w4, kvq = quantization.startswith("int4"), quantization.endswith("kv")
+    return {"attention_rope": n * tts.cfg.s2mel.DiT.depth * 25,
+            "antialias_snake": n * activation1d_calls(tts.cfg.bigvgan),
+            "fused_decode_step": steps,
+            "int8_matvec": 0 if w4 else 2 * L * steps, "int8_mlp": 0 if w4 else L * steps,
+            "int4_matvec": 2 * L * steps if w4 else 0, "int4_mlp": L * steps if w4 else 0,
+            "decode_attention": 0 if kvq else L * steps,
+            "decode_attention_kvq": L * steps if kvq else 0,
+            "gpt2_decode_step": 0, "kv_gathers": 0}
+
+
+def quant_pipeline_phase(card: str, prompt: str, model_dir: str, quantization: str,
+                         n_requests: int, profiled: bool) -> dict:
+    """A quantized pass (int8, int8kv, int4 or int4kv): ``n_requests``
+    requests through K1 with the ancestry map; the first 8 K1 calls held
+    against the twin at the call site."""
     import torch
 
     from indextts_tpu_torch import nn
     from indextts_tpu_torch.engine import beam
-    from indextts_tpu_torch.models.vocoder.bigvgan import activation1d_calls
     from indextts_tpu_torch.ops.decode_step import TWINS, decode_layer
     from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
 
     t0 = time.perf_counter()
     tts = IndexTTS2(cfg_path=None, model_dir=model_dir, device="cuda", seed=0,
-                    quantization="int8")
+                    quantization=quantization)
     torch.cuda.synchronize()
-    print(f"int8 model build (random weights, shipped widths): "
+    print(f"{quantization} model build (random weights, shipped widths): "
           f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
-    site = {"n": 0, "layer": 0.0, "hidden": 0.0, "row_ulps": 0.0, "chain": 0.0, "floor": 0.0}
+    site = {"n": 0, "layer": 0.0, "hidden": 0.0, "rows_exact": True, "chain": 0.0,
+            "floor": 0.0}
 
     def check(args, h):
-        """Twin on the same inputs, layer by layer. The kernel wrote only the
-        rows at pos, which attention does not read, so a copy of the cache
-        holds the inputs; the twin writes its own rows into the copy."""
+        """Twin on the same inputs, layer by layer (`twin_by_layer`), and the
+        24-layer chain of the twin with f32 and with f64 sums."""
         if site["n"] >= TWIN_CHECKED_STEPS:
             return
         site["n"] += 1
-        pos, kv, xs = args["pos"], args["kv_cache"], args["layer_inputs"]
-        lf = args["params"]["ln_f"]
-        rest = dict(heads=args["dims"].heads, pos=pos, kv_valid=args["kv_valid"],
+        tw = twin_by_layer(args, h)
+        for key in ("layer", "hidden"):
+            site[key] = max(site[key], tw[key])
+        site["rows_exact"] &= tw["rows_exact"]
+        kv = args["kv_cache"]
+        rest = dict(heads=args["dims"].heads, pos=args["pos"], kv_valid=args["kv_valid"],
                     anc=args["anc"], group=args["group"])
-        twin = {k: t.clone() for k, t in kv.items()}
-        for li, lp in enumerate(args["params"]["h"]):
-            y = decode_layer(TWINS, lp, xs[li], ck=twin["k"][li], cv=twin["v"][li], **rest)
-            site["layer"] = max(site["layer"], rel_l2(xs[li + 1], y))
-            site["row_ulps"] = max(site["row_ulps"], *(ulp_err(kv[k][li, :, pos],
-                                                               twin[k][li, :, pos]) for k in "kv"))
-        site["hidden"] = max(site["hidden"], rel_l2(h, nn.layer_norm(lf, y)))
         chains = []
         for ops in (TWINS, _f64_twins()):
             x, twin = args["x"], {k: t.clone() for k, t in kv.items()}
             for li, lp in enumerate(args["params"]["h"]):
-                x = decode_layer(ops, lp, x, ck=twin["k"][li], cv=twin["v"][li], **rest)
-            chains.append(nn.layer_norm(lf, x))
+                x = decode_layer(ops, lp, x, ck=twin["k"][li], cv=twin["v"][li],
+                                 kvs=twin["kvs"][li] if "kvs" in twin else None, **rest)
+            chains.append(nn.layer_norm(args["params"]["ln_f"], x))
         site["chain"] = max(site["chain"], rel_l2(h, chains[0]))
         site["floor"] = max(site["floor"], rel_l2(chains[1], chains[0]))
 
     reset_counts()
     tts.decode_check = check
-    run_requests(tts, prompt, 1, card, "int8 (first 8 K1 steps twin-checked)")
+    run_requests(tts, prompt, 1, card, f"{quantization} (first 8 K1 steps twin-checked)")
     tts.decode_check = None
-    run_requests(tts, prompt, INT8_REQUESTS - 1, card, "int8")
+    run_requests(tts, prompt, n_requests - 1, card, quantization)
     counts = read_counts()
-    steps = INT8_REQUESTS * DECODE_STEPS
-    L = tts.cfg.gpt.layers
-    want = {"fused_decode_step": steps, "int8_matvec": 2 * L * steps, "int8_mlp": L * steps,
-            "decode_attention": L * steps, "gpt2_decode_step": 0, "kv_gathers": 0,
-            "attention_rope": INT8_REQUESTS * tts.cfg.s2mel.DiT.depth * 25,
-            "antialias_snake": INT8_REQUESTS * activation1d_calls(tts.cfg.bigvgan)}
-    print(f"launches over {INT8_REQUESTS} int8 requests: {counts} (expect {want}); "
+    want = want_counts(tts, quantization, n_requests)
+    print(f"launches over {n_requests} {quantization} requests: {counts} (expect {want}); "
           f"ancestry route: {beam.last_use_anc}", flush=True)
-    print(f"int8 twin check of the first {site['n']} K1 calls, layer by layer on the kernel "
-          f"path's inputs: layer outputs rel_l2 <= {site['layer']:.3e}, hidden after ln_f "
-          f"{site['hidden']:.3e}, k/v rows {site['row_ulps']:.3f} ulps; the 24-layer chain "
-          f"of the twin: {site['chain']:.3e} (noise floor, twin with f64 against f32 sums: "
-          f"{site['floor']:.3e}) [{card}]", flush=True)
+    print(f"{quantization} twin check of the first {site['n']} K1 calls, layer by layer on the "
+          f"kernel path's inputs: layer outputs rel_l2 <= {site['layer']:.3e}, hidden after "
+          f"ln_f {site['hidden']:.3e}, written rows bit-identical to the twin's write of the "
+          f"kernel's qkv: {site['rows_exact']}; the 24-layer chain of the twin: "
+          f"{site['chain']:.3e} "
+          f"(noise floor, twin with f64 against f32 sums: {site['floor']:.3e}) [{card}]",
+          flush=True)
     assert counts == want, (counts, want)
     assert beam.last_use_anc is True
     assert site["n"] == TWIN_CHECKED_STEPS, site
     assert site["layer"] <= K1_REL_L2 and site["hidden"] <= K1_REL_L2, site
-    assert site["row_ulps"] <= 1.0, site
-    profile_decode(tts, prompt, card, "int8")
+    assert site["rows_exact"], site
+    if profiled:
+        profile_decode(tts, prompt, card, quantization)
+    del tts
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -739,28 +990,49 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.2f} s -> {lib}", flush=True)
     print((lib.parent / "build.log").read_text(), flush=True)
 
+    def mark(what):
+        print(f"-- {what} at {time.perf_counter() - t0:.1f} s", flush=True)
+
     kres = kernel_phase(card)
     kres.update(int8_kernel_phase(card))
+    kres.update(quant_kernel_phase(card, kres["fused_decode_step"]))
+    mark("kernel phase done")
     with tempfile.TemporaryDirectory(prefix="indextts_smoke_") as d:
         prompt = build_fake_assets(d)
-        bf16_counts = pipeline_phase(card, prompt, d)
-        torch.cuda.empty_cache()
-        int8_counts = int8_pipeline_phase(card, prompt, d)
+        counts = {"bf16": pipeline_phase(card, prompt, d)}
+        mark("bf16 pass done")
+        counts["int8"] = quant_pipeline_phase(card, prompt, d, "int8", INT8_REQUESTS, True)
+        mark("int8 pass done")
+        for quantization, (n, profiled) in QUANT_PASSES.items():
+            counts[quantization] = quant_pipeline_phase(card, prompt, d, quantization, n,
+                                                        profiled)
+            mark(f"{quantization} pass done")
     assert "jax" not in sys.modules, "the port imported jax"
     assert not any(m == "indextts_tpu" or m.startswith("indextts_tpu.") for m in sys.modules)
 
-    specs = (("attention_rope", "attention_rope.cu", "attn.py:188", bf16_counts),
-             ("antialias_snake", "antialias_snake.cu", "antialias.py:269", bf16_counts),
-             ("fused_decode_step", "decode_attention.cu", "decode_step.py:460", int8_counts),
-             ("int8_matvec", "int8_gemv.cu", "int8_matmul.py:104", int8_counts),
-             ("int8_mlp", "int8_gemv.cu", "int8_matmul.py:71", int8_counts))
+    k1 = "decode_step.py:460"
+    # name, counter, source, TPU kernel replaced, the pass whose launches count
+    specs = (("attention_rope", "attention_rope", "attention_rope.cu", "attn.py:188", "bf16"),
+             ("antialias_snake", "antialias_snake", "antialias_snake.cu", "antialias.py:269",
+              "bf16"),
+             ("fused_decode_step", "fused_decode_step", "decode_attention.cu", k1, "int8"),
+             ("int8_matvec", "int8_matvec", "int8_gemv.cu", "int8_matmul.py:104", "int8"),
+             ("int8_mlp", "int8_mlp", "int8_gemv.cu", "int8_matmul.py:71", "int8"),
+             ("fused_decode_step_kvq", "fused_decode_step", "decode_attention.cu",
+              f"{k1} (KVQ)", "int8kv"),
+             ("fused_decode_step_w4", "fused_decode_step", "int8_gemv.cu", f"{k1} (W4)",
+              "int4"),
+             ("fused_decode_step_w4_kvq", "fused_decode_step", "decode_attention.cu",
+              f"{k1} (W4, KVQ)", "int4kv"),
+             ("int4_matvec", "int4_matvec", "int8_gemv.cu", f"{k1} (W4)", "int4"),
+             ("int4_mlp", "int4_mlp", "int8_gemv.cu", f"{k1} (W4)", "int4"))
     kernels = []
-    for name, src, tpu, counts in specs:
+    for name, counter, src, tpu, pass_ in specs:
         r = kres[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"indextts_tpu_torch/csrc/{src}",
                         "replaces": f"indextts_tpu/ops/pallas/{tpu}",
-                        "launches": counts[name], "max_abs_err": r["abs"],
+                        "launches": counts[pass_][counter], "max_abs_err": r["abs"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     assert all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels), kernels

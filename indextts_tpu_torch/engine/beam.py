@@ -26,13 +26,16 @@ How the cache follows the beams depends on the decode route
 (`engine/decode.py::decode_route`), as in the JAX engine:
 - float weights ("plain"): the K/V cache and ``kv_valid`` are gathered over
   the beam axis every step;
-- int8 weights ("fused", kernel K1): the cache rows never move. An in-group
+- int8 or int4 weights ("fused", kernel K1): the cache rows never move. An in-group
   ancestry map ``anc`` (B*K, S) int32 stays on the device: before each step
   ``anc[:, pos]`` is stamped with each row's own index (the row computes
   its k/v there), and after the scorer ``anc = anc[gidx]``, so row r's
   entry at position g lives in physical row (r // K) * K + anc[r, g]; the
   kernel reads it there. ``kv_valid`` rows are equal within a group (same
   prefix, lock-step writes) and are not gathered either.
+With ``sampling.kv_quant`` the cache is the flat int8 one with its packed
+scale rows "kvs", which K1 selects by the same ancestry (the gather route
+reorders "kvs" with the values).
 `last_use_anc` records which of the two the last call took, and
 `kv_gathers` counts the cache gathers made.
 """
@@ -182,7 +185,7 @@ def generate_beam(params: Params, cfg: GPTConfig, dims: GPT2Dims,
     stop, L = cfg.stop_mel_token, max_new_tokens
     S = _cache_len(P, max_new_tokens)
     norm = _length_norm(sampling.length_penalty)
-    route = decode_route(params, B * K)
+    route = decode_route(params, B * K, sampling.kv_quant)
     use_anc = route == "fused" and K > 1 and not cache_gather
     last_use_anc = use_anc
 
@@ -191,7 +194,7 @@ def generate_beam(params: Params, cfg: GPTConfig, dims: GPT2Dims,
     start = torch.full((B * K,), cfg.start_mel_token, device=dev)
     seq = torch.cat([pe, _embed_mel_token(params, start, 0, dtype)[:, None]], dim=1)
     seq_mask = torch.cat([pm, torch.ones((B * K, 1), dtype=torch.bool, device=dev)], dim=1)
-    kv = init_kv_cache(dims, B * K, S, dtype=dtype, device=dev)
+    kv = init_kv_cache(dims, B * K, S, dtype=dtype, device=dev, quantized=sampling.kv_quant)
     hidden = gpt2_prefill(params["gpt"], seq, dims, seq_mask, kv)
     logits = mel_logits_from_hidden(params, hidden[:, -1]).reshape(B, K, V)
     kv_valid = torch.zeros((B * K, S), dtype=torch.bool, device=dev)

@@ -14,7 +14,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims, gpt2_decode_step, is_int8
+from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims, gpt2_decode_step, is_quantized
 from indextts_tpu_torch.nn import Params
 from indextts_tpu_torch.ops.decode_step import fused_decode_step
 from indextts_tpu_torch.ops.int8 import MAX_ROWS
@@ -33,6 +33,9 @@ class SamplingConfig:
     num_beams: int = 3
     length_penalty: float = 0.0
     min_new_tokens: int = 0
+    # the flat int8 KV cache with packed scale rows (`quantization="int8kv"`
+    # / `"int4kv"`); prefill attention stays exact, decode runs K1's KVQ
+    kv_quant: bool = False
 
 
 def _cache_len(P: int, span: int) -> int:
@@ -46,18 +49,24 @@ def _embed_mel_token(params: Params, token: torch.Tensor, pos: int, dtype) -> to
     return emb + params["mel_pos_embedding"]["weight"][pos].to(dtype)[None, :]
 
 
-def decode_route(params: Params, batch: int) -> str:
+def decode_route(params: Params, batch: int, kv_quant: bool = False) -> str:
     """The decode step a (B*K)-row batch takes (`engine/decode.py::
-    _fused_decode_ok` of the JAX package): "fused" (kernel K1) for int8
-    GPT-2 weights and B*K <= 24, "plain" (`gpt2_decode_step`) for float
-    weights. Int8 weights at a batch K1 does not take raise: the port has no
-    plain int8 decode. The JAX package's D % 640 and S % 128 gates come
+    _fused_decode_ok` of the JAX package): "fused" (kernel K1) for int8 or
+    int4 GPT-2 weights and B*K <= 24, with the bf16 or (``kv_quant``) the
+    int8 cache; "plain" (`gpt2_decode_step`) for float weights and the bf16
+    cache. The rest raises: the port has no plain quantized decode, and the
+    JAX package's XLA path for the int8 cache at float weights (its 5D ks/vs
+    cache) is not ported. The JAX package's D % 640 and S % 128 gates come
     from TPU memory tiling; the port's kernels mask ragged tiles."""
-    if not is_int8(params["gpt"]):
+    if not is_quantized(params["gpt"]):
+        if kv_quant:
+            raise NotImplementedError(
+                "the int8 KV cache with float weights (the JAX package's XLA 5D ks/vs "
+                "cache) is not ported; see ROADMAP.md, queue 1")
         return "plain"
     if batch > MAX_ROWS:
         raise NotImplementedError(
-            f"int8 decode of {batch} rows: kernel K1 takes at most {MAX_ROWS} "
+            f"quantized decode of {batch} rows: kernel K1 takes at most {MAX_ROWS} "
             "(larger batches are not ported; see ROADMAP.md, queue 2)")
     return "fused"
 

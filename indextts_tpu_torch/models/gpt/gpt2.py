@@ -2,7 +2,10 @@
 
 - `gpt2_forward`: full-sequence causal pass (teacher forcing / latents);
 - `gpt2_prefill`: the same pass writing K/V into the cache at [0, T);
-- `gpt2_decode_step`: one token against the flat (L, B, S, D) cache.
+- `gpt2_decode_step`: one token against the flat (L, B, S, D) cache;
+- the weight-only int8 / int4 trees and the flat int8 cache
+  (`kv_quantize_flat`) of the memory-knob configurations, whose decode
+  steps run kernel K1 (`ops/decode_step.py`).
 
 Weights run in the pipeline's dtype (bf16 on the card) with LayerNorm and
 softmax in f32. Unlike the JAX package, the cache is updated in place: the
@@ -46,29 +49,92 @@ def init_gpt2(rng: InitRng, dims: GPT2Dims) -> Params:
     return {"h": nn.stack_layers(layers), "ln_f": nn.layer_norm_init(rng, D)}
 
 
+def _quantize_blocks(params: Params, quantize) -> Params:
+    def block(lp):
+        return {**lp,
+                "attn": {k: quantize(v) for k, v in lp["attn"].items()},
+                "mlp": {k: quantize(v) for k, v in lp["mlp"].items()}}
+    return {**params, "h": [block(lp) for lp in params["h"]]}
+
+
 def quantize_gpt2_int8(params: Params) -> Params:
     """Weight-only int8 of the four dense layers of every block (the
     decode loop reads every weight once a step; int8 halves that against
     bf16). Called on the tree after its cast to the pipeline dtype, the
     JAX pipeline's order, so the scales come from the bf16 weights."""
-    def block(lp):
-        return {**lp,
-                "attn": {k: nn.quantize_dense_int8(v) for k, v in lp["attn"].items()},
-                "mlp": {k: nn.quantize_dense_int8(v) for k, v in lp["mlp"].items()}}
-    return {**params, "h": [block(lp) for lp in params["h"]]}
+    return _quantize_blocks(params, nn.quantize_dense_int8)
 
 
-def is_int8(params: Params) -> bool:
-    """Whether a GPT-2 tree carries `quantize_gpt2_int8` weights."""
-    return "q" in params["h"][0]["attn"]["c_attn"]
+def quantize_gpt2_int4(params: Params) -> Params:
+    """Weight-only int4 of the same four layers (`nn.quantize_dense_int4`:
+    nibble-packed in 640-column groups, half int8's weight bytes), also
+    after the cast to the pipeline dtype."""
+    return _quantize_blocks(params, nn.quantize_dense_int4)
+
+
+def is_quantized(params: Params) -> bool:
+    """Whether a GPT-2 tree carries weight-only int8 (`quantize_gpt2_int8`)
+    or int4 (`quantize_gpt2_int4`) weights."""
+    c_attn = params["h"][0]["attn"]["c_attn"]
+    return "q" in c_attn or "q4" in c_attn
+
+
+# lanes of a packed scale row of the int8 cache: k-scales on [0, H), v-scales
+# on [SCALE_LANES // 2, SCALE_LANES // 2 + H)
+SCALE_LANES = 256
 
 
 def init_kv_cache(dims: GPT2Dims, batch: int, max_len: int, dtype=torch.bfloat16,
-                  device="cpu") -> Dict[str, torch.Tensor]:
-    """Flat (L, B, S, D) K and V caches, heads merged on the last axis."""
+                  device="cpu", quantized: bool = False) -> Dict[str, torch.Tensor]:
+    """Flat (L, B, S, D) K and V caches, heads merged on the last axis.
+    ``quantized=True`` gives the flat int8 cache of the JAX package's fused
+    decode: int8 k and v plus ``"kvs"`` (L, B, S, 256) bf16, one packed
+    scale row per (row, position) (see `kv_quantize_flat`)."""
     shape = (dims.layers, batch, max_len, dims.dim)
+    if quantized:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "kvs": torch.zeros(shape[:-1] + (SCALE_LANES,), dtype=torch.bfloat16,
+                                   device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def kv_quantize_flat(k: torch.Tensor, v: torch.Tensor, heads: int):
+    """Quantize flat (..., D) k and v rows per head for the int8 cache:
+    per (row, head) scale = bf16(max|x| / 127) in f32, values
+    clip(round_half_even(x / max(scale, 1e-8)), -127, 127), so the int8
+    value times the stored scale rebuilds what was quantized against.
+    Returns (k int8 (..., D), v int8 (..., D), scale rows (..., 256) bf16
+    with the k-scales on lanes [0, H), the v-scales on [128, 128 + H) and
+    zeros elsewhere)."""
+    *lead, D = k.shape
+    half = SCALE_LANES // 2
+    if heads > half:
+        raise ValueError(f"the packed scale row holds at most {half} heads, got {heads}")
+
+    def quant(x):
+        xf = x.reshape(*lead, heads, D // heads).float()
+        scale = (xf.abs().amax(-1) / 127.0).to(torch.bfloat16)
+        safe = scale.float().clamp(min=1e-8)
+        q = torch.clamp(torch.round(xf / safe[..., None]), -127, 127)
+        return q.to(torch.int8).reshape(*lead, D), scale
+
+    kq, ks = quant(k)
+    vq, vs = quant(v)
+    kvs = torch.zeros((*lead, SCALE_LANES), dtype=torch.bfloat16, device=k.device)
+    kvs[..., :heads], kvs[..., half:half + heads] = ks, vs
+    return kq, vq, kvs
+
+
+def _kv_dequant_flat(q8: torch.Tensor, kvs: torch.Tensor, heads: int, offset: int,
+                     dtype) -> torch.Tensor:
+    """An int8 cache slice (B, S, D) back to ``dtype`` against its scale
+    rows (B, S, 256); ``offset`` 0 takes the k-scales, 128 the v-scales."""
+    B, S, D = q8.shape
+    scale = kvs[..., offset:offset + heads].float()
+    x = q8.reshape(B, S, heads, D // heads).float() * scale[..., None]
+    return x.reshape(B, S, D).to(dtype)
 
 
 def _heads(t: torch.Tensor, dims: GPT2Dims) -> torch.Tensor:
@@ -91,7 +157,11 @@ def _layer(lp: Params, x: torch.Tensor, dims: GPT2Dims, mask, cache=None,
            li: int = 0) -> torch.Tensor:
     B, T, D = x.shape
     q, k, v = torch.chunk(nn.dense(lp["attn"]["c_attn"], nn.layer_norm(lp["ln_1"], x)), 3, -1)
-    if cache is not None:
+    if cache is not None and "kvs" in cache:
+        # the int8 cache keeps the quantized rows; attention here uses k, v
+        cache["k"][li, :, :T], cache["v"][li, :, :T], cache["kvs"][li, :, :T] = \
+            kv_quantize_flat(k, v, dims.heads)
+    elif cache is not None:
         cache["k"][li, :, :T] = k.to(cache["k"].dtype)
         cache["v"][li, :, :T] = v.to(cache["v"].dtype)
     out = nn.mha(_heads(q, dims), _heads(k, dims), _heads(v, dims), mask=mask)
@@ -115,7 +185,9 @@ def gpt2_forward(params: Params, x: torch.Tensor, dims: GPT2Dims,
 def gpt2_prefill(params: Params, x: torch.Tensor, dims: GPT2Dims,
                  attn_mask: torch.Tensor, kv_cache: Dict[str, torch.Tensor]) -> torch.Tensor:
     """`gpt2_forward` that also writes every layer's K/V at cache slots
-    [0, T) (in place). Returns hidden states after ln_f."""
+    [0, T) (in place; an int8 cache gets `kv_quantize_flat` rows, while the
+    prefill's own attention uses the unquantized k and v, as in the JAX
+    package). Returns hidden states after ln_f."""
     T = x.shape[1]
     mask = _causal_mask(attn_mask, T)
     for li, lp in enumerate(params["h"]):
@@ -129,7 +201,12 @@ def gpt2_decode_step(params: Params, x: torch.Tensor, dims: GPT2Dims, pos: int,
     """One token x (B, D): writes its K/V at slot ``pos`` (in place) and
     attends every slot ``kv_valid`` (B, S) marks. Returns (B, D) after ln_f.
     ``gpt2_decode_step.calls`` counts the calls (int8 decode must not come
-    here: it runs the fused kernel K1)."""
+    here: it runs the fused kernel K1, as does every step on the int8
+    cache)."""
+    if "kvs" in kv_cache:
+        raise NotImplementedError("gpt2_decode_step takes the bf16 cache; the int8 cache is "
+                                  "decoded by kernel K1 (the JAX package's 5D ks/vs cache "
+                                  "path is not ported, ROADMAP.md queue 1)")
     gpt2_decode_step.calls += 1
     B, D = x.shape
     mask = kv_valid[:, None, None, :]

@@ -136,10 +136,14 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     """x @ W + b. A weight-only int8 layer (``{"q": (out, in) int8, "scale":
     (out,) f32, "bias"}``, see `quantize_dense_int8`) computes x @ q with an
     f32 result, then ``* scale + bias`` in f32, and rounds to x's dtype once,
-    as the JAX package's `nn.dense` does."""
+    as the JAX package's `nn.dense` does. A weight-only int4 layer (``"q4"``
+    (out, in/2), see `quantize_dense_int4`) is unpacked first and then
+    takes the same path (the decode loop's int4 GEMV is the kernel; this
+    serves prefill and the teacher-forced pass)."""
     b = p.get("bias")
-    if "q" in p:
-        y = torch.matmul(x.float(), p["q"].t().float()) * p["scale"]
+    if "q" in p or "q4" in p:
+        q = p["q"] if "q" in p else unpack_int4(p["q4"])
+        y = torch.matmul(x.float(), q.t().float()) * p["scale"]
         if b is not None:
             y = y + b.float()
         return y.to(x.dtype)
@@ -161,6 +165,48 @@ def quantize_dense_int8(p: Params) -> Params:
     if "bias" in p:
         out["bias"] = p["bias"]
     return out
+
+
+def int4_halfspan(half_k: int) -> int:
+    """The nibble grouping of `quantize_dense_int4`: the K input columns are
+    packed in groups of 2h (lo nibbles = a group's first h columns, hi
+    nibbles = its last h). h = 320 when (K/2) % 320 == 0, so every 640
+    columns form a group; otherwise one group spans the whole row."""
+    return 320 if half_k % 320 == 0 else half_k
+
+
+def quantize_dense_int4(p: Params) -> Params:
+    """Per-output-channel symmetric int4 of a torch-layout dense layer:
+    scale = max|w| / 7 over the input axis in f32 (at least 1e-8 / 7),
+    values clip(round_half_even(w / scale), -7, 7), two per int8 byte along
+    the input axis: ``{"q4": (out, in/2) int8, "scale": (out,) f32}``. The
+    same bytes as the JAX package's `nn.quantize_dense_int4`, transposed."""
+    if "weight" not in p:
+        return p
+    w = p["weight"].float()
+    N, K = w.shape
+    if K % 2:
+        raise ValueError(f"int4 packing needs an even input width, got {K}")
+    scale = torch.clamp(w.abs().amax(dim=-1), min=1e-8) / 7.0
+    q = torch.clamp(torch.round(w / scale[:, None]), -7, 7).to(torch.int8)
+    h = int4_halfspan(K // 2)
+    v = q.reshape(N, K // (2 * h), 2, h)
+    packed = (v[:, :, 1] << 4) | (v[:, :, 0] & 0xF)
+    out = {"q4": packed.reshape(N, K // 2).contiguous(), "scale": scale.contiguous()}
+    if "bias" in p:
+        out["bias"] = p["bias"]
+    return out
+
+
+def unpack_int4(q4: torch.Tensor) -> torch.Tensor:
+    """Packed (..., K/2) int8 -> (..., K) int8 values in [-7, 7] in natural
+    column order (the inverse of `quantize_dense_int4`'s packing): the lo
+    nibble sign-extended by ``(b << 4) >> 4``, the hi nibble by ``b >> 4``,
+    both arithmetic shifts on int8."""
+    half = q4.shape[-1]
+    h = int4_halfspan(half)
+    v = q4.reshape(*q4.shape[:-1], half // h, h)
+    return torch.stack([(v << 4) >> 4, v >> 4], dim=-2).reshape(*q4.shape[:-1], 2 * half)
 
 
 def embedding(p: Params, ids: torch.Tensor, dtype=torch.float32) -> torch.Tensor:

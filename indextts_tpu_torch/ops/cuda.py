@@ -35,11 +35,12 @@ _SIGNATURES = {
     "attention_rope_launch": [_P] * 7 + [_I] * 4 + [_F, _P],
     # x, alpha, beta, lengths, taps, out, B, T, C, stream
     "antialias_snake_launch": [_P] * 6 + [_I] * 3 + [_P],
-    # x, q, ln_w, ln_b, scale, bias, res, out, M, N, K, epilogue, stream
-    "int8_gemv_launch": [_P] * 8 + [_I] * 4 + [_P],
-    # qkv, ck, cv, kv_valid, anc, part_ml, part_o, out, M, S, D, H, pos,
+    # x, q, ln_w, ln_b, scale, bias, res, out, M, N, K, half_span, epilogue,
+    # stream
+    "int8_gemv_launch": [_P] * 8 + [_I] * 5 + [_P],
+    # qkv, ck, cv, kvs, kv_valid, anc, part_ml, part_o, out, M, S, D, H, pos,
     # group, scale, stream
-    "decode_attention_launch": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "decode_attention_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
 }
 
 

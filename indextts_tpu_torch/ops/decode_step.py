@@ -1,19 +1,25 @@
-"""Fused GPT-2 decode step on int8 weights: kernel K1 and its plain twin.
+"""Fused GPT-2 decode step on quantized weights: kernel K1 and its plain twin.
 
 `fused_decode_step` is the port of `indextts_tpu/ops/pallas/decode_step.py::
-fused_decode_step` for int8 weights and the flat bf16 (L, B, S, D) cache, at
-``group=1`` and with the beam ancestry map at ``group=K``. On the TPU it is
-one kernel over the layers; here every operation of a layer runs in one of
-the hand-written Hopper kernels, with no library call between them:
+fused_decode_step` at ``group=1`` and with the beam ancestry map at
+``group=K``, in the TPU kernel's four configurations: int8 or nibble-packed
+int4 weights (its ``W4`` variant, `nn.quantize_dense_int4`) against the
+flat bf16 (L, B, S, D) cache or the flat int8 cache with its packed bf16
+scale rows ``"kvs"`` (its ``KVQ`` variant, `gpt2.kv_quantize_flat`). On the
+TPU it is one kernel over the layers; here every operation of a layer runs
+in one of the hand-written Hopper kernels, with no library call between
+them:
 
-- ``ln_1`` + qkv projection: `int8_matvec` with the LayerNorm prologue
-  (K7a, `csrc/int8_gemv.cu`);
+- ``ln_1`` + qkv projection: `int8_matvec` (int4: `int4_matvec`) with the
+  LayerNorm prologue (K7a, `csrc/int8_gemv.cu`);
 - attention over the cache plus the current token, which also writes the
-  token's k and v into the cache at ``pos``: `decode_attention`
-  (`csrc/decode_attention.cu`, a split pass and a combine pass);
-- attention out-projection + residual: `int8_matvec` with the residual
-  epilogue;
-- ``ln_2`` + MLP + residual: `int8_mlp` (K7b, two GEMV launches).
+  token's k and v into the cache at ``pos`` (quantized for the int8 cache):
+  `decode_attention` (`csrc/decode_attention.cu`, a split pass and a
+  combine pass);
+- attention out-projection + residual: `int8_matvec` / `int4_matvec` with
+  the residual epilogue;
+- ``ln_2`` + MLP + residual: `int8_mlp` / `int4_mlp` (K7b, two GEMV
+  launches).
 
 ``ln_f`` is applied after the layers, outside the kernels, as in the TPU
 kernel's wrapper. The rounding chain is the TPU kernel's (see the two CUDA
@@ -28,14 +34,16 @@ place: the decode loop never holds two copies of it).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
 from indextts_tpu_torch import nn
+from indextts_tpu_torch.models.gpt.gpt2 import SCALE_LANES, kv_quantize_flat
 from indextts_tpu_torch.ops import cuda
-from indextts_tpu_torch.ops.int8 import (MAX_ROWS, int8_matvec, int8_matvec_plain, int8_mlp,
-                                         int8_mlp_plain)
+from indextts_tpu_torch.ops.int8 import (MAX_ROWS, int4_matvec, int4_matvec_plain, int4_mlp,
+                                         int4_mlp_plain, int8_matvec, int8_matvec_plain,
+                                         int8_mlp, int8_mlp_plain)
 
 CHUNK = 64          # positions per split block of `decode_attention`
 HEAD_DIM = 64       # the CUDA kernel's head dim
@@ -44,7 +52,8 @@ NEG = -1e9          # the TPU kernel's mask value
 
 def decode_attention_plain(qkv: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                            kv_valid: torch.Tensor, pos: int, heads: int,
-                           anc: Optional[torch.Tensor] = None, group: int = 1) -> torch.Tensor:
+                           anc: Optional[torch.Tensor] = None, group: int = 1,
+                           kvs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain twin of `decode_attention` (any device); writes the cache
     rows at ``pos`` in place like the kernel."""
     M, D = qkv.shape[0], qkv.shape[1] // 3
@@ -59,13 +68,20 @@ def decode_attention_plain(qkv: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor
     gi = g.clamp(max=S - 1)
     rows = torch.arange(M, device=dev)[:, None]
     phys = rows.expand(M, G) if anc is None else (rows // group) * group + anc[:, gi].long()
-    ks, vs = ck[phys, gi[None, :]], cv[phys, gi[None, :]]                  # (M, G, D)
+    # (M, G, D) values of each row's hypothesis (int8 -> bf16 is exact)
+    ks, vs = ck[phys, gi[None, :]].to(bf16), cv[phys, gi[None, :]].to(bf16)
     valid = (g[None, :] >= start[:, None]) & (g[None, :] < pos)            # (M, G)
     s = (ks * q[:, None, :]).float().reshape(M, G, heads, Dh).sum(-1)     # bf16 products
+    if kvs is not None:                      # the int8 cache: scores times k-scales
+        scales = kvs[phys, gi[None, :]].float()                             # (M, G, 256)
+        s = s * scales[..., :heads]
     s = torch.where(valid[..., None], s, NEG).reshape(M, n_chunks, CHUNK, heads)
     m_c = s.amax(2) if n_chunks else torch.full((M, 0, heads), NEG, device=dev)
     p = torch.where(valid.reshape(M, n_chunks, CHUNK, 1), torch.exp(s - m_c[:, :, None]), 0.0)
     l_c = p.sum(2)
+    if kvs is not None:                      # the mass above stays unscaled
+        half = SCALE_LANES // 2
+        p = p * scales[..., half:half + heads].reshape(M, n_chunks, CHUNK, heads)
     o_c = (p.to(bf16)[..., None] * vs.reshape(M, n_chunks, CHUNK, heads, Dh)).float().sum(2)
 
     s_cur = (q * kc).float().reshape(M, heads, Dh).sum(-1)
@@ -80,21 +96,28 @@ def decode_attention_plain(qkv: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor
     l = (l_c * w).sum(1) + p_cur
     o = (o_c * w[..., None]).sum(1) \
         + p_cur.to(bf16).float()[..., None] * vc.float().reshape(M, heads, Dh)
-    ck[:, pos] = kc
-    cv[:, pos] = vc
+    if kvs is None:
+        ck[:, pos], cv[:, pos] = kc, vc
+    else:
+        ck[:, pos], cv[:, pos], kvs[:, pos] = kv_quantize_flat(kc, vc, heads)
     return (o / l.clamp(min=1e-30)[..., None]).to(bf16).reshape(M, D)
 
 
 def decode_attention(qkv: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                      kv_valid: torch.Tensor, pos: int, heads: int,
-                     anc: Optional[torch.Tensor] = None, group: int = 1) -> torch.Tensor:
-    """K1's attention. qkv (M, 3D) bf16 of the current token; ck, cv (M, S, D)
-    bf16, one layer of the cache (the token's k and v are written at
-    ``pos``); kv_valid (M, S) bool; anc (M, S) int32 in-group ancestry for
-    ``group`` > 1. Returns (M, D) bf16. CPU tensors run the plain twin; CUDA
-    tensors launch the kernel; anything else raises."""
+                     anc: Optional[torch.Tensor] = None, group: int = 1,
+                     kvs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1's attention. qkv (M, 3D) bf16 of the current token; ck, cv (M, S, D),
+    one layer of the cache (the token's k and v are written at ``pos``):
+    bf16, or int8 with ``kvs`` (M, S, 256) bf16, the layer's packed scale
+    rows (K1's KVQ variant; the row at ``pos`` is written too); kv_valid
+    (M, S) bool; anc (M, S) int32 in-group ancestry for ``group`` > 1.
+    Returns (M, D) bf16. CPU tensors run the plain twin; CUDA tensors launch
+    the kernel (``decode_attention.launches`` counts the bf16-cache launches,
+    ``decode_attention.kvq_launches`` the int8-cache ones); anything else
+    raises."""
     if qkv.device.type == "cpu":
-        return decode_attention_plain(qkv, ck, cv, kv_valid, pos, heads, anc, group)
+        return decode_attention_plain(qkv, ck, cv, kv_valid, pos, heads, anc, group, kvs)
     if qkv.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {qkv.device}")
     dev = qkv.device
@@ -105,10 +128,15 @@ def decode_attention(qkv: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
         raise ValueError(f"decode_attention: kernel takes head dim {HEAD_DIM}, got {D}/{heads}")
     if not 0 <= pos < S:
         raise ValueError(f"decode_attention: pos {pos} outside the cache of {S} slots")
-    for name, t, dtype, shape in (("qkv", qkv, torch.bfloat16, (M, 3 * D)),
-                                  ("k cache", ck, torch.bfloat16, (M, S, D)),
-                                  ("v cache", cv, torch.bfloat16, (M, S, D)),
-                                  ("kv_valid", kv_valid, torch.bool, (M, S))):
+    cache_dtype = torch.bfloat16 if kvs is None else torch.int8
+    if kvs is not None and heads > SCALE_LANES // 2:
+        raise ValueError(f"decode_attention: the int8 cache's scale row holds at most "
+                         f"{SCALE_LANES // 2} heads, got {heads}")
+    checks = [("qkv", qkv, torch.bfloat16, (M, 3 * D)), ("k cache", ck, cache_dtype, (M, S, D)),
+              ("v cache", cv, cache_dtype, (M, S, D)), ("kv_valid", kv_valid, torch.bool, (M, S))]
+    if kvs is not None:
+        checks.append(("scale rows", kvs, torch.bfloat16, (M, S, SCALE_LANES)))
+    for name, t, dtype, shape in checks:
         if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev \
                 or not t.is_contiguous():
             raise ValueError(f"decode_attention: {name} must be contiguous {dtype} {shape} "
@@ -125,24 +153,34 @@ def decode_attention(qkv: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     out = torch.empty((M, D), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
         code = cuda.library().decode_attention_launch(
-            qkv.data_ptr(), ck.data_ptr(), cv.data_ptr(), kv_valid.data_ptr(),
+            qkv.data_ptr(), ck.data_ptr(), cv.data_ptr(),
+            None if kvs is None else kvs.data_ptr(), kv_valid.data_ptr(),
             anc.data_ptr() if group > 1 else None, part_ml.data_ptr(), part_o.data_ptr(),
             out.data_ptr(), M, S, D, heads, pos, group, 1.0 / math.sqrt(HEAD_DIM),
             cuda.stream_ptr(qkv))
     cuda.check(code, "decode_attention")
-    decode_attention.launches += 1
+    if kvs is None:
+        decode_attention.launches += 1
+    else:
+        decode_attention.kvq_launches += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.kvq_launches = 0
 
 
 def _check_step(params, x, kv_cache, group: int, anc) -> None:
-    if "q4" in params["h"][0]["attn"]["c_attn"] or kv_cache["k"].dtype != torch.bfloat16:
-        raise NotImplementedError("fused_decode_step: int4 weights and the int8 cache "
-                                  "(K1's W4 / KVQ variants) are not ported (ROADMAP.md)")
-    if "q" not in params["h"][0]["attn"]["c_attn"]:
-        raise ValueError("fused_decode_step takes int8 weights (quantize_gpt2_int8)")
+    c_attn = params["h"][0]["attn"]["c_attn"]
+    if "q" not in c_attn and "q4" not in c_attn:
+        raise ValueError("fused_decode_step takes int8 or int4 weights "
+                         "(quantize_gpt2_int8 / quantize_gpt2_int4)")
+    bf16_cache = set(kv_cache) == {"k", "v"} and kv_cache["k"].dtype == torch.bfloat16
+    int8_cache = set(kv_cache) == {"k", "v", "kvs"} and kv_cache["k"].dtype == torch.int8
+    if not (bf16_cache or int8_cache) or kv_cache["k"].ndim != 4:
+        raise ValueError("fused_decode_step takes the flat (L, B, S, D) bf16 cache or the "
+                         "flat int8 cache with its 'kvs' scale rows (init_kv_cache), got "
+                         f"{ {k: (t.dtype, tuple(t.shape)) for k, t in kv_cache.items()} }")
     B = x.shape[0]
     if B > MAX_ROWS:
         raise ValueError(f"fused_decode_step takes at most {MAX_ROWS} rows, got {B}")
@@ -152,36 +190,50 @@ def _check_step(params, x, kv_cache, group: int, anc) -> None:
         raise ValueError("fused_decode_step: group > 1 needs the ancestry map")
 
 
-def decode_layer(ops, lp, x: torch.Tensor, heads: int, pos: int, ck: torch.Tensor,
+class StepOps(NamedTuple):
+    """The operations of one layer: the int8 and the int4 GEMVs and the
+    attention, as kernels (`KERNELS`) or as plain twins (`TWINS`)."""
+    matvec: Callable
+    mlp: Callable
+    matvec4: Callable
+    mlp4: Callable
+    attention: Callable
+
+
+def decode_layer(ops: StepOps, lp, x: torch.Tensor, heads: int, pos: int, ck: torch.Tensor,
                  cv: torch.Tensor, kv_valid: torch.Tensor, anc: Optional[torch.Tensor] = None,
-                 group: int = 1) -> torch.Tensor:
+                 group: int = 1, kvs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One block of the step (before ``ln_f``) on one layer ``lp`` of the
-    cache (ck, cv), with ``ops`` = (matvec, mlp, attention): `KERNELS` or
-    `TWINS`. Checks hold each layer of the kernel path against the twins on
-    that layer's input."""
-    matvec, mlp, attention = ops
+    cache (ck, cv, and the int8 cache's scale rows kvs); the int8 or int4
+    GEMVs of ``ops`` by the weight leaf the layer carries ("q" or "q4").
+    Checks hold each layer of the kernel path against the twins on that
+    layer's input."""
     a, f = lp["attn"], lp["mlp"]
-    qkv = matvec(x, a["c_attn"]["q"], ln=(lp["ln_1"]["weight"], lp["ln_1"]["bias"]),
+    w4 = "q4" in a["c_attn"]
+    matvec, mlp, w = (ops.matvec4, ops.mlp4, "q4") if w4 else (ops.matvec, ops.mlp, "q")
+    qkv = matvec(x, a["c_attn"][w], ln=(lp["ln_1"]["weight"], lp["ln_1"]["bias"]),
                  scale=a["c_attn"]["scale"], bias=a["c_attn"]["bias"])
-    att = attention(qkv, ck, cv, kv_valid, pos, heads, anc, group)
-    x = matvec(att, a["c_proj"]["q"], scale=a["c_proj"]["scale"], bias=a["c_proj"]["bias"],
+    att = ops.attention(qkv, ck, cv, kv_valid, pos, heads, anc, group, kvs)
+    x = matvec(att, a["c_proj"][w], scale=a["c_proj"]["scale"], bias=a["c_proj"]["bias"],
                residual=x)
-    return mlp(x, f["c_fc"]["q"], f["c_fc"]["scale"], f["c_fc"]["bias"], f["c_proj"]["q"],
+    return mlp(x, f["c_fc"][w], f["c_fc"]["scale"], f["c_fc"]["bias"], f["c_proj"][w],
                ln=(lp["ln_2"]["weight"], lp["ln_2"]["bias"]), scale2=f["c_proj"]["scale"],
                bias2=f["c_proj"]["bias"], residual=x)
 
 
-KERNELS = (int8_matvec, int8_mlp, decode_attention)
-TWINS = (int8_matvec_plain, int8_mlp_plain, decode_attention_plain)
+KERNELS = StepOps(int8_matvec, int8_mlp, int4_matvec, int4_mlp, decode_attention)
+TWINS = StepOps(int8_matvec_plain, int8_mlp_plain, int4_matvec_plain, int4_mlp_plain,
+                decode_attention_plain)
 
 
 def _step(ops, params, x, heads: int, pos: int, kv_cache, kv_valid, anc, group: int,
           layer_inputs: Optional[list]) -> torch.Tensor:
+    kvs = kv_cache.get("kvs")
     for li, lp in enumerate(params["h"]):
         if layer_inputs is not None:
             layer_inputs.append(x)
         x = decode_layer(ops, lp, x, heads, pos, kv_cache["k"][li], kv_cache["v"][li],
-                         kv_valid, anc, group)
+                         kv_valid, anc, group, None if kvs is None else kvs[li])
     if layer_inputs is not None:
         layer_inputs.append(x)
     return nn.layer_norm(params["ln_f"], x)
@@ -202,16 +254,17 @@ def fused_decode_step(params, x: torch.Tensor, dims, pos: int,
                       kv_cache: Dict[str, torch.Tensor], kv_valid: torch.Tensor,
                       anc: Optional[torch.Tensor] = None, group: int = 1,
                       layer_inputs: Optional[list] = None) -> torch.Tensor:
-    """K1: one token x (B, D) bf16 through every layer of the int8 GPT-2
-    tree ``params`` against the flat bf16 cache {"k", "v"} (L, B, S, D),
-    B <= 24. Writes each layer's k and v at slot ``pos`` in place and
-    attends [start_b, pos) plus the token itself, start_b = pos + 1 -
-    popcount(kv_valid[b]). With ``group=K`` > 1 the cache is unordered and
-    ``anc`` (B, S) int32 names, for each row and position, the row of its
-    beam group that holds the entry. Returns (B, D) after ``ln_f``; a
-    ``layer_inputs`` list receives each layer's input and the last layer's
-    output. Raises on what it does not take: float weights, int4 weights or
-    an int8 cache, B > 24."""
+    """K1: one token x (B, D) bf16 through every layer of the int8 or int4
+    GPT-2 tree ``params`` against the flat cache (L, B, S, D), B <= 24:
+    {"k", "v"} bf16, or {"k", "v"} int8 with "kvs" (L, B, S, 256) bf16 scale
+    rows. Writes each layer's k and v at slot ``pos`` in place (quantized
+    for the int8 cache) and attends [start_b, pos) plus the token itself,
+    start_b = pos + 1 - popcount(kv_valid[b]). With ``group=K`` > 1 the
+    cache is unordered and ``anc`` (B, S) int32 names, for each row and
+    position, the row of its beam group that holds the entry. Returns (B, D)
+    after ``ln_f``; a ``layer_inputs`` list receives each layer's input and
+    the last layer's output. Raises on what it does not take: float weights,
+    another cache layout, B > 24."""
     _check_step(params, x, kv_cache, group, anc)
     h = _step(KERNELS, params, x, dims.heads, pos, kv_cache, kv_valid, anc, group,
               layer_inputs)

@@ -1,17 +1,25 @@
-"""Weight-only int8 products for decode: kernels K7a and K7b and their plain twins.
+"""Weight-only int8 and int4 products for decode: kernels K7a and K7b, the
+int4 GEMV of K1's W4 variant, and their plain twins.
 
 `int8_matvec` is the port of `indextts_tpu/ops/pallas/int8_matmul.py::
-int8_matvec` and `int8_mlp` of `::int8_mlp`. Both run the hand-written
-Hopper kernel `csrc/int8_gemv.cu` on CUDA tensors (or raise); on CPU tensors
-they run `int8_matvec_plain` / `int8_mlp_plain`, the same arithmetic in
-plain PyTorch, which the CPU tests hold against the JAX kernels and
-`chip_smoke.py` holds the CUDA kernel against on the card.
+int8_matvec` and `int8_mlp` of `::int8_mlp`. `int4_matvec` and `int4_mlp`
+are the same products on nibble-packed int4 weights (`nn.quantize_dense_int4`),
+the weight streaming of `indextts_tpu/ops/pallas/decode_step.py::
+fused_decode_step` with ``W4`` (`consume_w` / `unpack4` there). All four
+run the hand-written Hopper kernel `csrc/int8_gemv.cu` on CUDA tensors (or
+raise); on CPU tensors they run their ``*_plain`` twins, the same
+arithmetic in plain PyTorch, which the CPU tests hold against the JAX
+kernels and `chip_smoke.py` holds the CUDA kernel against on the card. The
+int4 twins unpack the nibbles and run the int8 twins: int4 values are exact
+in bf16, so an int4 product equals the int8 product on the unpacked values.
 
 Layout: x (M, K) bf16 with M = B*K <= 24 decode rows; the int8 weight is the
 port's (N, K) = (out, in) layout, its per-output-channel scale (N,) f32 and
-bias (N,) bf16 (`nn.quantize_dense_int8`). With no options both return the
-f32 product, as the JAX kernels do. The options are the fused prologue and
-epilogue the fused decode step (K1, `ops/decode_step.py`) uses:
+bias (N,) bf16 (`nn.quantize_dense_int8`); the int4 weight is (N, K/2)
+int8, two values a byte in groups of 2h columns along K
+(`nn.int4_halfspan`). With no options they return the f32 product, as the
+JAX kernels do. The options are the fused prologue and epilogue the fused
+decode step (K1, `ops/decode_step.py`) uses:
 
 - ``ln=(w, b)``: LayerNorm of x in f32, rounded to bf16, before the product;
 - ``scale, bias``: ``acc * scale + bias`` in f32, rounded to bf16;
@@ -24,10 +32,12 @@ from typing import Optional, Tuple
 
 import torch
 
+from indextts_tpu_torch import nn
 from indextts_tpu_torch.ops import cuda
 
 EPI_NONE, EPI_BIAS, EPI_GELU, EPI_RESIDUAL = range(4)
 MAX_ROWS = 24
+SMEM_TILE_BYTES = 47 * 1024   # the kernel's activation tile, under the 48 KB launch default
 
 LN = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -69,18 +79,23 @@ def _check(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _gemv_cuda(x, q, ln: LN, scale, bias, epilogue: int, residual):
-    """One launch of `int8_gemv_launch`; validates what the kernel takes."""
+def _gemv_cuda(x, q, ln: LN, scale, bias, epilogue: int, residual, w4: bool = False):
+    """One launch of `int8_gemv_launch` (``w4``: q is int4 nibble-packed);
+    validates what the kernel takes."""
     if x.device.type != "cuda":
         raise ValueError(f"int8 gemv: unsupported device {x.device}")
     dev = x.device
     M, K = x.shape
     N = q.shape[0]
-    if not 1 <= M <= MAX_ROWS or K % 16:
-        raise ValueError(f"int8 gemv: kernel takes 1..{MAX_ROWS} rows and K % 16 == 0, "
-                         f"got x {tuple(x.shape)}")
+    if not 1 <= M <= MAX_ROWS or K % (32 if w4 else 16):
+        raise ValueError(f"int8 gemv: kernel takes 1..{MAX_ROWS} rows and K % "
+                         f"{32 if w4 else 16} == 0, got x {tuple(x.shape)}")
+    half_span = nn.int4_halfspan(K // 2) if w4 else 0
+    if 2 * half_span * M * 2 > SMEM_TILE_BYTES:
+        raise ValueError(f"int4 gemv: a nibble group of {2 * half_span} columns for {M} rows "
+                         f"does not fit the {SMEM_TILE_BYTES}-byte activation tile")
     _check("int8 gemv x", x, torch.bfloat16, (M, K), dev)
-    _check("int8 gemv q", q, torch.int8, (N, K), dev)
+    _check("int8 gemv q", q, torch.int8, (N, K // 2 if w4 else K), dev)
     if ln is not None:
         for t in ln:
             _check("int8 gemv LayerNorm weight", t, torch.bfloat16, (K,), dev)
@@ -95,8 +110,8 @@ def _gemv_cuda(x, q, ln: LN, scale, bias, epilogue: int, residual):
     with torch.cuda.device(dev):
         code = cuda.library().int8_gemv_launch(
             x.data_ptr(), q.data_ptr(), *(ptr(t) for t in (ln or (None, None))),
-            ptr(scale), ptr(bias), ptr(residual), out.data_ptr(), M, N, K, epilogue,
-            cuda.stream_ptr(x))
+            ptr(scale), ptr(bias), ptr(residual), out.data_ptr(), M, N, K, half_span,
+            epilogue, cuda.stream_ptr(x))
     cuda.check(code, "int8_gemv")
     return out
 
@@ -155,5 +170,50 @@ def int8_mlp(x: torch.Tensor, w1q: torch.Tensor, s1: torch.Tensor, b1: torch.Ten
     return out
 
 
+def int4_matvec_plain(x: torch.Tensor, q4: torch.Tensor, *, ln: LN = None,
+                      scale=None, bias=None, residual=None) -> torch.Tensor:
+    """The plain twin of `int4_matvec` (any device)."""
+    return int8_matvec_plain(x, nn.unpack_int4(q4), ln=ln, scale=scale, bias=bias,
+                             residual=residual)
+
+
+def int4_matvec(x: torch.Tensor, q4: torch.Tensor, *, ln: LN = None, scale=None,
+                bias=None, residual=None) -> torch.Tensor:
+    """`int8_matvec` on int4 weights q4 (N, K/2) (`nn.quantize_dense_int4`),
+    the nibbles unpacked in the kernel. CPU tensors run the plain twin; CUDA
+    tensors launch the kernel; anything else raises."""
+    epi = _epilogue(scale, bias, residual)
+    if x.device.type == "cpu":
+        return int4_matvec_plain(x, q4, ln=ln, scale=scale, bias=bias, residual=residual)
+    out = _gemv_cuda(x, q4, ln, scale, bias, epi, residual, w4=True)
+    int4_matvec.launches += 1
+    return out
+
+
+def int4_mlp_plain(x: torch.Tensor, w1q4: torch.Tensor, s1: torch.Tensor, b1: torch.Tensor,
+                   w2q4: torch.Tensor, *, ln: LN = None, scale2=None, bias2=None,
+                   residual=None) -> torch.Tensor:
+    """The plain twin of `int4_mlp` (any device)."""
+    return int8_mlp_plain(x, nn.unpack_int4(w1q4), s1, b1, nn.unpack_int4(w2q4), ln=ln,
+                          scale2=scale2, bias2=bias2, residual=residual)
+
+
+def int4_mlp(x: torch.Tensor, w1q4: torch.Tensor, s1: torch.Tensor, b1: torch.Tensor,
+             w2q4: torch.Tensor, *, ln: LN = None, scale2=None, bias2=None,
+             residual=None) -> torch.Tensor:
+    """`int8_mlp` on int4 weights w1q4 (F, K/2) and w2q4 (K, F/2): two
+    launches of the GEMV kernel; CPU tensors run the plain twin."""
+    epi2 = _epilogue(scale2, bias2, residual)
+    if x.device.type == "cpu":
+        return int4_mlp_plain(x, w1q4, s1, b1, w2q4, ln=ln, scale2=scale2, bias2=bias2,
+                              residual=residual)
+    h = _gemv_cuda(x, w1q4, ln, s1, b1, EPI_GELU, None, w4=True)
+    out = _gemv_cuda(h, w2q4, None, scale2, bias2, epi2, residual, w4=True)
+    int4_mlp.launches += 1
+    return out
+
+
 int8_matvec.launches = 0
 int8_mlp.launches = 0
+int4_matvec.launches = 0
+int4_mlp.launches = 0

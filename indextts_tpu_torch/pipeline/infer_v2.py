@@ -11,16 +11,19 @@ One request runs, on ``device``:
       emotion prompt defaults to the speaker prompt, alpha 1), left-padded
       prefix embeddings
   [G] GPT-2 prefill + beam decode (`engine/beam.py`, K = num_beams); with
-      ``quantization="int8"`` every decode step runs kernel K1 with the
+      a ``quantization`` every decode step runs kernel K1 with the
       in-kernel beam ancestry map
   [S1] teacher-forced GPT latents -> gpt_layer + vq2emb
   [S2] length regulator -> 25-step CFM Euler solve under CFG (DiT, kernel K2)
   [V] BigVGAN-v2 (kernel K3) -> 22.05 kHz wav
 
 This slice covers one text segment with beam decode (num_beams > 1), with
-bf16 weights or with the int8 serving configuration (``quantization=
-"int8"``: weight-only int8 for the four dense layers of every GPT-2 block,
-quantized after the cast to bf16 as the JAX pipeline does). Paths
+bf16 weights or with one of the JAX pipeline's quantizations, all bf16-only:
+``"int8"`` (the serving configuration: weight-only int8 for the four dense
+layers of every GPT-2 block, quantized after the cast to bf16 as the JAX
+pipeline does), ``"int4"`` (the same layers nibble-packed int4), and the
+memory knobs ``"int8kv"`` / ``"int4kv"`` (those weights with the flat int8
+KV cache). Paths
 of the JAX pipeline that are not ported yet raise NotImplementedError naming
 their ROADMAP item. Weights are random at the configured architecture (drawn
 on the device from ``seed``) or handed over from the JAX package through
@@ -50,7 +53,8 @@ from indextts_tpu_torch.models.codec.repcodec import (init_repcodec, repcodec_qu
                                                       repcodec_vq2emb)
 from indextts_tpu_torch.models.codec.w2vbert import init_w2vbert, w2vbert_forward
 from indextts_tpu_torch.models.gpt import unified_voice as uv
-from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims, is_int8, quantize_gpt2_int8
+from indextts_tpu_torch.models.gpt.gpt2 import (GPT2Dims, is_quantized, quantize_gpt2_int4,
+                                                quantize_gpt2_int8)
 from indextts_tpu_torch.models.s2mel.campplus import campplus_forward, init_campplus
 from indextts_tpu_torch.models.s2mel.cfm import cfm_inference
 from indextts_tpu_torch.models.s2mel.length_regulator import length_regulate
@@ -64,6 +68,10 @@ from indextts_tpu_torch.utils.resample import resample_audio
 from indextts_tpu_torch.utils.wav_io import read_wav_mono, write_wav
 
 _ROADMAP = "see ROADMAP.md, queue 1 (modules still to port)"
+
+# quantization -> (GPT-2 weight quantizer, int8 KV cache), as in the JAX pipeline
+QUANTIZATIONS = {"int8": (quantize_gpt2_int8, False), "int8kv": (quantize_gpt2_int8, True),
+                 "int4": (quantize_gpt2_int4, False), "int4kv": (quantize_gpt2_int4, True)}
 
 
 def _not_ported(what: str):
@@ -81,10 +89,12 @@ class IndexTTS2:
                  dtype: torch.dtype = torch.bfloat16, seed: int = 0,
                  cfg: Optional[IndexTTS2Config] = None,
                  quantization: Optional[str] = None, mesh=None):
-        if quantization not in (None, "int8"):
-            _not_ported(f"quantization={quantization!r} (K1's int8-cache / int4 variants)")
-        if quantization == "int8" and dtype != torch.bfloat16:
-            raise ValueError("quantization='int8' runs kernel K1, which takes bf16 "
+        if quantization is not None and quantization not in QUANTIZATIONS:
+            raise ValueError(f"quantization={quantization!r}: takes None or one of "
+                             f"{sorted(QUANTIZATIONS)} (the weight and cache formats of "
+                             "the decode kernel K1)")
+        if quantization is not None and dtype != torch.bfloat16:
+            raise ValueError(f"quantization={quantization!r} runs kernel K1, which takes bf16 "
                              f"activations and cache; got dtype={dtype}")
         self.quantization = quantization
         if mesh is not None:
@@ -134,12 +144,13 @@ class IndexTTS2:
         """Take JAX-layout parameter trees (keys gpt, s2mel, codec, campplus,
         bigvgan, w2v; optional w2v_mean / w2v_std) through the weight bridge.
         CAMPPlus stays f32; everything else is cast to the pipeline dtype.
-        Under ``quantization="int8"`` the GPT-2 backbone is then quantized,
-        unless the tree handed over already is."""
+        Under a ``quantization`` the GPT-2 backbone is then quantized (int8
+        or int4), unless the tree handed over already is."""
         dev, dt = self.device, self.dtype
         self.gpt_params = to_torch(trees["gpt"], dev, dt)
-        if self.quantization == "int8" and not is_int8(self.gpt_params["gpt"]):
-            self.gpt_params["gpt"] = quantize_gpt2_int8(self.gpt_params["gpt"])
+        if self.quantization and not is_quantized(self.gpt_params["gpt"]):
+            quantize = QUANTIZATIONS[self.quantization][0]
+            self.gpt_params["gpt"] = quantize(self.gpt_params["gpt"])
         self.s2mel_params = to_torch(trees["s2mel"], dev, dt)
         self.codec_params = to_torch(trees["codec"], dev, dt)
         self.bigvgan_params = to_torch(trees["bigvgan"], dev, dt)
@@ -366,10 +377,10 @@ class IndexTTS2:
             return output_path
         return self.SAMPLING_RATE, wav.astype(np.int16).T
 
-    @staticmethod
-    def _sampling(kw: dict) -> SamplingConfig:
-        """The generation kwargs of the reference's `infer` (same defaults);
-        the ones whose paths are not ported raise."""
+    def _sampling(self, kw: dict) -> SamplingConfig:
+        """The generation kwargs of the reference's `infer` (same defaults),
+        with the KV-cache format of the quantization; the kwargs whose paths
+        are not ported raise."""
         if int(kw.get("num_beams", 3)) <= 1:
             _not_ported("num_beams=1 decode (speculative / adaptive sampling)")
         if kw.get("typical_sampling", False):
@@ -384,4 +395,5 @@ class IndexTTS2:
             repetition_penalty=float(kw.get("repetition_penalty", 10.0)),
             num_beams=int(kw.get("num_beams", 3)),
             length_penalty=float(kw.get("length_penalty", 0.0)),
-            min_new_tokens=int(kw.get("min_new_tokens", 0)))
+            min_new_tokens=int(kw.get("min_new_tokens", 0)),
+            kv_quant=bool(self.quantization and QUANTIZATIONS[self.quantization][1]))

@@ -8,8 +8,11 @@ functions consume. Every layout change of the port lives here:
 
 - dense ``{"kernel": (in, out)}`` -> ``{"weight": (out, in)}`` (nn.Linear);
 - weight-only int8 dense ``{"q": (in, out) int8, "scale": (1, out) f32}``
-  -> ``{"q": (out, in) int8, "scale": (out,) f32}``: the int8 values and the
-  f32 scales keep their types (only the bias takes ``dtype``);
+  -> ``{"q": (out, in) int8, "scale": (out,) f32}``, and weight-only int4
+  ``{"q4": (in/2, out) int8}`` -> ``{"q4": (out, in/2) int8}`` (the packed
+  bytes unchanged, so the nibble grouping runs along the last axis): the
+  int8 values and the f32 scales keep their types (only the bias takes
+  ``dtype``);
 - conv1d ``{"kernel": (W, in/g, out)}`` -> ``{"weight": (out, in/g, W)}``;
 - conv-transpose ``{"kernel": (W, in, out)}``, stored flipped for the
   lhs-dilated form -> ``{"weight": (in, out, W)}`` (nn.ConvTranspose1d);
@@ -88,10 +91,11 @@ def to_torch(tree: Any, device=None, dtype: Optional[torch.dtype] = None,
     if not isinstance(tree, dict):
         return _tensor(tree, device, dtype)
     out = {}
-    if "q" in tree:
-        out["q"] = _tensor(tree["q"], device, None).t().contiguous()
-        out["scale"] = _tensor(tree["scale"], device, torch.float32).reshape(-1)
-        tree = {k: v for k, v in tree.items() if k not in ("q", "scale")}
+    for qkey in ("q", "q4"):
+        if qkey in tree:
+            out[qkey] = _tensor(tree[qkey], device, None).t().contiguous()
+            out["scale"] = _tensor(tree["scale"], device, torch.float32).reshape(-1)
+            tree = {k: v for k, v in tree.items() if k not in (qkey, "scale")}
     for key, val in tree.items():
         if key == "kernel":
             out["weight"] = _kernel(_tensor(val, device, dtype),

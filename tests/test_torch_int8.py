@@ -306,9 +306,10 @@ def test_int8_pipeline_refuses_other_dtypes_and_quantizations(tmp_path):
     with pytest.raises(ValueError, match="bf16"):
         IndexTTS2(cfg_path=None, model_dir=str(tmp_path), device="cpu", cfg=tiny_config(),
                   quantization="int8", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="int8kv"):
-        IndexTTS2(cfg_path=None, model_dir=str(tmp_path), device="cpu", cfg=tiny_config(),
-                  quantization="int8kv")
+    for quantization in ("int8kv", "int4", "int4kv"):
+        with pytest.raises(ValueError, match="bf16"):
+            IndexTTS2(cfg_path=None, model_dir=str(tmp_path), device="cpu", cfg=tiny_config(),
+                      quantization=quantization, dtype=torch.float32)
 
 
 def test_int8_decode_route_refuses_batches_past_k1(k1_case):

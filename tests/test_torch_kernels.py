@@ -11,14 +11,19 @@ before PV, online vs whole-row softmax) and <= 1e-2 for K3 (antialias_snake,
 f32 inside, one bf16 rounding at the output); rel-L2 <= 1e-3 for K7a / K7b
 (int8 products, f32 sums in another order) and <= 1e-2 on the hidden state
 for K1 (fused_decode_step), whose ancestry route is bit-identical to the
-physically gathered cache.
+physically gathered cache. The same holds for the int4 GEMVs (int4_matvec,
+int4_mlp) and K1's KVQ (int8 cache) and W4 (int4 weights) variants, whose
+layer-0 written rows are within 1 int8 count and their scale rows within 1
+bf16 ulp of the twin's (the same inputs; the bf16 k/v quantized differ by at
+most an ulp from the f32 summation order).
 """
 
 import pytest
 import torch
 
-from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims, init_gpt2, quantize_gpt2_int8
-from indextts_tpu_torch.nn import InitRng
+from indextts_tpu_torch.models.gpt.gpt2 import (GPT2Dims, init_gpt2, kv_quantize_flat,
+                                                quantize_gpt2_int4, quantize_gpt2_int8)
+from indextts_tpu_torch.nn import InitRng, quantize_dense_int4
 from indextts_tpu_torch.ops import attn, decode_step, int8, snake
 from indextts_tpu_torch.ops.rope import precompute_freqs_cis
 from indextts_tpu_torch.utils.jax_params import to_torch
@@ -116,9 +121,9 @@ def _int8_args(M, K, N, device):
     return x, q, scale, bias
 
 
-def _k1_case(device, B=3, S=256, pos=150, dims=GPT2Dims(2, 640, 10)):
-    params = quantize_gpt2_int8(to_torch(init_gpt2(InitRng(0, device), dims), device,
-                                         torch.bfloat16))
+def _k1_case(device, B=3, S=256, pos=150, dims=GPT2Dims(2, 640, 10),
+             quantize=quantize_gpt2_int8):
+    params = quantize(to_torch(init_gpt2(InitRng(0, device), dims), device, torch.bfloat16))
     g = torch.Generator().manual_seed(1)
     kv = torch.randn((2, dims.layers, B, S, dims.dim), generator=g)
     kv[:, :, :, pos:] = 0
@@ -203,4 +208,105 @@ def test_fused_decode_step_kernel_matches_plain_and_ancestry_is_exact(cuda_devic
     h_gat = decode_step.fused_decode_step(params, x, dims, pos, gathered, valid)
     assert torch.equal(h, h_gat)
     for key in ("k", "v"):
+        assert torch.equal(caches[0][key][:, :, pos], gathered[key][:, :, pos])
+
+
+def _int4_args(M, K, N, device):
+    """x, an int4 weight (N, K/2) from random bf16 values, scale, bias."""
+    x, _, _, bias = _int8_args(M, K, N, device)
+    g = torch.Generator().manual_seed(K + N)
+    p = quantize_dense_int4({"weight": 0.02 * torch.randn((N, K), generator=g)})
+    return x, p["q4"].to(device), p["scale"].to(device), bias
+
+
+def _kvq_cache(kv):
+    """The int8 cache {"k", "v", "kvs"} of a bf16 (2, L, B, S, D) one."""
+    heads = kv.shape[-1] // 64
+    k, v, kvs = kv_quantize_flat(kv[0], kv[1], heads)
+    return {"k": k, "v": v, "kvs": kvs}
+
+
+def _rows_within(got, ref, key):
+    """int8 rows within 1 count, scale rows within 1 bf16 ulp."""
+    if key == "kvs":
+        g, r = got.float(), ref.float()
+        ulp = 2.0 ** (torch.floor(torch.log2(r.abs().clamp_min(1e-30))) - 7)
+        return bool(((g - r).abs() <= ulp).all())
+    return int((got.int() - ref.int()).abs().max()) <= 1
+
+
+def test_cpu_tensors_run_the_int4_and_int8_cache_twins_without_counting():
+    before = (int8.int4_matvec.launches, int8.int4_mlp.launches,
+              decode_step.decode_attention.kvq_launches, decode_step.fused_decode_step.launches)
+    x, q4, scale, bias = _int4_args(3, 64, 48, "cpu")
+    torch.testing.assert_close(int8.int4_matvec(x, q4, scale=scale, bias=bias),
+                               int8.int4_matvec_plain(x, q4, scale=scale, bias=bias))
+    params, dims, x, kv, valid, anc, pos = _k1_case("cpu", S=32, pos=20, dims=GPT2Dims(1, 64, 4),
+                                                    quantize=quantize_gpt2_int4)
+    caches = [_kvq_cache(kv) for _ in range(2)]
+    h = decode_step.fused_decode_step(params, x, dims, pos, caches[0], valid, anc, 3)
+    ref = decode_step.fused_decode_step_plain(params, x, dims, pos, caches[1], valid, anc, 3)
+    assert torch.equal(h, ref)
+    for key in ("k", "v", "kvs"):
+        assert torch.equal(caches[0][key], caches[1][key])
+    assert (int8.int4_matvec.launches, int8.int4_mlp.launches,
+            decode_step.decode_attention.kvq_launches,
+            decode_step.fused_decode_step.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(3, 1280, 3840), (3, 5120, 1280), (24, 1280, 5120),
+                                   (5, 64, 96)])
+def test_int4_matvec_kernel_matches_plain(cuda_device, M, K, N):
+    x, q4, scale, bias = _int4_args(M, K, N, cuda_device)
+    assert bool(((q4 << 4) >> 4).lt(0).any()) and bool((q4 >> 4).lt(0).any())
+    before = int8.int4_matvec.launches
+    out = int8.int4_matvec(x, q4)
+    assert int8.int4_matvec.launches == before + 1
+    assert out.dtype == torch.float32
+    assert rel_l2(out, int8.int4_matvec_plain(x, q4)) <= 1e-3
+    ln = (torch.ones(K, device=cuda_device, dtype=torch.bfloat16),
+          torch.zeros(K, device=cuda_device, dtype=torch.bfloat16))
+    res = torch.randn((M, N), device=cuda_device).to(torch.bfloat16)
+    for kw in (dict(scale=scale, bias=bias), dict(ln=ln, scale=scale, bias=bias),
+               dict(scale=scale, bias=bias, residual=res)):
+        assert rel_l2(int8.int4_matvec(x, q4, **kw), int8.int4_matvec_plain(x, q4, **kw)) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_int4_mlp_kernel_matches_plain(cuda_device):
+    x, w1, s1, b1 = _int4_args(3, 1280, 5120, cuda_device)
+    _, w2, _, _ = _int4_args(3, 5120, 1280, cuda_device)
+    before = int8.int4_mlp.launches
+    out = int8.int4_mlp(x, w1, s1, b1, w2)
+    assert int8.int4_mlp.launches == before + 1
+    assert rel_l2(out, int8.int4_mlp_plain(x, w1, s1, b1, w2)) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["kvq", "w4", "w4-kvq"])
+def test_fused_decode_step_variants_match_plain_and_ancestry_is_exact(cuda_device, variant):
+    kvq = variant.endswith("kvq")
+    quantize = quantize_gpt2_int4 if variant.startswith("w4") else quantize_gpt2_int8
+    params, dims, x, kv, valid, anc, pos = _k1_case(cuda_device, quantize=quantize)
+    make = _kvq_cache if kvq else (lambda t: {"k": t[0].clone(), "v": t[1].clone()})
+    caches = [make(kv) for _ in range(2)]
+    before = (decode_step.fused_decode_step.launches, decode_step.decode_attention.kvq_launches)
+    h = decode_step.fused_decode_step(params, x, dims, pos, caches[0], valid, anc, 3)
+    assert decode_step.fused_decode_step.launches == before[0] + 1
+    assert decode_step.decode_attention.kvq_launches == before[1] + (dims.layers if kvq else 0)
+    ref = decode_step.fused_decode_step_plain(params, x, dims, pos, caches[1], valid, anc, 3)
+    torch.cuda.synchronize()
+    assert rel_l2(h, ref) <= 1e-2
+    for key in caches[0]:
+        if kvq:
+            assert _rows_within(caches[0][key][0, :, pos], caches[1][key][0, :, pos], key)
+        else:
+            assert rel_l2(caches[0][key][:, :, pos], caches[1][key][:, :, pos]) <= 1e-2
+    rows = (torch.arange(3, device=cuda_device)[:, None] // 3) * 3 + anc.long()
+    pos_ix = torch.arange(kv.shape[3], device=cuda_device)[None, :]
+    gathered = {key: t[:, rows, pos_ix].contiguous() for key, t in make(kv).items()}
+    h_gat = decode_step.fused_decode_step(params, x, dims, pos, gathered, valid)
+    assert torch.equal(h, h_gat)
+    for key in caches[0]:
         assert torch.equal(caches[0][key][:, :, pos], gathered[key][:, :, pos])

@@ -166,12 +166,15 @@ def test_unported_paths_raise(torch_tts, model_dir, kwargs, what):
         torch_tts.infer(**kw)
 
 
-@pytest.mark.parametrize("kwargs,what", [({"quantization": "int4"}, "K1"),
+@pytest.mark.parametrize("kwargs,what", [({"quantization": "int3"}, "K1"),
                                          ({"mesh": 2}, "mesh")])
 def test_unported_constructor_options_raise(model_dir, kwargs, what):
+    """An unknown quantization name is refused (ValueError: K1 has no such
+    format); an unported option raises NotImplementedError."""
     from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
 
-    with pytest.raises(NotImplementedError, match=what):
+    exc = ValueError if "quantization" in kwargs else NotImplementedError
+    with pytest.raises(exc, match=what):
         IndexTTS2(cfg_path=None, model_dir=model_dir, device="cpu", cfg=tiny_config(),
                   **kwargs)
 
