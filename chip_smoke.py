@@ -24,7 +24,17 @@
      staggered starts and a random ancestry map (hidden state rel-L2 <= 1e-2;
      written k/v rows of layer 0 within 1 bf16 ulp, of every layer rel-L2 <=
      1e-2), and bit-identical to K1 on the physically gathered cache;
-     yardstick: the port's bf16 `gpt2_decode_step` at the same shape.
+     yardstick: the port's bf16 `gpt2_decode_step` at the same shape; and
+     K1 at group=1 (one row, no ancestry map), the sampling decode's route;
+   - K4 `single_block_attention` at the DiT flash tier's shape (B=2, H=8,
+     D=64, T=1280, transposed (B, T, H, D) views) and at H=16 / D=32 and
+     H=4 / D=128, and K2' `packed_pair_attention` at K2's shapes (rel-L2 <=
+     2e-2; library: SDPA with the boolean key mask); K4 must refuse D=40;
+   - K5 `fused_antialias_activation` and K3' `antialias_activation_prefolded`
+     (on the fold f = 128 // gcd(C, 128)) at K3's six shapes under both
+     logscale values, with K3's gates. K2', K5 and K3' have no caller on the
+     port's pipeline (the JAX package calls them from tests, tools and its
+     unported stage-folded vocoder): their launches are this phase's.
 3. bf16 pipeline pass: `IndexTTS2(cfg_path=None, device="cuda")` at the
    shipped widths with seeded random weights, a synthetic bpe.model and a 5 s
    prompt wav; two single-segment requests with the default generation
@@ -47,19 +57,28 @@
    the twin against itself with f64 instead of f32 sums (the random-weight
    decoder amplifies f32 summation-order noise to about 1e-2 over 24
    layers, so the end-to-end difference is reported, not gated).
-5. Memory-knob passes, the same way: `quantization="int8kv"` (int8 weights,
-   the flat int8 KV cache: K1's KVQ variant) and `"int4"` (nibble-packed int4
-   weights: K1's W4 variant, the int4 GEMVs) with two requests each, the
-   first 8 K1 calls twin-checked as in the int8 pass (the written int8 rows
-   and their scale rows bit-identical), and `"int4kv"` (both) with one
-   request; exact launch counts per pass (the int4 GEMVs replace K7a / K7b,
-   the int8-cache attention replaces the bf16-cache one).
+5. Sampling pass (num_beams=1, `engine/decode.py::generate_adaptive`), int8
+   weights, two requests pinned to 400 codes (the cache grows once, from
+   the 256-code span to 400): K1 once per decode step, every call at
+   group=1 with no ancestry map, the first 8 twin-checked as in the int8
+   pass; the bf16 step and the beam engine never run; one span growth. The
+   second request runs with INDEXTTS_PACKED_ATTN=0, the DiT's flash tier:
+   K4 once per DiT layer and CFG step (13 x 25), K2 never, a finite wav,
+   then every K4 call of the DiT on a small input against its twin; its
+   s2mel stage is printed beside the packed tier's.
+6. Memory-knob passes, the same way as the int8 pass, one request each:
+   `quantization="int8kv"` (int8 weights, the flat int8 KV cache: K1's KVQ
+   variant), `"int4"` (nibble-packed int4 weights: K1's W4 variant, the
+   int4 GEMVs) and `"int4kv"` (both), the first 8 K1 calls twin-checked
+   (the written int8 rows and their scale rows bit-identical); exact launch
+   counts per pass (the int4 GEMVs replace K7a / K7b, the int8-cache
+   attention replaces the bf16-cache one).
    The kernel phase holds the int4 GEMV at the four K7a shapes and the MLP
    (rel-L2 <= 1e-3, yardstick F.linear on the bf16 weight), and K1-KVQ,
    K1-W4 and K1 int4kv at the K1 shape layer by layer against the twin, and
    bit-identical to the same kernel on the gathered cache (scale rows
    gathered too); yardsticks: the int8 K1 and the bf16 step.
-6. Decode profile, after the bf16, int8, int8kv and int4 passes: one
+7. Decode profile, after the bf16, int8 and int8kv passes: one
    request's `generate_beam` (399 steps) timed unprofiled, then under
    `torch.profiler` (its window opens after a discarded warm-up step and
    closes after a pad of spin kernels, on which the records the profiler
@@ -68,7 +87,7 @@
    launches of the port's kernels and of the scorer's top-k equal the
    counters of that run.
 
-Prints per-stage times and RTF beside the card, then (second to last line)
+Each phase prints its elapsed time since the kernel build. Prints per-stage times and RTF beside the card, then (second to last line)
 one JSON object describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero with its
 traceback. Exits 2 without a result when CUDA is unavailable or the port's
@@ -89,6 +108,9 @@ import numpy as np
 SENTENCE = ("the quick brown fox jumps over the lazy dog and runs into "
             "the forest . the dog runs over the lazy fox . ")
 K2_TS = (1280, 2304)                       # prompt bucket + mel bucket
+# K4's head widths: a 512-wide DiT at 8, 16 and 4 heads; the first is the
+# shipped DiT's, the one the flash-tier request runs
+K4_HEADS = ((8, 64), (16, 32), (4, 128))
 MEL_FRAMES = 768                           # the 400-code mel bucket
 K3_SHAPES = ((768, 4), (384, 16), (192, 32), (96, 64), (48, 128), (24, 256))
 K2_REL_L2 = 2e-2                           # the repo's packed_attn_rel_l2 gate
@@ -100,10 +122,13 @@ K3_OPS_PER_ELEMENT = 56                    # 2x6-tap up, 2 snakes, 12-tap down
 # the GPT decoder of the shipped config, and the K1 kernel-phase shape
 K1_L, K1_D, K1_H, K1_ROWS, K1_S, K1_POS = 24, 1280, 20, 3, 512, 300
 BF16_REQUESTS, INT8_REQUESTS = 2, 2
+# the num_beams=1 sampling pass (int8): a twin-checked request on the packed
+# DiT tier, then one on the flash tier (INDEXTTS_PACKED_ATTN=0)
+SAMPLING_REQUESTS = 2
 DECODE_STEPS = 399                         # 400 codes: 399 steps after prefill
 TWIN_CHECKED_STEPS = 8
 # the memory-knob passes: quantization -> (requests, profiled)
-QUANT_PASSES = {"int8kv": (2, True), "int4": (2, True), "int4kv": (1, False)}
+QUANT_PASSES = {"int8kv": (1, True), "int4": (1, True), "int4kv": (1, False)}
 # K1's variants in the kernel phase: name -> (int4 weights, int8 cache)
 K1_VARIANTS = {"fused_decode_step_kvq": (False, True), "fused_decode_step_w4": (True, False),
                "fused_decode_step_w4_kvq": (True, True)}
@@ -298,6 +323,157 @@ def kernel_phase(card: str) -> dict:
     print(f"K3 sum over the six stage shapes: kernel {tot_ms:.4f} ms plain {tot_pms:.4f} ms"
           f" bound {b['bound_ms']:.4f} ms ({b['bound_by']}: {k3_bytes} B, {k3_ops} f32 ops)"
           f" [{card}]", flush=True)
+    return res
+
+
+def attention_kernel_phase(card: str) -> dict:
+    """K4 `single_block_attention` at the DiT flash tier's shape (B=2, H=8,
+    D=64, the q, k, v the DiT hands over: transposed (B, T, H, D) views) and
+    at H=16 / D=32 and H=4 / D=128, and K2' `packed_pair_attention` at K2's
+    shapes, each against its twin (rel-L2 <= 2e-2 over valid query rows);
+    library: SDPA with the boolean key mask. K4's wrapper must refuse a head
+    width of 40. K2' has no pipeline caller (the JAX package calls it from
+    tests and tools only): its launches are this phase's."""
+    import torch
+    import torch.nn.functional as F
+
+    from indextts_tpu_torch.ops.attn import (packed_pair_attention, packed_pair_attention_plain,
+                                             single_block_attention,
+                                             single_block_attention_plain)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    res = {"single_block_attention": {"err": 0.0, "abs": 0.0},
+           "packed_pair_attention": {"err": 0.0, "abs": 0.0}}
+    T = K2_TS[0]
+    lens = torch.tensor([T - 37, T // 2 + 5], device=dev, dtype=torch.int32)
+    key_ok = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    for H, D in K4_HEADS:
+        q, k, v = (torch.randn((2, T, H, D), generator=g, device=dev).to(torch.bfloat16)
+                   .transpose(1, 2) for _ in range(3))
+        out = single_block_attention(q, k, v, lens)
+        ref = single_block_attention_plain(q, k, v, lens)
+        torch.cuda.synchronize()
+        err = max(rel_l2(out[b, :, :L], ref[b, :, :L]) for b, L in enumerate(lens.tolist()))
+        mab = max((out[b, :, :L].float() - ref[b, :, :L].float()).abs().max().item()
+                  for b, L in enumerate(lens.tolist()))
+        ms = time_ms(lambda: single_block_attention(q, k, v, lens))
+        pms = time_ms(lambda: single_block_attention_plain(q, k, v, lens))
+        lms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_ok))
+        b = bound(4 * 2 * T * H * D * 2 + 2 * 4,
+                  sum(4 * H * D * T * L for L in lens.tolist()), BF16_FLOPS)
+        print(f"K4 single_block_attention B=2 H={H} D={D} T={T}: rel_l2 {err:.3e} max_abs "
+              f"{mab:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms SDPA {lms:.4f} ms bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
+        assert err <= K2_REL_L2 and np.isfinite(err), f"K4 rel-L2 {err} at D={D}"
+        r = res["single_block_attention"]
+        r["err"], r["abs"] = max(r["err"], err), max(r["abs"], mab)
+        if (H, D) == K4_HEADS[0]:
+            r.update(ms=ms, plain_ms=pms, library_ms=lms, **b)
+    try:
+        x40 = torch.zeros((1, 8, 64, 40), device=dev, dtype=torch.bfloat16)
+        single_block_attention(x40, x40, x40, lens[:1])
+    except ValueError as e:
+        print(f"K4 refuses head width 40: {e}", flush=True)
+    else:
+        raise AssertionError("K4 took a head width of 40")
+
+    packed_pair_attention.launches = 0
+    H, D = 8, 64
+    for T in K2_TS:
+        q, k, v = (torch.randn((2, T, H * D), generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        lens = torch.tensor([T - 37, T // 2 + 5], device=dev, dtype=torch.int32)
+        out = packed_pair_attention(q, k, v, lens, H)
+        ref = packed_pair_attention_plain(q, k, v, lens, H)
+        torch.cuda.synchronize()
+        err = max(rel_l2(out[b, :L], ref[b, :L]) for b, L in enumerate(lens.tolist()))
+        mab = max((out[b, :L].float() - ref[b, :L].float()).abs().max().item()
+                  for b, L in enumerate(lens.tolist()))
+        ms = time_ms(lambda: packed_pair_attention(q, k, v, lens, H))
+        pms = time_ms(lambda: packed_pair_attention_plain(q, k, v, lens, H))
+        qh, kh, vh = (t.reshape(2, T, H, D).transpose(1, 2) for t in (q, k, v))
+        key_ok = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        lms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=key_ok))
+        b = bound(4 * 2 * T * H * D * 2 + 2 * 4,
+                  sum(4 * H * D * T * L for L in lens.tolist()), BF16_FLOPS)
+        print(f"K2' packed_pair_attention B=2 H={H} D={D} T={T}: rel_l2 {err:.3e} max_abs "
+              f"{mab:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms SDPA {lms:.4f} ms bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
+        assert err <= K2_REL_L2 and np.isfinite(err), f"K2' rel-L2 {err} at T={T}"
+        r = res["packed_pair_attention"]
+        r["err"], r["abs"] = max(r["err"], err), max(r["abs"], mab)
+        if T == K2_TS[0]:
+            r.update(ms=ms, plain_ms=pms, library_ms=lms, **b)
+    res["packed_pair_attention"]["launches"] = packed_pair_attention.launches
+    return res
+
+
+def antialias_entries_phase(card: str) -> dict:
+    """K5 `fused_antialias_activation` and K3' `antialias_activation_prefolded`
+    (both on K3's hand-written kernel) at the six BigVGAN stage shapes with
+    lengths, under both logscale values (linear-scale parameters positive),
+    K3' on the (B, T/f, f*C) fold, f = 128 // gcd(C, 128), each against the
+    plain twin with K3's gates (rel-L2 <= 1e-3, the 4 edge rows within 2
+    bf16 ulps). Timed at logscale=True, summed over the six shapes like K3.
+    Neither has a pipeline caller (K5: the JAX package's tests; K3': its
+    stage-folded vocoder, which is not ported): their launches are this
+    phase's."""
+    import torch
+
+    from indextts_tpu_torch.ops.snake import (antialias_activation_prefolded,
+                                              antialias_snake_plain,
+                                              fused_antialias_activation)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    names = ("fused_antialias_activation", "antialias_activation_prefolded")
+    res = {n: {"err": 0.0, "abs": 0.0, "ms": 0.0, "plain_ms": 0.0} for n in names}
+    fused_antialias_activation.launches = antialias_activation_prefolded.launches = 0
+    nbytes = ops = 0
+    for C, up in K3_SHAPES:
+        T, L = MEL_FRAMES * up, 700 * up
+        f = 128 // math.gcd(C, 128)
+        x = (2 * torch.randn((1, T, C), generator=g, device=dev)).to(torch.bfloat16)
+        lens = torch.tensor([L], device=dev, dtype=torch.int32)
+        for logscale in (True, False):
+            alpha = 0.3 * torch.randn((C,), generator=g, device=dev)
+            beta = 0.3 * torch.randn((C,), generator=g, device=dev)
+            if not logscale:
+                alpha, beta = alpha.exp(), beta.exp()
+            ref = antialias_snake_plain(x, alpha, beta, lens, logscale)
+            outs = {names[0]: fused_antialias_activation(x, alpha, beta, lens, logscale),
+                    names[1]: antialias_activation_prefolded(
+                        x.view(1, T // f, f * C), alpha, beta, f, C, lens,
+                        logscale).view(1, T, C)}
+            torch.cuda.synchronize()
+            for name, out in outs.items():
+                err, edge = rel_l2(out[0, :L], ref[0, :L]), edge_err(out[0], ref[0], L)
+                mab = (out[0, :L].float() - ref[0, :L].float()).abs().max().item()
+                assert err <= K3_REL_L2 and np.isfinite(err), (name, C, logscale, err)
+                assert edge <= 1.0, f"{name} edge rows off by {edge} x 2 ulps at C={C}"
+                r = res[name]
+                r["err"], r["abs"] = max(r["err"], err), max(r["abs"], mab)
+                print(f"{name} B=1 C={C} T={T} L={L} f={f} logscale={logscale}: rel_l2 "
+                      f"{err:.3e} max_abs {mab:.3e} edge rows {edge:.3f} of 2 ulps",
+                      flush=True)
+            if logscale:
+                xf = x.view(1, T // f, f * C)
+                for name, fn in ((names[0], lambda: fused_antialias_activation(
+                        x, alpha, beta, lens)), (names[1], lambda: antialias_activation_prefolded(
+                        xf, alpha, beta, f, C, lens))):
+                    res[name]["ms"] += time_ms(fn)
+                pms = time_ms(lambda: antialias_snake_plain(x, alpha, beta, lens))
+                for name in names:
+                    res[name]["plain_ms"] += pms
+        nbytes += 2 * T * C * 2 + 2 * C * 4
+        ops += K3_OPS_PER_ELEMENT * T * C
+    b = bound(nbytes, ops, F32_FLOPS)
+    for name, fn in zip(names, (fused_antialias_activation, antialias_activation_prefolded)):
+        res[name].update(library_ms=None, launches=fn.launches, **b)
+        print(f"{name} sum over the six stage shapes: kernel {res[name]['ms']:.4f} ms plain "
+              f"{res[name]['plain_ms']:.4f} ms bound {b['bound_ms']:.4f} ms ({b['bound_by']});"
+              f" {fn.launches} launches in this phase [{card}]", flush=True)
     return res
 
 
@@ -506,6 +682,24 @@ def int8_kernel_phase(card: str) -> dict:
     assert gpt2_decode_step.calls > 0                       # the yardstick ran
     res["fused_decode_step"] = dict(err=err, abs=mab, ms=ms, plain_ms=pms, library_ms=None,
                                     bf16_step_ms=yms, **b)
+
+    # K1 at group=1, the sampling decode's route: one row, no ancestry map
+    x1, valid1 = x[:1], valid[:1]
+    c1 = [{k: t[:, :1].clone() for k, t in zip("kv", kv)} for _ in range(2)]
+    h1 = fused_decode_step(params, x1, dims, K1_POS, c1[0], valid1)
+    ref1 = fused_decode_step_plain(params, x1, dims, K1_POS, c1[1], valid1)
+    torch.cuda.synchronize()
+    err, mab = rel_l2(h1, ref1), (h1.float() - ref1.float()).abs().max().item()
+    ms = graph_ms(lambda: fused_decode_step(params, x1, dims, K1_POS, c1[0], valid1))
+    pms = graph_ms(lambda: fused_decode_step_plain(params, x1, dims, K1_POS, c1[0], valid1),
+                   iters=3, replays=2)
+    b = k1_bound(starts[:1], params, 1, K1_S, K1_L, K1_D)
+    print(f"K1 fused_decode_step group=1 L={K1_L} D={K1_D} H={K1_H} B=1 S={K1_S} pos={K1_POS}:"
+          f" hidden rel_l2 {err:.3e} max_abs {mab:.3e}; device: kernel {ms:.4f} ms plain "
+          f"{pms:.4f} ms bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
+    assert err <= K1_REL_L2 and np.isfinite(err), f"K1 group=1 hidden rel-L2 {err}"
+    res["fused_decode_step_g1"] = dict(err=err, abs=mab, ms=ms, plain_ms=pms, library_ms=None,
+                                       **b)
     return res
 
 
@@ -645,26 +839,35 @@ def quant_kernel_phase(card: str, int8_k1: dict) -> dict:
     return res
 
 
-def reference_check(tts, card: str) -> None:
+def reference_check(tts, card: str, flash: bool = False) -> None:
     """The DiT velocity and BigVGAN on a small input with ragged lengths.
     Every kernel call is also run through its plain twin on the same inputs
     as it happens (rel-L2 over valid rows within the kernel-phase bounds,
-    and K3's edge rows within 2 ulps); both outputs must be finite."""
+    and K3's edge rows within 2 ulps); both outputs must be finite. With
+    ``flash`` (INDEXTTS_PACKED_ATTN=0 set by the caller) every DiT layer's
+    attention is K4's, else K2's."""
     import torch
 
+    from indextts_tpu_torch import nn as tnn
     from indextts_tpu_torch.models.s2mel import dit as dit_mod
     from indextts_tpu_torch.models.vocoder import bigvgan as bv_mod
-    from indextts_tpu_torch.ops.attn import attention_rope, attention_rope_plain
+    from indextts_tpu_torch.ops.attn import (attention_rope, attention_rope_plain,
+                                             single_block_attention,
+                                             single_block_attention_plain)
     from indextts_tpu_torch.ops.rope import precompute_freqs_cis
     from indextts_tpu_torch.ops.snake import antialias_snake, antialias_snake_plain
 
-    site = {"attention_rope": 0.0, "antialias_snake": 0.0, "edge": 0.0}
+    names = ("attention_rope", "single_block_attention", "antialias_snake")
+    site = {**{n: 0.0 for n in names}, **{f"{n} calls": 0 for n in names}, "edge": 0.0}
 
     def checked(name, kernel, plain):
         def run(*args):
             out, ref = kernel(*args), plain(*args)
+            site[f"{name} calls"] += 1
             for b, L in enumerate(args[3].tolist()):        # lengths
-                site[name] = max(site[name], rel_l2(out[b, :L], ref[b, :L]))
+                rows = (b, slice(None), slice(0, L)) if name == "single_block_attention" \
+                    else (b, slice(0, L))
+                site[name] = max(site[name], rel_l2(out[rows], ref[rows]))
                 if name == "antialias_snake":
                     site["edge"] = max(site["edge"], edge_err(out[b], ref[b], L))
             return out
@@ -684,8 +887,10 @@ def reference_check(tts, card: str) -> None:
     mel = torch.randn((1, 64, 80), generator=g, device=dev).to(dt)
     mel_lens = torch.tensor([60], device=dev)
 
-    saved = dit_mod.attention_rope, bv_mod.antialias_snake
+    saved = dit_mod.attention_rope, tnn.single_block_attention, bv_mod.antialias_snake
     dit_mod.attention_rope = checked("attention_rope", attention_rope, attention_rope_plain)
+    tnn.single_block_attention = checked("single_block_attention", single_block_attention,
+                                         single_block_attention_plain)
     bv_mod.antialias_snake = checked("antialias_snake", antialias_snake, antialias_snake_plain)
     try:
         with torch.inference_mode():
@@ -693,22 +898,26 @@ def reference_check(tts, card: str) -> None:
                                     cond, fc)
             w = bv_mod.bigvgan_forward(tts.bigvgan_params, cfg.bigvgan, mel, mel_lens)
     finally:
-        dit_mod.attention_rope, bv_mod.antialias_snake = saved
-    print(f"reference check (small input), kernel vs plain twin at every call: rel_l2 "
-          f"attention_rope {site['attention_rope']:.3e}, antialias_snake "
-          f"{site['antialias_snake']:.3e}, K3 edge rows {site['edge']:.3f} of 2 ulps "
-          f"[{card}]", flush=True)
-    assert site["attention_rope"] <= K2_REL_L2 and site["antialias_snake"] <= K3_REL_L2, site
+        dit_mod.attention_rope, tnn.single_block_attention, bv_mod.antialias_snake = saved
+    attn = "single_block_attention" if flash else "attention_rope"
+    print(f"reference check (small input, DiT {'flash' if flash else 'packed'} tier), kernel vs"
+          f" plain twin at every call: rel_l2 {attn} {site[attn]:.3e} over "
+          f"{site[attn + ' calls']} calls, antialias_snake {site['antialias_snake']:.3e}, K3 "
+          f"edge rows {site['edge']:.3f} of 2 ulps [{card}]", flush=True)
+    other = "attention_rope" if flash else "single_block_attention"
+    assert site[f"{attn} calls"] == s2.DiT.depth and site[f"{other} calls"] == 0, site
+    assert site[attn] <= K2_REL_L2 and site["antialias_snake"] <= K3_REL_L2, site
     assert site["edge"] <= 1.0, site
     assert bool(torch.isfinite(v).all()) and bool(torch.isfinite(w[0, :60 * 256]).all())
 
 
-def run_requests(tts, prompt: str, n: int, card: str, label: str) -> list:
-    """``n`` requests pinned to 400 codes; checks and prints each."""
+def run_requests(tts, prompt: str, n: int, card: str, label: str, **kwargs) -> list:
+    """``n`` requests pinned to 400 codes, with the generation ``kwargs``;
+    checks and prints each."""
     reports = []
     for i in range(n):
         sr, wav = tts.infer(spk_audio_prompt=prompt, text=SENTENCE, output_path=None,
-                            max_mel_tokens=400, min_new_tokens=399)
+                            max_mel_tokens=400, min_new_tokens=399, **kwargs)
         st = dict(tts.last_stage_times)
         clen = st["codes"]
         expect = int(np.float32(clen) * np.float32(1.72)) * 256
@@ -725,41 +934,47 @@ def run_requests(tts, prompt: str, n: int, card: str, label: str) -> list:
 def kernel_counters() -> dict:
     """Every launch counter of the port's kernels, by kernel name: (object,
     attribute)."""
-    from indextts_tpu_torch.ops.attn import attention_rope
+    from indextts_tpu_torch.ops.attn import (attention_rope, packed_pair_attention,
+                                             single_block_attention)
     from indextts_tpu_torch.ops.decode_step import decode_attention, fused_decode_step
     from indextts_tpu_torch.ops.int8 import int4_matvec, int4_mlp, int8_matvec, int8_mlp
-    from indextts_tpu_torch.ops.snake import antialias_snake
+    from indextts_tpu_torch.ops.snake import (antialias_activation_prefolded, antialias_snake,
+                                              fused_antialias_activation)
 
     counters = {f.__name__: (f, "launches") for f in (
-        attention_rope, antialias_snake, fused_decode_step, int8_matvec, int8_mlp,
-        int4_matvec, int4_mlp, decode_attention)}
+        attention_rope, single_block_attention, packed_pair_attention, antialias_snake,
+        fused_antialias_activation, antialias_activation_prefolded, fused_decode_step,
+        int8_matvec, int8_mlp, int4_matvec, int4_mlp, decode_attention)}
     counters["decode_attention_kvq"] = (decode_attention, "kvq_launches")
     return counters
 
 
 def reset_counts() -> None:
-    from indextts_tpu_torch.engine import beam
+    from indextts_tpu_torch.engine import beam, decode
     from indextts_tpu_torch.models.gpt.gpt2 import gpt2_decode_step
 
     for f, attr in kernel_counters().values():
         setattr(f, attr, 0)
     gpt2_decode_step.calls = 0
     beam.kv_gathers = 0
+    decode.span_growths = 0
 
 
 def read_counts() -> dict:
-    from indextts_tpu_torch.engine import beam
+    from indextts_tpu_torch.engine import beam, decode
     from indextts_tpu_torch.models.gpt.gpt2 import gpt2_decode_step
 
     counts = {name: getattr(f, attr) for name, (f, attr) in kernel_counters().items()}
-    counts.update(gpt2_decode_step=gpt2_decode_step.calls, kv_gathers=beam.kv_gathers)
+    counts.update(gpt2_decode_step=gpt2_decode_step.calls, kv_gathers=beam.kv_gathers,
+                  span_growths=decode.span_growths)
     return counts
 
 
 # spin kernels after the profiled run, inside the profiler's window: the
 # profiler can drop the last records of a window (measured on the card: up to
-# the last 9 layer steps of a 399-step decode), so the drop falls on these
-PROFILE_PAD_LAUNCHES = 4000
+# the last 9 steps of a 399-step decode in one run, the last 57 steps, some
+# 22,000 records with the pad, in another), so the drop falls on these
+PROFILE_PAD_LAUNCHES = 40000
 
 
 def _spin_pad() -> None:
@@ -804,6 +1019,7 @@ def profile_decode(tts, prompt: str, card: str, label: str) -> None:
         t0 = time.perf_counter()
         run()
         walls.append(time.perf_counter() - t0)
+    t_prof = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         _spin_pad()
@@ -813,14 +1029,26 @@ def profile_decode(tts, prompt: str, card: str, label: str) -> None:
         counts = read_counts()
         _spin_pad()
         prof.step()
-    device = [e for e in prof.key_averages() if e.self_device_time_total > 0
-              and str(e.device_type).endswith("CUDA") and "spin_kernel" not in e.key]
-    kernels = [e for e in device if not e.key.startswith(("Memcpy", "Memset"))]
-    device_s = sum(e.self_device_time_total for e in device) / 1e6
-    launches = sum(e.count for e in kernels)
+    # the window's raw device records, summed by name here: `key_averages()`
+    # builds a Python event object for every record first, which cost the
+    # bf16 pass, ~400,000 launches in its window, about half its time
+    t_parse = time.perf_counter()
+    by_name: dict = {}                                   # name -> [count, device ns]
+    for e in prof.profiler.kineto_results.events():
+        ns = e.duration_ns()
+        if ns <= 0 or not str(e.device_type()).endswith("CUDA") or "spin_kernel" in e.name():
+            continue
+        acc = by_name.setdefault(e.name(), [0, 0])
+        acc[0] += 1
+        acc[1] += ns
+    t_parse = time.perf_counter() - t_parse
+    device = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    kernels = [(k, v) for k, v in device if not k.startswith(("Memcpy", "Memset"))]
+    device_s = sum(ns for _, (_, ns) in device) / 1e9
+    launches = sum(n for _, (n, _) in kernels)
 
     def recorded(name):
-        return sum(e.count for e in kernels if name in e.key)
+        return sum(n for k, (n, _) in kernels if name in k)
 
     # each scorer step (the prefill's and the 399 decode steps') calls
     # torch.topk twice: the top-k warper and the candidate draw
@@ -831,15 +1059,14 @@ def profile_decode(tts, prompt: str, card: str, label: str) -> None:
             + 2 * (counts["int8_mlp"] + counts["int4_mlp"]),
             "attention": counts["decode_attention"] + counts["decode_attention_kvq"],
             "topk": 2 * (DECODE_STEPS + 1)}
-    top = sorted(device, key=lambda e: -e.self_device_time_total)[:6]
     print(f"{label} decode profile ({DECODE_STEPS} steps): wall {min(walls):.4f} s unprofiled "
           f"(runs {walls[0]:.4f}, {walls[1]:.4f}), device time {device_s:.4f} s, busy "
           f"{100 * device_s / min(walls):.1f} %, {launches} launches "
           f"({launches / DECODE_STEPS:.0f} per step); recorded launches {got}, counters "
-          f"{want} [{card}]", flush=True)
-    for e in top:
-        print(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} x  {e.key[:90]}",
-              flush=True)
+          f"{want}; profiled window and records read in {time.perf_counter() - t_prof:.1f} s "
+          f"(reading {t_parse:.1f} s) [{card}]", flush=True)
+    for key, (n, ns) in device[:6]:
+        print(f"    {ns / 1e6:9.2f} ms {n:7d} x  {key[:90]}", flush=True)
     assert got == want, f"{label} profile recorded {got}, the counters say {want}"
 
 
@@ -879,7 +1106,9 @@ def want_counts(tts, quantization: str, n: int) -> dict:
     """The launches ``n`` requests of a quantized pass must make: K1 once a
     decode step; per layer and step the int8 or int4 GEMVs (qkv and
     attn-proj, and the MLP) and the bf16- or int8-cache attention; K2 / K3
-    as in the bf16 pass; no bf16 step and no cache gather."""
+    as in the bf16 pass; no bf16 step, no cache gather, no cache growth
+    (the beam engine sizes its cache once), and none of the kernels without
+    a caller on this path."""
     from indextts_tpu_torch.models.vocoder.bigvgan import activation1d_calls
 
     steps, L = n * DECODE_STEPS, tts.cfg.gpt.layers
@@ -891,33 +1120,25 @@ def want_counts(tts, quantization: str, n: int) -> dict:
             "int4_matvec": 2 * L * steps if w4 else 0, "int4_mlp": L * steps if w4 else 0,
             "decode_attention": 0 if kvq else L * steps,
             "decode_attention_kvq": L * steps if kvq else 0,
-            "gpt2_decode_step": 0, "kv_gathers": 0}
+            "single_block_attention": 0, "packed_pair_attention": 0,
+            "fused_antialias_activation": 0, "antialias_activation_prefolded": 0,
+            "gpt2_decode_step": 0, "kv_gathers": 0, "span_growths": 0}
 
 
-def quant_pipeline_phase(card: str, prompt: str, model_dir: str, quantization: str,
-                         n_requests: int, profiled: bool) -> dict:
-    """A quantized pass (int8, int8kv, int4 or int4kv): ``n_requests``
-    requests through K1 with the ancestry map; the first 8 K1 calls held
-    against the twin at the call site."""
-    import torch
-
+def k1_twin_check():
+    """A ``decode_check`` hook that holds the first 8 K1 calls against the
+    twin on the same inputs, layer by layer (`twin_by_layer`), and puts the
+    24-layer chain of the twin with f32 and with f64 sums beside it; and
+    the ``site`` dict it fills (``groups`` records every call's group and
+    whether it had an ancestry map)."""
     from indextts_tpu_torch import nn
-    from indextts_tpu_torch.engine import beam
     from indextts_tpu_torch.ops.decode_step import TWINS, decode_layer
-    from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
 
-    t0 = time.perf_counter()
-    tts = IndexTTS2(cfg_path=None, model_dir=model_dir, device="cuda", seed=0,
-                    quantization=quantization)
-    torch.cuda.synchronize()
-    print(f"{quantization} model build (random weights, shipped widths): "
-          f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
     site = {"n": 0, "layer": 0.0, "hidden": 0.0, "rows_exact": True, "chain": 0.0,
-            "floor": 0.0}
+            "floor": 0.0, "groups": set()}
 
     def check(args, h):
-        """Twin on the same inputs, layer by layer (`twin_by_layer`), and the
-        24-layer chain of the twin with f32 and with f64 sums."""
+        site["groups"].add((args["group"], args["anc"] is not None))
         if site["n"] >= TWIN_CHECKED_STEPS:
             return
         site["n"] += 1
@@ -938,6 +1159,39 @@ def quant_pipeline_phase(card: str, prompt: str, model_dir: str, quantization: s
         site["chain"] = max(site["chain"], rel_l2(h, chains[0]))
         site["floor"] = max(site["floor"], rel_l2(chains[1], chains[0]))
 
+    return site, check
+
+
+def report_k1_twin_check(site: dict, label: str, card: str) -> None:
+    print(f"{label} twin check of the first {site['n']} K1 calls, layer by layer on the "
+          f"kernel path's inputs: layer outputs rel_l2 <= {site['layer']:.3e}, hidden after "
+          f"ln_f {site['hidden']:.3e}, written rows bit-identical to the twin's write of the "
+          f"kernel's qkv: {site['rows_exact']}; the 24-layer chain of the twin: "
+          f"{site['chain']:.3e} "
+          f"(noise floor, twin with f64 against f32 sums: {site['floor']:.3e}) [{card}]",
+          flush=True)
+    assert site["n"] == TWIN_CHECKED_STEPS, site
+    assert site["layer"] <= K1_REL_L2 and site["hidden"] <= K1_REL_L2, site
+    assert site["rows_exact"], site
+
+
+def quant_pipeline_phase(card: str, prompt: str, model_dir: str, quantization: str,
+                         n_requests: int, profiled: bool) -> dict:
+    """A quantized pass (int8, int8kv, int4 or int4kv): ``n_requests``
+    requests through K1 with the ancestry map; the first 8 K1 calls held
+    against the twin at the call site."""
+    import torch
+
+    from indextts_tpu_torch.engine import beam
+    from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
+
+    t0 = time.perf_counter()
+    tts = IndexTTS2(cfg_path=None, model_dir=model_dir, device="cuda", seed=0,
+                    quantization=quantization)
+    torch.cuda.synchronize()
+    print(f"{quantization} model build (random weights, shipped widths): "
+          f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+    site, check = k1_twin_check()
     reset_counts()
     tts.decode_check = check
     run_requests(tts, prompt, 1, card, f"{quantization} (first 8 K1 steps twin-checked)")
@@ -947,20 +1201,75 @@ def quant_pipeline_phase(card: str, prompt: str, model_dir: str, quantization: s
     want = want_counts(tts, quantization, n_requests)
     print(f"launches over {n_requests} {quantization} requests: {counts} (expect {want}); "
           f"ancestry route: {beam.last_use_anc}", flush=True)
-    print(f"{quantization} twin check of the first {site['n']} K1 calls, layer by layer on the "
-          f"kernel path's inputs: layer outputs rel_l2 <= {site['layer']:.3e}, hidden after "
-          f"ln_f {site['hidden']:.3e}, written rows bit-identical to the twin's write of the "
-          f"kernel's qkv: {site['rows_exact']}; the 24-layer chain of the twin: "
-          f"{site['chain']:.3e} "
-          f"(noise floor, twin with f64 against f32 sums: {site['floor']:.3e}) [{card}]",
-          flush=True)
+    report_k1_twin_check(site, quantization, card)
     assert counts == want, (counts, want)
-    assert beam.last_use_anc is True
-    assert site["n"] == TWIN_CHECKED_STEPS, site
-    assert site["layer"] <= K1_REL_L2 and site["hidden"] <= K1_REL_L2, site
-    assert site["rows_exact"], site
+    assert beam.last_use_anc is True and site["groups"] == {(3, True)}, site["groups"]
     if profiled:
         profile_decode(tts, prompt, card, quantization)
+    del tts
+    torch.cuda.empty_cache()
+    return counts
+
+
+def sampling_pipeline_phase(card: str, prompt: str, model_dir: str) -> dict:
+    """The num_beams=1 sampling decode (`engine/decode.py::
+    generate_adaptive`) with int8 weights, two requests pinned to 400 codes,
+    so the cache grows once (the 256-code span, then 400). Request 1, on
+    the packed DiT tier: K1 once a decode step, every call at group=1
+    without an ancestry map, the first 8 held against the twin layer by
+    layer; the bf16 step and the beam engine never run; one span growth.
+    Request 2 with INDEXTTS_PACKED_ATTN=0, the DiT's flash tier: the same,
+    with K4 once per DiT layer and CFG step and K2 never; then every K4
+    call of the DiT on a small input against its twin. Returns the counts
+    of each request."""
+    import torch
+
+    from indextts_tpu_torch.engine import beam, decode
+    from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
+
+    t0 = time.perf_counter()
+    tts = IndexTTS2(cfg_path=None, model_dir=model_dir, device="cuda", seed=0,
+                    quantization="int8")
+    torch.cuda.synchronize()
+    print(f"int8 model build for the sampling pass: {time.perf_counter() - t0:.2f} s [{card}]",
+          flush=True)
+    dit_calls = tts.cfg.s2mel.DiT.depth * 25            # depth x CFG-stacked Euler steps
+    site, check = k1_twin_check()
+    beam.last_use_anc = None
+    reset_counts()
+    tts.decode_check = check
+    packed = run_requests(tts, prompt, 1, card, "int8 num_beams=1 (packed DiT tier; first 8 K1 "
+                          "steps twin-checked)", num_beams=1)[0]
+    tts.decode_check = None
+    counts = {"sampling": read_counts()}
+    want = want_counts(tts, "int8", 1)
+    want["span_growths"] = 1
+    print(f"launches of the num_beams=1 request: {counts['sampling']} (expect {want}); decode "
+          f"route {decode.last_route}, K1 calls (group, ancestry map): {site['groups']}",
+          flush=True)
+    report_k1_twin_check(site, "int8 num_beams=1", card)
+    assert counts["sampling"] == want, (counts["sampling"], want)
+    assert decode.last_route == "fused" and site["groups"] == {(1, False)}, site["groups"]
+    assert beam.last_use_anc is None                    # the beam engine never ran
+
+    saved = os.environ.get("INDEXTTS_PACKED_ATTN")
+    os.environ["INDEXTTS_PACKED_ATTN"] = "0"
+    try:
+        reset_counts()
+        flash = run_requests(tts, prompt, 1, card, "int8 num_beams=1, DiT flash tier (K4)",
+                             num_beams=1)[0]
+        counts["flash"] = read_counts()
+        reference_check(tts, card, flash=True)
+    finally:
+        if saved is None:
+            del os.environ["INDEXTTS_PACKED_ATTN"]
+        else:
+            os.environ["INDEXTTS_PACKED_ATTN"] = saved
+    want.update(attention_rope=0, single_block_attention=dit_calls)
+    print(f"launches of the flash-tier request: {counts['flash']} (expect {want}); s2mel stage "
+          f"flash tier (K4) {flash['s2mel']:.4f} s against packed tier (K2) "
+          f"{packed['s2mel']:.4f} s [{card}]", flush=True)
+    assert counts["flash"] == want, (counts["flash"], want)
     del tts
     torch.cuda.empty_cache()
     return counts
@@ -994,6 +1303,8 @@ def main() -> int:
         print(f"-- {what} at {time.perf_counter() - t0:.1f} s", flush=True)
 
     kres = kernel_phase(card)
+    kres.update(attention_kernel_phase(card))
+    kres.update(antialias_entries_phase(card))
     kres.update(int8_kernel_phase(card))
     kres.update(quant_kernel_phase(card, kres["fused_decode_step"]))
     mark("kernel phase done")
@@ -1003,6 +1314,8 @@ def main() -> int:
         mark("bf16 pass done")
         counts["int8"] = quant_pipeline_phase(card, prompt, d, "int8", INT8_REQUESTS, True)
         mark("int8 pass done")
+        counts.update(sampling_pipeline_phase(card, prompt, d))
+        mark("sampling pass done")
         for quantization, (n, profiled) in QUANT_PASSES.items():
             counts[quantization] = quant_pipeline_phase(card, prompt, d, quantization, n,
                                                         profiled)
@@ -1011,7 +1324,8 @@ def main() -> int:
     assert not any(m == "indextts_tpu" or m.startswith("indextts_tpu.") for m in sys.modules)
 
     k1 = "decode_step.py:460"
-    # name, counter, source, TPU kernel replaced, the pass whose launches count
+    # name, counter, source, TPU kernel replaced, the pass whose launches
+    # count (None: no pipeline caller, the kernel phase's launches)
     specs = (("attention_rope", "attention_rope", "attention_rope.cu", "attn.py:188", "bf16"),
              ("antialias_snake", "antialias_snake", "antialias_snake.cu", "antialias.py:269",
               "bf16"),
@@ -1025,14 +1339,25 @@ def main() -> int:
              ("fused_decode_step_w4_kvq", "fused_decode_step", "decode_attention.cu",
               f"{k1} (W4, KVQ)", "int4kv"),
              ("int4_matvec", "int4_matvec", "int8_gemv.cu", f"{k1} (W4)", "int4"),
-             ("int4_mlp", "int4_mlp", "int8_gemv.cu", f"{k1} (W4)", "int4"))
+             ("int4_mlp", "int4_mlp", "int8_gemv.cu", f"{k1} (W4)", "int4"),
+             ("fused_decode_step_g1", "fused_decode_step", "decode_attention.cu",
+              f"{k1} (group=1)", "sampling"),
+             ("single_block_attention", "single_block_attention", "attention_block.cu",
+              "attn.py:253", "flash"),
+             ("packed_pair_attention", None, "attention_rope.cu", "attn.py:76", None),
+             ("fused_antialias_activation", None, "antialias_snake.cu", "antialias.py:457",
+              None),
+             ("antialias_activation_prefolded", None, "antialias_snake.cu", "antialias.py:322",
+              None))
     kernels = []
     for name, counter, src, tpu, pass_ in specs:
         r = kres[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"indextts_tpu_torch/csrc/{src}",
                         "replaces": f"indextts_tpu/ops/pallas/{tpu}",
-                        "launches": counts[pass_][counter], "max_abs_err": r["abs"],
+                        "launches": r["launches"] if pass_ is None else counts[pass_][counter],
+                        "launched_in": pass_ or "kernel phase (no pipeline caller)",
+                        "max_abs_err": r["abs"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     assert all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels), kernels

@@ -25,6 +25,14 @@
 // for its rows plus a 3-row halo in f32, applies the edge replication and
 // the lowpass, and writes bf16 once: the 2x-rate signal never touches
 // device memory.
+//
+// The same kernel serves two more TPU kernels' entries, with a `logscale`
+// flag (alpha and beta taken as they are, or as logs): K5
+// fused_antialias_activation (ops/pallas/antialias.py:457, K3's math on
+// unfolded (T, C) tiles) and K3' fused_antialias_prefolded (:322, K3 on a
+// (B, T/f, f*C) stream that is, row-major, the very (B, T, C) tensor). On
+// this card the three compute the same function on the same bytes; the TPU
+// kept separate kernels only to fill its 128 lanes in different ways.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,7 +58,7 @@ antialias_snake_kernel(const bf16* __restrict__ x,
                        const float* __restrict__ beta,
                        const int* __restrict__ lengths,
                        const float* __restrict__ taps, bf16* __restrict__ out,
-                       int T, int C) {
+                       int T, int C, int logscale) {
   __shared__ float xs[XR][CG];
   __shared__ float s0[SR][CG];
   __shared__ float s1[SR][CG];
@@ -72,8 +80,8 @@ antialias_snake_kernel(const bf16* __restrict__ x,
   for (int j = 0; j < 12; ++j) g[j] = taps[12 + j];
   float a = 0.f, bb = 1.f;
   if (cok) {
-    a = expf(alpha[c]);
-    bb = expf(beta[c]) + 1e-9f;
+    a = logscale ? expf(alpha[c]) : alpha[c];
+    bb = (logscale ? expf(beta[c]) : beta[c]) + 1e-9f;
   }
   auto xrep = [&](int i) -> float {
     const int j = min(max(i, 0), L - 1);
@@ -132,19 +140,20 @@ antialias_snake_kernel(const bf16* __restrict__ x,
 
 }  // namespace
 
-// x, out: (B, T, C) bf16, contiguous; alpha, beta: (C,) f32 (log scale);
-// lengths: (B,) int32; taps: 24 f32 = [2 f[0::2] | 2 f[1::2] | g].
-// Returns cudaGetLastError() after the launch.
+// x, out: (B, T, C) bf16, contiguous; alpha, beta: (C,) f32 (logs when
+// logscale != 0); lengths: (B,) int32; taps: 24 f32 = [2 f[0::2] | 2 f[1::2]
+// | g]. Returns cudaGetLastError() after the launch.
 extern "C" int antialias_snake_launch(const void* x, const void* alpha,
                                       const void* beta, const void* lengths,
                                       const void* taps, void* out, int B,
-                                      int T, int C, void* stream) {
+                                      int T, int C, int logscale,
+                                      void* stream) {
   if (B < 1 || T < 1 || C < 1) return (int)cudaErrorInvalidValue;
   dim3 grid((T + TT - 1) / TT, (C + CG - 1) / CG, B);
   dim3 block(CG, TY);
   antialias_snake_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(alpha),
       static_cast<const float*>(beta), static_cast<const int*>(lengths),
-      static_cast<const float*>(taps), static_cast<bf16*>(out), T, C);
+      static_cast<const float*>(taps), static_cast<bf16*>(out), T, C, logscale);
   return (int)cudaGetLastError();
 }

@@ -23,6 +23,11 @@
 // replaces the TPU kernel's whole-row softmax, so any T works: the ragged
 // last tile is zero-filled and masked, and key tiles wholly past the row's
 // length are skipped. Later work: wgmma + TMA pipelines.
+//
+// K2' (the ROPE=false instantiation, `packed_attention_launch`) replaces
+// indextts_tpu/ops/pallas/attn.py::packed_pair_attention, the same kernel
+// without the rope: q and k tiles are loaded as they are, and everything
+// else (p rounded to bf16 unnormalized, the divide after PV) is unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,6 +81,7 @@ __device__ void load_tile(bf16* s, const bf16* __restrict__ src,
   }
 }
 
+template <bool ROPE>
 __global__ void __launch_bounds__(THREADS)
 attention_rope_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
@@ -101,7 +107,7 @@ attention_rope_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int row = lane % 16;          // a lane owns half of one query row
   const int c0 = (lane / 16) * 32;
 
-  load_tile(sQ, q, cosv, sinv, b, h, q0, T, HD, true);
+  load_tile(sQ, q, cosv, sinv, b, h, q0, T, HD, ROPE);
 
   float o[32];
 #pragma unroll
@@ -110,7 +116,7 @@ attention_rope_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();  // sQ written / previous sK, sV consumed
-    load_tile(sK, k, cosv, sinv, b, h, kt * BK, T, HD, true);
+    load_tile(sK, k, cosv, sinv, b, h, kt * BK, T, HD, ROPE);
     load_tile(sV, v, cosv, sinv, b, h, kt * BK, T, HD, false);
     __syncthreads();
 
@@ -187,6 +193,25 @@ attention_rope_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <bool ROPE>
+int launch(const void* q, const void* k, const void* v, const void* lengths,
+           const void* cosv, const void* sinv, void* out, int B, int T, int H,
+           int Dh, float scale, void* stream) {
+  if (Dh != D || B < 1 || T < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_rope_kernel<ROPE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((T + BQ - 1) / BQ, H, B);
+  attention_rope_kernel<ROPE><<<grid, THREADS, SMEM_BYTES,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const int*>(lengths),
+      static_cast<const float*>(cosv), static_cast<const float*>(sinv),
+      static_cast<bf16*>(out), T, H, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, out: (B, T, H*D) bf16, contiguous; lengths: (B,) int32;
@@ -196,17 +221,15 @@ extern "C" int attention_rope_launch(const void* q, const void* k,
                                      const void* cosv, const void* sinv,
                                      void* out, int B, int T, int H, int Dh,
                                      float scale, void* stream) {
-  if (Dh != D || B < 1 || T < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_rope_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + BQ - 1) / BQ, H, B);
-  attention_rope_kernel<<<grid, THREADS, SMEM_BYTES,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int*>(lengths),
-      static_cast<const float*>(cosv), static_cast<const float*>(sinv),
-      static_cast<bf16*>(out), T, H, scale);
-  return (int)cudaGetLastError();
+  return launch<true>(q, k, v, lengths, cosv, sinv, out, B, T, H, Dh, scale,
+                      stream);
+}
+
+// K2': the same without the rope (no cos/sin tables).
+extern "C" int packed_attention_launch(const void* q, const void* k,
+                                       const void* v, const void* lengths,
+                                       void* out, int B, int T, int H, int Dh,
+                                       float scale, void* stream) {
+  return launch<false>(q, k, v, lengths, nullptr, nullptr, out, B, T, H, Dh,
+                       scale, stream);
 }

@@ -48,8 +48,9 @@ import numpy as np
 import torch
 
 from indextts_tpu_torch.config import GPTConfig
-from indextts_tpu_torch.engine.decode import (SamplingConfig, StepCheck, _cache_len,
-                                              _embed_mel_token, decode_route, decode_step)
+from indextts_tpu_torch.engine.decode import (_DONE_POLL, SamplingConfig, StepCheck,
+                                              _cache_len, _embed_mel_token, decode_route,
+                                              decode_step)
 from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims, gpt2_prefill, init_kv_cache
 from indextts_tpu_torch.models.gpt.unified_voice import mel_logits_from_hidden
 from indextts_tpu_torch.nn import Params
@@ -156,11 +157,6 @@ def _hyps_done(cand_max, hyp_scores, step: int, *, norm):
     the worst no lower than the step's best candidate at the current length."""
     return (torch.isfinite(hyp_scores).all(1)
             & (hyp_scores.min(1).values >= norm(cand_max, step)))
-
-
-# steps between two reads of the all-rows-done flag (the decode loop's only
-# device->host copy)
-_DONE_POLL = 8
 
 
 @torch.no_grad()

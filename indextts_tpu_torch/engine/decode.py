@@ -1,35 +1,62 @@
-"""Decode-engine pieces the beam engine uses (PyTorch counterpart of the
-matching parts of `indextts_tpu/engine/decode.py`).
+"""The decode engine (PyTorch counterpart of `indextts_tpu/engine/decode.py`):
+the decode route and step that every engine takes, and the sampling decode
+of ``num_beams=1`` (`generate`, `generate_adaptive`: HF's `_sample`).
 
 Reference quirks kept: mel position indices during incremental decode are
 [0] for start_mel and i + 2 for the i-th generated token; HF's repetition
 penalty sees the fake prefix ids (all 1s plus start_mel), so token 1 and
 start_mel are penalized from the first step.
+
+The JAX engine runs a span of steps as one device loop that exits when every
+row has emitted stop_mel. Eagerly, that exit is a host read: the port reads
+the all-rows-done flag once every ``_DONE_POLL`` steps inside a span (and
+once per span in `generate_adaptive`); a finished row is inert (it emits
+stop_mel and counts nothing), so the steps run past the JAX loop's exit
+change no token. ``span_growths`` counts the cache growths of
+`generate_adaptive`, ``last_route`` the decode route of the last sampling
+decode.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims, gpt2_decode_step, is_quantized
+from indextts_tpu_torch.config import GPTConfig
+from indextts_tpu_torch.models.gpt.gpt2 import (GPT2Dims, gpt2_decode_step, gpt2_prefill,
+                                                init_kv_cache, is_quantized)
+from indextts_tpu_torch.models.gpt.unified_voice import mel_logits_from_hidden
 from indextts_tpu_torch.nn import Params
 from indextts_tpu_torch.ops.decode_step import fused_decode_step
 from indextts_tpu_torch.ops.int8 import MAX_ROWS
+from indextts_tpu_torch.ops.sampling import sample_logits
+
+# steps between two reads of the all-rows-done flag (the decode loops' only
+# device->host copy)
+_DONE_POLL = 8
+
+# cache growths made by `generate_adaptive`, and the route of the last
+# sampling decode ("fused": K1 at group=1; "plain": gpt2_decode_step)
+span_growths = 0
+last_route = None
 
 
 @dataclass(frozen=True)
 class SamplingConfig:
-    """The generation kwargs of `IndexTTS2.infer` that the port's beam
-    engine honours (HF semantics)."""
+    """The generation kwargs of `IndexTTS2.infer` that the port's engines
+    honour (HF semantics; the beam engine ignores the typical warper, as
+    the JAX one does)."""
 
     do_sample: bool = True
     temperature: float = 0.8
     top_k: int = 30
     top_p: float = 0.8
     repetition_penalty: float = 10.0
+    typical_sampling: bool = False
+    typical_mass: float = 0.9
     num_beams: int = 3
     length_penalty: float = 0.0
     min_new_tokens: int = 0
@@ -92,3 +119,161 @@ def decode_step(route: str, params: Params, x: torch.Tensor, dims: GPT2Dims, pos
             check(args, h)
         return h
     return gpt2_decode_step(params["gpt"], x, dims, pos, kv, kv_valid)
+
+
+# ---------------------------------------------------------------------------
+# the sampling decode (num_beams=1)
+# ---------------------------------------------------------------------------
+
+def _min_len_mask(logits: torch.Tensor, stop: int, step: int,
+                  min_new_tokens: int) -> torch.Tensor:
+    """HF `MinNewTokensLengthLogitsProcessor`: the stop token is unreachable
+    until ``min_new_tokens`` codes have been generated; ``step`` is the
+    index of the token about to be sampled (0 = the first new token)."""
+    if step >= min_new_tokens:
+        return logits
+    logits = logits.clone()
+    logits[:, stop] = float("-inf")
+    return logits
+
+
+def _sample(generator: torch.Generator, logits: torch.Tensor, counts: torch.Tensor,
+            sampling: SamplingConfig) -> torch.Tensor:
+    return sample_logits(generator, logits, counts, temperature=sampling.temperature,
+                         top_k=sampling.top_k, top_p=sampling.top_p,
+                         repetition_penalty=sampling.repetition_penalty,
+                         do_sample=sampling.do_sample,
+                         typical_mass=sampling.typical_mass if sampling.typical_sampling
+                         else None)
+
+
+@dataclass
+class DecodeState:
+    """The sampling decode between steps; ``step`` is the index of the next
+    token to sample (token 0 comes from the prefill's logits)."""
+    step: int
+    tokens: torch.Tensor        # (B, max_new_tokens) int64, stop-padded
+    counts: torch.Tensor        # (B, V) int32 repetition counts
+    kv: Dict[str, torch.Tensor]
+    kv_valid: torch.Tensor      # (B, S) bool
+    finished: torch.Tensor      # (B,) bool
+    lengths: torch.Tensor       # (B,) int64: index of the first stop token
+    route: str
+
+
+def _prefill_state(params: Params, cfg: GPTConfig, dims: GPT2Dims,
+                   prefix_embeds: torch.Tensor, prefix_mask: torch.Tensor,
+                   generator: torch.Generator, max_new_tokens: int, span_end: int,
+                   sampling: SamplingConfig, dtype) -> DecodeState:
+    """Prefill [prefix][start_mel] into a cache sized for ``span_end``
+    generated tokens, and sample token 0."""
+    B, P, _ = prefix_embeds.shape
+    dev, stop = prefix_embeds.device, cfg.stop_mel_token
+    route = decode_route(params, B, sampling.kv_quant)
+    start = torch.full((B,), cfg.start_mel_token, device=dev)
+    seq = torch.cat([prefix_embeds.to(dtype),
+                     _embed_mel_token(params, start, 0, dtype)[:, None]], dim=1)
+    seq_mask = torch.cat([prefix_mask.bool(), torch.ones((B, 1), dtype=torch.bool, device=dev)],
+                         dim=1)
+    S = _cache_len(P, span_end)
+    kv = init_kv_cache(dims, B, S, dtype=dtype, device=dev, quantized=sampling.kv_quant)
+    hidden = gpt2_prefill(params["gpt"], seq, dims, seq_mask, kv)
+    logits = _min_len_mask(mel_logits_from_hidden(params, hidden[:, -1]), stop, 0,
+                           sampling.min_new_tokens)
+    kv_valid = torch.zeros((B, S), dtype=torch.bool, device=dev)
+    kv_valid[:, :P + 1] = seq_mask
+    counts = torch.zeros((B, cfg.number_mel_codes), dtype=torch.int32, device=dev)
+    counts[:, 1] += P
+    counts[:, cfg.start_mel_token] += 1
+    tok = _sample(generator, logits, counts, sampling)
+    tokens = torch.full((B, max_new_tokens), stop, dtype=torch.long, device=dev)
+    tokens[:, 0] = tok
+    counts[torch.arange(B, device=dev), tok] += 1
+    finished = tok == stop
+    lengths = torch.where(finished, 0, max_new_tokens)
+    return DecodeState(1, tokens, counts, kv, kv_valid, finished, lengths, route)
+
+
+def _decode_span_body(params: Params, cfg: GPTConfig, dims: GPT2Dims, st: DecodeState,
+                      P: int, end: int, sampling: SamplingConfig, dtype,
+                      generator: torch.Generator, step_check: StepCheck = None) -> None:
+    """Steps ``st.step`` .. ``end - 1`` in place, or fewer once every row is
+    done (read every ``_DONE_POLL`` steps). Each step is one
+    `decode_step` on ``st.route``: K1 at ``group=1`` for quantized weights."""
+    stop = cfg.stop_mel_token
+    rows = torch.arange(st.tokens.shape[0], device=st.tokens.device)
+    while st.step < end:
+        if st.step % _DONE_POLL == 0 and bool(st.finished.all()):
+            break
+        step = st.step
+        # token i is embedded at mel position i + 2 (prev token i = step - 1)
+        x = _embed_mel_token(params, st.tokens[:, step - 1], step + 1, dtype)
+        pos = P + 1 + step
+        st.kv_valid[:, pos] = True
+        h = decode_step(st.route, params, x, dims, pos, st.kv, st.kv_valid, check=step_check)
+        logits = _min_len_mask(mel_logits_from_hidden(params, h), stop, step,
+                               sampling.min_new_tokens)
+        tok = torch.where(st.finished, stop, _sample(generator, logits, st.counts, sampling))
+        st.tokens[:, step] = tok
+        st.counts[rows, tok] += (~st.finished).int()
+        st.lengths = torch.where(~st.finished & (tok == stop), step, st.lengths)
+        st.finished = st.finished | (tok == stop)
+        st.step += 1
+
+
+def _grow(st: DecodeState, S: int) -> None:
+    """Pad every cache entry (values, and the int8 cache's scale rows) and
+    ``kv_valid`` along S to ``S`` slots."""
+    def pad(buf: torch.Tensor, axis: int) -> torch.Tensor:
+        shape = list(buf.shape)
+        shape[axis] = S
+        out = buf.new_zeros(shape)
+        out.narrow(axis, 0, buf.shape[axis]).copy_(buf)
+        return out
+    st.kv = {name: pad(buf, 2) for name, buf in st.kv.items()}
+    st.kv_valid = pad(st.kv_valid, 1)
+
+
+@torch.no_grad()
+def generate_adaptive(params: Params, cfg: GPTConfig, dims: GPT2Dims,
+                      prefix_embeds: torch.Tensor, prefix_mask: torch.Tensor,
+                      generator: torch.Generator, max_new_tokens: int,
+                      sampling: SamplingConfig = SamplingConfig(num_beams=1),
+                      dtype=torch.bfloat16, spans=(256, 512, 1024, 1536),
+                      step_check: StepCheck = None) -> Tuple[torch.Tensor, np.ndarray]:
+    """Sample mel codes with a growing KV cache. prefix_embeds (B, P, D)
+    left-padded [pad][cond][text], prefix_mask (B, P) bool. Decodes in spans
+    (those below ``max_new_tokens``, then ``max_new_tokens``): after each,
+    one host read of the done flag decides whether the cache grows to the
+    next span (`_grow`) and decoding goes on, so per-step attention reads
+    track the tokens generated, not the budget. Token-identical to
+    `generate` for the same generator. Returns (codes (B, max_new_tokens)
+    on the device, stop-padded past each length; lengths (B,) numpy = the
+    index of each row's first stop token). ``step_check`` is handed to
+    every fused decode step (`decode_step`)."""
+    global span_growths, last_route
+    spans = tuple(s for s in spans if s < max_new_tokens) + (max_new_tokens,)
+    P = prefix_embeds.shape[1]
+    st = _prefill_state(params, cfg, dims, prefix_embeds, prefix_mask, generator,
+                        max_new_tokens, spans[0], sampling, dtype)
+    last_route = st.route
+    _decode_span_body(params, cfg, dims, st, P, spans[0], sampling, dtype, generator,
+                      step_check)
+    for nxt in spans[1:]:
+        if st.step >= max_new_tokens or bool(st.finished.all()):
+            break
+        _grow(st, _cache_len(P, nxt))
+        span_growths += 1
+        _decode_span_body(params, cfg, dims, st, P, nxt, sampling, dtype, generator,
+                          step_check)
+    return st.tokens, st.lengths.clamp(max=max_new_tokens).cpu().numpy()
+
+
+def generate(params: Params, cfg: GPTConfig, dims: GPT2Dims, prefix_embeds: torch.Tensor,
+             prefix_mask: torch.Tensor, generator: torch.Generator, max_new_tokens: int,
+             sampling: SamplingConfig = SamplingConfig(num_beams=1), dtype=torch.bfloat16,
+             step_check: StepCheck = None) -> Tuple[torch.Tensor, np.ndarray]:
+    """`generate_adaptive` with the cache sized for ``max_new_tokens`` from
+    the start (one span)."""
+    return generate_adaptive(params, cfg, dims, prefix_embeds, prefix_mask, generator,
+                             max_new_tokens, sampling, dtype, spans=(), step_check=step_check)

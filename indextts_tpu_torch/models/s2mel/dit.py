@@ -3,8 +3,9 @@
 
 input = concat[noisy mel 80, prompt mel 80, cond, style 192] -> hidden;
 body  = non-causal rope transformer with AdaptiveLayerNorm (RMSNorm
-        modulated by the timestep embedding); attention is kernel K2
-        (`ops/attn.py::attention_rope`, rope fused in);
+        modulated by the timestep embedding); attention by the JAX DiT's
+        three tiers (`attention_tier`): kernel K2 with the rope fused in,
+        kernel K4 through `nn.mha_flash`, or dense `nn.mha`;
 skip  = skip_linear(concat[body, noisy mel]);
 head  = WaveNet (gated tanh/sigmoid, reflect padding around each row's
         valid region) + FinalLayer (adaLN LayerNorm + linear) + 1x1 conv.
@@ -12,15 +13,17 @@ head  = WaveNet (gated tanh/sigmoid, reflect padding around each row's
 Activations are (B, T, C). As in the JAX package, the input concat promotes
 the stream to the widest of its parts: the f32 Euler state makes the
 residual stream, the WaveNet head and the velocity f32 even when ``cond``,
-the prompt mel and the style come in the pipeline's bf16. Only K2 takes
-q, k, v in ``cond``'s dtype (bf16 on the card, the kernel's input type) and
-its output goes back to the stream's dtype. The timestep embeddings and
-adaLN modulations are f32.
+the prompt mel and the style come in the pipeline's bf16. Only the kernels
+(K2, K4) take q, k, v in ``cond``'s dtype (bf16 on the card, their input
+type) and their output goes back to the stream's dtype. The timestep
+embeddings and adaLN modulations are f32.
 """
 
 from __future__ import annotations
 
 import math
+import os
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +32,7 @@ from indextts_tpu_torch import nn
 from indextts_tpu_torch.config import DiTConfig, S2MelConfig, WaveNetConfig
 from indextts_tpu_torch.nn import InitRng, Params
 from indextts_tpu_torch.ops.attn import attention_rope
+from indextts_tpu_torch.ops.rope import apply_rotary_emb_half
 
 
 def init_timestep_embedder(rng: InitRng, hidden: int, freq_dim: int = 256) -> Params:
@@ -77,18 +81,61 @@ def init_dit_backbone(rng: InitRng, cfg: DiTConfig) -> Params:
     return {"layers": nn.stack_layers(layers), "norm": _ada_ln_init(rng, D)}
 
 
+def attention_tier(cfg: DiTConfig, lengths: Optional[torch.Tensor]) -> str:
+    """The JAX DiT's attention tier, by its own gates and switches
+    (`indextts_tpu/models/s2mel/dit.py:157-168`), fastest first:
+    "packed" (K2, rope in the kernel) for H even and 2 * head_dim == 128
+    unless INDEXTTS_PACKED_ATTN=0; else "flash" (rope outside, then
+    `nn.mha_flash`: K4 on the card) unless INDEXTTS_FLASH_DIT=0; else
+    "dense" (`nn.mha`). Both kernels need ``lengths``. The TPU's own caps
+    (T <= 3456 packed, T <= 1536 flash, T % 128 == 0, a TPU backend) are
+    VMEM and tiling limits the card's kernels do not have, and are dropped."""
+    if lengths is None:
+        return "dense"
+    if (cfg.num_heads % 2 == 0 and 2 * cfg.head_dim == 128
+            and os.environ.get("INDEXTTS_PACKED_ATTN", "1") != "0"):
+        return "packed"
+    if os.environ.get("INDEXTTS_FLASH_DIT", "1") != "0":
+        return "flash"
+    return "dense"
+
+
+def _attention(cfg: DiTConfig, tier: str, q, k, v, freqs_cis, lengths,
+               attn_dtype) -> torch.Tensor:
+    """(B, T, H*Dh) pre-rope q, k, v of the stream -> (B, T, H*Dh) in the
+    stream's dtype; the kernels run in ``attn_dtype``."""
+    B, T, _ = q.shape
+    H, Dh = cfg.num_heads, cfg.head_dim
+    if tier == "packed":
+        q, k, v = (a.to(attn_dtype).contiguous() for a in (q, k, v))
+        return attention_rope(q, k, v, lengths, freqs_cis, H)
+    qh = apply_rotary_emb_half(q.reshape(B, T, H, Dh), freqs_cis)
+    kh = apply_rotary_emb_half(k.reshape(B, T, H, Dh), freqs_cis)
+    vh = v.reshape(B, T, H, Dh)
+    if tier == "flash":
+        qh, kh, vh = (a.to(attn_dtype) for a in (qh, kh, vh))
+        out = nn.mha_flash(qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2), lengths)
+    else:
+        mask = None if lengths is None else nn.sequence_mask(lengths, T)[:, None, None, :]
+        out = nn.mha(qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2), mask=mask)
+    return out.transpose(1, 2).reshape(B, T, H * Dh)
+
+
 def dit_backbone_forward(p: Params, cfg: DiTConfig, x: torch.Tensor, c: torch.Tensor,
-                         freqs_cis: torch.Tensor, lengths: torch.Tensor,
+                         freqs_cis: torch.Tensor, lengths: Optional[torch.Tensor],
                          attn_dtype: torch.dtype) -> torch.Tensor:
     """x (B, T, D), c (B, 1, D) f32 time conditioning, lengths (B,) valid
-    frames (keys past them are masked). Attention runs in ``attn_dtype``."""
+    frames (keys past them are masked; None: no mask, the dense tier). The
+    kernels' attention runs in ``attn_dtype``; the dense tier in the
+    stream's dtype, as in the JAX package. Query rows past a length are
+    garbage the caller masks."""
     if cfg.is_causal:
         raise NotImplementedError("causal DiT is not ported (the shipped DiT is non-causal)")
+    tier = attention_tier(cfg, lengths)
     for lp in p["layers"]:
         h = _ada_ln(lp["attention_norm"], x, c, cfg.norm_eps)
         q, k, v = torch.chunk(nn.dense(lp["attn"]["wqkv"], h), 3, dim=-1)
-        q, k, v = (a.to(attn_dtype).contiguous() for a in (q, k, v))
-        out = attention_rope(q, k, v, lengths, freqs_cis, cfg.num_heads)
+        out = _attention(cfg, tier, q, k, v, freqs_cis, lengths, attn_dtype)
         x = x + nn.dense(lp["attn"]["wo"], out.to(x.dtype))
         h = _ada_ln(lp["ffn_norm"], x, c, cfg.norm_eps)
         ff = lp["ff"]

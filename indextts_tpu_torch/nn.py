@@ -20,6 +20,8 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from indextts_tpu_torch.ops.attn import single_block_attention
+
 Params = Dict[str, object]
 
 
@@ -314,6 +316,24 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bias = bias.masked_fill(~mask, -1e9)
     return F.scaled_dot_product_attention(q, k.to(q.dtype), v.to(q.dtype),
                                           attn_mask=bias, scale=scale)
+
+
+def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              lengths: torch.Tensor, causal: bool = False) -> torch.Tensor:
+    """Attention over padded same-rate (B, H, T, D) q, k, v with per-row valid
+    ``lengths`` (the JAX package's `nn.mha_flash`). Non-causal CUDA tensors
+    run kernel K4 (`ops/attn.py::single_block_attention`, which raises on
+    what it does not take); everything else runs `mha` with the length mask
+    (and the causal one), as the JAX package does off the TPU. Query rows
+    past a length are garbage that callers mask."""
+    if q.device.type == "cuda" and not causal:
+        return single_block_attention(q, k, v, lengths)
+    T = q.shape[2]
+    mask = (torch.arange(T, device=q.device)[None, :]
+            < lengths.to(q.device)[:, None])[:, None, None, :]
+    if causal:
+        mask = mask & torch.tril(torch.ones((T, T), dtype=torch.bool, device=q.device))
+    return mha(q, k.to(q.dtype), v.to(q.dtype), mask=mask)
 
 
 def gelu_new(x: torch.Tensor) -> torch.Tensor:

@@ -29,12 +29,17 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, lengths, cos, sin, out, B, T, H, D, scale, stream
     "attention_rope_launch": [_P] * 7 + [_I] * 4 + [_F, _P],
-    # x, alpha, beta, lengths, taps, out, B, T, C, stream
-    "antialias_snake_launch": [_P] * 6 + [_I] * 3 + [_P],
+    # q, k, v, lengths, out, B, T, H, D, scale, stream
+    "packed_attention_launch": [_P] * 5 + [_I] * 4 + [_F, _P],
+    # q, k, v, lengths, out, B, H, T, D, the (b, h, t) strides of q, k, v and
+    # out, scale, stream
+    "attention_block_launch": [_P] * 5 + [_I] * 4 + [_L] * 12 + [_F, _P],
+    # x, alpha, beta, lengths, taps, out, B, T, C, logscale, stream
+    "antialias_snake_launch": [_P] * 6 + [_I] * 4 + [_P],
     # x, q, ln_w, ln_b, scale, bias, res, out, M, N, K, half_span, epilogue,
     # stream
     "int8_gemv_launch": [_P] * 8 + [_I] * 5 + [_P],

@@ -1,10 +1,24 @@
-"""BigVGAN's anti-aliased SnakeBeta (Activation1d): kernel K3 and its plain twin.
+"""BigVGAN's anti-aliased SnakeBeta (Activation1d): kernels K3, K5, K3' and
+their plain twin.
 
-`antialias_snake` is the port of `indextts_tpu/ops/pallas/antialias.py::
-fused_antialias_folded`. On a CUDA tensor it launches the hand-written
-Hopper kernel `csrc/antialias_snake.cu` (or raises); on a CPU tensor it runs
-`antialias_snake_plain`, the same math as `indextts_tpu/ops/snake.py::
-antialias_activation_xla` in plain PyTorch.
+Three TPU kernels compute this one function, and each has its entry here:
+- `antialias_snake` (K3) is the port of `indextts_tpu/ops/pallas/
+  antialias.py::fused_antialias_folded`, BigVGAN's activation;
+- `fused_antialias_activation` (K5) is `fused_antialias_activation`, K3's
+  math on unfolded (T, C) tiles;
+- `antialias_activation_prefolded` (K3') is `ops/snake.py::
+  antialias_activation_prefolded` over `fused_antialias_prefolded`, K3 on a
+  time-folded (B, T/f, f*C) stream.
+On the card all three launch the one hand-written Hopper kernel
+`csrc/antialias_snake.cu`: they compute the same function on the same bytes
+(a folded (B, T/f, f*C) tensor is, row-major, the very (B, T, C) one, so K3'
+launches on that view without a copy). The TPU kept separate kernels only
+to fill its 128 lanes in different ways, and K3's port already dropped that
+lane folding; a second kernel for the same function would carry a TPU
+layout over. Each entry keeps its own launch counter (``.launches``). On a
+CPU tensor each runs `antialias_snake_plain`, the same math as
+`indextts_tpu/ops/snake.py::antialias_activation_xla` in plain PyTorch; a
+CUDA tensor launches the kernel or raises.
 
 The kaiser-sinc filters are re-derived here in numpy (the JAX package's
 filter code lives in a module that imports jax); they equal its
@@ -76,11 +90,13 @@ def _taps_on(device: str) -> torch.Tensor:
 
 def antialias_snake_plain(x: torch.Tensor, alpha: torch.Tensor,
                           beta: Optional[torch.Tensor],
-                          lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          lengths: Optional[torch.Tensor] = None,
+                          logscale: bool = True) -> torch.Tensor:
     """Activation1d on (B, T, C): x2 kaiser-sinc upsample (polyphase), SnakeBeta
-    with log-scale alpha/beta (beta None = Snake), 12-tap lowpass, x2 down, all
-    in f32; the input is replicate-extended from its valid region and the
-    2x-rate signal edge-replicated with s0[0] (left) and s1[L-1] (right)."""
+    with alpha/beta (their logs when ``logscale``; beta None = Snake), 12-tap
+    lowpass, x2 down, all in f32; the input is replicate-extended from its
+    valid region and the 2x-rate signal edge-replicated with s0[0] (left)
+    and s1[L-1] (right)."""
     B, T, C = x.shape
     taps = torch.as_tensor(_taps(), device=x.device)
     f0, f1, g = taps[:6], taps[6:12], taps[12:]
@@ -95,8 +111,8 @@ def antialias_snake_plain(x: torch.Tensor, alpha: torch.Tensor,
     x_ext = torch.cat([xf[:, :1].expand(B, 3, C), xf, edge.expand(B, 4, C)], dim=1)
     p0 = sum(f0[j] * x_ext[:, j:j + T] for j in range(6))
     p1 = sum(f1[j] * x_ext[:, j + 1:j + 1 + T] for j in range(6))
-    a = torch.exp(alpha.float())
-    b = a if beta is None else torch.exp(beta.float())
+    a = torch.exp(alpha.float()) if logscale else alpha.float()
+    b = a if beta is None else (torch.exp(beta.float()) if logscale else beta.float())
     sn0, sn1 = torch.sin(p0 * a), torch.sin(p1 * a)
     s0 = p0 + sn0 * sn0 / (b + 1e-9)
     s1 = p1 + sn1 * sn1 / (b + 1e-9)
@@ -111,28 +127,23 @@ def antialias_snake_plain(x: torch.Tensor, alpha: torch.Tensor,
     return y.to(x.dtype)
 
 
-def antialias_snake(x: torch.Tensor, alpha: torch.Tensor,
-                    beta: Optional[torch.Tensor],
-                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K3. x: (B, T, C); alpha, beta: (C,) log-scale (beta None = Snake);
-    lengths: (B,) valid frames. CPU tensors run the plain version; CUDA
-    tensors (x contiguous bf16) launch the kernel; anything else raises."""
-    if x.device.type == "cpu":
-        return antialias_snake_plain(x, alpha, beta, lengths)
+def _launch(name: str, x: torch.Tensor, alpha: torch.Tensor, beta: Optional[torch.Tensor],
+            lengths: Optional[torch.Tensor], logscale: bool) -> torch.Tensor:
+    """The kernel on a (B, T, C) CUDA tensor, for the entry ``name``."""
     if x.device.type != "cuda":
-        raise ValueError(f"antialias_snake: unsupported device {x.device}")
+        raise ValueError(f"{name}: unsupported device {x.device}")
     B, T, C = x.shape
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError(f"antialias_snake: x must be contiguous bf16, got "
+        raise ValueError(f"{name}: x must be contiguous bf16, got "
                          f"{x.dtype} (contiguous={x.is_contiguous()})")
     beta = alpha if beta is None else beta
-    for name, t in (("alpha", alpha), ("beta", beta)):
+    for label, t in (("alpha", alpha), ("beta", beta)):
         if t.numel() != C or t.device != x.device:
-            raise ValueError(f"antialias_snake: {name} must hold {C} values on {x.device}")
+            raise ValueError(f"{name}: {label} must hold {C} values on {x.device}")
     if lengths is None:
         lengths = torch.full((B,), T, device=x.device)
     if lengths.shape != (B,) or lengths.device != x.device:
-        raise ValueError(f"antialias_snake: lengths must be ({B},) on {x.device}")
+        raise ValueError(f"{name}: lengths must be ({B},) on {x.device}")
     a = alpha.reshape(C).float().contiguous()
     b = beta.reshape(C).float().contiguous()
     lens = lengths.to(torch.int32).contiguous()
@@ -141,10 +152,70 @@ def antialias_snake(x: torch.Tensor, alpha: torch.Tensor,
     with torch.cuda.device(x.device):
         code = cuda.library().antialias_snake_launch(
             x.data_ptr(), a.data_ptr(), b.data_ptr(), lens.data_ptr(),
-            taps.data_ptr(), out.data_ptr(), B, T, C, cuda.stream_ptr(x))
-    cuda.check(code, "antialias_snake")
+            taps.data_ptr(), out.data_ptr(), B, T, C, int(logscale), cuda.stream_ptr(x))
+    cuda.check(code, name)
+    return out
+
+
+def antialias_snake(x: torch.Tensor, alpha: torch.Tensor,
+                    beta: Optional[torch.Tensor],
+                    lengths: Optional[torch.Tensor] = None,
+                    logscale: bool = True) -> torch.Tensor:
+    """K3. x: (B, T, C); alpha, beta: (C,), logs when ``logscale`` (beta None
+    = Snake); lengths: (B,) valid frames. CPU tensors run the plain version;
+    CUDA tensors (x contiguous bf16) launch the kernel; anything else
+    raises."""
+    if x.device.type == "cpu":
+        return antialias_snake_plain(x, alpha, beta, lengths, logscale)
+    out = _launch("antialias_snake", x, alpha, beta, lengths, logscale)
     antialias_snake.launches += 1
     return out
 
 
 antialias_snake.launches = 0
+
+
+def fused_antialias_activation(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                               lengths: Optional[torch.Tensor] = None,
+                               logscale: bool = True) -> torch.Tensor:
+    """K5 (`ops/pallas/antialias.py::fused_antialias_activation`): x (B, T,
+    C), alpha and beta (C,), lengths (B,) valid frames (default T). The TPU
+    kernel's tiling (T % t_tile, C % c_tile) is its own; any T and C run
+    here. CPU tensors run the plain version; CUDA tensors (x contiguous
+    bf16) launch the kernel; anything else raises."""
+    if x.device.type == "cpu":
+        return antialias_snake_plain(x, alpha, beta, lengths, logscale)
+    out = _launch("fused_antialias_activation", x, alpha, beta, lengths, logscale)
+    fused_antialias_activation.launches += 1
+    return out
+
+
+fused_antialias_activation.launches = 0
+
+
+def antialias_activation_prefolded(xf: torch.Tensor, alpha: torch.Tensor,
+                                   beta: Optional[torch.Tensor], f: int, C: int,
+                                   lengths: Optional[torch.Tensor] = None,
+                                   logscale: bool = True) -> torch.Tensor:
+    """K3' (`ops/snake.py::antialias_activation_prefolded`): the activation on
+    a time-folded stream xf (B, R, f*C) == x.reshape(B, R*f, C), folded out
+    the same way; alpha, beta (C,); lengths (B,) valid frames of the
+    unfolded time axis (default R*f). The folded tensor must be contiguous:
+    it is then, row-major, the (B, R*f, C) tensor, which the kernel takes
+    as a view (no copy). CPU tensors run the plain version; CUDA tensors
+    (bf16) launch the kernel; anything else raises."""
+    B, R, fC = xf.shape
+    if fC != f * C:
+        raise ValueError(f"antialias_activation_prefolded: last axis {fC} != f*C = {f}*{C}")
+    if not xf.is_contiguous():
+        raise ValueError("antialias_activation_prefolded: the folded input must be "
+                         "contiguous (it is then the unfolded tensor, read in place)")
+    x = xf.view(B, R * f, C)
+    if xf.device.type == "cpu":
+        return antialias_snake_plain(x, alpha, beta, lengths, logscale).view(B, R, fC)
+    out = _launch("antialias_activation_prefolded", x, alpha, beta, lengths, logscale)
+    antialias_activation_prefolded.launches += 1
+    return out.view(B, R, fC)
+
+
+antialias_activation_prefolded.launches = 0

@@ -10,24 +10,33 @@ One request runs, on ``device``:
   [E] conformer + perceiver speaker latents, merged emotion vector (the
       emotion prompt defaults to the speaker prompt, alpha 1), left-padded
       prefix embeddings
-  [G] GPT-2 prefill + beam decode (`engine/beam.py`, K = num_beams); with
-      a ``quantization`` every decode step runs kernel K1 with the
-      in-kernel beam ancestry map
+  [G] GPT-2 prefill + decode: beam search / sampling for num_beams > 1
+      (`engine/beam.py`, K = num_beams), the sampling decode for
+      num_beams=1 (`engine/decode.py::generate_adaptive`); with a
+      ``quantization`` every decode step runs kernel K1 (with the in-kernel
+      beam ancestry map under beams, at group=1 when sampling)
   [S1] teacher-forced GPT latents -> gpt_layer + vq2emb
-  [S2] length regulator -> 25-step CFM Euler solve under CFG (DiT, kernel K2)
+  [S2] length regulator -> 25-step CFM Euler solve under CFG (DiT: kernel
+      K2, or K4 on its flash tier)
   [V] BigVGAN-v2 (kernel K3) -> 22.05 kHz wav
 
-This slice covers one text segment with beam decode (num_beams > 1), with
-bf16 weights or with one of the JAX pipeline's quantizations, all bf16-only:
+This slice covers one text segment with beam decode (num_beams > 1) or the
+sampling decode (num_beams=1, typical sampling accepted), with bf16 weights
+or with one of the JAX pipeline's quantizations, all bf16-only:
 ``"int8"`` (the serving configuration: weight-only int8 for the four dense
 layers of every GPT-2 block, quantized after the cast to bf16 as the JAX
 pipeline does), ``"int4"`` (the same layers nibble-packed int4), and the
 memory knobs ``"int8kv"`` / ``"int4kv"`` (those weights with the flat int8
-KV cache). Paths
-of the JAX pipeline that are not ported yet raise NotImplementedError naming
-their ROADMAP item. Weights are random at the configured architecture (drawn
-on the device from ``seed``) or handed over from the JAX package through
-`load_params`; checkpoint files are not read yet.
+KV cache). At num_beams=1 the JAX pipeline's default is its self-gating
+speculative decoder, which its own comment documents as token-identical to
+`generate()`; the port runs the plain adaptive sampling decode there (the
+speculative engine is ROADMAP queue 1). Paths of the JAX pipeline that are
+not ported yet raise NotImplementedError naming their ROADMAP item:
+multi-segment text, streaming, emotion from text or emo_vector, and the aux
+modes (diverse beam, contrastive, DoLa). Weights are random at the
+configured architecture (drawn on the device from ``seed``) or handed over
+from the JAX package through `load_params`; checkpoint files are not read
+yet.
 
 Precision: weights and activations in ``dtype`` (bf16 by default) except
 CAMPPlus and the mel / fbank front-ends (f32), as on the TPU. TF32 is off
@@ -48,7 +57,7 @@ import torch
 from indextts_tpu_torch import nn
 from indextts_tpu_torch.config import IndexTTS2Config, load_config
 from indextts_tpu_torch.engine.beam import generate_beam
-from indextts_tpu_torch.engine.decode import SamplingConfig
+from indextts_tpu_torch.engine.decode import SamplingConfig, generate_adaptive
 from indextts_tpu_torch.models.codec.repcodec import (init_repcodec, repcodec_quantize,
                                                       repcodec_vq2emb)
 from indextts_tpu_torch.models.codec.w2vbert import init_w2vbert, w2vbert_forward
@@ -79,7 +88,7 @@ def _not_ported(what: str):
 
 
 class IndexTTS2:
-    """Zero-shot TTS, v2 model family, single-segment beam path."""
+    """Zero-shot TTS, v2 model family, single-segment beam and sampling paths."""
 
     MEL_PER_CODE = 1.72  # 25 Hz codes -> ~86 Hz mel
     SAMPLING_RATE = 22050
@@ -353,9 +362,10 @@ class IndexTTS2:
         t0 = time.perf_counter()
         cond_latents, emovec, embeds, mask = self.prefix(spk, emo_cond, emo_alpha,
                                                          text_ids, tlen)
-        codes, code_lens = generate_beam(self.gpt_params, self.cfg.gpt, self.gpt_dims,
-                                         embeds, mask, self.generator, max_mel_tokens,
-                                         sampling, self.dtype, self.decode_check)
+        decode = generate_beam if sampling.num_beams > 1 else generate_adaptive
+        codes, code_lens = decode(self.gpt_params, self.cfg.gpt, self.gpt_dims, embeds, mask,
+                                  self.generator, max_mel_tokens, sampling, self.dtype,
+                                  step_check=self.decode_check)
         clen = max(int(code_lens[0]), 1)
         times["gpt"] = time.perf_counter() - t0
         if verbose:
@@ -380,20 +390,20 @@ class IndexTTS2:
     def _sampling(self, kw: dict) -> SamplingConfig:
         """The generation kwargs of the reference's `infer` (same defaults),
         with the KV-cache format of the quantization; the kwargs whose paths
-        are not ported raise."""
-        if int(kw.get("num_beams", 3)) <= 1:
-            _not_ported("num_beams=1 decode (speculative / adaptive sampling)")
-        if kw.get("typical_sampling", False):
-            _not_ported("typical sampling")
+        are not ported (the aux modes) raise."""
+        num_beams = int(kw.get("num_beams", 3))
         if int(kw.get("num_beam_groups", 1)) > 1 or float(kw.get("penalty_alpha", 0.0)) > 0 \
                 or kw.get("dola_layers") is not None:
-            _not_ported("diverse beam / contrastive / DoLa decode")
+            _not_ported(f"the aux decode modes (diverse beam / contrastive / DoLa; "
+                        f"num_beams={num_beams})")
         return SamplingConfig(
             do_sample=bool(kw.get("do_sample", True)),
             temperature=float(kw.get("temperature", 0.8)),
             top_k=int(kw.get("top_k", 30)), top_p=float(kw.get("top_p", 0.8)),
             repetition_penalty=float(kw.get("repetition_penalty", 10.0)),
-            num_beams=int(kw.get("num_beams", 3)),
+            typical_sampling=bool(kw.get("typical_sampling", False)),
+            typical_mass=float(kw.get("typical_mass", 0.9)),
+            num_beams=num_beams,
             length_penalty=float(kw.get("length_penalty", 0.0)),
             min_new_tokens=int(kw.get("min_new_tokens", 0)),
             kv_quant=bool(self.quantization and QUANTIZATIONS[self.quantization][1]))

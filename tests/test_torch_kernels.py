@@ -15,7 +15,11 @@ physically gathered cache. The same holds for the int4 GEMVs (int4_matvec,
 int4_mlp) and K1's KVQ (int8 cache) and W4 (int4 weights) variants, whose
 layer-0 written rows are within 1 int8 count and their scale rows within 1
 bf16 ulp of the twin's (the same inputs; the bf16 k/v quantized differ by at
-most an ulp from the f32 summation order).
+most an ulp from the f32 summation order). K4 (single_block_attention) and
+K2' (packed_pair_attention) take K2's rel-L2 <= 2e-2; K5
+(fused_antialias_activation) and K3' (antialias_activation_prefolded), which
+launch K3's kernel, take K3's 1e-2. The num_beams=1 sampling decode with int8
+weights launches K1 once a step (at group=1) and never the bf16 step.
 """
 
 import pytest
@@ -56,13 +60,42 @@ def _snake_args(T, C, lengths, device, dtype=torch.bfloat16):
     return x, alpha, beta, torch.tensor(lengths, device=device)
 
 
+def _counters():
+    return (attn.attention_rope.launches, attn.packed_pair_attention.launches,
+            attn.single_block_attention.launches, snake.antialias_snake.launches,
+            snake.fused_antialias_activation.launches,
+            snake.antialias_activation_prefolded.launches)
+
+
+def _block_args(T, lengths, device, H, D, transposed=True):
+    """(B, H, T, D) q, k, v: transposed views of (B, T, H, D) tensors, as the
+    DiT hands them over, or contiguous."""
+    g = torch.Generator().manual_seed(T + D)
+    shape = (len(lengths), T, H, D) if transposed else (len(lengths), H, T, D)
+    q, k, v = (torch.randn(shape, generator=g).to(device, torch.bfloat16) for _ in range(3))
+    if transposed:
+        q, k, v = (a.transpose(1, 2) for a in (q, k, v))
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=device)
+
+
 def test_cpu_tensors_run_the_plain_twins_without_counting():
-    before = attn.attention_rope.launches, snake.antialias_snake.launches
+    before = _counters()
     a = _attn_args(64, [64, 17], "cpu", torch.float32, H=2)
     torch.testing.assert_close(attn.attention_rope(*a), attn.attention_rope_plain(*a))
+    torch.testing.assert_close(attn.packed_pair_attention(*a[:4], a[5]),
+                               attn.packed_pair_attention_plain(*a[:4], a[5]))
+    b = _block_args(64, [64, 17], "cpu", 2, 40)
+    torch.testing.assert_close(attn.single_block_attention(*b),
+                               attn.single_block_attention_plain(*b))
     s = _snake_args(64, 8, [64, 5], "cpu", torch.float32)
     torch.testing.assert_close(snake.antialias_snake(*s), snake.antialias_snake_plain(*s))
-    assert (attn.attention_rope.launches, snake.antialias_snake.launches) == before
+    torch.testing.assert_close(snake.fused_antialias_activation(*s, logscale=False),
+                               snake.antialias_snake_plain(*s, logscale=False))
+    x, alpha, beta, lens = s
+    torch.testing.assert_close(
+        snake.antialias_activation_prefolded(x.reshape(2, 16, 32), alpha, beta, 4, 8, lens),
+        snake.antialias_snake_plain(*s).reshape(2, 16, 32))
+    assert _counters() == before
 
 
 @pytest.mark.cuda
@@ -310,3 +343,103 @@ def test_fused_decode_step_variants_match_plain_and_ancestry_is_exact(cuda_devic
     assert torch.equal(h, h_gat)
     for key in caches[0]:
         assert torch.equal(caches[0][key][:, :, pos], gathered[key][:, :, pos])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,D,transposed", [(8, 64, True), (16, 32, True), (4, 128, True),
+                                            (2, 16, False)])
+def test_single_block_attention_kernel_matches_plain(cuda_device, H, D, transposed):
+    lengths = [1280, 645]
+    q, k, v, lens = _block_args(1280, lengths, cuda_device, H, D, transposed)
+    before = attn.single_block_attention.launches
+    out = attn.single_block_attention(q, k, v, lens)
+    assert attn.single_block_attention.launches == before + 1
+    ref = attn.single_block_attention_plain(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    for b, L in enumerate(lengths):
+        assert rel_l2(out[b, :, :L], ref[b, :, :L]) <= 2e-2
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_single_block_attention_kernel_raises_on_what_it_does_not_take(cuda_device):
+    """A head width of 40 raises in K4's wrapper: no plain fallback runs."""
+    before = attn.single_block_attention.launches
+    q, k, v, lens = _block_args(128, [128], cuda_device, 8, 40)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        attn.single_block_attention(q, k, v, lens)
+    q, k, v, lens = _block_args(128, [128], cuda_device, 2, 64)
+    with pytest.raises(ValueError, match="bf16"):
+        attn.single_block_attention(q.float(), k, v, lens)
+    assert attn.single_block_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,lengths", [(256, [256, 141]), (1280, [1243, 645])])
+def test_packed_pair_attention_kernel_matches_plain(cuda_device, T, lengths):
+    q, k, v, lens, _, H = _attn_args(T, lengths, cuda_device)
+    before = attn.packed_pair_attention.launches
+    out = attn.packed_pair_attention(q, k, v, lens, H)
+    assert attn.packed_pair_attention.launches == before + 1
+    ref = attn.packed_pair_attention_plain(q, k, v, lens, H)
+    torch.cuda.synchronize()
+    for b, L in enumerate(lengths):
+        assert rel_l2(out[b, :L], ref[b, :L]) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logscale", [True, False])
+@pytest.mark.parametrize("T,C,lengths", [(512, 768, [512, 480]), (4096, 24, [4096, 4059]),
+                                         (1000, 96, [1, 999])])
+def test_antialias_entries_match_plain(cuda_device, T, C, lengths, logscale):
+    """K5 on (B, T, C) and K3' on its (B, T/f, f*C) fold, f = 128 // gcd(C,
+    128), each counted by its own entry."""
+    import math
+
+    x, alpha, beta, lens = _snake_args(T, C, lengths, cuda_device)
+    if not logscale:
+        alpha, beta = alpha.exp(), beta.exp()
+    ref = snake.antialias_snake_plain(x, alpha, beta, lens, logscale)
+    before = _counters()
+    out = snake.fused_antialias_activation(x, alpha, beta, lens, logscale)
+    f = 128 // math.gcd(C, 128)
+    folded = snake.antialias_activation_prefolded(x.reshape(2, T // f, f * C), alpha, beta,
+                                                  f, C, lens, logscale)
+    torch.cuda.synchronize()
+    after = _counters()
+    assert after[3:] == (before[3], before[4] + 1, before[5] + 1)
+    for b, L in enumerate(lengths):
+        assert rel_l2(out[b, :L], ref[b, :L]) <= 1e-2
+    assert torch.equal(folded.reshape(2, T, C), out)
+
+
+@pytest.mark.cuda
+def test_sampling_decode_takes_k1_at_group_1(cuda_device):
+    """num_beams=1 with int8 weights at B <= 24: K1 once a decode step (11
+    after the prefill for 12 codes, across two cache growths), the bf16
+    step never."""
+    from indextts_tpu_torch.config import GPTConfig
+    from indextts_tpu_torch.engine import decode
+    from indextts_tpu_torch.models.gpt.gpt2 import gpt2_decode_step
+    from indextts_tpu_torch.models.gpt.unified_voice import init_unified_voice
+
+    cfg = GPTConfig(layers=2, model_dim=640, heads=10, max_text_tokens=30, max_mel_tokens=60,
+                    number_text_tokens=40, number_mel_codes=50, start_mel_token=48,
+                    stop_mel_token=49)
+    params = to_torch(init_unified_voice(InitRng(0, cuda_device), cfg), cuda_device,
+                      torch.bfloat16)
+    params["gpt"] = quantize_gpt2_int8(params["gpt"])
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    prefix = torch.randn((2, 9, 640), generator=g, device=cuda_device).to(torch.bfloat16)
+    mask = torch.ones((2, 9), dtype=torch.bool, device=cuda_device)
+    mask[1, :4] = False
+    k1, calls = decode_step.fused_decode_step.launches, gpt2_decode_step.calls
+    toks, lens = decode.generate_adaptive(
+        params, cfg, GPT2Dims(2, 640, 10), prefix, mask, g, 12,
+        decode.SamplingConfig(num_beams=1, min_new_tokens=11), spans=(4, 8))
+    torch.cuda.synchronize()
+    assert decode.last_route == "fused"
+    assert decode_step.fused_decode_step.launches == k1 + 11
+    assert gpt2_decode_step.calls == calls
+    assert list(lens) == [12, 12] and bool(((toks >= 0) & (toks < 50)).all())

@@ -6,7 +6,8 @@ across by the weight bridge and one prompt wav.
 - from those codes, latents -> CFM -> BigVGAN give the same wav (rel-L2 <=
   1e-3) when the port is handed the CFM noise the JAX side draws from its key;
 - the port's `infer` runs end to end, caches the prompt, writes the wav;
-- paths outside the slice raise NotImplementedError; the port imports no jax.
+- paths outside the slice raise NotImplementedError (num_beams=1 decodes;
+  its aux modes, such as contrastive search, raise); the port imports no jax.
 """
 
 import os
@@ -152,7 +153,7 @@ def test_port_infer_end_to_end(torch_tts, model_dir, tmp_path):
 
 @pytest.mark.parametrize("kwargs,what", [
     ({"stream_return": True}, "streaming"),
-    ({"num_beams": 1}, "num_beams=1"),
+    ({"num_beams": 1, "penalty_alpha": 0.6}, "num_beams=1"),
     ({"emo_vector": [0.5] + [0] * 7}, "emo_vector"),
     ({"use_emo_text": True}, "Qwen"),
     ({"text": "hello world . the cat . hello world . the cat .",
