@@ -78,14 +78,30 @@
    K1-W4 and K1 int4kv at the K1 shape layer by layer against the twin, and
    bit-identical to the same kernel on the gathered cache (scale rows
    gathered too); yardsticks: the int8 K1 and the bf16 step.
-7. Decode profile, after the bf16, int8 and int8kv passes: one
+7. tp pass: the tp=2 int8 serving decode (kernel K6) with both shards on
+   this card, `IndexTTS2(quantization="int8", mesh=make_mesh(["cuda:0",
+   "cuda:0"]))` under INDEXTTS_TP_DECODE=kernel: one num_beams=3 request
+   (its first 8 K6 steps twin-checked layer by layer: every layer within
+   rel-L2 1e-2, the two shards' residual streams bit-identical, the written
+   k/v rows bit-identical to K1's qkv GEMV on the same input, per head
+   slice) and one num_beams=1 request, exact launch counts (K6 once a decode
+   step, `tp_allreduce` twice a layer, step and shard, each shard's GEMVs and
+   attention; K1 never), its gpt stage beside the int8 pass's, and a
+   profiled tp decode. The kernel phase holds K6 at K1's shape (3 rows at
+   group=3, and 1 row) the same way, beside K1 on the same inputs, and
+   `tp_allreduce` alone, bit-identical to its twin for either rank.
+8. Decode profile, after the bf16, int8, int8kv, int4 and tp passes: one
    request's `generate_beam` (399 steps) timed unprofiled, then under
    `torch.profiler` (its window opens after a discarded warm-up step and
    closes after a pad of spin kernels, on which the records the profiler
-   drops at a window's end then fall): the device's busy share, kernel
-   launches per step and the largest device consumers; the recorded
+   drops at a window's end then fall): the device's busy share (the union
+   of the records' intervals over the wall: the tp pass runs two streams),
+   kernel launches per step and the largest device consumers; the recorded
    launches of the port's kernels and of the scorer's top-k equal the
    counters of that run.
+
+`tools/torch_tp_two_cards.py` runs K6 with its shards on two cards, on a
+machine that has two.
 
 Each phase prints its elapsed time since the kernel build. Prints per-stage times and RTF beside the card, then (second to last line)
 one JSON object describing the kernels, and as the last line
@@ -132,6 +148,8 @@ QUANT_PASSES = {"int8kv": (1, True), "int4": (1, True), "int4kv": (1, False)}
 # K1's variants in the kernel phase: name -> (int4 weights, int8 cache)
 K1_VARIANTS = {"fused_decode_step_kvq": (False, True), "fused_decode_step_w4": (True, False),
                "fused_decode_step_w4_kvq": (True, True)}
+# the tp pass: both tp=2 shards on this card
+TP_DEVICES = ("cuda:0", "cuda:0")
 # H100 SXM datasheet peaks: HBM bytes/s, bf16 tensor-core
 # and f32 FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -839,6 +857,179 @@ def quant_kernel_phase(card: str, int8_k1: dict) -> dict:
     return res
 
 
+def full_c_attn(tp, li: int) -> dict:
+    """Layer ``li``'s unsharded qkv projection and ln_1, rebuilt from the
+    tp shards (rank t holds rows q_t | k_t | v_t)."""
+    import torch
+
+    parts = [shard[li]["attn"]["c_attn"] for shard in tp["shards"]]
+
+    def cat(k):
+        rest = parts[0][k].shape[1:]
+        return torch.cat([p[k].reshape(3, -1, *rest) for p in parts], 1).reshape(-1, *rest)
+    return {"c_attn": {k: cat(k) for k in parts[0]}, "ln_1": tp["shards"][0][li]["ln_1"]}
+
+
+def tp_twin_by_layer(args, h, full_layers) -> dict:
+    """K6's call ``args`` (per layer, the tuple of the shards' inputs under
+    "layer_inputs") and its output ``h`` (after ln_f) against the twins,
+    layer by layer on the kernel path's inputs (`twin_by_layer`'s scheme:
+    the kernel wrote only the rows at pos, so a copy of the cache holds the
+    inputs). Returns the largest layer-output rel-L2, the hidden state's
+    after ln_f, whether the two shards' residual streams are bit-identical
+    at every layer, and whether every layer's written k/v rows are
+    bit-identical to K1's qkv GEMV on the same input (the unsharded weight
+    and ln_1 of ``full_layers[li]``; launched uncounted), per head slice."""
+    import torch
+
+    from indextts_tpu_torch import nn
+    from indextts_tpu_torch.ops.decode_step_tp import TWINS, decode_layer_tp, per_rank
+    from indextts_tpu_torch.ops.int8 import EPI_BIAS, _gemv_cuda
+
+    tp, pos, xs = args["params"], args["pos"], args["layer_inputs"]
+    caches = args["kv_cache"]["shards"]
+    devs = tp["mesh"].devices
+    twin = [{k: t.clone() for k, t in c.items()} for c in caches]
+    D = args["dims"].dim
+    Dl = D // len(caches)
+    valids, ancs = per_rank(args["kv_valid"], devs), per_rank(args["anc"], devs)
+    out = {"layer": 0.0, "streams_equal": True, "rows_exact": True}
+
+    def same(a, b):
+        return torch.equal(a, b.to(a.device))
+
+    for li, layers in enumerate(zip(*tp["shards"])):
+        out["streams_equal"] &= all(same(xs[li][0], x) for x in xs[li])
+        y = decode_layer_tp(TWINS, layers, list(xs[li]), args["dims"].heads // len(caches), pos,
+                            twin, li, valids, ancs, args["group"])
+        out["layer"] = max(out["layer"], rel_l2(xs[li + 1][0], y[0]))
+        lp = full_layers[li]
+        ca = lp["c_attn"]
+        qkv = _gemv_cuda(xs[li][0], ca["q"], (lp["ln_1"]["weight"], lp["ln_1"]["bias"]),
+                         ca["scale"], ca["bias"], EPI_BIAS, None)
+        for t, c in enumerate(caches):
+            for j, key in ((1, "k"), (2, "v")):
+                out["rows_exact"] &= same(qkv[:, j * D + t * Dl:j * D + (t + 1) * Dl],
+                                          c[key][li, :, pos])
+    out["streams_equal"] &= all(same(xs[-1][0], x) for x in xs[-1])
+    out["hidden"] = rel_l2(h, nn.layer_norm(tp["ln_f"], y[0]))
+    return out
+
+
+def tp_bound(tp, starts, M: int, S: int, ranks=(0, 1)) -> dict:
+    """Bytes and operations of K6 at this run's inputs on the shards
+    ``ranks``: each shard's weights, scales, biases and LayerNorm vectors
+    once (the replicated ones once a shard), x in and its residual stream
+    out, kv_valid and the ancestry map, its valid cached k/v of every layer
+    and its written rows, and each (layer, exchange)'s f32 partial written
+    once and read by both shards; operations: two per weight value and row
+    plus the attention's products. All ranks: the step on one card (K1's
+    bytes plus the partials' and the replicated vectors); one rank: what one
+    card would move with the shards on two (not measured)."""
+    total_b = total_ops = 0
+    for r in ranks:
+        layers = tp["shards"][r]
+        L = len(layers)
+        D = layers[0]["attn"]["c_proj"]["q"].shape[0]
+        Dl = layers[0]["attn"]["c_proj"]["q"].shape[1]
+        wbytes = sum(t.numel() * t.element_size() for lp in layers
+                     for grp in (lp["attn"], lp["mlp"], {"a": lp["ln_1"], "b": lp["ln_2"]})
+                     for d in grp.values() for t in d.values())
+        n_weights = sum(d["q"].numel() for lp in layers
+                        for d in (*lp["attn"].values(), *lp["mlp"].values()))
+        cached = sum(K1_POS - st for st in starts)
+        total_b += (wbytes + 2 * M * D * 2 + M * S * (1 + 4) + L * cached * 4 * Dl
+                    + L * M * 4 * Dl + L * 2 * M * D * 4 * 3)
+        total_ops += 2 * M * n_weights + L * 4 * (cached + M) * Dl
+    return bound(total_b, total_ops, BF16_FLOPS)
+
+
+def tp_kernel_phase(card: str, kres: dict) -> dict:
+    """K6 `fused_decode_step_tp` with both shards on this card
+    (`make_mesh(["cuda:0", "cuda:0"])`, each shard on its own stream) at
+    K1's shape: 3 rows at group=3 with a random ancestry map, and 1 row at
+    group=1. Each against the twin layer by layer on the kernel path's
+    inputs (`tp_twin_by_layer`: rel-L2 <= 1e-2, residual streams and
+    written rows bit-identical), its hidden state beside K1's on the same
+    inputs; device ms from the replay of a CUDA graph of 20 steps with both
+    shard streams forked inside the capture. And `tp_allreduce` alone at
+    M=3, N=1280, bit-identical to its twin for either rank."""
+    import torch
+
+    from indextts_tpu_torch import nn
+    from indextts_tpu_torch.ops.decode_step import fused_decode_step
+    from indextts_tpu_torch.ops.decode_step_tp import (fused_decode_step_tp,
+                                                       fused_decode_step_tp_plain, tp_allreduce,
+                                                       tp_allreduce_plain)
+    from indextts_tpu_torch.parallel.mesh import make_mesh, shard_gpt2_tp
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    dims, bf16_params, params, kv, valid, x, anc, starts = k1_case(g)
+    del bf16_params
+    mesh = make_mesh(list(TP_DEVICES))
+    tp = shard_gpt2_tp(params, mesh)
+    full = [{"c_attn": lp["attn"]["c_attn"], "ln_1": lp["ln_1"]} for lp in params["h"]]
+    Dl = K1_D // mesh.tp
+    res = {}
+    for name, M, group in (("fused_decode_step_tp", K1_ROWS, K1_ROWS),
+                           ("fused_decode_step_tp_g1", 1, 1)):
+        xr, vr, ar = x[:M], valid[:M], anc if group > 1 else None
+
+        def cache():
+            return {"shards": [{k: kv[i][:, :M, :, t * Dl:(t + 1) * Dl].contiguous()
+                                for i, k in enumerate("kv")} for t in range(mesh.tp)]}
+
+        args = dict(params=tp, x=xr, dims=dims, pos=K1_POS, kv_cache=cache(), kv_valid=vr,
+                    anc=ar, group=group, layer_inputs=[])
+        h = nn.layer_norm(tp["ln_f"], fused_decode_step_tp(**args))
+        k1_cache = {k: kv[i][:, :M].clone() for i, k in enumerate("kv")}
+        h_k1 = fused_decode_step(params, xr, dims, K1_POS, k1_cache, vr, ar, group)
+        torch.cuda.synchronize()
+        tw = tp_twin_by_layer(args, h, full)
+        vs_k1, mab = rel_l2(h, h_k1), (h.float() - h_k1.float()).abs().max().item()
+        c = cache()
+        ms = graph_ms(lambda: fused_decode_step_tp(tp, xr, dims, K1_POS, c, vr, ar, group))
+        pms = graph_ms(lambda: fused_decode_step_tp_plain(tp, xr, dims, K1_POS, c, vr, ar, group),
+                       iters=3, replays=2)
+        b = tp_bound(tp, starts[:M], M, K1_S)
+        shard_b = tp_bound(tp, starts[:M], M, K1_S, ranks=(0,))
+        k1_ms = kres["fused_decode_step" if M == K1_ROWS else "fused_decode_step_g1"]["ms"]
+        print(f"K6 {name} L={K1_L} D={K1_D} H={K1_H} (10 a shard) B*K={M} group={group} "
+              f"S={K1_S} pos={K1_POS}, shards co-located on two streams: layer by layer on the "
+              f"kernel path's inputs: layer outputs rel_l2 <= {tw['layer']:.3e}, hidden after "
+              f"ln_f {tw['hidden']:.3e}; residual streams bit-identical: {tw['streams_equal']};"
+              f" written rows bit-identical to K1's qkv kernel: {tw['rows_exact']}; hidden "
+              f"against K1 on the same inputs {vs_k1:.3e} (max_abs {mab:.3e}); device: kernel "
+              f"{ms:.4f} ms plain {pms:.4f} ms K1 {k1_ms:.4f} ms bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}); bound of one shard on two cards (half the weight bytes a "
+              f"card; not measured) {shard_b['bound_ms']:.4f} ms [{card}]", flush=True)
+        assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2, (name, tw)
+        assert tw["streams_equal"] and tw["rows_exact"], (name, tw)
+        assert vs_k1 <= K1_REL_L2 and np.isfinite(vs_k1), (name, vs_k1)
+        res[name] = dict(err=tw["hidden"], abs=mab, ms=ms, plain_ms=pms, library_ms=None, **b)
+
+    M, N = K1_ROWS, K1_D
+    p0, p1 = (torch.randn((M, N), generator=g, device="cuda") * 1e3 for _ in range(2))
+    scale = torch.rand((N,), generator=g, device="cuda") / 127 / 30
+    bias = (0.1 * torch.randn((N,), generator=g, device="cuda")).to(torch.bfloat16)
+    resid = torch.randn((M, N), generator=g, device="cuda").to(torch.bfloat16)
+    outs = [tp_allreduce(p0, p1, scale, bias, resid, 0),
+            tp_allreduce(p1, p0, scale, bias, resid, 1)]
+    ref = tp_allreduce_plain(p0, p1, scale, bias, resid, 0)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(o, ref) for o in outs)
+    mab = max((o.float() - ref.float()).abs().max().item() for o in outs)
+    ms = graph_ms(lambda: tp_allreduce(p0, p1, scale, bias, resid, 0))
+    pms = graph_ms(lambda: tp_allreduce_plain(p0, p1, scale, bias, resid, 0))
+    b = bound(2 * M * N * 4 + N * (4 + 2) + 2 * M * N * 2, 4 * M * N, F32_FLOPS)
+    print(f"tp_allreduce M={M} N={N}: bit-identical to the twin for both ranks: {exact} "
+          f"(max_abs {mab:.3e}); device: kernel {ms:.4f} ms plain {pms:.4f} ms bound "
+          f"{b['bound_ms']:.5f} ms ({b['bound_by']}) [{card}]", flush=True)
+    assert exact, "tp_allreduce differs from its twin"
+    res["tp_allreduce"] = dict(err=0.0, abs=mab, ms=ms, plain_ms=pms, library_ms=None, **b)
+    return res
+
+
 def reference_check(tts, card: str, flash: bool = False) -> None:
     """The DiT velocity and BigVGAN on a small input with ragged lengths.
     Every kernel call is also run through its plain twin on the same inputs
@@ -937,6 +1128,7 @@ def kernel_counters() -> dict:
     from indextts_tpu_torch.ops.attn import (attention_rope, packed_pair_attention,
                                              single_block_attention)
     from indextts_tpu_torch.ops.decode_step import decode_attention, fused_decode_step
+    from indextts_tpu_torch.ops.decode_step_tp import fused_decode_step_tp, tp_allreduce
     from indextts_tpu_torch.ops.int8 import int4_matvec, int4_mlp, int8_matvec, int8_mlp
     from indextts_tpu_torch.ops.snake import (antialias_activation_prefolded, antialias_snake,
                                               fused_antialias_activation)
@@ -944,7 +1136,8 @@ def kernel_counters() -> dict:
     counters = {f.__name__: (f, "launches") for f in (
         attention_rope, single_block_attention, packed_pair_attention, antialias_snake,
         fused_antialias_activation, antialias_activation_prefolded, fused_decode_step,
-        int8_matvec, int8_mlp, int4_matvec, int4_mlp, decode_attention)}
+        int8_matvec, int8_mlp, int4_matvec, int4_mlp, decode_attention, fused_decode_step_tp,
+        tp_allreduce)}
     counters["decode_attention_kvq"] = (decode_attention, "kvq_launches")
     return counters
 
@@ -977,12 +1170,34 @@ def read_counts() -> dict:
 PROFILE_PAD_LAUNCHES = 40000
 
 
-def _spin_pad() -> None:
+def _spin_pad(devices=("cuda:0",)) -> None:
     import torch
 
-    for _ in range(PROFILE_PAD_LAUNCHES):
-        torch.cuda._sleep(100)
-    torch.cuda.synchronize()
+    for _ in range(PROFILE_PAD_LAUNCHES // len(devices)):
+        for d in devices:
+            with torch.cuda.device(d):
+                torch.cuda._sleep(100)
+    for d in devices:
+        torch.cuda.synchronize(d)
+
+
+def device_records(prof, key=lambda e: e.name()) -> tuple:
+    """A profiler window's raw device records, the spin pad left out: a
+    dict ``key(record)`` -> [count, device ns], and each record's (start,
+    end) ns. Read raw: `key_averages()` builds a Python event object for
+    every record first, which cost the bf16 pass, ~400,000 launches in its
+    window, about half its time."""
+    by: dict = {}
+    spans = []
+    for e in prof.profiler.kineto_results.events():
+        ns = e.duration_ns()
+        if ns <= 0 or not str(e.device_type()).endswith("CUDA") or "spin_kernel" in e.name():
+            continue
+        acc = by.setdefault(key(e), [0, 0])
+        acc[0] += 1
+        acc[1] += ns
+        spans.append((e.start_ns(), e.end_ns()))
+    return by, spans
 
 
 def profile_decode(tts, prompt: str, card: str, label: str) -> None:
@@ -1029,18 +1244,15 @@ def profile_decode(tts, prompt: str, card: str, label: str) -> None:
         counts = read_counts()
         _spin_pad()
         prof.step()
-    # the window's raw device records, summed by name here: `key_averages()`
-    # builds a Python event object for every record first, which cost the
-    # bf16 pass, ~400,000 launches in its window, about half its time
     t_parse = time.perf_counter()
-    by_name: dict = {}                                   # name -> [count, device ns]
-    for e in prof.profiler.kineto_results.events():
-        ns = e.duration_ns()
-        if ns <= 0 or not str(e.device_type()).endswith("CUDA") or "spin_kernel" in e.name():
-            continue
-        acc = by_name.setdefault(e.name(), [0, 0])
-        acc[0] += 1
-        acc[1] += ns
+    by_name, spans = device_records(prof)
+    # the time the device was busy on any stream: the union of the intervals
+    busy_ns, reach = 0, None
+    for a, b in sorted(spans):
+        if reach is None or a > reach:
+            busy_ns, reach = busy_ns + b - a, b
+        elif b > reach:
+            busy_ns, reach = busy_ns + b - reach, b
     t_parse = time.perf_counter() - t_parse
     device = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     kernels = [(k, v) for k, v in device if not k.startswith(("Memcpy", "Memset"))]
@@ -1053,15 +1265,16 @@ def profile_decode(tts, prompt: str, card: str, label: str) -> None:
     # each scorer step (the prefill's and the 399 decode steps') calls
     # torch.topk twice: the top-k warper and the candidate draw
     got = {"gemv": recorded("int8_gemv_kernel"), "attention": recorded("combine_kernel"),
-           "topk": recorded("gatherTopK")}
+           "allreduce": recorded("tp_allreduce_kernel"), "topk": recorded("gatherTopK")}
     # one GEMV launch a matvec, two an MLP
     want = {"gemv": counts["int8_matvec"] + counts["int4_matvec"]
             + 2 * (counts["int8_mlp"] + counts["int4_mlp"]),
             "attention": counts["decode_attention"] + counts["decode_attention_kvq"],
-            "topk": 2 * (DECODE_STEPS + 1)}
+            "allreduce": counts["tp_allreduce"], "topk": 2 * (DECODE_STEPS + 1)}
     print(f"{label} decode profile ({DECODE_STEPS} steps): wall {min(walls):.4f} s unprofiled "
-          f"(runs {walls[0]:.4f}, {walls[1]:.4f}), device time {device_s:.4f} s, busy "
-          f"{100 * device_s / min(walls):.1f} %, {launches} launches "
+          f"(runs {walls[0]:.4f}, {walls[1]:.4f}), device time {device_s:.4f} s (sum over "
+          f"records), busy {busy_ns / 1e9:.4f} s = {100 * busy_ns / 1e9 / min(walls):.1f} % "
+          f"(union over streams), {launches} launches "
           f"({launches / DECODE_STEPS:.0f} per step); recorded launches {got}, counters "
           f"{want}; profiled window and records read in {time.perf_counter() - t_prof:.1f} s "
           f"(reading {t_parse:.1f} s) [{card}]", flush=True)
@@ -1104,7 +1317,9 @@ def pipeline_phase(card: str, prompt: str, model_dir: str) -> dict:
 
 def want_counts(tts, quantization: str, n: int) -> dict:
     """The launches ``n`` requests of a quantized pass must make: K1 once a
-    decode step; per layer and step the int8 or int4 GEMVs (qkv and
+    decode step (under a tp mesh K6, with two `tp_allreduce` a layer and
+    shard);
+    per layer and step (and shard) the int8 or int4 GEMVs (qkv and
     attn-proj, and the MLP) and the bf16- or int8-cache attention; K2 / K3
     as in the bf16 pass; no bf16 step, no cache gather, no cache growth
     (the beam engine sizes its cache once), and none of the kernels without
@@ -1113,12 +1328,18 @@ def want_counts(tts, quantization: str, n: int) -> dict:
 
     steps, L = n * DECODE_STEPS, tts.cfg.gpt.layers
     w4, kvq = quantization.startswith("int4"), quantization.endswith("kv")
+    tp = tts.mesh.tp if tts.mesh is not None else 0
+    # K1 runs one GEMV set a layer; K6 one a layer and shard, and each shard
+    # two exchanges (`tp_allreduce`) a layer
+    sets = tp or 1
     return {"attention_rope": n * tts.cfg.s2mel.DiT.depth * 25,
             "antialias_snake": n * activation1d_calls(tts.cfg.bigvgan),
-            "fused_decode_step": steps,
-            "int8_matvec": 0 if w4 else 2 * L * steps, "int8_mlp": 0 if w4 else L * steps,
+            "fused_decode_step": 0 if tp else steps, "fused_decode_step_tp": steps if tp else 0,
+            "tp_allreduce": 2 * tp * L * steps,
+            "int8_matvec": 0 if w4 else 2 * sets * L * steps,
+            "int8_mlp": 0 if w4 else sets * L * steps,
             "int4_matvec": 2 * L * steps if w4 else 0, "int4_mlp": L * steps if w4 else 0,
-            "decode_attention": 0 if kvq else L * steps,
+            "decode_attention": 0 if kvq else sets * L * steps,
             "decode_attention_kvq": L * steps if kvq else 0,
             "single_block_attention": 0, "packed_pair_attention": 0,
             "fused_antialias_activation": 0, "antialias_activation_prefolded": 0,
@@ -1194,9 +1415,9 @@ def quant_pipeline_phase(card: str, prompt: str, model_dir: str, quantization: s
     site, check = k1_twin_check()
     reset_counts()
     tts.decode_check = check
-    run_requests(tts, prompt, 1, card, f"{quantization} (first 8 K1 steps twin-checked)")
+    reports = run_requests(tts, prompt, 1, card, f"{quantization} (first 8 K1 steps twin-checked)")
     tts.decode_check = None
-    run_requests(tts, prompt, n_requests - 1, card, quantization)
+    reports += run_requests(tts, prompt, n_requests - 1, card, quantization)
     counts = read_counts()
     want = want_counts(tts, quantization, n_requests)
     print(f"launches over {n_requests} {quantization} requests: {counts} (expect {want}); "
@@ -1206,6 +1427,97 @@ def quant_pipeline_phase(card: str, prompt: str, model_dir: str, quantization: s
     assert beam.last_use_anc is True and site["groups"] == {(3, True)}, site["groups"]
     if profiled:
         profile_decode(tts, prompt, card, quantization)
+    del tts
+    torch.cuda.empty_cache()
+    return counts, reports
+
+
+def tp_twin_check():
+    """A ``decode_check`` hook that holds the first 8 K6 calls against the
+    twin layer by layer (`tp_twin_by_layer`), and the ``site`` dict it
+    fills (``groups``: every call's group and whether it had an ancestry
+    map)."""
+    site = {"n": 0, "layer": 0.0, "hidden": 0.0, "streams_equal": True, "rows_exact": True,
+            "groups": set()}
+    full: dict = {}
+
+    def check(args, h):
+        site["groups"].add((args["group"], args["anc"] is not None))
+        if site["n"] >= TWIN_CHECKED_STEPS:
+            return
+        site["n"] += 1
+        if not full:
+            full["layers"] = [full_c_attn(args["params"], li)
+                              for li in range(len(args["params"]["shards"][0]))]
+        tw = tp_twin_by_layer(args, h, full["layers"])
+        for key in ("layer", "hidden"):
+            site[key] = max(site[key], tw[key])
+        for key in ("streams_equal", "rows_exact"):
+            site[key] &= tw[key]
+
+    return site, check
+
+
+def tp_pipeline_phase(card: str, prompt: str, model_dir: str, int8_gpt: float) -> dict:
+    """The tp=2 int8 serving decode, both shards on this card:
+    `IndexTTS2(quantization="int8", mesh=make_mesh(["cuda:0", "cuda:0"]))`
+    under INDEXTTS_TP_DECODE=kernel. One num_beams=3 request, its first 8 K6
+    calls held against the twin layer by layer (`tp_twin_check`), then one
+    num_beams=1 request; each with exact launch counts (K6 once a decode
+    step); the gpt stage beside the int8 pass's (``int8_gpt``, its second
+    request); a profiled tp decode. Returns the counts of each request."""
+    import torch
+
+    from indextts_tpu_torch.engine import beam, decode
+    from indextts_tpu_torch.parallel.mesh import make_mesh
+    from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
+
+    saved = os.environ.get("INDEXTTS_TP_DECODE")
+    os.environ["INDEXTTS_TP_DECODE"] = "kernel"
+    try:
+        t0 = time.perf_counter()
+        tts = IndexTTS2(cfg_path=None, model_dir=model_dir, seed=0, quantization="int8",
+                        mesh=make_mesh(list(TP_DEVICES)))
+        torch.cuda.synchronize()
+        print(f"tp model build ({tts.mesh}, random weights, shipped widths): "
+              f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+        site, check = tp_twin_check()
+        reset_counts()
+        tts.decode_check = check
+        beams = run_requests(tts, prompt, 1, card, "tp int8 (first 8 K6 steps twin-checked)")[0]
+        tts.decode_check = None
+        counts = {"tp": read_counts()}
+        want = want_counts(tts, "int8", 1)
+        print(f"launches of the tp num_beams=3 request: {counts['tp']} (expect {want}); ancestry "
+              f"route: {beam.last_use_anc}; K6 calls (group, ancestry map): {site['groups']}",
+              flush=True)
+        print(f"tp twin check of the first {site['n']} K6 calls, layer by layer on the kernel "
+              f"path's inputs: layer outputs rel_l2 <= {site['layer']:.3e}, hidden after ln_f "
+              f"{site['hidden']:.3e}, residual streams bit-identical: {site['streams_equal']}, "
+              f"written rows bit-identical to K1's qkv kernel: {site['rows_exact']} [{card}]",
+              flush=True)
+        assert site["n"] == TWIN_CHECKED_STEPS, site
+        assert site["layer"] <= K1_REL_L2 and site["hidden"] <= K1_REL_L2, site
+        assert site["streams_equal"] and site["rows_exact"], site
+        assert counts["tp"] == want, (counts["tp"], want)
+        assert beam.last_use_anc is True and site["groups"] == {(3, True)}, site["groups"]
+
+        reset_counts()
+        sampling = run_requests(tts, prompt, 1, card, "tp int8 num_beams=1", num_beams=1)[0]
+        counts["tp_sampling"] = read_counts()
+        want["span_growths"] = 1
+        print(f"launches of the tp num_beams=1 request: {counts['tp_sampling']} (expect {want}); "
+              f"decode route {decode.last_route}", flush=True)
+        assert counts["tp_sampling"] == want and decode.last_route == "tp", counts
+        print(f"gpt stage: tp num_beams=3 {beams['gpt']:.4f} s, tp num_beams=1 "
+              f"{sampling['gpt']:.4f} s, against the int8 pass's num_beams=3 request "
+              f"{int8_gpt:.4f} s: {beams['gpt'] / int8_gpt:.3f}x [{card}]", flush=True)
+        profile_decode(tts, prompt, card, "tp")
+    finally:
+        if saved is None:
+            del os.environ["INDEXTTS_TP_DECODE"]
+        else:
+            os.environ["INDEXTTS_TP_DECODE"] = saved
     del tts
     torch.cuda.empty_cache()
     return counts
@@ -1307,53 +1619,65 @@ def main() -> int:
     kres.update(antialias_entries_phase(card))
     kres.update(int8_kernel_phase(card))
     kres.update(quant_kernel_phase(card, kres["fused_decode_step"]))
+    kres.update(tp_kernel_phase(card, kres))
     mark("kernel phase done")
     with tempfile.TemporaryDirectory(prefix="indextts_smoke_") as d:
         prompt = build_fake_assets(d)
         counts = {"bf16": pipeline_phase(card, prompt, d)}
         mark("bf16 pass done")
-        counts["int8"] = quant_pipeline_phase(card, prompt, d, "int8", INT8_REQUESTS, True)
+        counts["int8"], int8_reports = quant_pipeline_phase(card, prompt, d, "int8",
+                                                            INT8_REQUESTS, True)
         mark("int8 pass done")
         counts.update(sampling_pipeline_phase(card, prompt, d))
         mark("sampling pass done")
         for quantization, (n, profiled) in QUANT_PASSES.items():
             counts[quantization] = quant_pipeline_phase(card, prompt, d, quantization, n,
-                                                        profiled)
+                                                        profiled)[0]
             mark(f"{quantization} pass done")
+        counts.update(tp_pipeline_phase(card, prompt, d, int8_reports[-1]["gpt"]))
+        mark("tp pass done")
     assert "jax" not in sys.modules, "the port imported jax"
     assert not any(m == "indextts_tpu" or m.startswith("indextts_tpu.") for m in sys.modules)
 
     k1 = "decode_step.py:460"
-    # name, counter, source, TPU kernel replaced, the pass whose launches
-    # count (None: no pipeline caller, the kernel phase's launches)
+    k1_src = ("decode_attention.cu", "int8_gemv.cu")
+    k6_src = ("tp_allreduce.cu", "int8_gemv.cu", "decode_attention.cu")
+    # name, counter, sources (the first the row's "source"; a decode step's
+    # time covers all of them), TPU kernel replaced, the pass whose
+    # launches count (None: no pipeline caller, the kernel phase's launches)
     specs = (("attention_rope", "attention_rope", "attention_rope.cu", "attn.py:188", "bf16"),
              ("antialias_snake", "antialias_snake", "antialias_snake.cu", "antialias.py:269",
               "bf16"),
-             ("fused_decode_step", "fused_decode_step", "decode_attention.cu", k1, "int8"),
+             ("fused_decode_step", "fused_decode_step", k1_src, k1, "int8"),
              ("int8_matvec", "int8_matvec", "int8_gemv.cu", "int8_matmul.py:104", "int8"),
              ("int8_mlp", "int8_mlp", "int8_gemv.cu", "int8_matmul.py:71", "int8"),
-             ("fused_decode_step_kvq", "fused_decode_step", "decode_attention.cu",
-              f"{k1} (KVQ)", "int8kv"),
-             ("fused_decode_step_w4", "fused_decode_step", "int8_gemv.cu", f"{k1} (W4)",
-              "int4"),
-             ("fused_decode_step_w4_kvq", "fused_decode_step", "decode_attention.cu",
-              f"{k1} (W4, KVQ)", "int4kv"),
+             ("fused_decode_step_kvq", "fused_decode_step", k1_src, f"{k1} (KVQ)", "int8kv"),
+             ("fused_decode_step_w4", "fused_decode_step", k1_src[::-1], f"{k1} (W4)", "int4"),
+             ("fused_decode_step_w4_kvq", "fused_decode_step", k1_src, f"{k1} (W4, KVQ)",
+              "int4kv"),
              ("int4_matvec", "int4_matvec", "int8_gemv.cu", f"{k1} (W4)", "int4"),
              ("int4_mlp", "int4_mlp", "int8_gemv.cu", f"{k1} (W4)", "int4"),
-             ("fused_decode_step_g1", "fused_decode_step", "decode_attention.cu",
-              f"{k1} (group=1)", "sampling"),
+             ("fused_decode_step_g1", "fused_decode_step", k1_src, f"{k1} (group=1)",
+              "sampling"),
              ("single_block_attention", "single_block_attention", "attention_block.cu",
               "attn.py:253", "flash"),
              ("packed_pair_attention", None, "attention_rope.cu", "attn.py:76", None),
              ("fused_antialias_activation", None, "antialias_snake.cu", "antialias.py:457",
               None),
              ("antialias_activation_prefolded", None, "antialias_snake.cu", "antialias.py:322",
-              None))
+              None),
+             ("fused_decode_step_tp", "fused_decode_step_tp", k6_src, "decode_step_tp.py:367",
+              "tp"),
+             ("fused_decode_step_tp_g1", "fused_decode_step_tp", k6_src,
+              "decode_step_tp.py:367 (group=1)", "tp_sampling"),
+             ("tp_allreduce", "tp_allreduce", "tp_allreduce.cu",
+              "decode_step_tp.py:367 (all_reduce, :201)", "tp"))
     kernels = []
     for name, counter, src, tpu, pass_ in specs:
         r = kres[name]
-        kernels.append({"name": name, "route": "cuda",
-                        "source": f"indextts_tpu_torch/csrc/{src}",
+        srcs = [f"indextts_tpu_torch/csrc/{f}" for f in ((src,) if isinstance(src, str) else src)]
+        kernels.append({"name": name, "route": "cuda", "source": srcs[0],
+                        **({"sources": srcs} if len(srcs) > 1 else {}),
                         "replaces": f"indextts_tpu/ops/pallas/{tpu}",
                         "launches": r["launches"] if pass_ is None else counts[pass_][counter],
                         "launched_in": pass_ or "kernel phase (no pipeline caller)",

@@ -26,7 +26,10 @@ How the cache follows the beams depends on the decode route
 (`engine/decode.py::decode_route`), as in the JAX engine:
 - float weights ("plain"): the K/V cache and ``kv_valid`` are gathered over
   the beam axis every step;
-- int8 or int4 weights ("fused", kernel K1): the cache rows never move. An in-group
+- int8 or int4 weights ("fused", kernel K1), and the tensor-parallel int8
+  tree ("tp", kernel K6; the map and ``kv_valid`` are
+  `parallel.mesh.Replicated`, a copy on each shard's device, since they
+  index batch rows): the cache rows never move. An in-group
   ancestry map ``anc`` (B*K, S) int32 stays on the device: before each step
   ``anc[:, pos]`` is stamped with each row's own index (the row computes
   its k/v there), and after the scorer ``anc = anc[gidx]``, so row r's
@@ -35,7 +38,7 @@ How the cache follows the beams depends on the decode route
   prefix, lock-step writes) and are not gathered either.
 With ``sampling.kv_quant`` the cache is the flat int8 one with its packed
 scale rows "kvs", which K1 selects by the same ancestry (the gather route
-reorders "kvs" with the values).
+reorders "kvs" with the values; under tp it reorders both shards' caches).
 `last_use_anc` records which of the two the last call took, and
 `kv_gathers` counts the cache gathers made.
 """
@@ -51,11 +54,12 @@ from indextts_tpu_torch.config import GPTConfig
 from indextts_tpu_torch.engine.decode import (_DONE_POLL, SamplingConfig, StepCheck,
                                               _cache_len, _embed_mel_token, decode_route,
                                               decode_step)
-from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims, gpt2_prefill, init_kv_cache
+from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims, gpt2_prefill, init_kv_cache, map_cache
 from indextts_tpu_torch.models.gpt.unified_voice import mel_logits_from_hidden
 from indextts_tpu_torch.nn import Params
 from indextts_tpu_torch.ops.sampling import (apply_repetition_penalty, apply_temperature,
                                              apply_top_k, apply_top_p)
+from indextts_tpu_torch.parallel.mesh import Replicated
 
 NEG = -1e9
 
@@ -182,7 +186,7 @@ def generate_beam(params: Params, cfg: GPTConfig, dims: GPT2Dims,
     S = _cache_len(P, max_new_tokens)
     norm = _length_norm(sampling.length_penalty)
     route = decode_route(params, B * K, sampling.kv_quant)
-    use_anc = route == "fused" and K > 1 and not cache_gather
+    use_anc = route in ("fused", "tp") and K > 1 and not cache_gather
     last_use_anc = use_anc
 
     pe = prefix_embeds.to(dtype).repeat_interleave(K, dim=0)
@@ -190,7 +194,8 @@ def generate_beam(params: Params, cfg: GPTConfig, dims: GPT2Dims,
     start = torch.full((B * K,), cfg.start_mel_token, device=dev)
     seq = torch.cat([pe, _embed_mel_token(params, start, 0, dtype)[:, None]], dim=1)
     seq_mask = torch.cat([pm, torch.ones((B * K, 1), dtype=torch.bool, device=dev)], dim=1)
-    kv = init_kv_cache(dims, B * K, S, dtype=dtype, device=dev, quantized=sampling.kv_quant)
+    kv = init_kv_cache(dims, B * K, S, dtype=dtype, device=dev, quantized=sampling.kv_quant,
+                       mesh=params["gpt"].get("mesh"))
     hidden = gpt2_prefill(params["gpt"], seq, dims, seq_mask, kv)
     logits = mel_logits_from_hidden(params, hidden[:, -1]).reshape(B, K, V)
     kv_valid = torch.zeros((B * K, S), dtype=torch.bool, device=dev)
@@ -209,6 +214,10 @@ def generate_beam(params: Params, cfg: GPTConfig, dims: GPT2Dims,
     ones = torch.ones((B, K, 1), dtype=torch.int32, device=dev)
     own_idx = torch.arange(B * K, dtype=torch.int32, device=dev) % K
     anc = own_idx[:, None].repeat(1, S) if use_anc else None
+    if route == "tp":
+        mesh = params["gpt"]["mesh"]
+        kv_valid, own_idx = Replicated.of(kv_valid, mesh), Replicated.of(own_idx, mesh)
+        anc = None if anc is None else Replicated.of(anc, mesh)
 
     step = 0
     while True:
@@ -225,7 +234,7 @@ def generate_beam(params: Params, cfg: GPTConfig, dims: GPT2Dims,
         if use_anc:
             anc = anc[gidx]
         elif K > 1:
-            kv = {name: buf[:, gidx] for name, buf in kv.items()}
+            kv = map_cache(kv, lambda buf: buf[:, gidx.to(buf.device)])
             kv_valid = kv_valid[gidx]
             kv_gathers += 1
         done = done | _hyps_done(cs[:, 0], hyp_scores, step, norm=norm)

@@ -25,21 +25,25 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from indextts_tpu_torch import nn
 from indextts_tpu_torch.config import GPTConfig
 from indextts_tpu_torch.models.gpt.gpt2 import (GPT2Dims, gpt2_decode_step, gpt2_prefill,
-                                                init_kv_cache, is_quantized)
+                                                init_kv_cache, is_quantized, map_cache)
 from indextts_tpu_torch.models.gpt.unified_voice import mel_logits_from_hidden
 from indextts_tpu_torch.nn import Params
 from indextts_tpu_torch.ops.decode_step import fused_decode_step
+from indextts_tpu_torch.ops.decode_step_tp import fused_decode_step_tp
 from indextts_tpu_torch.ops.int8 import MAX_ROWS
 from indextts_tpu_torch.ops.sampling import sample_logits
+from indextts_tpu_torch.parallel.mesh import Replicated, is_tp
 
 # steps between two reads of the all-rows-done flag (the decode loops' only
 # device->host copy)
 _DONE_POLL = 8
 
 # cache growths made by `generate_adaptive`, and the route of the last
-# sampling decode ("fused": K1 at group=1; "plain": gpt2_decode_step)
+# sampling decode ("fused": K1 at group=1; "tp": K6 at group=1; "plain":
+# gpt2_decode_step)
 span_growths = 0
 last_route = None
 
@@ -80,11 +84,28 @@ def decode_route(params: Params, batch: int, kv_quant: bool = False) -> str:
     """The decode step a (B*K)-row batch takes (`engine/decode.py::
     _fused_decode_ok` of the JAX package): "fused" (kernel K1) for int8 or
     int4 GPT-2 weights and B*K <= 24, with the bf16 or (``kv_quant``) the
-    int8 cache; "plain" (`gpt2_decode_step`) for float weights and the bf16
-    cache. The rest raises: the port has no plain quantized decode, and the
+    int8 cache; "tp" (kernel K6, tp=2) for the tensor-parallel int8 tree of
+    `parallel/mesh.py::shard_gpt2_tp` with the bf16 cache and B*K <= 24;
+    "plain" (`gpt2_decode_step`) for float weights and the bf16 cache. The
+    rest raises: the port has no plain quantized decode, and neither the
     JAX package's XLA path for the int8 cache at float weights (its 5D ks/vs
-    cache) is not ported. The JAX package's D % 640 and S % 128 gates come
-    from TPU memory tiling; the port's kernels mask ragged tiles."""
+    cache) nor its GSPMD decode of a tp-sharded tree (float, int4, the int8
+    cache, larger batches) is ported. The JAX package's D % 640, D % 1280,
+    S % 128 and B*K <= 12 gates come from TPU memory tiling and VMEM; the
+    port's kernels mask ragged tiles."""
+    if is_tp(params["gpt"]):
+        what = None
+        if "q" not in params["gpt"]["shards"][0][0]["attn"]["c_attn"]:
+            what = "float or int4 weights"
+        elif kv_quant:
+            what = "the int8 KV cache"
+        elif batch > MAX_ROWS:
+            what = f"{batch} rows (kernel K6 takes at most {MAX_ROWS})"
+        if what is not None:
+            raise NotImplementedError(
+                f"tensor-parallel decode with {what}: the JAX package's GSPMD decode is not "
+                "ported; see ROADMAP.md, queue 1")
+        return "tp"
     if not is_quantized(params["gpt"]):
         if kv_quant:
             raise NotImplementedError(
@@ -107,14 +128,19 @@ def decode_step(route: str, params: Params, x: torch.Tensor, dims: GPT2Dims, pos
                 anc: Optional[torch.Tensor] = None, group: int = 1,
                 check: StepCheck = None) -> torch.Tensor:
     """One token through the GPT-2 backbone by ``route``; returns (B, D)
-    after ln_f. ``check`` sees every fused call's arguments, with each
-    layer's input under "layer_inputs", and its output (the smoke test holds
-    the kernel against its plain twin there)."""
-    if route == "fused":
+    after ln_f. ``check`` sees every fused call's (K1's or K6's) arguments,
+    with each layer's input under "layer_inputs", and its output (the smoke
+    test holds the kernel against its plain twin there). The "tp" route runs
+    K6 on the tree's mesh, then ln_f on rank 0's device; its ``kv_valid``
+    and ``anc`` are `Replicated`."""
+    if route in ("fused", "tp"):
         args = dict(params=params["gpt"], x=x, dims=dims, pos=pos, kv_cache=kv,
                     kv_valid=kv_valid, anc=anc, group=group,
                     layer_inputs=None if check is None else [])
-        h = fused_decode_step(**args)
+        if route == "fused":
+            h = fused_decode_step(**args)
+        else:
+            h = nn.layer_norm(params["gpt"]["ln_f"], fused_decode_step_tp(**args))
         if check is not None:
             check(args, h)
         return h
@@ -155,7 +181,7 @@ class DecodeState:
     tokens: torch.Tensor        # (B, max_new_tokens) int64, stop-padded
     counts: torch.Tensor        # (B, V) int32 repetition counts
     kv: Dict[str, torch.Tensor]
-    kv_valid: torch.Tensor      # (B, S) bool
+    kv_valid: torch.Tensor      # (B, S) bool; on the "tp" route Replicated
     finished: torch.Tensor      # (B,) bool
     lengths: torch.Tensor       # (B,) int64: index of the first stop token
     route: str
@@ -176,12 +202,15 @@ def _prefill_state(params: Params, cfg: GPTConfig, dims: GPT2Dims,
     seq_mask = torch.cat([prefix_mask.bool(), torch.ones((B, 1), dtype=torch.bool, device=dev)],
                          dim=1)
     S = _cache_len(P, span_end)
-    kv = init_kv_cache(dims, B, S, dtype=dtype, device=dev, quantized=sampling.kv_quant)
+    kv = init_kv_cache(dims, B, S, dtype=dtype, device=dev, quantized=sampling.kv_quant,
+                       mesh=params["gpt"].get("mesh"))
     hidden = gpt2_prefill(params["gpt"], seq, dims, seq_mask, kv)
     logits = _min_len_mask(mel_logits_from_hidden(params, hidden[:, -1]), stop, 0,
                            sampling.min_new_tokens)
     kv_valid = torch.zeros((B, S), dtype=torch.bool, device=dev)
     kv_valid[:, :P + 1] = seq_mask
+    if route == "tp":
+        kv_valid = Replicated.of(kv_valid, params["gpt"]["mesh"])
     counts = torch.zeros((B, cfg.number_mel_codes), dtype=torch.int32, device=dev)
     counts[:, 1] += P
     counts[:, cfg.start_mel_token] += 1
@@ -199,7 +228,8 @@ def _decode_span_body(params: Params, cfg: GPTConfig, dims: GPT2Dims, st: Decode
                       generator: torch.Generator, step_check: StepCheck = None) -> None:
     """Steps ``st.step`` .. ``end - 1`` in place, or fewer once every row is
     done (read every ``_DONE_POLL`` steps). Each step is one
-    `decode_step` on ``st.route``: K1 at ``group=1`` for quantized weights."""
+    `decode_step` on ``st.route``: K1 at ``group=1`` for quantized weights,
+    K6 at ``group=1`` for the tensor-parallel tree."""
     stop = cfg.stop_mel_token
     rows = torch.arange(st.tokens.shape[0], device=st.tokens.device)
     while st.step < end:
@@ -222,16 +252,18 @@ def _decode_span_body(params: Params, cfg: GPTConfig, dims: GPT2Dims, st: Decode
 
 
 def _grow(st: DecodeState, S: int) -> None:
-    """Pad every cache entry (values, and the int8 cache's scale rows) and
-    ``kv_valid`` along S to ``S`` slots."""
+    """Pad every cache entry (values, and the int8 cache's scale rows; each
+    shard's under tp) and ``kv_valid`` (each copy under tp) along S to ``S``
+    slots."""
     def pad(buf: torch.Tensor, axis: int) -> torch.Tensor:
         shape = list(buf.shape)
         shape[axis] = S
         out = buf.new_zeros(shape)
         out.narrow(axis, 0, buf.shape[axis]).copy_(buf)
         return out
-    st.kv = {name: pad(buf, 2) for name, buf in st.kv.items()}
-    st.kv_valid = pad(st.kv_valid, 1)
+    st.kv = map_cache(st.kv, lambda buf: pad(buf, 2))
+    st.kv_valid = st.kv_valid.map(lambda buf: pad(buf, 1)) \
+        if isinstance(st.kv_valid, Replicated) else pad(st.kv_valid, 1)
 
 
 @torch.no_grad()

@@ -5,7 +5,12 @@
 - `gpt2_decode_step`: one token against the flat (L, B, S, D) cache;
 - the weight-only int8 / int4 trees and the flat int8 cache
   (`kv_quantize_flat`) of the memory-knob configurations, whose decode
-  steps run kernel K1 (`ops/decode_step.py`).
+  steps run kernel K1 (`ops/decode_step.py`);
+- the tensor-parallel int8 tree (`parallel/mesh.py::shard_gpt2_tp`):
+  `gpt2_forward` and `gpt2_prefill` run it shard by shard (what GSPMD makes
+  of the JAX package's passes on the tp-sharded tree), and
+  `init_kv_cache(mesh=...)` gives each shard its (L, B, S, D/2) cache; its
+  decode steps run kernel K6 (`ops/decode_step_tp.py`).
 
 Weights run in the pipeline's dtype (bf16 on the card) with LayerNorm and
 softmax in f32. Unlike the JAX package, the cache is updated in place: the
@@ -16,12 +21,13 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from indextts_tpu_torch import nn
 from indextts_tpu_torch.nn import InitRng, Params
+from indextts_tpu_torch.parallel.mesh import Mesh, is_tp
 
 
 @dataclass(frozen=True)
@@ -73,9 +79,11 @@ def quantize_gpt2_int4(params: Params) -> Params:
 
 
 def is_quantized(params: Params) -> bool:
-    """Whether a GPT-2 tree carries weight-only int8 (`quantize_gpt2_int8`)
-    or int4 (`quantize_gpt2_int4`) weights."""
-    c_attn = params["h"][0]["attn"]["c_attn"]
+    """Whether a GPT-2 tree (or the tensor-parallel tree of one) carries
+    weight-only int8 (`quantize_gpt2_int8`) or int4 (`quantize_gpt2_int4`)
+    weights."""
+    layers = params["shards"][0] if is_tp(params) else params["h"]
+    c_attn = layers[0]["attn"]["c_attn"]
     return "q" in c_attn or "q4" in c_attn
 
 
@@ -85,11 +93,19 @@ SCALE_LANES = 256
 
 
 def init_kv_cache(dims: GPT2Dims, batch: int, max_len: int, dtype=torch.bfloat16,
-                  device="cpu", quantized: bool = False) -> Dict[str, torch.Tensor]:
+                  device="cpu", quantized: bool = False, mesh: Optional[Mesh] = None) -> Dict:
     """Flat (L, B, S, D) K and V caches, heads merged on the last axis.
     ``quantized=True`` gives the flat int8 cache of the JAX package's fused
     decode: int8 k and v plus ``"kvs"`` (L, B, S, 256) bf16, one packed
-    scale row per (row, position) (see `kv_quantize_flat`)."""
+    scale row per (row, position) (see `kv_quantize_flat`). With a tp
+    ``mesh``: ``{"shards": [cache of rank t]}``, each the bf16 cache of the
+    rank's heads, (L, B, S, D/tp) on its device."""
+    if mesh is not None:
+        if quantized:
+            raise NotImplementedError("the int8 KV cache under tensor parallelism is not "
+                                      "ported (ROADMAP.md, queue 1)")
+        sub = GPT2Dims(dims.layers, dims.dim // mesh.tp, dims.heads // mesh.tp)
+        return {"shards": [init_kv_cache(sub, batch, max_len, dtype, d) for d in mesh.devices]}
     shape = (dims.layers, batch, max_len, dims.dim)
     if quantized:
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -98,6 +114,13 @@ def init_kv_cache(dims: GPT2Dims, batch: int, max_len: int, dtype=torch.bfloat16
                                    device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def map_cache(kv: Dict, fn: Callable[[torch.Tensor], torch.Tensor]) -> Dict:
+    """The cache with ``fn`` applied to every buffer (each shard's, under tp)."""
+    if "shards" in kv:
+        return {"shards": [map_cache(c, fn) for c in kv["shards"]]}
+    return {name: fn(buf) for name, buf in kv.items()}
 
 
 def kv_quantize_flat(k: torch.Tensor, v: torch.Tensor, heads: int):
@@ -169,30 +192,87 @@ def _layer(lp: Params, x: torch.Tensor, dims: GPT2Dims, mask, cache=None,
     return _mlp(lp, x)
 
 
+def _tp_partial(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel int8 layer's f32 partial product on one shard (the
+    scale and bias apply after the reduce)."""
+    if "q" not in p:
+        raise NotImplementedError("the tensor-parallel passes take int8 weights (the JAX "
+                                  "package's GSPMD passes for float and int4 weights are not "
+                                  "ported; ROADMAP.md, queue 1)")
+    return torch.matmul(x.float(), p["q"].t().float())
+
+
+def _tp_reduce(p: Params, parts: List[torch.Tensor], dtype) -> torch.Tensor:
+    """Sum the shards' partials lo + hi on rank 0's device, then the full
+    per-channel scale and bias, rounded once (`nn.dense`'s int8 order)."""
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part.to(acc.device)
+    return (acc * p["scale"] + p["bias"].float()).to(dtype)
+
+
+def _layer_tp(layers: List[Params], x: torch.Tensor, dims: GPT2Dims, mask,
+              caches: Optional[List[Dict]] = None, li: int = 0) -> torch.Tensor:
+    """One block on the tensor-parallel tree: each shard (``layers[t]``, on
+    its device) runs its heads and its half of the MLP on a copy of x; the
+    row-parallel partials are reduced on rank 0's device, where x lives."""
+    B, T, _ = x.shape
+    tp = len(layers)
+    H, Dh = dims.heads // tp, dims.head_dim
+
+    def heads(t):
+        return t.reshape(B, T, H, Dh).transpose(1, 2)
+
+    parts = []
+    for t, lp in enumerate(layers):
+        dev = lp["ln_1"]["weight"].device
+        q, k, v = torch.chunk(nn.dense(lp["attn"]["c_attn"],
+                                       nn.layer_norm(lp["ln_1"], x.to(dev))), 3, -1)
+        if caches is not None:
+            caches[t]["k"][li, :, :T] = k.to(caches[t]["k"].dtype)
+            caches[t]["v"][li, :, :T] = v.to(caches[t]["v"].dtype)
+        out = nn.mha(heads(q), heads(k), heads(v), mask=mask.to(dev))
+        parts.append(_tp_partial(lp["attn"]["c_proj"], out.transpose(1, 2).reshape(B, T, -1)))
+    x = x + _tp_reduce(layers[0]["attn"]["c_proj"], parts, x.dtype)
+    parts = []
+    for lp in layers:
+        h = nn.layer_norm(lp["ln_2"], x.to(lp["ln_2"]["weight"].device))
+        parts.append(_tp_partial(lp["mlp"]["c_proj"],
+                                 nn.gelu_new(nn.dense(lp["mlp"]["c_fc"], h))))
+    return x + _tp_reduce(layers[0]["mlp"]["c_proj"], parts, x.dtype)
+
+
+def _blocks(params: Params, x: torch.Tensor, dims: GPT2Dims, mask,
+            kv_cache: Optional[Dict] = None) -> torch.Tensor:
+    if is_tp(params):
+        caches = None if kv_cache is None else kv_cache["shards"]
+        for li, layers in enumerate(zip(*params["shards"])):
+            x = _layer_tp(list(layers), x, dims, mask, caches, li)
+    else:
+        for li, lp in enumerate(params["h"]):
+            x = _layer(lp, x, dims, mask, kv_cache, li)
+    return nn.layer_norm(params["ln_f"], x)
+
+
 def gpt2_forward(params: Params, x: torch.Tensor, dims: GPT2Dims,
                  attn_mask: torch.Tensor = None) -> torch.Tensor:
     """Causal pass over input embeddings x (B, T, D); optional (B, T) key
-    validity mask. Returns hidden states after ln_f."""
+    validity mask. Returns hidden states after ln_f. A tensor-parallel tree
+    runs shard by shard (`_layer_tp`)."""
     B, T, _ = x.shape
     if attn_mask is None:
         attn_mask = torch.ones((B, T), dtype=torch.bool, device=x.device)
-    mask = _causal_mask(attn_mask, T)
-    for lp in params["h"]:
-        x = _layer(lp, x, dims, mask)
-    return nn.layer_norm(params["ln_f"], x)
+    return _blocks(params, x, dims, _causal_mask(attn_mask, T))
 
 
 def gpt2_prefill(params: Params, x: torch.Tensor, dims: GPT2Dims,
-                 attn_mask: torch.Tensor, kv_cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+                 attn_mask: torch.Tensor, kv_cache: Dict) -> torch.Tensor:
     """`gpt2_forward` that also writes every layer's K/V at cache slots
     [0, T) (in place; an int8 cache gets `kv_quantize_flat` rows, while the
     prefill's own attention uses the unquantized k and v, as in the JAX
-    package). Returns hidden states after ln_f."""
-    T = x.shape[1]
-    mask = _causal_mask(attn_mask, T)
-    for li, lp in enumerate(params["h"]):
-        x = _layer(lp, x, dims, mask, kv_cache, li)
-    return nn.layer_norm(params["ln_f"], x)
+    package; a tensor-parallel tree writes each shard's heads into its own
+    cache). Returns hidden states after ln_f."""
+    return _blocks(params, x, dims, _causal_mask(attn_mask, x.shape[1]), kv_cache)
 
 
 def gpt2_decode_step(params: Params, x: torch.Tensor, dims: GPT2Dims, pos: int,

@@ -46,6 +46,10 @@ _SIGNATURES = {
     # qkv, ck, cv, kvs, kv_valid, anc, part_ml, part_o, out, M, S, D, H, pos,
     # group, scale, stream
     "decode_attention_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
+    # own, peer, scale, bias, residual, out, M, N, rank, stream
+    "tp_allreduce_launch": [_P] * 6 + [_I] * 3 + [_P],
+    # device, peer
+    "tp_enable_peer_access": [_I] * 2,
 }
 
 

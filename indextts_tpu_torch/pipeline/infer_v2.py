@@ -3,6 +3,11 @@
     tts = IndexTTS2(cfg_path=None, model_dir=..., device="cuda")
     tts.infer(spk_audio_prompt=..., text=..., output_path=...)
 
+    # the tp=2 int8 serving decode (kernel K6), as in the JAX package
+    # INDEXTTS_TP_DECODE=kernel, here with both shards on one card:
+    tts = IndexTTS2(cfg_path=None, quantization="int8",
+                    mesh=make_mesh(["cuda:0", "cuda:0"]))
+
 One request runs, on ``device``:
   [P] speaker prompt (cached per prompt path): SeamlessM4T features (host)
       -> w2v-bert hidden[17], standardized -> RepCodec quantize; 22 kHz mel;
@@ -14,7 +19,8 @@ One request runs, on ``device``:
       (`engine/beam.py`, K = num_beams), the sampling decode for
       num_beams=1 (`engine/decode.py::generate_adaptive`); with a
       ``quantization`` every decode step runs kernel K1 (with the in-kernel
-      beam ancestry map under beams, at group=1 when sampling)
+      beam ancestry map under beams, at group=1 when sampling), under a
+      tp mesh kernel K6
   [S1] teacher-forced GPT latents -> gpt_layer + vq2emb
   [S2] length regulator -> 25-step CFM Euler solve under CFG (DiT: kernel
       K2, or K4 on its flash tier)
@@ -27,10 +33,20 @@ or with one of the JAX pipeline's quantizations, all bf16-only:
 layers of every GPT-2 block, quantized after the cast to bf16 as the JAX
 pipeline does), ``"int4"`` (the same layers nibble-packed int4), and the
 memory knobs ``"int8kv"`` / ``"int4kv"`` (those weights with the flat int8
-KV cache). At num_beams=1 the JAX pipeline's default is its self-gating
+KV cache). With ``mesh`` (`parallel/mesh.py::make_mesh`, dp=1 x tp=2),
+``quantization="int8"`` and ``INDEXTTS_TP_DECODE=kernel`` (the JAX
+pipeline's own switch), the GPT-2 stack is split over the two ranks
+(`shard_gpt2_tp`) and every decode step runs kernel K6
+(`ops/decode_step_tp.py`), the prefill and the teacher-forced pass shard by
+shard; conditioning, s2mel and BigVGAN run on rank 0's device (the DiT's tp
+sharding is not ported). Every other mesh combination raises
+NotImplementedError: the JAX package's GSPMD decode for float, int4 and
+int8kv weights, the dp axis, the DiT's tp and sp. At num_beams=1 the JAX
+pipeline's default is its self-gating
 speculative decoder, which its own comment documents as token-identical to
 `generate()`; the port runs the plain adaptive sampling decode there (the
-speculative engine is ROADMAP queue 1). Paths of the JAX pipeline that are
+speculative engine is ROADMAP queue 1; under a mesh the JAX pipeline turns
+speculation off too). Paths of the JAX pipeline that are
 not ported yet raise NotImplementedError naming their ROADMAP item:
 multi-segment text, streaming, emotion from text or emo_vector, and the aux
 modes (diverse beam, contrastive, DoLa). Weights are random at the
@@ -70,6 +86,7 @@ from indextts_tpu_torch.models.s2mel.length_regulator import length_regulate
 from indextts_tpu_torch.models.s2mel.s2mel import gpt_layer_forward, init_s2mel
 from indextts_tpu_torch.models.vocoder.bigvgan import bigvgan_forward, init_bigvgan
 from indextts_tpu_torch.ops.mel import kaldi_fbank, mel_spectrogram, seamless_m4t_features
+from indextts_tpu_torch.parallel.mesh import Mesh, shard_gpt2_tp
 from indextts_tpu_torch.pipeline.buckets import pad_to, pick_bucket
 from indextts_tpu_torch.text import TextNormalizer, TextTokenizer
 from indextts_tpu_torch.utils.jax_params import to_torch
@@ -87,6 +104,21 @@ def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported to the PyTorch pipeline yet ({_ROADMAP})")
 
 
+def _check_mesh(mesh, quantization: Optional[str]) -> None:
+    """A mesh runs the tp=2 int8 decode kernel K6 under the JAX pipeline's
+    own switch; every other mesh combination (the JAX package's GSPMD paths)
+    raises."""
+    if quantization != "int8":
+        _not_ported(f"a mesh with quantization={quantization!r} (the GSPMD tensor-parallel "
+                    "decode of float, int4 and int8kv weights; the tp decode kernel K6 takes "
+                    "int8 weights and the bf16 cache)")
+    if os.environ.get("INDEXTTS_TP_DECODE", "") != "kernel":
+        _not_ported("a mesh without INDEXTTS_TP_DECODE=kernel (the GSPMD tensor-parallel "
+                    "decode; set INDEXTTS_TP_DECODE=kernel for the tp decode kernel K6)")
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh={mesh!r}: takes indextts_tpu_torch.parallel.make_mesh(...)")
+
+
 class IndexTTS2:
     """Zero-shot TTS, v2 model family, single-segment beam and sampling paths."""
 
@@ -94,7 +126,7 @@ class IndexTTS2:
     SAMPLING_RATE = 22050
 
     def __init__(self, cfg_path: Optional[str] = "checkpoints/config.yaml",
-                 model_dir: str = "checkpoints", device: str = "cuda",
+                 model_dir: str = "checkpoints", device: Optional[str] = None,
                  dtype: torch.dtype = torch.bfloat16, seed: int = 0,
                  cfg: Optional[IndexTTS2Config] = None,
                  quantization: Optional[str] = None, mesh=None):
@@ -106,9 +138,15 @@ class IndexTTS2:
             raise ValueError(f"quantization={quantization!r} runs kernel K1, which takes bf16 "
                              f"activations and cache; got dtype={dtype}")
         self.quantization = quantization
+        # ``device`` defaults to the card, or under a mesh to rank 0's device
         if mesh is not None:
-            _not_ported("multi-device (mesh)")
-        self.device = torch.device(device)
+            _check_mesh(mesh, quantization)
+            if device is not None and mesh.devices[0] != torch.device(device):
+                raise ValueError(f"device={device!r}: under {mesh} the pipeline runs on rank 0's "
+                                 f"device {mesh.devices[0]}")
+            device = mesh.devices[0]
+        self.mesh = mesh
+        self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("IndexTTS2(device='cuda'): CUDA is not available")
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -154,12 +192,16 @@ class IndexTTS2:
         bigvgan, w2v; optional w2v_mean / w2v_std) through the weight bridge.
         CAMPPlus stays f32; everything else is cast to the pipeline dtype.
         Under a ``quantization`` the GPT-2 backbone is then quantized (int8
-        or int4), unless the tree handed over already is."""
+        or int4), unless the tree handed over already is; under a mesh it is
+        then split over the tp ranks (`shard_gpt2_tp`)."""
         dev, dt = self.device, self.dtype
         self.gpt_params = to_torch(trees["gpt"], dev, dt)
-        if self.quantization and not is_quantized(self.gpt_params["gpt"]):
-            quantize = QUANTIZATIONS[self.quantization][0]
-            self.gpt_params["gpt"] = quantize(self.gpt_params["gpt"])
+        gpt = self.gpt_params["gpt"]
+        if self.quantization and not is_quantized(gpt):
+            gpt = QUANTIZATIONS[self.quantization][0](gpt)
+        if self.mesh is not None:
+            gpt = shard_gpt2_tp(gpt, self.mesh)
+        self.gpt_params["gpt"] = gpt
         self.s2mel_params = to_torch(trees["s2mel"], dev, dt)
         self.codec_params = to_torch(trees["codec"], dev, dt)
         self.bigvgan_params = to_torch(trees["bigvgan"], dev, dt)

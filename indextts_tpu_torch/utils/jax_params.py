@@ -12,7 +12,9 @@ functions consume. Every layout change of the port lives here:
   ``{"q4": (in/2, out) int8}`` -> ``{"q4": (out, in/2) int8}`` (the packed
   bytes unchanged, so the nibble grouping runs along the last axis): the
   int8 values and the f32 scales keep their types (only the bias takes
-  ``dtype``);
+  ``dtype``); the JAX package's tp-kernel layout of the int8 qkv stack
+  (`gpt_tp_layout`: q (D, 3, D), scale and bias (3, D) per layer) is a pure
+  reshape of the canonical one and is taken back to it;
 - conv1d ``{"kernel": (W, in/g, out)}`` -> ``{"weight": (out, in/g, W)}``;
 - conv-transpose ``{"kernel": (W, in, out)}``, stored flipped for the
   lhs-dilated form -> ``{"weight": (in, out, W)}`` (nn.ConvTranspose1d);
@@ -93,7 +95,11 @@ def to_torch(tree: Any, device=None, dtype: Optional[torch.dtype] = None,
     out = {}
     for qkey in ("q", "q4"):
         if qkey in tree:
-            out[qkey] = _tensor(tree[qkey], device, None).t().contiguous()
+            q = _tensor(tree[qkey], device, None)
+            if q.ndim == 3:              # gpt_tp_layout's (in, 3, out/3)
+                q = q.reshape(q.shape[0], -1)
+                tree = {**tree, "bias": _tensor(tree["bias"], device, dtype).reshape(-1)}
+            out[qkey] = q.t().contiguous()
             out["scale"] = _tensor(tree["scale"], device, torch.float32).reshape(-1)
             tree = {k: v for k, v in tree.items() if k not in (qkey, "scale")}
     for key, val in tree.items():

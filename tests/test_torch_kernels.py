@@ -19,7 +19,16 @@ most an ulp from the f32 summation order). K4 (single_block_attention) and
 K2' (packed_pair_attention) take K2's rel-L2 <= 2e-2; K5
 (fused_antialias_activation) and K3' (antialias_activation_prefolded), which
 launch K3's kernel, take K3's 1e-2. The num_beams=1 sampling decode with int8
-weights launches K1 once a step (at group=1) and never the bf16 step.
+weights launches K1 once a step (at group=1) and never the bf16 step. K6's
+all-reduce (tp_allreduce) is bit-identical to its twin, for either rank; K6
+(fused_decode_step_tp, both shards co-located on one card, each on its own
+stream) holds each layer within rel-L2 1e-2 of the twin on the kernel path's
+input, keeps the two shards' residual streams bit-identical, and writes k/v
+rows bit-identical to K1's qkv kernel on the same input, per head slice.
+With two cards, K6 with its shards on cuda:0 and cuda:1 (the exchange
+reading the peer card's partial) is bit-identical to the co-located run,
+and greedy tp decodes (beams on the ancestry and the gather route, the
+adaptive sampling decode) are token-equal across the two layouts.
 """
 
 import pytest
@@ -28,7 +37,8 @@ import torch
 from indextts_tpu_torch.models.gpt.gpt2 import (GPT2Dims, init_gpt2, kv_quantize_flat,
                                                 quantize_gpt2_int4, quantize_gpt2_int8)
 from indextts_tpu_torch.nn import InitRng, quantize_dense_int4
-from indextts_tpu_torch.ops import attn, decode_step, int8, snake
+from indextts_tpu_torch.ops import attn, decode_step, decode_step_tp, int8, snake
+from indextts_tpu_torch.parallel.mesh import Replicated, make_mesh, shard_gpt2_tp
 from indextts_tpu_torch.ops.rope import precompute_freqs_cis
 from indextts_tpu_torch.utils.jax_params import to_torch
 
@@ -443,3 +453,153 @@ def test_sampling_decode_takes_k1_at_group_1(cuda_device):
     assert decode_step.fused_decode_step.launches == k1 + 11
     assert gpt2_decode_step.calls == calls
     assert list(lens) == [12, 12] and bool(((toks >= 0) & (toks < 50)).all())
+
+
+def _tp_case(device, group=1):
+    """K1's case split over a tp=2 mesh of ``device`` named twice: the int8
+    tree, its shards, and a maker of fresh per-shard caches."""
+    params, dims, x, kv, valid, anc, pos = _k1_case(device)
+    tp = shard_gpt2_tp(params, make_mesh([device, device]))
+    Dl = dims.dim // 2
+
+    def cache():
+        return {"shards": [{k: kv[i][..., t * Dl:(t + 1) * Dl].contiguous()
+                            for i, k in enumerate("kv")} for t in range(2)]}
+    return params, tp, dims, x, cache, valid, anc if group > 1 else None, pos
+
+
+def test_cpu_tensors_run_the_tp_twins_without_counting():
+    before = (decode_step_tp.tp_allreduce.launches, decode_step_tp.fused_decode_step_tp.launches)
+    params, tp, dims, x, cache, valid, anc, pos = _tp_case("cpu", group=3)
+    h = decode_step_tp.fused_decode_step_tp(tp, x, dims, pos, cache(), valid, anc, 3)
+    ref = decode_step_tp.fused_decode_step_tp_plain(tp, x, dims, pos, cache(), valid, anc, 3)
+    assert torch.equal(h, ref)
+    assert (decode_step_tp.tp_allreduce.launches,
+            decode_step_tp.fused_decode_step_tp.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [3, 24])
+def test_tp_allreduce_kernel_bit_identical_to_plain(cuda_device, M):
+    g = torch.Generator().manual_seed(M)
+    p0, p1 = (1e3 * torch.randn((M, 1280), generator=g)).to(cuda_device), \
+        (1e3 * torch.randn((M, 1280), generator=g)).to(cuda_device)
+    scale = (torch.rand(1280, generator=g) / 127 / 30).to(cuda_device)
+    bias = (0.1 * torch.randn(1280, generator=g)).to(cuda_device, torch.bfloat16)
+    res = torch.randn((M, 1280), generator=g).to(cuda_device, torch.bfloat16)
+    before = decode_step_tp.tp_allreduce.launches
+    out0 = decode_step_tp.tp_allreduce(p0, p1, scale, bias, res, 0)
+    out1 = decode_step_tp.tp_allreduce(p1, p0, scale, bias, res, 1)
+    ref = decode_step_tp.tp_allreduce_plain(p0, p1, scale, bias, res, 0)
+    torch.cuda.synchronize()
+    assert decode_step_tp.tp_allreduce.launches == before + 2
+    assert torch.equal(out0, ref) and torch.equal(out1, ref)
+    with pytest.raises(ValueError, match="rank"):
+        decode_step_tp.tp_allreduce(p0, p1, scale, bias, res, 2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        decode_step_tp.tp_allreduce(p0, p1, scale, bias, res.float(), 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 3])
+def test_fused_decode_step_tp_co_located_matches_plain(cuda_device, group):
+    params, tp, dims, x, cache, valid, anc, pos = _tp_case(cuda_device, group)
+    kc, xs = cache(), []
+    before = (decode_step_tp.fused_decode_step_tp.launches, decode_step_tp.tp_allreduce.launches)
+    h = decode_step_tp.fused_decode_step_tp(tp, x, dims, pos, kc, valid, anc, group,
+                                            layer_inputs=xs)
+    torch.cuda.synchronize()
+    assert (decode_step_tp.fused_decode_step_tp.launches,
+            decode_step_tp.tp_allreduce.launches) == (before[0] + 1,
+                                                      before[1] + 2 * 2 * dims.layers)
+    D, Dl = dims.dim, dims.dim // 2
+    for li, layers in enumerate(zip(*tp["shards"])):
+        assert torch.equal(*xs[li])                       # the residual streams agree
+        y = decode_step_tp.decode_layer_tp(decode_step_tp.TWINS, layers, list(xs[li]),
+                                           dims.heads // 2, pos, cache()["shards"], li,
+                                           [valid] * 2, [anc] * 2, group)
+        assert rel_l2(xs[li + 1][0], y[0]) <= 1e-2
+        lp = params["h"][li]
+        qkv = int8.int8_matvec(xs[li][0], lp["attn"]["c_attn"]["q"],
+                               ln=(lp["ln_1"]["weight"], lp["ln_1"]["bias"]),
+                               scale=lp["attn"]["c_attn"]["scale"],
+                               bias=lp["attn"]["c_attn"]["bias"])
+        for t, c in enumerate(kc["shards"]):
+            for j, key in ((1, "k"), (2, "v")):
+                cols = slice(j * D + t * Dl, j * D + (t + 1) * Dl)
+                assert torch.equal(c[key][li, :, pos], qkv[:, cols])
+    assert torch.equal(h, xs[-1][0]) and torch.equal(*xs[-1])
+    ref = decode_step_tp.fused_decode_step_tp_plain(tp, x, dims, pos, cache(), valid, anc, group)
+    assert rel_l2(h, ref) <= 1e-2
+
+
+def _two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    return ("cuda:0", "cuda:0"), ("cuda:0", "cuda:1")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 3])
+def test_fused_decode_step_tp_on_two_cards_equals_co_located(group):
+    layouts = _two_cards()
+    params, dims, x, kv, valid, anc, pos = _k1_case(torch.device("cuda:0"))
+    anc = anc if group > 1 else None
+    Dl = dims.dim // 2
+    runs = []
+    for devs in layouts:
+        mesh = make_mesh(list(devs))
+        tp = shard_gpt2_tp(params, mesh)
+        cache = {"shards": [{k: kv[i][..., t * Dl:(t + 1) * Dl].contiguous().to(d)
+                             for i, k in enumerate("kv")} for t, d in enumerate(mesh.devices)]}
+        xs = []
+        h = decode_step_tp.fused_decode_step_tp(
+            tp, x, dims, pos, cache, Replicated.of(valid, mesh),
+            None if anc is None else Replicated.of(anc, mesh), group, layer_inputs=xs)
+        for d in set(mesh.devices):
+            torch.cuda.synchronize(d)
+        runs.append((h, cache, xs))
+    (h0, c0, xs0), (h1, c1, xs1) = runs
+    assert h1.device == torch.device("cuda:0") and torch.equal(h0, h1)
+    for a, b in zip(c0["shards"], c1["shards"]):
+        for key in "kv":
+            assert torch.equal(a[key], b[key].to(a[key].device))
+    for l0, l1 in zip(xs0, xs1):
+        assert all(torch.equal(l0[0], t.to(l0[0].device)) for t in (*l0, *l1))
+
+
+@pytest.mark.cuda
+def test_greedy_tp_decodes_on_two_cards_token_equal_co_located():
+    """Prefill, beams (ancestry and gather routes) and the adaptive decode
+    with its cache growth, with the shards on two cards and on one."""
+    from indextts_tpu_torch.config import GPTConfig
+    from indextts_tpu_torch.engine import beam, decode
+    from indextts_tpu_torch.models.gpt.unified_voice import init_unified_voice
+
+    layouts = _two_cards()
+    dev = torch.device("cuda:0")
+    cfg = GPTConfig(layers=2, model_dim=640, heads=10, max_text_tokens=30, max_mel_tokens=60,
+                    number_text_tokens=40, number_mel_codes=50, start_mel_token=48,
+                    stop_mel_token=49)
+    params = to_torch(init_unified_voice(InitRng(0, dev), cfg), dev, torch.bfloat16)
+    params["gpt"] = quantize_gpt2_int8(params["gpt"])
+    g = torch.Generator(device=dev).manual_seed(0)
+    prefix = torch.randn((2, 9, 640), generator=g, device=dev).to(torch.bfloat16)
+    mask = torch.ones((2, 9), dtype=torch.bool, device=dev)
+    mask[1, :4] = False
+    dims = GPT2Dims(2, 640, 10)
+    out = {}
+    for devs in layouts:
+        p = {**params, "gpt": shard_gpt2_tp(params["gpt"], make_mesh(list(devs)))}
+        for gather in (False, True):
+            out[devs, "beam", gather] = beam.generate_beam(
+                p, cfg, dims, prefix, mask, torch.Generator(device=dev).manual_seed(0), 10,
+                decode.SamplingConfig(do_sample=False, num_beams=3), cache_gather=gather)
+        out[devs, "adaptive"] = decode.generate_adaptive(
+            p, cfg, dims, prefix, mask, torch.Generator(device=dev).manual_seed(0), 12,
+            decode.SamplingConfig(do_sample=False, num_beams=1, min_new_tokens=11), spans=(4, 8))
+        assert decode.last_route == "tp"
+    for key in (("beam", False), ("beam", True), ("adaptive",)):
+        (t0, l0), (t1, l1) = (out[(layouts[i], *key)] for i in range(2))
+        assert torch.equal(t0, t1) and list(l0) == list(l1), key
+    assert torch.equal(out[layouts[1], "beam", False][0], out[layouts[1], "beam", True][0])

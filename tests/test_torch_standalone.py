@@ -1,7 +1,9 @@
 """The port stands alone.
 
-- Importing every module of `indextts_tpu_torch`, and `chip_smoke.py` as a
-  module, loads neither jax nor any module of the JAX package
+- Importing every module of `indextts_tpu_torch` (the tensor-parallel
+  `parallel/mesh.py` and `ops/decode_step_tp.py` among them), and
+  `chip_smoke.py` as a module, loads neither jax nor any module of the JAX
+  package
   (`indextts_tpu`): the port keeps its own copies of the host modules it
   needs (config, text front end, buckets, resampling, wav I/O).
 - The copied text front end gives the JAX package's normalized text, token
@@ -36,7 +38,9 @@ def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'indextts_tpu'))\n"
         "assert not bad, bad\n"
-        "assert len(names) > 30, names\n")
+        "assert len(names) > 30, names\n"
+        "assert {'indextts_tpu_torch.parallel.mesh', 'indextts_tpu_torch.ops.decode_step_tp'}"
+        " <= set(names), names\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO)
     assert res.returncode == 0, res.stderr
 
