@@ -10,8 +10,9 @@
    one PyTorch call computes the same function) library times from CUDA
    events after warm-up, and each kernel's bound from the bytes and
    operations of this run's inputs:
-   - K2 `attention_rope` (rel-L2 <= 2e-2 over valid query rows; library:
-     SDPA on pre-roped q and k, attention only) and K3 `antialias_snake`
+   - K2 `attention_rope`, its rope pass (`rope_qk`, bit-identical to its
+     twin) then K2''s attention kernel (rel-L2 <= 2e-2 over valid query rows;
+     library: SDPA on pre-roped q and k, attention only) and K3 `antialias_snake`
      (rel-L2 <= 1e-3 over valid rows, and within 2 bf16 ulps on the 4 rows
      at each edge);
    - K7a `int8_matvec` at the qkv, attn-proj, fc and mlp-proj shapes and K7b
@@ -30,6 +31,13 @@
      D=64, T=1280, transposed (B, T, H, D) views) and at H=16 / D=32 and
      H=4 / D=128, and K2' `packed_pair_attention` at K2's shapes (rel-L2 <=
      2e-2; library: SDPA with the boolean key mask); K4 must refuse D=40;
+   - the attention kernels (K2 at both T, K2', K4 at its three widths) and
+     SDPA beside them are timed 5 times each, in turns, as device time (the
+     replay of a CUDA graph of 20 calls) and eager (CUDA events around 10
+     eager calls, host work included): the median and the min-max range of
+     each, so the yardstick's spread is read in the same run; their
+     `kernels` rows give the graph-replay medians as ``ms`` and
+     ``library_ms``;
    - K5 `fused_antialias_activation` and K3' `antialias_activation_prefolded`
      (on the fold f = 128 // gcd(C, 128)) at K3's six shapes under both
      logscale values, with K3's gates. K2', K5 and K3' have no caller on the
@@ -40,9 +48,13 @@
    prompt wav; two single-segment requests with the default generation
    kwargs (beam sampling, num_beams=3), decode pinned to 400 codes as the
    JAX bench pins it. Checks: finite wavs of int(codes * 1.72) * 256
-   samples, K2 / K3 launch counts equal to what two requests must make,
+   samples, K2 (and its rope pass) / K3 launch counts equal to what two
+   requests must make,
    and, on a small input, every kernel call of the DiT and BigVGAN against
-   its plain twin on the same inputs.
+   its plain twin on the same inputs; then one more request whose CFM solve
+   runs under `torch.profiler` (`profile_s2mel`: wall, device busy share,
+   the attention kernels' device time), as the flash-tier request of the
+   sampling pass does too.
 4. int8 pipeline pass: the same with `quantization="int8"` (the serving
    configuration), two requests. Checks: the wavs as above; K1 launched once
    per decode step (399 a request), K7a twice, K7b and the attention kernel
@@ -129,6 +141,7 @@ K2_TS = (1280, 2304)                       # prompt bucket + mel bucket
 K4_HEADS = ((8, 64), (16, 32), (4, 128))
 MEL_FRAMES = 768                           # the 400-code mel bucket
 K3_SHAPES = ((768, 4), (384, 16), (192, 32), (96, 64), (48, 128), (24, 256))
+ATTN_REPS = 5                              # timings of each attention kernel and SDPA
 K2_REL_L2 = 2e-2                           # the repo's packed_attn_rel_l2 gate
 K3_REL_L2 = 1e-3                           # bf16 output rounding is ~2e-5 here
 K7_REL_L2 = 1e-3                           # f32 sums in another order
@@ -223,6 +236,43 @@ def graph_ms(fn, iters=20, replays=5) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
+def timing_spread(kernel, library, reps: int = ATTN_REPS) -> tuple:
+    """``kernel`` and ``library`` timed in turns, ``reps`` times each, as
+    device time (`graph_ms`) and eager (`time_ms`, host work included): for
+    each, {"graph", "eager"} medians and {"graph_range", "eager_range"} (min,
+    max), ms."""
+    runs = {f: {"graph": [], "eager": []} for f in (kernel, library)}
+    for _ in range(reps):
+        for f in (kernel, library):
+            runs[f]["graph"].append(graph_ms(f))
+            runs[f]["eager"].append(time_ms(f))
+    out = []
+    for f in (kernel, library):
+        r = {}
+        for how, xs in runs[f].items():
+            xs = sorted(xs)
+            r[how], r[f"{how}_range"] = xs[len(xs) // 2], (xs[0], xs[-1])
+        out.append(r)
+    return tuple(out)
+
+
+def spread_text(t: dict) -> str:
+    return (f"graph {t['graph']:.4f} ms [{t['graph_range'][0]:.4f}-{t['graph_range'][1]:.4f}]"
+            f" eager {t['eager']:.4f} ms [{t['eager_range'][0]:.4f}-{t['eager_range'][1]:.4f}]")
+
+
+def spread_row(kt: dict, lt: dict, **extra) -> dict:
+    """The result fields of an attention kernel timed by `timing_spread`:
+    ``ms`` and ``library_ms`` are graph-replay medians; ``spread`` (the
+    ranges, the eager times and ``extra``) goes into its ``kernels`` row as
+    it is."""
+    return {"ms": kt["graph"], "library_ms": lt["graph"], "spread": {
+        "ms_timing": f"graph replay, median of {ATTN_REPS}", "ms_range": kt["graph_range"],
+        "eager_ms": kt["eager"], "eager_ms_range": kt["eager_range"],
+        "library_ms_range": lt["graph_range"], "library_eager_ms": lt["eager"],
+        "library_eager_ms_range": lt["eager_range"], **extra}}
+
+
 def rel_l2(a, b) -> float:
     import torch
 
@@ -269,7 +319,8 @@ def kernel_phase(card: str) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from indextts_tpu_torch.ops.attn import attention_rope, attention_rope_plain
+    from indextts_tpu_torch.ops.attn import (attention_rope, attention_rope_plain, rope_qk,
+                                             rope_qk_plain)
     from indextts_tpu_torch.ops.rope import apply_rotary_emb_half, precompute_freqs_cis
     from indextts_tpu_torch.ops.snake import antialias_snake, antialias_snake_plain
 
@@ -289,25 +340,33 @@ def kernel_phase(card: str) -> dict:
         err = max(rel_l2(out[b, :L], ref[b, :L]) for b, L in enumerate(lens.tolist()))
         mab = max((out[b, :L].float() - ref[b, :L].float()).abs().max().item()
                   for b, L in enumerate(lens.tolist()))
-        ms = time_ms(lambda: attention_rope(q, k, v, lens, fc, H))
+        rope_equal = all(torch.equal(a, b) for a, b in zip(rope_qk(q, k, fc, H),
+                                                            rope_qk_plain(q, k, fc, H)))
         pms = time_ms(lambda: attention_rope_plain(q, k, v, lens, fc, H))
         # yardstick: SDPA on q and k roped beforehand (attention only)
         qr, kr = (apply_rotary_emb_half(t.reshape(2, T, H, D), fc).transpose(1, 2).contiguous()
                   for t in (q, k))
         vh = v.reshape(2, T, H, D).transpose(1, 2).contiguous()
         key_ok = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-        lms = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vh, attn_mask=key_ok))
+        kt, lt = timing_spread(lambda: attention_rope(q, k, v, lens, fc, H),
+                               lambda: F.scaled_dot_product_attention(qr, kr, vh,
+                                                                      attn_mask=key_ok))
+        rope_ms = graph_ms(lambda: rope_qk(q, k, fc, H))
         # QK^T and PV over each row's valid keys for all T query rows
         b = bound(4 * 2 * T * H * D * 2 + 2 * 4 + T * D * 4,
                   sum(4 * H * D * T * L for L in lens.tolist()), BF16_FLOPS)
         print(f"K2 attention_rope B=2 H={H} D={D} T={T}: rel_l2 {err:.3e} max_abs {mab:.3e}"
-              f" kernel {ms:.4f} ms plain {pms:.4f} ms SDPA (attention only) {lms:.4f} ms"
-              f" bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
+              f" rope pass bit-identical {rope_equal}, kernel (rope pass + attention) "
+              f"{spread_text(kt)} (rope pass alone graph {rope_ms:.4f} ms), plain {pms:.4f} ms,"
+              f" SDPA (attention only) {spread_text(lt)}; medians and [min-max] of "
+              f"{ATTN_REPS}; bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]",
+              flush=True)
         assert err <= K2_REL_L2 and np.isfinite(err), f"K2 rel-L2 {err} > {K2_REL_L2} at T={T}"
+        assert rope_equal, "K2's rope pass differs from its twin"
         r = res["attention_rope"]
         r["err"], r["abs"] = max(r["err"], err), max(r["abs"], mab)
         if T == K2_TS[0]:
-            r.update(ms=ms, plain_ms=pms, library_ms=lms, **b)
+            r.update(plain_ms=pms, **spread_row(kt, lt, rope_pass_ms=rope_ms), **b)
 
     tot_ms = tot_pms = 0.0
     k3_bytes = k3_ops = 0
@@ -375,19 +434,20 @@ def attention_kernel_phase(card: str) -> dict:
         err = max(rel_l2(out[b, :, :L], ref[b, :, :L]) for b, L in enumerate(lens.tolist()))
         mab = max((out[b, :, :L].float() - ref[b, :, :L].float()).abs().max().item()
                   for b, L in enumerate(lens.tolist()))
-        ms = time_ms(lambda: single_block_attention(q, k, v, lens))
         pms = time_ms(lambda: single_block_attention_plain(q, k, v, lens))
-        lms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_ok))
+        kt, lt = timing_spread(lambda: single_block_attention(q, k, v, lens),
+                               lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_ok))
         b = bound(4 * 2 * T * H * D * 2 + 2 * 4,
                   sum(4 * H * D * T * L for L in lens.tolist()), BF16_FLOPS)
         print(f"K4 single_block_attention B=2 H={H} D={D} T={T}: rel_l2 {err:.3e} max_abs "
-              f"{mab:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms SDPA {lms:.4f} ms bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
+              f"{mab:.3e} kernel {spread_text(kt)}, plain {pms:.4f} ms, SDPA {spread_text(lt)};"
+              f" medians and [min-max] of {ATTN_REPS}; bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}) [{card}]", flush=True)
         assert err <= K2_REL_L2 and np.isfinite(err), f"K4 rel-L2 {err} at D={D}"
         r = res["single_block_attention"]
         r["err"], r["abs"] = max(r["err"], err), max(r["abs"], mab)
         if (H, D) == K4_HEADS[0]:
-            r.update(ms=ms, plain_ms=pms, library_ms=lms, **b)
+            r.update(plain_ms=pms, **spread_row(kt, lt), **b)
     try:
         x40 = torch.zeros((1, 8, 64, 40), device=dev, dtype=torch.bfloat16)
         single_block_attention(x40, x40, x40, lens[:1])
@@ -408,21 +468,23 @@ def attention_kernel_phase(card: str) -> dict:
         err = max(rel_l2(out[b, :L], ref[b, :L]) for b, L in enumerate(lens.tolist()))
         mab = max((out[b, :L].float() - ref[b, :L].float()).abs().max().item()
                   for b, L in enumerate(lens.tolist()))
-        ms = time_ms(lambda: packed_pair_attention(q, k, v, lens, H))
         pms = time_ms(lambda: packed_pair_attention_plain(q, k, v, lens, H))
         qh, kh, vh = (t.reshape(2, T, H, D).transpose(1, 2) for t in (q, k, v))
         key_ok = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-        lms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=key_ok))
+        kt, lt = timing_spread(lambda: packed_pair_attention(q, k, v, lens, H),
+                               lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                      attn_mask=key_ok))
         b = bound(4 * 2 * T * H * D * 2 + 2 * 4,
                   sum(4 * H * D * T * L for L in lens.tolist()), BF16_FLOPS)
         print(f"K2' packed_pair_attention B=2 H={H} D={D} T={T}: rel_l2 {err:.3e} max_abs "
-              f"{mab:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms SDPA {lms:.4f} ms bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
+              f"{mab:.3e} kernel {spread_text(kt)}, plain {pms:.4f} ms, SDPA {spread_text(lt)};"
+              f" medians and [min-max] of {ATTN_REPS}; bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}) [{card}]", flush=True)
         assert err <= K2_REL_L2 and np.isfinite(err), f"K2' rel-L2 {err} at T={T}"
         r = res["packed_pair_attention"]
         r["err"], r["abs"] = max(r["err"], err), max(r["abs"], mab)
         if T == K2_TS[0]:
-            r.update(ms=ms, plain_ms=pms, library_ms=lms, **b)
+            r.update(plain_ms=pms, **spread_row(kt, lt), **b)
     res["packed_pair_attention"]["launches"] = packed_pair_attention.launches
     return res
 
@@ -1125,7 +1187,7 @@ def run_requests(tts, prompt: str, n: int, card: str, label: str, **kwargs) -> l
 def kernel_counters() -> dict:
     """Every launch counter of the port's kernels, by kernel name: (object,
     attribute)."""
-    from indextts_tpu_torch.ops.attn import (attention_rope, packed_pair_attention,
+    from indextts_tpu_torch.ops.attn import (attention_rope, packed_pair_attention, rope_qk,
                                              single_block_attention)
     from indextts_tpu_torch.ops.decode_step import decode_attention, fused_decode_step
     from indextts_tpu_torch.ops.decode_step_tp import fused_decode_step_tp, tp_allreduce
@@ -1134,7 +1196,7 @@ def kernel_counters() -> dict:
                                               fused_antialias_activation)
 
     counters = {f.__name__: (f, "launches") for f in (
-        attention_rope, single_block_attention, packed_pair_attention, antialias_snake,
+        attention_rope, rope_qk, single_block_attention, packed_pair_attention, antialias_snake,
         fused_antialias_activation, antialias_activation_prefolded, fused_decode_step,
         int8_matvec, int8_mlp, int4_matvec, int4_mlp, decode_attention, fused_decode_step_tp,
         tp_allreduce)}
@@ -1200,6 +1262,65 @@ def device_records(prof, key=lambda e: e.name()) -> tuple:
     return by, spans
 
 
+def union_ns(spans) -> int:
+    """The time the device was busy on any stream: the union of the records'
+    (start, end) intervals, ns."""
+    busy, reach = 0, None
+    for a, b in sorted(spans):
+        if reach is None or a > reach:
+            busy, reach = busy + b - a, b
+        elif b > reach:
+            busy, reach = busy + b - reach, b
+    return busy
+
+
+def profile_s2mel(tts, prompt: str, card: str, label: str, **kwargs) -> None:
+    """One more request (after the pass's counts are read) whose CFM solve,
+    the s2mel stage's 25 DiT evaluations, runs under `torch.profiler`
+    (device activity, the window closed by a spin pad): its synchronized
+    wall, the device's busy share over it, the launches, and the DiT
+    attention kernels' launches (13 x 25 of the attention kernel, asserted,
+    and on the packed tier as many rope passes) and device time, and the
+    largest device consumers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from indextts_tpu_torch.pipeline import infer_v2
+
+    cfm, seen = infer_v2.cfm_inference, {}
+
+    def profiled(*args, **kw):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = cfm(*args, **kw)
+            torch.cuda.synchronize()
+            seen["wall"] = time.perf_counter() - t0
+            _spin_pad()
+        seen["prof"] = prof
+        return out
+
+    infer_v2.cfm_inference = profiled
+    try:
+        tts.infer(spk_audio_prompt=prompt, text=SENTENCE, output_path=None, max_mel_tokens=400,
+                  min_new_tokens=399, **kwargs)
+    finally:
+        infer_v2.cfm_inference = cfm
+    by_name, spans = device_records(seen["prof"])
+    wall, busy = seen["wall"], union_ns(spans) / 1e9
+    attn = {k: v for k, v in by_name.items() if "attention_kernel" in k or "rope_qk_kernel" in k}
+    n_attn = sum(n for k, (n, _) in attn.items() if "attention_kernel" in k)
+    # a kernel's name up to its argument list
+    parts = ", ".join(f"{n} x {k[:k.find('(', 1)]} {ns / 1e6:.2f} ms"
+                      for k, (n, ns) in attn.items())
+    print(f"{label} CFM profile (25 DiT steps): wall {wall:.4f} s, device busy {busy:.4f} s = "
+          f"{100 * busy / wall:.1f} % (union), {sum(n for n, _ in by_name.values())} launches; "
+          f"attention kernels: {parts}; largest device consumers: [{card}]", flush=True)
+    for key, (n, ns) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
+        print(f"    {ns / 1e6:9.2f} ms {n:7d} x  {key[:90]}", flush=True)
+    assert n_attn == tts.cfg.s2mel.DiT.depth * 25, attn
+
+
 def profile_decode(tts, prompt: str, card: str, label: str) -> None:
     """The decode of one request (`generate_beam`, 399 steps after the
     prefill) with the request's own prefix: unprofiled wall (best of two),
@@ -1246,13 +1367,7 @@ def profile_decode(tts, prompt: str, card: str, label: str) -> None:
         prof.step()
     t_parse = time.perf_counter()
     by_name, spans = device_records(prof)
-    # the time the device was busy on any stream: the union of the intervals
-    busy_ns, reach = 0, None
-    for a, b in sorted(spans):
-        if reach is None or a > reach:
-            busy_ns, reach = busy_ns + b - a, b
-        elif b > reach:
-            busy_ns, reach = busy_ns + b - reach, b
+    busy_ns = union_ns(spans)
     t_parse = time.perf_counter() - t_parse
     device = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     kernels = [(k, v) for k, v in device if not k.startswith(("Memcpy", "Memset"))]
@@ -1304,11 +1419,13 @@ def pipeline_phase(card: str, prompt: str, model_dir: str) -> dict:
     cfg = tts.cfg
     want_k2 = BF16_REQUESTS * cfg.s2mel.DiT.depth * 25   # depth x CFG-stacked Euler steps
     want_k3 = BF16_REQUESTS * activation1d_calls(cfg.bigvgan)
-    print(f"launches over {BF16_REQUESTS} bf16 requests: {counts} (expect attention_rope "
-          f"{want_k2}, antialias_snake {want_k3})", flush=True)
-    assert counts["attention_rope"] == want_k2 and counts["antialias_snake"] == want_k3, counts
+    print(f"launches over {BF16_REQUESTS} bf16 requests: {counts} (expect attention_rope and "
+          f"its rope pass rope_qk {want_k2}, antialias_snake {want_k3})", flush=True)
+    assert counts["attention_rope"] == counts["rope_qk"] == want_k2, counts
+    assert counts["antialias_snake"] == want_k3, counts
     assert counts["fused_decode_step"] == 0 and counts["kv_gathers"] > 0, counts
     reference_check(tts, card)
+    profile_s2mel(tts, prompt, card, "bf16 (DiT packed tier, K2)")
     profile_decode(tts, prompt, card, "bf16")
     del tts
     torch.cuda.empty_cache()
@@ -1321,7 +1438,7 @@ def want_counts(tts, quantization: str, n: int) -> dict:
     shard);
     per layer and step (and shard) the int8 or int4 GEMVs (qkv and
     attn-proj, and the MLP) and the bf16- or int8-cache attention; K2 / K3
-    as in the bf16 pass; no bf16 step, no cache gather, no cache growth
+    (and K2's rope pass) as in the bf16 pass; no bf16 step, no cache gather, no cache growth
     (the beam engine sizes its cache once), and none of the kernels without
     a caller on this path."""
     from indextts_tpu_torch.models.vocoder.bigvgan import activation1d_calls
@@ -1333,6 +1450,7 @@ def want_counts(tts, quantization: str, n: int) -> dict:
     # two exchanges (`tp_allreduce`) a layer
     sets = tp or 1
     return {"attention_rope": n * tts.cfg.s2mel.DiT.depth * 25,
+            "rope_qk": n * tts.cfg.s2mel.DiT.depth * 25,      # K2's rope pass
             "antialias_snake": n * activation1d_calls(tts.cfg.bigvgan),
             "fused_decode_step": 0 if tp else steps, "fused_decode_step_tp": steps if tp else 0,
             "tp_allreduce": 2 * tp * L * steps,
@@ -1572,12 +1690,13 @@ def sampling_pipeline_phase(card: str, prompt: str, model_dir: str) -> dict:
                              num_beams=1)[0]
         counts["flash"] = read_counts()
         reference_check(tts, card, flash=True)
+        profile_s2mel(tts, prompt, card, "int8 num_beams=1 (DiT flash tier, K4)", num_beams=1)
     finally:
         if saved is None:
             del os.environ["INDEXTTS_PACKED_ATTN"]
         else:
             os.environ["INDEXTTS_PACKED_ATTN"] = saved
-    want.update(attention_rope=0, single_block_attention=dit_calls)
+    want.update(attention_rope=0, rope_qk=0, single_block_attention=dit_calls)
     print(f"launches of the flash-tier request: {counts['flash']} (expect {want}); s2mel stage "
           f"flash tier (K4) {flash['s2mel']:.4f} s against packed tier (K2) "
           f"{packed['s2mel']:.4f} s [{card}]", flush=True)
@@ -1645,7 +1764,8 @@ def main() -> int:
     # name, counter, sources (the first the row's "source"; a decode step's
     # time covers all of them), TPU kernel replaced, the pass whose
     # launches count (None: no pipeline caller, the kernel phase's launches)
-    specs = (("attention_rope", "attention_rope", "attention_rope.cu", "attn.py:188", "bf16"),
+    k2_src = ("attention_rope.cu", "attention_tma.cuh")
+    specs = (("attention_rope", "attention_rope", k2_src, "attn.py:188", "bf16"),
              ("antialias_snake", "antialias_snake", "antialias_snake.cu", "antialias.py:269",
               "bf16"),
              ("fused_decode_step", "fused_decode_step", k1_src, k1, "int8"),
@@ -1659,9 +1779,9 @@ def main() -> int:
              ("int4_mlp", "int4_mlp", "int8_gemv.cu", f"{k1} (W4)", "int4"),
              ("fused_decode_step_g1", "fused_decode_step", k1_src, f"{k1} (group=1)",
               "sampling"),
-             ("single_block_attention", "single_block_attention", "attention_block.cu",
-              "attn.py:253", "flash"),
-             ("packed_pair_attention", None, "attention_rope.cu", "attn.py:76", None),
+             ("single_block_attention", "single_block_attention",
+              ("attention_block.cu", "attention_tma.cuh"), "attn.py:253", "flash"),
+             ("packed_pair_attention", None, k2_src, "attn.py:76", None),
              ("fused_antialias_activation", None, "antialias_snake.cu", "antialias.py:457",
               None),
              ("antialias_activation_prefolded", None, "antialias_snake.cu", "antialias.py:322",
@@ -1683,8 +1803,12 @@ def main() -> int:
                         "launched_in": pass_ or "kernel phase (no pipeline caller)",
                         "max_abs_err": r["abs"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        **r.get("spread", {})})
     assert all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels), kernels
+    print(f"kernels line: ms and library_ms of attention_rope, packed_pair_attention and "
+          f"single_block_attention are graph-replay medians of {ATTN_REPS} (their rows' "
+          f"ms_timing); every other row as timed in its phase", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

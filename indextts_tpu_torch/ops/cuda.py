@@ -31,8 +31,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, lengths, cos, sin, out, B, T, H, D, scale, stream
-    "attention_rope_launch": [_P] * 7 + [_I] * 4 + [_F, _P],
+    # q, k, freqs_cis, q out, k out, B, T, H, D, stream
+    "rope_qk_launch": [_P] * 5 + [_I] * 4 + [_P],
+    # q, k, v, lengths, freqs_cis, q scratch, k scratch, out, B, T, H, D,
+    # scale, stream
+    "attention_rope_launch": [_P] * 8 + [_I] * 4 + [_F, _P],
     # q, k, v, lengths, out, B, T, H, D, scale, stream
     "packed_attention_launch": [_P] * 5 + [_I] * 4 + [_F, _P],
     # q, k, v, lengths, out, B, H, T, D, the (b, h, t) strides of q, k, v and

@@ -1,8 +1,8 @@
 """Rotary position embeddings (PyTorch counterpart of `indextts_tpu/ops/rope.py`).
 
 The DiT's wqkv columns are pair-deinterleaved (each head's even lanes first,
-then its odd lanes), so rope works on contiguous halves. The attention
-kernel applies the same rotation in-kernel (`ops/attn.py`).
+then its odd lanes), so rope works on contiguous halves. Kernel K2's rope pass applies the same
+rotation on the card (`ops/attn.py::rope_qk`).
 """
 
 from __future__ import annotations

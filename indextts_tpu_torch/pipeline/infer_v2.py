@@ -52,7 +52,7 @@ multi-segment text, streaming, emotion from text or emo_vector, and the aux
 modes (diverse beam, contrastive, DoLa). Weights are random at the
 configured architecture (drawn on the device from ``seed``) or handed over
 from the JAX package through `load_params`; checkpoint files are not read
-yet.
+yet, and a model directory that holds one raises (`checkpoint_files`).
 
 Precision: weights and activations in ``dtype`` (bf16 by default) except
 CAMPPlus and the mel / fbank front-ends (f32), as on the TPU. TF32 is off
@@ -65,6 +65,7 @@ from __future__ import annotations
 
 import os
 import time
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -104,6 +105,34 @@ def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported to the PyTorch pipeline yet ({_ROADMAP})")
 
 
+def checkpoint_files(cfg: IndexTTS2Config, model_dir: str,
+                     aux_paths: Optional[dict] = None) -> list:
+    """Every file the JAX pipeline's `_load_models` reads when it exists,
+    resolved as it resolves them: the GPT and s2mel checkpoints, the
+    ``aux_paths`` entries (semantic_codec, campplus, bigvgan, w2v_bert) or
+    their ``hf_cache`` defaults (BigVGAN's config.json and weights, the
+    w2v-bert weights), the w2v-bert statistics and the emotion and speaker
+    matrices."""
+    aux = aux_paths or {}
+
+    def path(p):
+        return os.path.join(model_dir, p) if p else None
+
+    bigvgan = aux.get("bigvgan", path("hf_cache/bigvgan"))
+    w2v = aux.get("w2v_bert", path("hf_cache/w2v-bert-2.0"))
+    files = [path(cfg.gpt_checkpoint), path(cfg.s2mel_checkpoint),
+             aux.get("semantic_codec", path("hf_cache/semantic_codec_model.safetensors")),
+             aux.get("campplus", path("hf_cache/campplus_cn_common.bin"))]
+    if bigvgan:
+        files += [os.path.join(bigvgan, f) for f in
+                  ("config.json", "bigvgan_generator.pt", "pytorch_model.bin",
+                   "model.safetensors")]
+    if w2v:
+        files += [os.path.join(w2v, f) for f in ("model.safetensors", "pytorch_model.bin")]
+    files += [path(cfg.w2v_stat), path(cfg.emo_matrix), path(cfg.spk_matrix)]
+    return [f for f in files if f]
+
+
 def _check_mesh(mesh, quantization: Optional[str]) -> None:
     """A mesh runs the tp=2 int8 decode kernel K6 under the JAX pipeline's
     own switch; every other mesh combination (the JAX package's GSPMD paths)
@@ -126,10 +155,23 @@ class IndexTTS2:
     SAMPLING_RATE = 22050
 
     def __init__(self, cfg_path: Optional[str] = "checkpoints/config.yaml",
-                 model_dir: str = "checkpoints", device: Optional[str] = None,
-                 dtype: torch.dtype = torch.bfloat16, seed: int = 0,
-                 cfg: Optional[IndexTTS2Config] = None,
-                 quantization: Optional[str] = None, mesh=None):
+                 model_dir: str = "checkpoints", use_fp16: bool = False,
+                 device: Optional[str] = None, use_cuda_kernel: Optional[bool] = None,
+                 use_deepspeed: bool = False, use_accel: bool = False,
+                 use_torch_compile: bool = False, aux_paths: Optional[dict] = None,
+                 seed: int = 0, dtype: torch.dtype = torch.bfloat16,
+                 allow_random_init: bool = True, quantization: Optional[str] = None,
+                 cfg: Optional[IndexTTS2Config] = None, mesh=None):
+        """Takes the JAX pipeline's keyword set. The CUDA-era knobs
+        (use_cuda_kernel, use_deepspeed, use_accel, use_torch_compile) are
+        accepted and ignored, as there. ``use_fp16=True`` raises: the port's
+        kernels take bf16 only. Checkpoint files are not read yet: a model
+        directory holding any file the JAX pipeline would load raises, and
+        with ``allow_random_init=False`` a missing GPT checkpoint raises
+        FileNotFoundError, as in the JAX pipeline."""
+        del use_cuda_kernel, use_deepspeed, use_accel, use_torch_compile
+        if use_fp16:
+            _not_ported("use_fp16=True (the float16 pipeline; the port's kernels take bf16)")
         if quantization is not None and quantization not in QUANTIZATIONS:
             raise ValueError(f"quantization={quantization!r}: takes None or one of "
                              f"{sorted(QUANTIZATIONS)} (the weight and cache formats of "
@@ -159,9 +201,11 @@ class IndexTTS2:
             self.cfg = IndexTTS2Config()
         self.model_dir = model_dir
         self.dtype = dtype
-        for name in (self.cfg.gpt_checkpoint, self.cfg.s2mel_checkpoint):
-            if os.path.exists(os.path.join(model_dir, name)):
-                _not_ported(f"loading checkpoint {name}")
+        for path in checkpoint_files(self.cfg, model_dir, aux_paths):
+            if os.path.exists(path):
+                _not_ported(f"loading checkpoint {path}")
+        if not allow_random_init:          # the GPT checkpoint is missing (refused above if not)
+            raise FileNotFoundError(os.path.join(model_dir, self.cfg.gpt_checkpoint))
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.gpt_dims = GPT2Dims(self.cfg.gpt.layers, self.cfg.gpt.model_dim, self.cfg.gpt.heads)
@@ -408,6 +452,12 @@ class IndexTTS2:
         codes, code_lens = decode(self.gpt_params, self.cfg.gpt, self.gpt_dims, embeds, mask,
                                   self.generator, max_mel_tokens, sampling, self.dtype,
                                   step_check=self.decode_check)
+        if int(code_lens[0]) >= max_mel_tokens:
+            warnings.warn(
+                f"WARN: generation stopped due to exceeding `max_mel_tokens` "
+                f"({max_mel_tokens}). Consider reducing "
+                f"`max_text_tokens_per_segment`({max_text_tokens_per_segment}) "
+                f"or increasing `max_mel_tokens`.", RuntimeWarning)
         clen = max(int(code_lens[0]), 1)
         times["gpt"] = time.perf_counter() - t0
         if verbose:

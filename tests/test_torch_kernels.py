@@ -16,7 +16,10 @@ int4_mlp) and K1's KVQ (int8 cache) and W4 (int4 weights) variants, whose
 layer-0 written rows are within 1 int8 count and their scale rows within 1
 bf16 ulp of the twin's (the same inputs; the bf16 k/v quantized differ by at
 most an ulp from the f32 summation order). K4 (single_block_attention) and
-K2' (packed_pair_attention) take K2's rel-L2 <= 2e-2; K5
+K2' (packed_pair_attention) take K2's rel-L2 <= 2e-2, at T off the 64-row
+tile, lengths of 0 (K4: every key), 1, T and past T, B=1 and every K4 head
+width; K2's rope pass (rope_qk) is bit-identical to its twin, and a layout
+the kernels' TMA loads cannot read raises before any launch; K5
 (fused_antialias_activation) and K3' (antialias_activation_prefolded), which
 launch K3's kernel, take K3's 1e-2. The num_beams=1 sampling decode with int8
 weights launches K1 once a step (at group=1) and never the bf16 step. K6's
@@ -77,6 +80,11 @@ def _counters():
             snake.antialias_activation_prefolded.launches)
 
 
+def _launches():
+    """`_counters` and K2's rope pass (`rope_qk`)."""
+    return _counters() + (attn.rope_qk.launches,)
+
+
 def _block_args(T, lengths, device, H, D, transposed=True):
     """(B, H, T, D) q, k, v: transposed views of (B, T, H, D) tensors, as the
     DiT hands them over, or contiguous."""
@@ -89,11 +97,12 @@ def _block_args(T, lengths, device, H, D, transposed=True):
 
 
 def test_cpu_tensors_run_the_plain_twins_without_counting():
-    before = _counters()
+    before = _launches()
     a = _attn_args(64, [64, 17], "cpu", torch.float32, H=2)
     torch.testing.assert_close(attn.attention_rope(*a), attn.attention_rope_plain(*a))
     torch.testing.assert_close(attn.packed_pair_attention(*a[:4], a[5]),
                                attn.packed_pair_attention_plain(*a[:4], a[5]))
+    torch.testing.assert_close(attn.rope_qk(*a[:2], *a[4:]), attn.rope_qk_plain(*a[:2], *a[4:]))
     b = _block_args(64, [64, 17], "cpu", 2, 40)
     torch.testing.assert_close(attn.single_block_attention(*b),
                                attn.single_block_attention_plain(*b))
@@ -105,22 +114,42 @@ def test_cpu_tensors_run_the_plain_twins_without_counting():
     torch.testing.assert_close(
         snake.antialias_activation_prefolded(x.reshape(2, 16, 32), alpha, beta, 4, 8, lens),
         snake.antialias_snake_plain(*s).reshape(2, 16, 32))
-    assert _counters() == before
+    assert _launches() == before
+
+
+# T off the 64-row tile (1000, 1279), lengths of 1, of T and past T, B=1
+ATTN_EDGES = [(256, [256, 141]), (1000, [1000, 1]), (1280, [1201, 630]), (1279, [1279, 1500]),
+              (1279, [64, 65]), (1000, [700])]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,lengths", [(256, [256, 141]), (1000, [1000, 1]),
-                                       (1280, [1201, 630])])
+@pytest.mark.parametrize("T,lengths", ATTN_EDGES)
 def test_attention_rope_kernel_matches_plain(cuda_device, T, lengths):
+    """K2: the rope pass then K2''s attention kernel; a call counts one K2
+    and one rope pass, and no K2'."""
     a = _attn_args(T, lengths, cuda_device)
-    before = attn.attention_rope.launches
+    before = _launches()
     out = attn.attention_rope(*a)
-    assert attn.attention_rope.launches == before + 1
+    after = _launches()
+    assert [x - y for x, y in zip(after, before)] == [1, 0, 0, 0, 0, 0, 1]
     ref = attn.attention_rope_plain(*a)
     torch.cuda.synchronize()
     for b, L in enumerate(lengths):
+        L = min(L, T)
         assert rel_l2(out[b, :L], ref[b, :L]) <= 2e-2
     assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1000, 1280])
+def test_rope_pass_bit_identical_to_plain(cuda_device, T):
+    q, k, _, _, fc, H = _attn_args(T, [T, T // 2], cuda_device)
+    before = attn.rope_qk.launches
+    qr, kr = attn.rope_qk(q, k, fc, H)
+    assert attn.rope_qk.launches == before + 1
+    pq, pk = attn.rope_qk_plain(q, k, fc, H)
+    torch.cuda.synchronize()
+    assert torch.equal(qr, pq) and torch.equal(kr, pk)
 
 
 @pytest.mark.cuda
@@ -131,6 +160,9 @@ def test_attention_rope_kernel_rejects_what_it_does_not_take(cuda_device):
     q, k, v, lens, fc, H = _attn_args(128, [128], cuda_device, H=4, D=32)
     with pytest.raises(ValueError, match="head dim 64"):
         attn.attention_rope(q, k, v, lens, fc, H)
+    q, k, v, lens, fc, H = _attn_args(128, [128], cuda_device)
+    with pytest.raises(ValueError, match="freqs_cis"):       # no silent f32 copy
+        attn.attention_rope(q, k, v, lens, fc.double(), H)
 
 
 @pytest.mark.cuda
@@ -373,6 +405,39 @@ def test_single_block_attention_kernel_matches_plain(cuda_device, H, D, transpos
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("T,lengths,transposed", [(1000, [0, 1000], True), (1279, [1, 2000], False),
+                                                  (1279, [1279], True)])
+def test_single_block_attention_kernel_edges(cuda_device, D, T, lengths, transposed):
+    """K4 at each head width: T off the tile, a length of 0 (every key), 1,
+    T and past T, B=1, transposed and contiguous views."""
+    q, k, v, lens = _block_args(T, lengths, cuda_device, 2, D, transposed)
+    out = attn.single_block_attention(q, k, v, lens)
+    ref = attn.single_block_attention_plain(q, k, v, lens)
+    torch.cuda.synchronize()
+    for b, L in enumerate(lengths):
+        L = min(L, T) or T
+        assert rel_l2(out[b, :, :L], ref[b, :, :L]) <= 2e-2
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_attention_kernels_refuse_a_layout_tma_cannot_read(cuda_device):
+    """A q whose time stride is not a multiple of 16 bytes (a slice of wider
+    rows) raises ValueError in the wrapper; nothing is copied or launched."""
+    before = _launches()
+    wide = torch.zeros((2, 8, 128, 68), device=cuda_device, dtype=torch.bfloat16)
+    _, k, v, lens = _block_args(128, [128, 64], cuda_device, 8, 64, transposed=False)
+    with pytest.raises(ValueError, match="16 bytes"):
+        attn.single_block_attention(wide[..., :64], k, v, lens)
+    q = torch.zeros((2, 8, 200), device=cuda_device, dtype=torch.bfloat16).view(-1)[4:]
+    q = q[:2 * 8 * 128].view(2, 8, 128)    # contiguous, base 8 bytes off
+    with pytest.raises(ValueError, match="16 bytes"):
+        attn.packed_pair_attention(q, q, q, lens, 2)
+    assert _launches() == before
+
+
+@pytest.mark.cuda
 def test_single_block_attention_kernel_raises_on_what_it_does_not_take(cuda_device):
     """A head width of 40 raises in K4's wrapper: no plain fallback runs."""
     before = attn.single_block_attention.launches
@@ -386,15 +451,17 @@ def test_single_block_attention_kernel_raises_on_what_it_does_not_take(cuda_devi
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,lengths", [(256, [256, 141]), (1280, [1243, 645])])
+@pytest.mark.parametrize("T,lengths", [(256, [256, 141]), (1280, [1243, 645])] + ATTN_EDGES[1:])
 def test_packed_pair_attention_kernel_matches_plain(cuda_device, T, lengths):
     q, k, v, lens, _, H = _attn_args(T, lengths, cuda_device)
-    before = attn.packed_pair_attention.launches
+    before = _launches()
     out = attn.packed_pair_attention(q, k, v, lens, H)
-    assert attn.packed_pair_attention.launches == before + 1
+    after = _launches()
+    assert [x - y for x, y in zip(after, before)] == [0, 1, 0, 0, 0, 0, 0]
     ref = attn.packed_pair_attention_plain(q, k, v, lens, H)
     torch.cuda.synchronize()
     for b, L in enumerate(lengths):
+        L = min(L, T)
         assert rel_l2(out[b, :L], ref[b, :L]) <= 2e-2
 
 
