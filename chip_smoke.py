@@ -15,12 +15,14 @@
      library: SDPA on pre-roped q and k, attention only) and K3 `antialias_snake`
      (rel-L2 <= 1e-3 over valid rows, and within 2 bf16 ulps on the 4 rows
      at each edge);
-   - K7a `int8_matvec` at the qkv, attn-proj, fc and mlp-proj shapes and K7b
-     `int8_mlp` at the MLP shape, M = 3 (rel-L2 <= 1e-3; yardstick: F.linear
-     with the bf16 weight the int8 one replaces). These and K1 are short
-     launches: their kernel, twin and library times are device times, from
-     CUDA events around the replay of a CUDA graph of 20 calls (an eager
-     call, host included, is printed beside them);
+   - K7a `int8_matvec` at the qkv, attn-proj, fc and mlp-proj shapes, M = 3,
+     and at qkv, M = 1, and K7b `int8_mlp` at the MLP shape, M = 3 (rel-L2
+     <= 1e-3; yardstick: F.linear with the bf16 weight the int8 one
+     replaces). These and K1 are short launches: their kernel, twin and
+     library times are device times, from CUDA events around the replay of a
+     CUDA graph of 20 calls; K7a and the int4 GEMV, and F.linear beside them,
+     are timed 5 times in turns (`timing_spread`: median and range, graph
+     replay and eager);
    - K1 `fused_decode_step` at L=24, D=1280, H=20, B*K=3, S=512, pos=300,
      staggered starts and a random ancestry map (hidden state rel-L2 <= 1e-2;
      written k/v rows of layer 0 within 1 bf16 ulp, of every layer rel-L2 <=
@@ -145,6 +147,10 @@ ATTN_REPS = 5                              # timings of each attention kernel an
 K2_REL_L2 = 2e-2                           # the repo's packed_attn_rel_l2 gate
 K3_REL_L2 = 1e-3                           # bf16 output rounding is ~2e-5 here
 K7_REL_L2 = 1e-3                           # f32 sums in another order
+# (name, M, N, K) of the GEMV rows: K1's four projections at M = 3, qkv at M = 1
+GEMV_SHAPES = (("qkv", 3, 3 * 1280, 1280), ("attn-proj", 3, 1280, 1280),
+               ("fc", 3, 4 * 1280, 1280), ("mlp-proj", 3, 1280, 4 * 1280),
+               ("qkv", 1, 3 * 1280, 1280))
 K1_REL_L2 = 1e-2                           # bf16 chain over 24 layers
 EDGE_ROWS = 4                              # the halo a K3 output row reads: 3
 K3_OPS_PER_ELEMENT = 56                    # 2x6-tap up, 2 snakes, 12-tap down
@@ -271,6 +277,35 @@ def spread_row(kt: dict, lt: dict, **extra) -> dict:
         "eager_ms": kt["eager"], "eager_ms_range": kt["eager_range"],
         "library_ms_range": lt["graph_range"], "library_eager_ms": lt["eager"],
         "library_eager_ms_range": lt["eager_range"], **extra}}
+
+
+def gemv_shape_row(kt: dict, lt: dict, b: dict) -> dict:
+    """A GEMV shape's entry in its ``kernels`` row: graph-replay medians
+    and ranges of the kernel and F.linear, and the shape's bound."""
+    return {"ms": kt["graph"], "ms_range": kt["graph_range"], "library_ms": lt["graph"],
+            "library_ms_range": lt["graph_range"], "bound_ms": b["bound_ms"]}
+
+
+def plan_text(M: int, N: int, K: int, w4: bool = False) -> str:
+    """The GEMV kernel's launch plan for the shape (`ops/int8.py::gemv_plan`)."""
+    from indextts_tpu_torch.nn import int4_halfspan
+    from indextts_tpu_torch.ops.int8 import gemv_plan
+
+    p = gemv_plan(M, N, K, int4_halfspan(K // 2) if w4 else 0)
+    return (f"{-(-N // (16 * p.rows)) * p.split} blocks of {p.rows} 16-row tile(s), split "
+            f"{p.split} x {p.span} columns, {p.smem} B shared")
+
+
+def build_lines(log: str, kernel: str) -> list:
+    """ptxas's lines (registers, shared memory, spills) for every
+    instantiation of ``kernel`` in the build log."""
+    out, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            keep = kernel in line
+        if keep:
+            out.append(line.strip())
+    return out
 
 
 def rel_l2(a, b) -> float:
@@ -687,29 +722,28 @@ def int8_kernel_phase(card: str) -> dict:
     res = {}
     D, M = K1_D, K1_ROWS
     mv = {"err": 0.0, "abs": 0.0}
-    for name, N, K in (("qkv", 3 * D, D), ("attn-proj", D, D), ("fc", 4 * D, D),
-                       ("mlp-proj", D, 4 * D)):
-        x, q, scale, bias = int8_operands(g, M, K, N)
+    shapes = {}
+    for name, Mi, N, K in GEMV_SHAPES:
+        x, q, scale, bias = int8_operands(g, Mi, K, N)
         out, ref = int8_matvec(x, q), int8_matvec_plain(x, q)
         ep = int8_matvec(x, q, scale=scale, bias=bias)
         ep_ref = int8_matvec_plain(x, q, scale=scale, bias=bias)
         torch.cuda.synchronize()
         err = max(rel_l2(out, ref), rel_l2(ep, ep_ref))
         mab = (out - ref).abs().max().item()
-        ms = graph_ms(lambda: int8_matvec(x, q))
-        pms = graph_ms(lambda: int8_matvec_plain(x, q))
         w_bf16 = (q.float() * scale[:, None]).to(torch.bfloat16)
-        lms = graph_ms(lambda: F.linear(x, w_bf16))
-        eager = time_ms(lambda: int8_matvec(x, q), iters=50)
-        b = bound(N * K + M * K * 2 + M * N * 4, 2 * M * N * K, BF16_FLOPS)
-        print(f"K7a int8_matvec {name} M={M} K={K} N={N}: rel_l2 {err:.3e} max_abs {mab:.3e}"
-              f" device: kernel {ms:.4f} ms plain {pms:.4f} ms F.linear(bf16 weight) {lms:.4f}"
-              f" ms bound {b['bound_ms']:.4f} ms ({b['bound_by']}); eager call {eager:.4f} ms"
-              f" [{card}]", flush=True)
+        kt, lt = timing_spread(lambda: int8_matvec(x, q), lambda: F.linear(x, w_bf16))
+        pms = graph_ms(lambda: int8_matvec_plain(x, q))
+        b = bound(N * K + Mi * K * 2 + Mi * N * 4, 2 * Mi * N * K, BF16_FLOPS)
+        print(f"K7a int8_matvec {name} M={Mi} K={K} N={N} ({plan_text(Mi, N, K)}): rel_l2 "
+              f"{err:.3e} max_abs {mab:.3e} device: kernel {spread_text(kt)}; F.linear(bf16 "
+              f"weight) {spread_text(lt)}; plain {pms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}) [{card}]", flush=True)
         assert err <= K7_REL_L2 and np.isfinite(err), f"K7a rel-L2 {err} at {name}"
         mv["err"], mv["abs"] = max(mv["err"], err), max(mv["abs"], mab)
-        if name == "qkv":
-            mv.update(ms=ms, plain_ms=pms, library_ms=lms, **b)
+        shapes[f"{name} M={Mi}"] = gemv_shape_row(kt, lt, b)
+        if name == "qkv" and Mi == M:
+            mv.update(plain_ms=pms, **b, **spread_row(kt, lt, shapes=shapes))
     res["int8_matvec"] = mv
 
     x, w1, s1, b1 = int8_operands(g, M, D, 4 * D)
@@ -837,26 +871,27 @@ def quant_kernel_phase(card: str, int8_k1: dict) -> dict:
     res = {}
     D, M = K1_D, K1_ROWS
     mv = {"err": 0.0, "abs": 0.0}
-    for name, N, K in (("qkv", 3 * D, D), ("attn-proj", D, D), ("fc", 4 * D, D),
-                       ("mlp-proj", D, 4 * D)):
-        x, q4, scale, bias, w_bf16 = int4_operands(g, M, K, N)
+    shapes = {}
+    for name, Mi, N, K in GEMV_SHAPES:
+        x, q4, scale, bias, w_bf16 = int4_operands(g, Mi, K, N)
         out, ref = int4_matvec(x, q4), int4_matvec_plain(x, q4)
         ep = int4_matvec(x, q4, scale=scale, bias=bias)
         ep_ref = int4_matvec_plain(x, q4, scale=scale, bias=bias)
         torch.cuda.synchronize()
         err = max(rel_l2(out, ref), rel_l2(ep, ep_ref))
         mab = (out - ref).abs().max().item()
-        ms = graph_ms(lambda: int4_matvec(x, q4))
+        kt, lt = timing_spread(lambda: int4_matvec(x, q4), lambda: F.linear(x, w_bf16))
         pms = graph_ms(lambda: int4_matvec_plain(x, q4))
-        lms = graph_ms(lambda: F.linear(x, w_bf16))
-        b = bound(N * K // 2 + M * K * 2 + M * N * 4, 2 * M * N * K, BF16_FLOPS)
-        print(f"W4 int4_matvec {name} M={M} K={K} N={N}: rel_l2 {err:.3e} max_abs {mab:.3e}"
-              f" device: kernel {ms:.4f} ms plain {pms:.4f} ms F.linear(bf16 weight) {lms:.4f}"
-              f" ms bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
+        b = bound(N * K // 2 + Mi * K * 2 + Mi * N * 4, 2 * Mi * N * K, BF16_FLOPS)
+        print(f"W4 int4_matvec {name} M={Mi} K={K} N={N} ({plan_text(Mi, N, K, True)}): "
+              f"rel_l2 {err:.3e} max_abs {mab:.3e} device: kernel {spread_text(kt)}; F.linear"
+              f"(bf16 weight) {spread_text(lt)}; plain {pms:.4f} ms; bound {b['bound_ms']:.4f}"
+              f" ms ({b['bound_by']}) [{card}]", flush=True)
         assert err <= K7_REL_L2 and np.isfinite(err), f"W4 GEMV rel-L2 {err} at {name}"
         mv["err"], mv["abs"] = max(mv["err"], err), max(mv["abs"], mab)
-        if name == "qkv":
-            mv.update(ms=ms, plain_ms=pms, library_ms=lms, **b)
+        shapes[f"{name} M={Mi}"] = gemv_shape_row(kt, lt, b)
+        if name == "qkv" and Mi == M:
+            mv.update(plain_ms=pms, **b, **spread_row(kt, lt, shapes=shapes))
     res["int4_matvec"] = mv
 
     x, w1, s1, b1, _ = int4_operands(g, M, D, 4 * D)
@@ -1728,7 +1763,10 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = cuda.build()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s -> {lib}", flush=True)
-    print((lib.parent / "build.log").read_text(), flush=True)
+    log = (lib.parent / "build.log").read_text()
+    print(log, flush=True)
+    print("int8_gemv_kernel (csrc/int8_gemv.cu), registers / shared memory / spills a "
+          "block:\n  " + "\n  ".join(build_lines(log, "int8_gemv_kernel")), flush=True)
 
     def mark(what):
         print(f"-- {what} at {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1806,9 +1844,10 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         **r.get("spread", {})})
     assert all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels), kernels
-    print(f"kernels line: ms and library_ms of attention_rope, packed_pair_attention and "
-          f"single_block_attention are graph-replay medians of {ATTN_REPS} (their rows' "
-          f"ms_timing); every other row as timed in its phase", flush=True)
+    print(f"kernels line: ms and library_ms of attention_rope, packed_pair_attention, "
+          f"single_block_attention, int8_matvec and int4_matvec are graph-replay medians of "
+          f"{ATTN_REPS} (their rows' ms_timing; the GEMV rows at qkv, M=3, every shape under "
+          f"'shapes'); every other row as timed in its phase", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -44,8 +44,8 @@ _SIGNATURES = {
     # x, alpha, beta, lengths, taps, out, B, T, C, logscale, stream
     "antialias_snake_launch": [_P] * 6 + [_I] * 4 + [_P],
     # x, q, ln_w, ln_b, scale, bias, res, out, M, N, K, half_span, epilogue,
-    # stream
-    "int8_gemv_launch": [_P] * 8 + [_I] * 5 + [_P],
+    # the launch plan (ops/int8.py::GemvPlan: rows, split, span, smem), stream
+    "int8_gemv_launch": [_P] * 8 + [_I] * 9 + [_P],
     # qkv, ck, cv, kvs, kv_valid, anc, part_ml, part_o, out, M, S, D, H, pos,
     # group, scale, stream
     "decode_attention_launch": [_P] * 9 + [_I] * 6 + [_F, _P],

@@ -24,11 +24,16 @@ decode step (K1, `ops/decode_step.py`) uses:
 - ``ln=(w, b)``: LayerNorm of x in f32, rounded to bf16, before the product;
 - ``scale, bias``: ``acc * scale + bias`` in f32, rounded to bf16;
 - ``residual``: then ``residual + that`` in bf16.
+
+`gemv_plan` is the kernel's launch plan (16-row tiles a block, the split of
+K over a thread-block cluster, shared-memory bytes), computed from the
+shapes alone and passed to the kernel, which recomputes the shared-memory
+layout and refuses a plan that disagrees.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,7 +42,59 @@ from indextts_tpu_torch.ops import cuda
 
 EPI_NONE, EPI_BIAS, EPI_GELU, EPI_RESIDUAL = range(4)
 MAX_ROWS = 24
-SMEM_TILE_BYTES = 47 * 1024   # the kernel's activation tile, under the 48 KB launch default
+
+# The kernel's launch plan (`csrc/int8_gemv.cu`, whose header says why).
+SMS = 132                  # the H100's SMs
+SPAN = 1280                # columns of K a block owns at most; more split over a cluster
+SMEM_MAX = 227 * 1024      # dynamic shared memory a block may use
+GEMV_WARPS = 8
+MAX_TILES = 4              # 16-row tiles a block owns at most
+BLOCKS_PER_SM = 2          # the kernel's __launch_bounds__ minimum
+MAX_SPLIT = 8              # blocks of a cluster
+
+
+class GemvPlan(NamedTuple):
+    rows: int    # 16-row tiles a block owns
+    split: int   # blocks of a cluster, each owning ``span`` columns of K
+    span: int    # columns a split owns (the last one the rest)
+    smem: int    # dynamic shared-memory bytes a block
+
+
+def _gemv_smem(M: int, K: int, rows: int, split: int, span: int, w4: bool) -> int:
+    """Shared-memory bytes of a block: the kernel's `layout`
+    (`csrc/int8_gemv.cu`) in the same formula."""
+    sw = (K // 2 if w4 else K) if split == 1 else (span // 2 if w4 else span)
+    x_off = -(-(16 * rows * sw + 64) // 16) * 16
+    sx = -(-span * 2 // 128) * 128 + 16
+    nt = -(-M // 8)
+    red = (GEMV_WARPS + split - 1) * rows * nt * 32 * 16   # the warps' and the peers' sums
+    return x_off + M * sx + 4 * span + red + 48 + 2 * MAX_ROWS * 4
+
+
+def gemv_plan(M: int, N: int, K: int, half: int = 0) -> GemvPlan:
+    """The launch plan of `int8_gemv_launch` for x (M, K) and an (N, K) int8
+    weight, or with ``half`` > 0 the int4 weight in groups of 2 * half
+    columns. K is split in spans of at most SPAN columns (64-column units;
+    int4: whole nibble groups) over a cluster of blocks, so the order of the
+    f32 sum depends on K alone: the split never depends on N, and K6's qkv
+    shard sums as the unsharded qkv does. A block takes one 16-row tile, or
+    as many (up to MAX_TILES) as keep the grid within one wave of
+    BLOCKS_PER_SM blocks an SM; it computes one tile while the next lands.
+    Raises ValueError for a shape no plan fits."""
+    w4 = half > 0
+    tiles = -(-N // 16)
+    unit = 2 * half if w4 else 64
+    units = -(-K // unit)
+    per = min(units, max(1, SPAN // unit))
+    split = -(-units // per)
+    for rows in range(min(MAX_TILES, -(-tiles * split // (BLOCKS_PER_SM * SMS))), 0, -1):
+        smem = _gemv_smem(M, K, rows, split, per * unit, w4)
+        if split <= MAX_SPLIT and smem <= SMEM_MAX:
+            return GemvPlan(rows, split, per * unit, smem)
+    raise ValueError(f"int8 gemv: no launch plan takes x ({M}, {K}) and a weight of {N} rows "
+                     f"(at most {MAX_SPLIT} splits of {SPAN} columns, {SMEM_MAX} bytes of "
+                     f"shared memory)")
+
 
 LN = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -91,9 +148,7 @@ def _gemv_cuda(x, q, ln: LN, scale, bias, epilogue: int, residual, w4: bool = Fa
         raise ValueError(f"int8 gemv: kernel takes 1..{MAX_ROWS} rows and K % "
                          f"{32 if w4 else 16} == 0, got x {tuple(x.shape)}")
     half_span = nn.int4_halfspan(K // 2) if w4 else 0
-    if 2 * half_span * M * 2 > SMEM_TILE_BYTES:
-        raise ValueError(f"int4 gemv: a nibble group of {2 * half_span} columns for {M} rows "
-                         f"does not fit the {SMEM_TILE_BYTES}-byte activation tile")
+    plan = gemv_plan(M, N, K, half_span)
     _check("int8 gemv x", x, torch.bfloat16, (M, K), dev)
     _check("int8 gemv q", q, torch.int8, (N, K // 2 if w4 else K), dev)
     if ln is not None:
@@ -104,6 +159,9 @@ def _gemv_cuda(x, q, ln: LN, scale, bias, epilogue: int, residual, w4: bool = Fa
         _check("int8 gemv bias", bias, torch.bfloat16, (N,), dev)
     if epilogue == EPI_RESIDUAL:
         _check("int8 gemv residual", residual, torch.bfloat16, (M, N), dev)
+    if any(t.data_ptr() % 16 for t in (x, q, *(ln or ()))):
+        raise ValueError("int8 gemv: x, the weight and the LayerNorm vectors must be "
+                         "16-byte aligned (the weight is read with TMA bulk copies)")
     out = torch.empty((M, N), dtype=torch.float32 if epilogue == EPI_NONE else torch.bfloat16,
                       device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -111,7 +169,7 @@ def _gemv_cuda(x, q, ln: LN, scale, bias, epilogue: int, residual, w4: bool = Fa
         code = cuda.library().int8_gemv_launch(
             x.data_ptr(), q.data_ptr(), *(ptr(t) for t in (ln or (None, None))),
             ptr(scale), ptr(bias), ptr(residual), out.data_ptr(), M, N, K, half_span,
-            epilogue, cuda.stream_ptr(x))
+            epilogue, *plan, cuda.stream_ptr(x))
     cuda.check(code, "int8_gemv")
     return out
 

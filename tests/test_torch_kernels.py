@@ -9,7 +9,10 @@ Tolerances are the ones `chip_smoke.py` holds at the main path's shapes:
 rel-L2 over valid rows <= 2e-2 for K2 (attention_rope, bf16 probabilities
 before PV, online vs whole-row softmax) and <= 1e-2 for K3 (antialias_snake,
 f32 inside, one bf16 rounding at the output); rel-L2 <= 1e-3 for K7a / K7b
-(int8 products, f32 sums in another order) and <= 1e-2 on the hidden state
+(int8 products, f32 sums in another order; at K1's and K6's shapes, M of 1,
+3, 8, 9 and 24, N off the 16-row tile and the largest x slice; two launches
+bit-identical, and the order of the sums independent of N, so a qkv shard
+equals the unsharded qkv) and <= 1e-2 on the hidden state
 for K1 (fused_decode_step), whose ancestry route is bit-identical to the
 physically gathered cache. The same holds for the int4 GEMVs (int4_matvec,
 int4_mlp) and K1's KVQ (int8 cache) and W4 (int4 weights) variants, whose
@@ -228,9 +231,17 @@ def test_cpu_tensors_run_the_int8_twins_without_counting():
             decode_step.fused_decode_step.launches) == before
 
 
+# The GEMV shapes held on the card: K1's four projections (qkv, attn-proj, fc,
+# mlp-proj at D=1280), M in {1, 3, 8, 9, 24} (1-3 n-tiles of the MMA), K6's
+# four shard shapes (D/2 a shard; the f32 partials are the no-epilogue
+# output), N off the 16-row tile, and M=24 at K=5120 (the largest x slice).
+GEMV_SHAPES = [(3, 1280, 3840), (3, 5120, 1280), (24, 1280, 5120), (5, 640, 1000),
+               (1, 1280, 3840), (8, 1280, 3840), (9, 1280, 1280), (24, 5120, 1280),
+               (3, 1280, 1920), (3, 640, 1280), (3, 1280, 2560), (3, 2560, 1280)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N", [(3, 1280, 3840), (3, 5120, 1280), (24, 1280, 5120),
-                                   (5, 640, 1000)])
+@pytest.mark.parametrize("M,K,N", GEMV_SHAPES)
 def test_int8_matvec_kernel_matches_plain(cuda_device, M, K, N):
     x, q, scale, bias = _int8_args(M, K, N, cuda_device)
     before = int8.int8_matvec.launches
@@ -264,6 +275,13 @@ def test_int8_kernels_reject_what_they_do_not_take(cuda_device):
     x, q, _, _ = _int8_args(3, 64, 32, cuda_device)
     with pytest.raises(ValueError, match="bfloat16"):
         int8.int8_matvec(x.float(), q)
+    shifted = torch.empty(3 * 64 + 4, device=cuda_device, dtype=torch.bfloat16)[4:].view(3, 64)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="aligned"):    # TMA reads 16-byte aligned rows
+        int8.int8_matvec(shifted, q)
+    x, q, _, _ = _int8_args(3, 12800, 16, cuda_device)
+    with pytest.raises(ValueError, match="plan"):       # 10 splits of 1280 columns
+        int8.int8_matvec(x, q)
 
 
 @pytest.mark.cuda
@@ -330,8 +348,7 @@ def test_cpu_tensors_run_the_int4_and_int8_cache_twins_without_counting():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N", [(3, 1280, 3840), (3, 5120, 1280), (24, 1280, 5120),
-                                   (5, 64, 96)])
+@pytest.mark.parametrize("M,K,N", GEMV_SHAPES + [(5, 64, 96), (3, 64, 1000)])
 def test_int4_matvec_kernel_matches_plain(cuda_device, M, K, N):
     x, q4, scale, bias = _int4_args(M, K, N, cuda_device)
     assert bool(((q4 << 4) >> 4).lt(0).any()) and bool((q4 >> 4).lt(0).any())
@@ -346,6 +363,32 @@ def test_int4_matvec_kernel_matches_plain(cuda_device, M, K, N):
     for kw in (dict(scale=scale, bias=bias), dict(ln=ln, scale=scale, bias=bias),
                dict(scale=scale, bias=bias, residual=res)):
         assert rel_l2(int8.int4_matvec(x, q4, **kw), int8.int4_matvec_plain(x, q4, **kw)) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w4", [False, True])
+@pytest.mark.parametrize("M,K,N", [(3, 1280, 3840), (3, 5120, 1280), (24, 5120, 1280),
+                                   (3, 2560, 1280)])
+def test_gemv_kernel_is_deterministic(cuda_device, M, K, N, w4):
+    """Two launches on the same inputs give the same bits: the split-K sum
+    runs in a fixed order, with no atomics."""
+    x, q, scale, bias = (_int4_args if w4 else _int8_args)(M, K, N, cuda_device)
+    fn = int8.int4_matvec if w4 else int8.int8_matvec
+    ln = (torch.rand(K, device=cuda_device).to(torch.bfloat16),
+          torch.randn(K, device=cuda_device).to(torch.bfloat16))
+    for kw in (dict(), dict(ln=ln, scale=scale, bias=bias)):
+        first = fn(x, q, **kw)
+        assert all(torch.equal(first, fn(x, q, **kw)) for _ in range(3))
+
+
+@pytest.mark.cuda
+def test_gemv_order_does_not_depend_on_n(cuda_device):
+    """K6's qkv shard (N=1920) equals the unsharded qkv (N=3840) row for row."""
+    x, q, scale, bias = _int8_args(3, 1280, 3840, cuda_device)
+    full = int8.int8_matvec(x, q, scale=scale, bias=bias)
+    half = int8.int8_matvec(x, q[1920:].contiguous(), scale=scale[1920:].contiguous(),
+                            bias=bias[1920:].contiguous())
+    assert torch.equal(full[:, 1920:], half)
 
 
 @pytest.mark.cuda
