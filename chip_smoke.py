@@ -14,7 +14,8 @@
      twin) then K2''s attention kernel (rel-L2 <= 2e-2 over valid query rows;
      library: SDPA on pre-roped q and k, attention only) and K3 `antialias_snake`
      (rel-L2 <= 1e-3 over valid rows, and within 2 bf16 ulps on the 4 rows
-     at each edge);
+     at each edge; timed by graph replay, the median [min-max] of 5 a shape,
+     beside the eager CUDA-event time; its SFU and issue estimates printed);
    - K7a `int8_matvec` at the qkv, attn-proj, fc and mlp-proj shapes, M = 3,
      and at qkv, M = 1, and K7b `int8_mlp` at the MLP shape, M = 3 (rel-L2
      <= 1e-3; yardstick: F.linear with the bf16 weight the int8 one
@@ -29,6 +30,16 @@
      1e-2), and bit-identical to K1 on the physically gathered cache;
      yardstick: the port's bf16 `gpt2_decode_step` at the same shape; and
      K1 at group=1 (one row, no ancestry map), the sampling decode's route;
+   - K1's attention alone (`decode_attention`, `decode_attention_phase`) at
+     `DA_CASES`: the K1 case's layer (3 rows, the ancestry map, pos=300), 1
+     row, the int8 cache, S=2048 at pos=1500, and the K1 case over 24
+     layers' caches in turn (from HBM, as in a step): against its twin (rel-L2
+     <= 1e-2), written rows bit-identical to the twin's, two launches
+     bit-identical, the ancestry route bit-identical to the gathered cache,
+     heads [0, 10) bit-identical to an H=10 call (K6's shard) and the
+     output bit-identical under another launch plan; timed with
+     `timing_spread` beside SDPA on the gathered bf16 cache (none for the
+     int8 cache), with its bound from this run's valid positions;
    - K4 `single_block_attention` at the DiT flash tier's shape (B=2, H=8,
      D=64, T=1280, transposed (B, T, H, D) views) and at H=16 / D=32 and
      H=4 / D=128, and K2' `packed_pair_attention` at K2's shapes (rel-L2 <=
@@ -42,7 +53,8 @@
      ``library_ms``;
    - K5 `fused_antialias_activation` and K3' `antialias_activation_prefolded`
      (on the fold f = 128 // gcd(C, 128)) at K3's six shapes under both
-     logscale values, with K3's gates. K2', K5 and K3' have no caller on the
+     logscale values, with K3's gates and K3's timing. K2', K5 and K3' have
+     no caller on the
      port's pipeline (the JAX package calls them from tests, tools and its
      unported stage-folded vocoder): their launches are this phase's.
 3. bf16 pipeline pass: `IndexTTS2(cfg_path=None, device="cuda")` at the
@@ -117,8 +129,9 @@
 `tools/torch_tp_two_cards.py` runs K6 with its shards on two cards, on a
 machine that has two.
 
-Each phase prints its elapsed time since the kernel build. Prints per-stage times and RTF beside the card, then (second to last line)
-one JSON object describing the kernels, and as the last line
+Each phase prints its elapsed time since the kernel build. Prints
+per-stage times and RTF beside the card, then (second to last line) one
+JSON object describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero with its
 traceback. Exits 2 without a result when CUDA is unavailable or the port's
 package cannot be imported (e.g. run outside the repository).
@@ -156,6 +169,13 @@ EDGE_ROWS = 4                              # the halo a K3 output row reads: 3
 K3_OPS_PER_ELEMENT = 56                    # 2x6-tap up, 2 snakes, 12-tap down
 # the GPT decoder of the shipped config, and the K1 kernel-phase shape
 K1_L, K1_D, K1_H, K1_ROWS, K1_S, K1_POS = 24, 1280, 20, 3, 512, 300
+# K1's attention alone (`decode_attention`): label -> (rows, group, int8
+# cache, S, pos, layers); "long" is max_mel_tokens' reach; "k1 24 layers"
+# times the K1 case over 24 layers' caches in turn, as a decode step reads
+# them (94 MB, past the 50 MB L2: the others replay one layer from L2)
+DA_CASES = {"k1": (3, 3, False, K1_S, K1_POS, 1), "group=1": (1, 1, False, K1_S, K1_POS, 1),
+            "kvq": (3, 3, True, K1_S, K1_POS, 1), "long": (3, 3, False, 2048, 1500, 1),
+            "k1 24 layers": (3, 3, False, K1_S, K1_POS, K1_L)}
 BF16_REQUESTS, INT8_REQUESTS = 2, 2
 # the num_beams=1 sampling pass (int8): a twin-checked request on the packed
 # DiT tier, then one on the flash tier (INDEXTTS_PACKED_ATTN=0)
@@ -246,23 +266,27 @@ def timing_spread(kernel, library, reps: int = ATTN_REPS) -> tuple:
     """``kernel`` and ``library`` timed in turns, ``reps`` times each, as
     device time (`graph_ms`) and eager (`time_ms`, host work included): for
     each, {"graph", "eager"} medians and {"graph_range", "eager_range"} (min,
-    max), ms."""
-    runs = {f: {"graph": [], "eager": []} for f in (kernel, library)}
+    max), ms. A ``library`` of None (no PyTorch call computes the function)
+    is not timed and gives None."""
+    fns = [f for f in (kernel, library) if f is not None]
+    runs = {f: {"graph": [], "eager": []} for f in fns}
     for _ in range(reps):
-        for f in (kernel, library):
+        for f in fns:
             runs[f]["graph"].append(graph_ms(f))
             runs[f]["eager"].append(time_ms(f))
     out = []
-    for f in (kernel, library):
+    for f in fns:
         r = {}
         for how, xs in runs[f].items():
             xs = sorted(xs)
             r[how], r[f"{how}_range"] = xs[len(xs) // 2], (xs[0], xs[-1])
         out.append(r)
-    return tuple(out)
+    return tuple(out) + (None,) * (2 - len(out))
 
 
-def spread_text(t: dict) -> str:
+def spread_text(t) -> str:
+    if t is None:
+        return "none"
     return (f"graph {t['graph']:.4f} ms [{t['graph_range'][0]:.4f}-{t['graph_range'][1]:.4f}]"
             f" eager {t['eager']:.4f} ms [{t['eager_range'][0]:.4f}-{t['eager_range'][1]:.4f}]")
 
@@ -272,11 +296,12 @@ def spread_row(kt: dict, lt: dict, **extra) -> dict:
     ``ms`` and ``library_ms`` are graph-replay medians; ``spread`` (the
     ranges, the eager times and ``extra``) goes into its ``kernels`` row as
     it is."""
-    return {"ms": kt["graph"], "library_ms": lt["graph"], "spread": {
-        "ms_timing": f"graph replay, median of {ATTN_REPS}", "ms_range": kt["graph_range"],
-        "eager_ms": kt["eager"], "eager_ms_range": kt["eager_range"],
+    lib = {} if lt is None else {
         "library_ms_range": lt["graph_range"], "library_eager_ms": lt["eager"],
-        "library_eager_ms_range": lt["eager_range"], **extra}}
+        "library_eager_ms_range": lt["eager_range"]}
+    return {"ms": kt["graph"], "library_ms": None if lt is None else lt["graph"], "spread": {
+        "ms_timing": f"graph replay, median of {ATTN_REPS}", "ms_range": kt["graph_range"],
+        "eager_ms": kt["eager"], "eager_ms_range": kt["eager_range"], **lib, **extra}}
 
 
 def gemv_shape_row(kt: dict, lt: dict, b: dict) -> dict:
@@ -403,39 +428,102 @@ def kernel_phase(card: str) -> dict:
         if T == K2_TS[0]:
             r.update(plain_ms=pms, **spread_row(kt, lt, rope_pass_ms=rope_ms), **b)
 
-    tot_ms = tot_pms = 0.0
+    tot, tot_pms = {}, 0.0
     k3_bytes = k3_ops = 0
     for C, up in K3_SHAPES:
-        T = MEL_FRAMES * up
-        x = (2 * torch.randn((1, T, C), generator=g, device=dev)).to(torch.bfloat16)
-        alpha = 0.3 * torch.randn((C,), generator=g, device=dev)
-        beta = 0.3 * torch.randn((C,), generator=g, device=dev)
-        L = 700 * up
-        lens = torch.tensor([L], device=dev, dtype=torch.int32)
+        T, L = MEL_FRAMES * up, 700 * up
+        x, alpha, beta, lens = k3_inputs(g, C, T, L)
         out = antialias_snake(x, alpha, beta, lens)
         ref = antialias_snake_plain(x, alpha, beta, lens)
         torch.cuda.synchronize()
         err = rel_l2(out[0, :L], ref[0, :L])
         edge = edge_err(out[0], ref[0], L)
         mab = (out[0, :L].float() - ref[0, :L].float()).abs().max().item()
-        ms = time_ms(lambda: antialias_snake(x, alpha, beta, lens))
+        kt = timing_spread(lambda: antialias_snake(x, alpha, beta, lens), None)[0]
         pms = time_ms(lambda: antialias_snake_plain(x, alpha, beta, lens))
-        tot_ms, tot_pms = tot_ms + ms, tot_pms + pms
+        tot, tot_pms = add_spread(tot, kt), tot_pms + pms
         k3_bytes += 2 * T * C * 2 + 2 * C * 4
         k3_ops += K3_OPS_PER_ELEMENT * T * C
-        print(f"K3 antialias_snake B=1 C={C} T={T} L={L}: rel_l2 {err:.3e} max_abs {mab:.3e}"
-              f" edge rows {edge:.3f} of 2 ulps kernel {ms:.4f} ms plain {pms:.4f} ms"
-              f" [{card}]", flush=True)
+        print(f"K3 antialias_snake B=1 C={C} T={T} L={L} ({k3_plan_text(1, T, C)}): rel_l2 "
+              f"{err:.3e} max_abs {mab:.3e} edge rows {edge:.3f} of 2 ulps kernel "
+              f"{spread_text(kt)} plain {pms:.4f} ms [{card}]", flush=True)
         assert err <= K3_REL_L2 and np.isfinite(err), f"K3 rel-L2 {err} > {K3_REL_L2} at C={C}"
         assert edge <= 1.0, f"K3 edge rows off by {edge} x 2 ulps at C={C}"
         r = res["antialias_snake"]
         r["err"], r["abs"] = max(r["err"], err), max(r["abs"], mab)
     b = bound(k3_bytes, k3_ops, F32_FLOPS)
-    res["antialias_snake"].update(ms=tot_ms, plain_ms=tot_pms, library_ms=None, **b)
-    print(f"K3 sum over the six stage shapes: kernel {tot_ms:.4f} ms plain {tot_pms:.4f} ms"
-          f" bound {b['bound_ms']:.4f} ms ({b['bound_by']}: {k3_bytes} B, {k3_ops} f32 ops)"
-          f" [{card}]", flush=True)
+    res["antialias_snake"].update(ms=tot["graph"], plain_ms=tot_pms, library_ms=None, **b,
+                                  spread=k3_spread(tot))
+    print(f"K3 sum over the six stage shapes: kernel {spread_text(tot)} (medians and [min-max] "
+          f"of {ATTN_REPS} a shape, summed) plain {tot_pms:.4f} ms bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}: {k3_bytes} B, {k3_ops} f32 ops); "
+          f"{k3_floor_text(k3_ops // K3_OPS_PER_ELEMENT)} [{card}]", flush=True)
     return res
+
+
+def k3_inputs(g, C: int, T: int, L: int, B: int = 1):
+    """K3's inputs at one BigVGAN stage shape: x (B, T, C) bf16, SnakeBeta's
+    log-scale alpha and beta (C,), lengths (B,) of L frames."""
+    import torch
+
+    dev = torch.device("cuda")
+    x = (2 * torch.randn((B, T, C), generator=g, device=dev)).to(torch.bfloat16)
+    alpha = 0.3 * torch.randn((C,), generator=g, device=dev)
+    beta = 0.3 * torch.randn((C,), generator=g, device=dev)
+    return x, alpha, beta, torch.full((B,), L, device=dev, dtype=torch.int32)
+
+
+def k3_plan_text(B: int, T: int, C: int) -> str:
+    from indextts_tpu_torch.ops.snake import SNAKE_VEC, snake_plan
+
+    p = snake_plan(B, T, C)
+    return (f"{p.blocks} blocks of {p.threads} threads, runs of {p.rows} rows x {SNAKE_VEC} "
+            f"channels")
+
+
+# K3's floors beside its byte bound, printed as estimates on its lines and
+# kept out of the kernels line (neither is measured): its two sines an
+# element on the SFUs (16 a clock an SM) and the issue of its instructions
+# (4 warp instructions a clock an SM), on H100_SMS SMs at the clock that
+# F32_FLOPS implies (128 f32 lanes an SM, 2 operations a lane a clock).
+# K3_INSTR_PER_ELEMENT is a count by hand from the SASS of the kernel's
+# interior loop, to be redone when the kernel changes: 53 an element and
+# row step (42 floating-point: 12 FFMA for the two 6-tap phases, 2 x 9 for
+# the snakes, 12 FFMA for the lowpass; 11 of addresses, branches, moves and
+# conversions), times 21 / 16 for a 16-row run's halo.
+H100_SMS = 132
+SM_CLOCK_HZ = F32_FLOPS / (H100_SMS * 128 * 2)
+K3_INSTR_PER_ELEMENT = 69
+
+
+def k3_floors(elements: int) -> dict:
+    """K3's SFU floor and issue estimate (ms) for ``elements`` outputs."""
+    return {"sfu_ms": 2 * elements / (16 * H100_SMS * SM_CLOCK_HZ) * 1e3,
+            "issue_ms": K3_INSTR_PER_ELEMENT * elements / (128 * H100_SMS * SM_CLOCK_HZ) * 1e3}
+
+
+def k3_floor_text(elements: int) -> str:
+    f = k3_floors(elements)
+    return (f"estimates: SFU sine floor {f['sfu_ms']:.4f} ms, instruction issue {f['issue_ms']:.4f}"
+            f" ms ({K3_INSTR_PER_ELEMENT} instructions an element, counted by hand from the "
+            f"kernel's SASS; {SM_CLOCK_HZ / 1e9:.3f} GHz)")
+
+
+def k3_spread(kt: dict) -> dict:
+    """The ``spread`` of an anti-alias row: ``kt`` holds the six shapes'
+    `timing_spread` results summed."""
+    return {"ms_timing": f"graph replay, median of {ATTN_REPS} a shape, summed over the six",
+            "ms_range": kt["graph_range"], "eager_ms": kt["eager"],
+            "eager_ms_range": kt["eager_range"]}
+
+
+def add_spread(tot: dict, t: dict) -> dict:
+    """``tot`` plus one `timing_spread` result, key by key (an empty ``tot``
+    starts the sum)."""
+    if not tot:
+        return dict(t)
+    return {k: tuple(a + b for a, b in zip(tot[k], v)) if isinstance(v, tuple) else tot[k] + v
+            for k, v in t.items()}
 
 
 def attention_kernel_phase(card: str) -> dict:
@@ -543,14 +631,13 @@ def antialias_entries_phase(card: str) -> dict:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
     names = ("fused_antialias_activation", "antialias_activation_prefolded")
-    res = {n: {"err": 0.0, "abs": 0.0, "ms": 0.0, "plain_ms": 0.0} for n in names}
+    res = {n: {"err": 0.0, "abs": 0.0, "plain_ms": 0.0, "times": {}} for n in names}
     fused_antialias_activation.launches = antialias_activation_prefolded.launches = 0
     nbytes = ops = 0
     for C, up in K3_SHAPES:
         T, L = MEL_FRAMES * up, 700 * up
         f = 128 // math.gcd(C, 128)
-        x = (2 * torch.randn((1, T, C), generator=g, device=dev)).to(torch.bfloat16)
-        lens = torch.tensor([L], device=dev, dtype=torch.int32)
+        x, _, _, lens = k3_inputs(g, C, T, L)
         for logscale in (True, False):
             alpha = 0.3 * torch.randn((C,), generator=g, device=dev)
             beta = 0.3 * torch.randn((C,), generator=g, device=dev)
@@ -577,7 +664,8 @@ def antialias_entries_phase(card: str) -> dict:
                 for name, fn in ((names[0], lambda: fused_antialias_activation(
                         x, alpha, beta, lens)), (names[1], lambda: antialias_activation_prefolded(
                         xf, alpha, beta, f, C, lens))):
-                    res[name]["ms"] += time_ms(fn)
+                    res[name]["times"] = add_spread(res[name]["times"],
+                                                    timing_spread(fn, None)[0])
                 pms = time_ms(lambda: antialias_snake_plain(x, alpha, beta, lens))
                 for name in names:
                     res[name]["plain_ms"] += pms
@@ -585,10 +673,15 @@ def antialias_entries_phase(card: str) -> dict:
         ops += K3_OPS_PER_ELEMENT * T * C
     b = bound(nbytes, ops, F32_FLOPS)
     for name, fn in zip(names, (fused_antialias_activation, antialias_activation_prefolded)):
-        res[name].update(library_ms=None, launches=fn.launches, **b)
-        print(f"{name} sum over the six stage shapes: kernel {res[name]['ms']:.4f} ms plain "
-              f"{res[name]['plain_ms']:.4f} ms bound {b['bound_ms']:.4f} ms ({b['bound_by']});"
-              f" {fn.launches} launches in this phase [{card}]", flush=True)
+        r = res[name]
+        tot = r.pop("times")
+        r.update(ms=tot["graph"], library_ms=None, launches=fn.launches, **b,
+                 spread=k3_spread(tot))
+        print(f"{name} sum over the six stage shapes: kernel {spread_text(tot)} (medians and "
+              f"[min-max] of {ATTN_REPS} a shape, summed) plain {r['plain_ms']:.4f} ms bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}); "
+              f"{k3_floor_text(ops // K3_OPS_PER_ELEMENT)}; {fn.launches} launches in this "
+              f"phase [{card}]", flush=True)
     return res
 
 
@@ -705,6 +798,166 @@ def k1_bound(starts, params, M: int, S: int, L: int, D: int, H: int = K1_H,
               + L * cached * per_pos + L * M * per_row)
     ops = 2 * M * n_weights + L * 4 * (cached + M) * D
     return bound(nbytes, ops, BF16_FLOPS)
+
+
+def da_case(g, M: int, group: int, kvq: bool, S: int, pos: int, H: int = K1_H):
+    """`decode_attention`'s inputs: a random qkv (M, 3 * 64H) of the current
+    token, one layer of a (M, S, 64H) cache filled below ``pos`` (the int8
+    cache and its scale rows when ``kvq``), rows starting at 0, 41 and 97
+    (left padding), a random in-group ancestry map at ``group`` > 1."""
+    import torch
+
+    from indextts_tpu_torch.models.gpt.gpt2 import kv_quantize_flat
+
+    dev, D = torch.device("cuda"), 64 * H
+    qkv = torch.randn((M, 3 * D), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((M, S, D), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    k[:, pos:], v[:, pos:] = 0, 0
+    starts = [0, 41, 97][:M]
+    valid = torch.zeros((M, S), dtype=torch.bool, device=dev)
+    for r, st in enumerate(starts):
+        valid[r, st:pos + 1] = True
+    anc = torch.randint(0, group, (M, S), generator=g, device=dev,
+                        dtype=torch.int32) if group > 1 else None
+    cache = dict(zip(("k", "v", "kvs"), kv_quantize_flat(k, v, H))) if kvq else {"k": k, "v": v}
+    return qkv, cache, valid, anc, starts
+
+
+def da_gathered(cache: dict, anc, group: int) -> dict:
+    """The cache with each row's hypothesis gathered physically (anc)."""
+    import torch
+
+    M, S = cache["k"].shape[:2]
+    dev = cache["k"].device
+    rows = (torch.arange(M, device=dev)[:, None] // group) * group + anc.long()
+    slot = torch.arange(S, device=dev)[None, :]
+    return {k: t[rows, slot].contiguous() for k, t in cache.items()}
+
+
+def da_bound(starts, M: int, S: int, pos: int, H: int, kvq: bool, anc: bool) -> dict:
+    """Bytes `decode_attention` must move at these inputs: each row's valid
+    cached k and v (bf16; or int8 plus the 2H bf16 scales a position's heads
+    use), qkv in, the output, the new k/v rows written (the int8 cache: with
+    their 256-lane scale row), kv_valid and the ancestry map's entries of the
+    valid positions, each once; operations: 4 per cached or current value
+    (q.k and p.v), on the CUDA cores (f32 sums)."""
+    from indextts_tpu_torch.models.gpt.gpt2 import SCALE_LANES
+
+    D, elt = 64 * H, 1 if kvq else 2
+    cached = sum(pos - st for st in starts)
+    nbytes = (cached * (2 * D * elt + (2 * H * 2 if kvq else 0)) + M * 3 * D * 2 + M * D * 2
+              + M * 2 * D * elt + (M * SCALE_LANES * 2 if kvq else 0) + M * S
+              + (cached * 4 if anc else 0))
+    return bound(nbytes, 4 * D * (cached + M), F32_FLOPS)
+
+
+def per_call(t, n: int):
+    """A `timing_spread` result for calls of n launches, a launch's times."""
+    if t is None:
+        return None
+    return {k: tuple(x / n for x in v) if isinstance(v, tuple) else v / n for k, v in t.items()}
+
+
+def da_library(qkv, cache: dict, valid, anc, group: int, pos: int, H: int):
+    """The yardstick: one `F.scaled_dot_product_attention` call on (M, H, 1,
+    64) q against the physically gathered bf16 cache below ``pos`` plus the
+    current token, with the key mask; the gather is done here, outside the
+    timed call (as K2's yardstick takes pre-roped q and k)."""
+    import torch
+    import torch.nn.functional as F
+
+    M, D = qkv.shape[0], qkv.shape[1] // 3
+    kv = cache if anc is None else da_gathered(cache, anc, group)
+    k, v = (torch.cat([kv[n][:, :pos], qkv[:, None, j * D:(j + 1) * D]], 1)
+            .reshape(M, pos + 1, H, 64).transpose(1, 2).contiguous()
+            for j, n in ((1, "k"), (2, "v")))
+    q = qkv[:, :D].reshape(M, H, 1, 64).contiguous()
+    mask = valid[:, None, None, :pos + 1].contiguous()
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def decode_attention_phase(card: str) -> dict:
+    """K1's attention alone (`decode_attention`, `csrc/decode_attention.cu`)
+    at `DA_CASES`: against its twin (rel-L2 <= 1e-2: the bf16 output of f32
+    sums in another order), the cache rows written at pos bit-identical to
+    the twin's, two launches bit-identical (output and cache), the ancestry
+    route bit-identical to the same kernel on the physically gathered cache,
+    heads [0, H/2) bit-identical to a call at H/2 heads on those heads'
+    slices (K6's shard), and the output bit-identical under a plan of other
+    heads a block (`attention_plan(heads=)`). Timed with `timing_spread`
+    beside SDPA on the gathered bf16 cache (`da_library`; none for the int8
+    cache); the twin by graph replay. Returns the ``kernels`` rows "decode_attention" (the K1
+    case) and "decode_attention_kvq", each case's figures under "cases"."""
+    import torch
+
+    from indextts_tpu_torch.ops.decode_step import (attention_plan, decode_attention,
+                                                    decode_attention_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    H, cases = K1_H, {}
+    for label, (M, group, kvq, S, pos, layers) in DA_CASES.items():
+        qkv, base, valid, anc, starts = da_case(g, M, group, kvq, S, pos, H)
+        more = [da_case(g, M, group, kvq, S, pos, H)[1] for _ in range(layers - 1)]
+
+        def cache():
+            return {k: t.clone() for k, t in base.items()}
+
+        def run(c, q=qkv, heads=H, a=anc, grp=group, plan=None):
+            return decode_attention(q, c["k"], c["v"], valid, pos, heads, a, grp, c.get("kvs"),
+                                    plan)
+
+        c0, c1, c2 = cache(), cache(), cache()
+        out, again = run(c0), run(c1)
+        ref = decode_attention_plain(qkv, c2["k"], c2["v"], valid, pos, H, anc, group,
+                                     c2.get("kvs"))
+        twice = torch.equal(out, again) and all(torch.equal(c0[k], c1[k]) for k in c0)
+        rows = all(torch.equal(c0[k][:, pos], c2[k][:, pos]) for k in c0)
+        gat_exact = True
+        if anc is not None:
+            out_gat = run(da_gathered(base, anc, group), a=None, grp=1)
+            gat_exact = torch.equal(out, out_gat)
+        D, Dh = 64 * H, 64 * (H // 2)
+        sub_qkv = torch.cat([qkv[:, j * D:j * D + Dh] for j in range(3)], 1).contiguous()
+        sub = {k: t if k == "kvs" else t[..., :Dh] for k, t in cache().items()}
+        heads_exact = torch.equal(run({k: t.contiguous() for k, t in sub.items()}, q=sub_qkv,
+                                      heads=H // 2), out[:, :Dh])
+        other = attention_plan(M, H, pos, kvq,
+                               heads=2 if attention_plan(M, H, pos, kvq).heads == 1 else 1)
+        plan_exact = torch.equal(run(cache(), plan=other), out)
+        torch.cuda.synchronize()
+        err, mab = rel_l2(out, ref), (out.float() - ref.float()).abs().max().item()
+        c = cache()
+        lib = None if kvq else [da_library(qkv, ci, valid, anc, group, pos, H)
+                                for ci in [base] + more]
+        kt, lt = (per_call(t, layers) for t in timing_spread(
+            lambda: [run(ci) for ci in [c] + more], lib and (lambda: [f() for f in lib])))
+        pms = graph_ms(lambda: decode_attention_plain(qkv, c["k"], c["v"], valid, pos, H, anc,
+                                                      group, c.get("kvs")), iters=3, replays=2)
+        b = da_bound(starts, M, S, pos, H, kvq, anc is not None)
+        print(f"decode_attention {label}: M={M} group={group} {'int8' if kvq else 'bf16'} cache "
+              f"S={S} pos={pos} H={H} starts={starts}, times a call over {layers} layer(s): "
+              f"rel_l2 {err:.3e} max_abs {mab:.3e}; "
+              f"written rows bit-identical to the twin's: {rows}; two launches bit-identical: "
+              f"{twice}; ancestry bit-identical to the gathered cache: "
+              f"{gat_exact if anc is not None else 'n/a'}; heads [0, {H // 2}) bit-identical "
+              f"to an H={H // 2} call: {heads_exact}; another plan ({other.heads} heads a "
+              f"block) bit-identical: {plan_exact}; kernel {spread_text(kt)}, plain (graph) "
+              f"{pms:.4f} ms, SDPA on the gathered bf16 cache {spread_text(lt)}; medians and "
+              f"[min-max] of {ATTN_REPS}; bound {b['bound_ms']:.5f} ms ({b['bound_by']}) "
+              f"[{card}]", flush=True)
+        assert err <= K1_REL_L2 and np.isfinite(err), f"decode_attention {label} rel-L2 {err}"
+        assert rows and twice and gat_exact and heads_exact and plan_exact, (
+            label, rows, twice, gat_exact, heads_exact, plan_exact)
+        cases[label] = dict(err=err, abs=mab, plain_ms=pms, **spread_row(kt, lt), **b)
+    summary = {k: {"ms": v["ms"], "ms_range": v["spread"]["ms_range"],
+                   "library_ms": v["library_ms"], "bound_ms": v["bound_ms"]}
+               for k, v in cases.items()}
+    res = {}
+    for name, label in (("decode_attention", "k1"), ("decode_attention_kvq", "kvq")):
+        r = dict(cases[label])
+        r["spread"] = {**r["spread"], "cases": summary}
+        res[name] = r
+    return res
 
 
 def int8_kernel_phase(card: str) -> dict:
@@ -1260,41 +1513,75 @@ def read_counts() -> dict:
     return counts
 
 
-# spin kernels after the profiled run, inside the profiler's window: the
-# profiler can drop the last records of a window (measured on the card: up to
-# the last 9 steps of a 399-step decode in one run, the last 57 steps, some
-# 22,000 records with the pad, in another), so the drop falls on these
+# pads of spin kernels inside the profiler's window, left out of every
+# figure. The window can lose records at both ends: the last 9 steps of a
+# 399-step decode in one run, the last 57 steps (some 22,000 records) in
+# another, before the tail pad of PROFILE_PAD_LAUNCHES short spins; the bf16
+# decode's two first top-k records in a third, its run opening the window; a
+# window's first kernel, right after the warm-up step, in runs of
+# tools/torch_profiler_window.py. The profiler keeps a device record only if
+# it falls inside the window as the host's clock sets it, and the two clocks
+# disagree near the edges, so a lead pad opens the window and a tail pad
+# closes it, each spanning PROFILE_PAD_S of device time (long spins of
+# PROFILE_PAD_CYCLES, ~5 ms each at the H100's clock); the tail pad has the
+# short spins first. The smoke prints how many of each pad's records the
+# window kept.
 PROFILE_PAD_LAUNCHES = 40000
+PROFILE_PAD_S = 1.0
+PROFILE_PAD_CYCLES = 10_000_000
+# the warm-up step's pad: its records are discarded, but take room in the
+# profiler's record buffers until the window closes
+PROFILE_WARMUP_LAUNCHES = 100
 
 
-def _spin_pad(devices=("cuda:0",)) -> None:
+def _spin_pad(devices=("cuda:0",), launches: int = PROFILE_PAD_LAUNCHES,
+              seconds: float = PROFILE_PAD_S) -> None:
+    """``launches`` short spin kernels over ``devices``, then about
+    ``seconds`` of long ones on each, and a synchronize."""
     import torch
 
-    for _ in range(PROFILE_PAD_LAUNCHES // len(devices)):
+    for _ in range(launches // len(devices)):
         for d in devices:
             with torch.cuda.device(d):
                 torch.cuda._sleep(100)
+    for _ in range(round(seconds / 5e-3)):
+        for d in devices:
+            with torch.cuda.device(d):
+                torch.cuda._sleep(PROFILE_PAD_CYCLES)
     for d in devices:
         torch.cuda.synchronize(d)
 
 
-def device_records(prof, key=lambda e: e.name()) -> tuple:
-    """A profiler window's raw device records, the spin pad left out: a
+def device_records(prof, key=lambda e: e.name(), pads=None) -> tuple:
+    """A profiler window's raw device records, the spin pads left out: a
     dict ``key(record)`` -> [count, device ns], and each record's (start,
-    end) ns. Read raw: `key_averages()` builds a Python event object for
-    every record first, which cost the bf16 pass, ~400,000 launches in its
-    window, about half its time."""
+    end) ns. With ``pads`` (a list), the pads' records' start ns are
+    appended to it. Read raw: `key_averages()` builds a Python event object
+    for every record first, which cost the bf16 pass, ~400,000 launches in
+    its window, about half its time."""
     by: dict = {}
     spans = []
     for e in prof.profiler.kineto_results.events():
         ns = e.duration_ns()
-        if ns <= 0 or not str(e.device_type()).endswith("CUDA") or "spin_kernel" in e.name():
+        if ns <= 0 or not str(e.device_type()).endswith("CUDA"):
+            continue
+        if "spin_kernel" in e.name():
+            if pads is not None:
+                pads.append(e.start_ns())
             continue
         acc = by.setdefault(key(e), [0, 0])
         acc[0] += 1
         acc[1] += ns
         spans.append((e.start_ns(), e.end_ns()))
     return by, spans
+
+
+def pads_kept(pads, spans) -> str:
+    """How many pad records the window kept before and after the run's."""
+    first, last = min(a for a, _ in spans), max(a for a, _ in spans)
+    lead, tail = sum(t < first for t in pads), sum(t > last for t in pads)
+    return (f"pad records kept: lead {lead} of {round(PROFILE_PAD_S / 5e-3)}, tail {tail} of "
+            f"{PROFILE_PAD_LAUNCHES + round(PROFILE_PAD_S / 5e-3)}")
 
 
 def union_ns(spans) -> int:
@@ -1312,7 +1599,7 @@ def union_ns(spans) -> int:
 def profile_s2mel(tts, prompt: str, card: str, label: str, **kwargs) -> None:
     """One more request (after the pass's counts are read) whose CFM solve,
     the s2mel stage's 25 DiT evaluations, runs under `torch.profiler`
-    (device activity, the window closed by a spin pad): its synchronized
+    (device activity, spin pads leading and trailing the solve): its synchronized
     wall, the device's busy share over it, the launches, and the DiT
     attention kernels' launches (13 x 25 of the attention kernel, asserted,
     and on the packed tier as many rope passes) and device time, and the
@@ -1327,6 +1614,7 @@ def profile_s2mel(tts, prompt: str, card: str, label: str, **kwargs) -> None:
     def profiled(*args, **kw):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _spin_pad(launches=0)
             t0 = time.perf_counter()
             out = cfm(*args, **kw)
             torch.cuda.synchronize()
@@ -1341,7 +1629,8 @@ def profile_s2mel(tts, prompt: str, card: str, label: str, **kwargs) -> None:
                   min_new_tokens=399, **kwargs)
     finally:
         infer_v2.cfm_inference = cfm
-    by_name, spans = device_records(seen["prof"])
+    pads: list = []
+    by_name, spans = device_records(seen["prof"], pads=pads)
     wall, busy = seen["wall"], union_ns(spans) / 1e9
     attn = {k: v for k, v in by_name.items() if "attention_kernel" in k or "rope_qk_kernel" in k}
     n_attn = sum(n for k, (n, _) in attn.items() if "attention_kernel" in k)
@@ -1350,7 +1639,8 @@ def profile_s2mel(tts, prompt: str, card: str, label: str, **kwargs) -> None:
                       for k, (n, ns) in attn.items())
     print(f"{label} CFM profile (25 DiT steps): wall {wall:.4f} s, device busy {busy:.4f} s = "
           f"{100 * busy / wall:.1f} % (union), {sum(n for n, _ in by_name.values())} launches; "
-          f"attention kernels: {parts}; largest device consumers: [{card}]", flush=True)
+          f"attention kernels: {parts}; {pads_kept(pads, spans)}; largest device consumers: "
+          f"[{card}]", flush=True)
     for key, (n, ns) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
         print(f"    {ns / 1e6:9.2f} ms {n:7d} x  {key[:90]}", flush=True)
     assert n_attn == tts.cfg.s2mel.DiT.depth * 25, attn
@@ -1363,9 +1653,10 @@ def profile_decode(tts, prompt: str, card: str, label: str) -> None:
     op of the bf16 decode costs minutes): device time, kernels and copies,
     over that wall (the busy share), kernels launched per step, and the
     largest consumers. The profiler's window opens after a discarded warm-up
-    step and closes after a pad of spin kernels (`_spin_pad`, left out of
-    every figure); the recorded launches of the port's GEMV and attention
-    kernels and of the scorer's top-k must equal the counters of the run."""
+    step, and a pad of spin kernels (`_spin_pad`, left out of every figure)
+    leads and trails the run inside it; the recorded launches of the port's
+    GEMV and attention kernels and of the scorer's top-k must equal the
+    counters of the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1393,15 +1684,17 @@ def profile_decode(tts, prompt: str, card: str, label: str) -> None:
     t_prof = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        _spin_pad()
+        _spin_pad(launches=PROFILE_WARMUP_LAUNCHES, seconds=0)
         prof.step()
+        _spin_pad(launches=0)
         reset_counts()
         run()
         counts = read_counts()
         _spin_pad()
         prof.step()
     t_parse = time.perf_counter()
-    by_name, spans = device_records(prof)
+    pads: list = []
+    by_name, spans = device_records(prof, pads=pads)
     busy_ns = union_ns(spans)
     t_parse = time.perf_counter() - t_parse
     device = sorted(by_name.items(), key=lambda kv: -kv[1][1])
@@ -1414,7 +1707,7 @@ def profile_decode(tts, prompt: str, card: str, label: str) -> None:
 
     # each scorer step (the prefill's and the 399 decode steps') calls
     # torch.topk twice: the top-k warper and the candidate draw
-    got = {"gemv": recorded("int8_gemv_kernel"), "attention": recorded("combine_kernel"),
+    got = {"gemv": recorded("int8_gemv_kernel"), "attention": recorded("decode_attention_kernel"),
            "allreduce": recorded("tp_allreduce_kernel"), "topk": recorded("gatherTopK")}
     # one GEMV launch a matvec, two an MLP
     want = {"gemv": counts["int8_matvec"] + counts["int4_matvec"]
@@ -1427,7 +1720,7 @@ def profile_decode(tts, prompt: str, card: str, label: str) -> None:
           f"(union over streams), {launches} launches "
           f"({launches / DECODE_STEPS:.0f} per step); recorded launches {got}, counters "
           f"{want}; profiled window and records read in {time.perf_counter() - t_prof:.1f} s "
-          f"(reading {t_parse:.1f} s) [{card}]", flush=True)
+          f"(reading {t_parse:.1f} s); {pads_kept(pads, spans)} [{card}]", flush=True)
     for key, (n, ns) in device[:6]:
         print(f"    {ns / 1e6:9.2f} ms {n:7d} x  {key[:90]}", flush=True)
     assert got == want, f"{label} profile recorded {got}, the counters say {want}"
@@ -1775,6 +2068,7 @@ def main() -> int:
     kres.update(attention_kernel_phase(card))
     kres.update(antialias_entries_phase(card))
     kres.update(int8_kernel_phase(card))
+    kres.update(decode_attention_phase(card))
     kres.update(quant_kernel_phase(card, kres["fused_decode_step"]))
     kres.update(tp_kernel_phase(card, kres))
     mark("kernel phase done")
@@ -1807,6 +2101,10 @@ def main() -> int:
              ("antialias_snake", "antialias_snake", "antialias_snake.cu", "antialias.py:269",
               "bf16"),
              ("fused_decode_step", "fused_decode_step", k1_src, k1, "int8"),
+             ("decode_attention", "decode_attention", "decode_attention.cu",
+              f"{k1} (attention, :257-419)", "int8"),
+             ("decode_attention_kvq", "decode_attention_kvq", "decode_attention.cu",
+              f"{k1} (attention, KVQ)", "int8kv"),
              ("int8_matvec", "int8_matvec", "int8_gemv.cu", "int8_matmul.py:104", "int8"),
              ("int8_mlp", "int8_mlp", "int8_gemv.cu", "int8_matmul.py:71", "int8"),
              ("fused_decode_step_kvq", "fused_decode_step", k1_src, f"{k1} (KVQ)", "int8kv"),

@@ -31,6 +31,9 @@
 //     pass 2 forms p = exp(s - m) * (1 / l) in f32 and rounds it to bf16
 //     before P.V. Keys past T score -inf; a length of 0 masks every key to
 //     -1e9, so the row averages every key < T.
+//
+// Its PTX helpers (mbarriers, the cluster barrier, stores into rank 0's
+// shared memory) also serve int8_gemv.cu and decode_attention.cu.
 
 #pragma once
 
@@ -105,6 +108,34 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   const long long start = clock64();
   while (!mbar_try_wait(bar, parity))
     if (clock64() - start > (1ll << 32)) __trap();
+}
+
+// Arrive on the cluster barrier without a release fence: what it orders is
+// rank 0's mbarrier initialisation, which fence.mbarrier_init already
+// publishes to the cluster.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The address of p in rank 0's shared memory.
+__device__ __forceinline__ uint32_t rank0_addr(const void* p) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, 0;" : "=r"(remote) : "r"(smem_addr(p)));
+  return remote;
+}
+
+// 16 bytes into rank 0's shared memory, counted on rank 0's mbarrier bar
+// (no fence: the barrier's transaction count tracks the write)
+__device__ __forceinline__ void store_to_rank0(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
 }
 
 // One 64 x 64 box at lanes [d, d + 64), rows [t, t + 64) of head h of batch

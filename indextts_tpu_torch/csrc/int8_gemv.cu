@@ -85,15 +85,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "attention_tma.cuh"  // mbarrier helpers (sm_90)
+#include "attention_tma.cuh"  // mbarrier and cluster helpers (sm_90)
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using attn_tma::cluster_arrive;
+using attn_tma::cluster_wait;
 using attn_tma::mbar_expect_tx;
 using attn_tma::mbar_init;
 using attn_tma::mbar_wait;
+using attn_tma::rank0_addr;
 using attn_tma::smem_addr;
+using attn_tma::store_to_rank0;
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
@@ -191,34 +195,6 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// Arrive on the cluster barrier without a release fence: what it orders is
-// rank 0's mbarrier initialisation, which fence.mbarrier_init already
-// publishes to the cluster.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// The address of p in rank 0's shared memory.
-__device__ __forceinline__ uint32_t rank0_addr(const void* p) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, 0;" : "=r"(remote) : "r"(smem_addr(p)));
-  return remote;
-}
-
-// 16 bytes into rank 0's shared memory, counted on rank 0's mbarrier bar
-// (no fence: the barrier's transaction count tracks the write)
-__device__ __forceinline__ void store_to_rank0(uint32_t addr, float4 v, uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
-      "[%5];" ::"r"(addr),
-      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
       : "memory");
 }
 

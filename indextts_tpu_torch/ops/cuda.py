@@ -46,9 +46,10 @@ _SIGNATURES = {
     # x, q, ln_w, ln_b, scale, bias, res, out, M, N, K, half_span, epilogue,
     # the launch plan (ops/int8.py::GemvPlan: rows, split, span, smem), stream
     "int8_gemv_launch": [_P] * 8 + [_I] * 9 + [_P],
-    # qkv, ck, cv, kvs, kv_valid, anc, part_ml, part_o, out, M, S, D, H, pos,
-    # group, scale, stream
-    "decode_attention_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
+    # qkv, ck, cv, kvs, kv_valid, anc, part_ml, part_o (not read), out, M, S,
+    # D, H, pos, group, scale, the launch plan (ops/decode_step.py::
+    # AttnPlan: heads, chunks, cluster, stages, smem), stream
+    "decode_attention_launch": [_P] * 9 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
     # own, peer, scale, bias, residual, out, M, N, rank, stream
     "tp_allreduce_launch": [_P] * 6 + [_I] * 3 + [_P],
     # device, peer

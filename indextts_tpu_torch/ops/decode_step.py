@@ -14,8 +14,9 @@ them:
   LayerNorm prologue (K7a, `csrc/int8_gemv.cu`);
 - attention over the cache plus the current token, which also writes the
   token's k and v into the cache at ``pos`` (quantized for the int8 cache):
-  `decode_attention` (`csrc/decode_attention.cu`, a split pass and a
-  combine pass);
+  `decode_attention` (`csrc/decode_attention.cu`, one launch: the positions
+  split over a thread-block cluster, merged on its rank 0; the launch plan
+  is `attention_plan`);
 - attention out-projection + residual: `int8_matvec` / `int4_matvec` with
   the residual epilogue;
 - ``ln_2`` + MLP + residual: `int8_mlp` / `int4_mlp` (K7b, two GEMV
@@ -33,6 +34,7 @@ place: the decode loop never holds two copies of it).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, NamedTuple, Optional
 
@@ -41,13 +43,88 @@ import torch
 from indextts_tpu_torch import nn
 from indextts_tpu_torch.models.gpt.gpt2 import SCALE_LANES, kv_quantize_flat
 from indextts_tpu_torch.ops import cuda
-from indextts_tpu_torch.ops.int8 import (MAX_ROWS, int4_matvec, int4_matvec_plain, int4_mlp,
-                                         int4_mlp_plain, int8_matvec, int8_matvec_plain,
-                                         int8_mlp, int8_mlp_plain)
+from indextts_tpu_torch.ops.int8 import (MAX_ROWS, SMEM_MAX, SMS, int4_matvec,
+                                         int4_matvec_plain, int4_mlp, int4_mlp_plain,
+                                         int8_matvec, int8_matvec_plain, int8_mlp,
+                                         int8_mlp_plain)
 
-CHUNK = 64          # positions per split block of `decode_attention`
+CHUNK = 64          # positions a chunk of `decode_attention`: the rounding unit
 HEAD_DIM = 64       # the CUDA kernel's head dim
 NEG = -1e9          # the TPU kernel's mask value
+
+# The attention kernel's launch plan (`csrc/decode_attention.cu`, whose
+# header says why).
+MAX_HEADS = 8       # heads a block (a warp each for p.v)
+MAX_CLUSTER = 8     # blocks of a cluster: the portable size
+MAX_STAGES = 4      # chunk stages of a block's ring
+SLOT_BYTES = 68 * 4  # a (chunk, head) partial: m, l, 2 pad, o[64] in f32
+MISC_BYTES = 1024
+BLOCKS_PER_SM = 3   # the kernel's __launch_bounds__ minimum
+SM_SMEM = 228 * 1024  # an SM's shared memory, of which the card reserves 1 KB a block
+
+
+class AttnPlan(NamedTuple):
+    heads: int    # heads a block
+    chunks: int   # 64-position chunks a block, at most
+    cluster: int  # blocks a (row, head span): rank k takes chunks [k chunks, (k + 1) chunks)
+    stages: int   # chunk stages of the block's ring in shared memory
+    smem: int     # dynamic shared-memory bytes a block
+
+
+def _attention_smem(heads: int, chunks: int, cluster: int, stages: int, kvq: bool) -> int:
+    """Shared-memory bytes of a block: the kernel's `layout`
+    (`csrc/decode_attention.cu`) in the same formula."""
+    stage = 2 * CHUNK * heads * HEAD_DIM * (1 if kvq else 2)
+    return (stages * stage + cluster * chunks * heads * SLOT_BYTES
+            + (chunks * CHUNK * heads * 4 if kvq else 0) + chunks * CHUNK * 4
+            + 4 * heads * HEAD_DIM * 2 + MISC_BYTES)
+
+
+@functools.lru_cache(maxsize=4096)   # a decode step asks for the same plan in every layer
+def attention_plan(M: int, H: int, pos: int, kvq: bool = False, sms: int = SMS,
+                   heads: Optional[int] = None) -> AttnPlan:
+    """The launch plan of `decode_attention_launch` for M rows of H heads at
+    ``pos`` (int8 cache: ``kvq``). The ceil(pos / 64) chunks of a row are
+    split over a cluster of at most 8 blocks, ``chunks`` a block. A block
+    takes the fewest heads (a divisor of H, at most 8) whose grid of M * H /
+    heads * cluster blocks is resident on the ``sms`` SMs at once (three
+    blocks an SM, fewer where shared memory allows fewer), or else runs in
+    the fewest waves; its ring holds as many of its chunks as keep that.
+    ``heads`` fixes the heads a block instead (another plan, to time it or
+    to hold its bits against this one's). The merge order (chunks 0, 1, ...
+    of the row) does not depend on the plan. Raises ValueError for a shape
+    no plan fits."""
+    n = -(-pos // CHUNK)
+    chunks = max(1, -(-n // MAX_CLUSTER))
+    cluster = -(-n // chunks) if n else 1
+    if heads is not None and not (1 <= heads <= MAX_HEADS and H % heads == 0):
+        raise ValueError(f"decode_attention: {heads} heads a block is not a divisor of "
+                         f"{H} of at most {MAX_HEADS}")
+    candidates = (heads,) if heads is not None else range(1, min(H, MAX_HEADS) + 1)
+    best = None
+    for heads in candidates:
+        if H % heads:
+            continue
+        blocks = M * (H // heads) * cluster
+        for stages in range(min(chunks, MAX_STAGES), 0, -1):
+            smem = _attention_smem(heads, chunks, cluster, stages, kvq)
+            resident = sms * min(BLOCKS_PER_SM, SM_SMEM // (smem + 1024))
+            if smem <= SMEM_MAX and (resident >= blocks or stages == 1):
+                break
+        if smem > SMEM_MAX:
+            continue
+        waves = -(-blocks // max(1, resident))
+        if best is None or waves < best[0]:
+            best = (waves, AttnPlan(heads, chunks, cluster, stages, smem))
+    if best is None:
+        raise ValueError(f"decode_attention: no launch plan takes {H} heads at pos {pos} "
+                         f"({SMEM_MAX} bytes of shared memory)")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def decode_attention_plain(qkv: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
@@ -106,12 +183,15 @@ def decode_attention_plain(qkv: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor
 def decode_attention(qkv: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                      kv_valid: torch.Tensor, pos: int, heads: int,
                      anc: Optional[torch.Tensor] = None, group: int = 1,
-                     kvs: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     kvs: Optional[torch.Tensor] = None,
+                     plan: Optional[AttnPlan] = None) -> torch.Tensor:
     """K1's attention. qkv (M, 3D) bf16 of the current token; ck, cv (M, S, D),
     one layer of the cache (the token's k and v are written at ``pos``):
     bf16, or int8 with ``kvs`` (M, S, 256) bf16, the layer's packed scale
     rows (K1's KVQ variant; the row at ``pos`` is written too); kv_valid
     (M, S) bool; anc (M, S) int32 in-group ancestry for ``group`` > 1.
+    ``plan`` replaces `attention_plan`'s launch plan (the kernel refuses one
+    that does not fit the call; any plan gives the same bits).
     Returns (M, D) bf16. CPU tensors run the plain twin; CUDA tensors launch
     the kernel (``decode_attention.launches`` counts the bf16-cache launches,
     ``decode_attention.kvq_launches`` the int8-cache ones); anything else
@@ -141,23 +221,23 @@ def decode_attention(qkv: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                 or not t.is_contiguous():
             raise ValueError(f"decode_attention: {name} must be contiguous {dtype} {shape} "
                              f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if name != "scale rows" and t.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name} must be 16-byte aligned (the kernel "
+                             f"reads it in 16-byte pieces)")
     if group > 1:
         if anc is None or anc.dtype != torch.int32 or tuple(anc.shape) != (M, S) \
                 or anc.device != dev or not anc.is_contiguous() or M % group:
             raise ValueError(f"decode_attention: group={group} needs anc, contiguous int32 "
                              f"({M}, {S}) on {dev}")
-    n_chunks = -(-pos // CHUNK)
-    part_ml = torch.empty((M, heads, max(n_chunks, 1), 2), dtype=torch.float32, device=dev)
-    part_o = torch.empty((M, heads, max(n_chunks, 1), HEAD_DIM), dtype=torch.float32,
-                         device=dev)
+    if plan is None:
+        plan = attention_plan(M, heads, pos, kvs is not None, _sm_count(dev))
     out = torch.empty((M, D), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
         code = cuda.library().decode_attention_launch(
             qkv.data_ptr(), ck.data_ptr(), cv.data_ptr(),
             None if kvs is None else kvs.data_ptr(), kv_valid.data_ptr(),
-            anc.data_ptr() if group > 1 else None, part_ml.data_ptr(), part_o.data_ptr(),
-            out.data_ptr(), M, S, D, heads, pos, group, 1.0 / math.sqrt(HEAD_DIM),
-            cuda.stream_ptr(qkv))
+            anc.data_ptr() if group > 1 else None, None, None, out.data_ptr(), M, S, D,
+            heads, pos, group, 1.0 / math.sqrt(HEAD_DIM), *plan, cuda.stream_ptr(qkv))
     cuda.check(code, "decode_attention")
     if kvs is None:
         decode_attention.launches += 1

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -127,15 +127,41 @@ def antialias_snake_plain(x: torch.Tensor, alpha: torch.Tensor,
     return y.to(x.dtype)
 
 
+# The kernel's launch (`csrc/antialias_snake.cu`, whose header says why): a
+# thread owns 4 channels (one 8-byte piece of a row) and a run of 16 output
+# rows; threads run channel piece first, then the runs, then the batch rows.
+SNAKE_VEC = 4
+SNAKE_RUN = 16
+SNAKE_THREADS = 128
+
+
+class SnakePlan(NamedTuple):
+    rows: int       # output rows a thread
+    threads: int    # threads a block
+    blocks: int
+
+
+def snake_plan(B: int, T: int, C: int) -> SnakePlan:
+    """K3's grid for x (B, T, C), as `antialias_snake_launch` computes it.
+    Raises ValueError for a C that is not a multiple of 4 (the kernel reads
+    and writes 4 channels as one 8-byte piece; every BigVGAN width is)."""
+    if C % SNAKE_VEC or C < SNAKE_VEC:
+        raise ValueError(f"antialias_snake: the kernel takes C a multiple of {SNAKE_VEC} "
+                         f"(8-byte pieces of a row), got C={C}")
+    n = B * -(-T // SNAKE_RUN) * (C // SNAKE_VEC)
+    return SnakePlan(SNAKE_RUN, SNAKE_THREADS, -(-n // SNAKE_THREADS))
+
+
 def _launch(name: str, x: torch.Tensor, alpha: torch.Tensor, beta: Optional[torch.Tensor],
             lengths: Optional[torch.Tensor], logscale: bool) -> torch.Tensor:
     """The kernel on a (B, T, C) CUDA tensor, for the entry ``name``."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     B, T, C = x.shape
-    if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError(f"{name}: x must be contiguous bf16, got "
+    if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 8:
+        raise ValueError(f"{name}: x must be contiguous 8-byte aligned bf16, got "
                          f"{x.dtype} (contiguous={x.is_contiguous()})")
+    snake_plan(B, T, C)                         # refuses a C the kernel does not take
     beta = alpha if beta is None else beta
     for label, t in (("alpha", alpha), ("beta", beta)):
         if t.numel() != C or t.device != x.device:

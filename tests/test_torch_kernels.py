@@ -24,7 +24,18 @@ tile, lengths of 0 (K4: every key), 1, T and past T, B=1 and every K4 head
 width; K2's rope pass (rope_qk) is bit-identical to its twin, and a layout
 the kernels' TMA loads cannot read raises before any launch; K5
 (fused_antialias_activation) and K3' (antialias_activation_prefolded), which
-launch K3's kernel, take K3's 1e-2. The num_beams=1 sampling decode with int8
+launch K3's kernel, take K3's 1e-2; at the edges (T under the kernel's
+16-row run, L = 1, L < T, C = 24 and 768, logscale on and off) the three
+entries are bit-identical and within rel-L2 1e-3 of the twin, their 4 edge
+rows within 2 bf16 ulps; a width off 8 runs and one off 4 is refused.
+K1's attention (decode_attention) alone, at pos 0, 1, 63, 64, 65, 300,
+S-1 and 1500 of 2048, with a fully padded row, bf16 and int8 cache, with
+and without the ancestry map: rel-L2 <= 1e-2 against the twin, written
+rows bit-identical to the twin's, two launches bit-identical, the ancestry
+route bit-identical to the gathered cache, heads [0, 10) of an H=10 call
+bit-identical to an H=20 call's, every plan of 1, 2, 4 or 5 heads a block
+bit-identical, and a misaligned operand refused. The
+num_beams=1 sampling decode with int8
 weights launches K1 once a step (at group=1) and never the bf16 step. K6's
 all-reduce (tp_allreduce) is bit-identical to its twin, for either rank; K6
 (fused_decode_step_tp, both shards co-located on one card, each on its own
@@ -428,6 +439,166 @@ def test_fused_decode_step_variants_match_plain_and_ancestry_is_exact(cuda_devic
     assert torch.equal(h, h_gat)
     for key in caches[0]:
         assert torch.equal(caches[0][key][:, :, pos], gathered[key][:, :, pos])
+
+
+# decode_attention at the plan test's edge positions (pos, S): the chunk
+# edges, the main path's 300, the cache's last slot, max_mel_tokens' reach
+DA_EDGES = [(0, 512), (1, 512), (63, 512), (64, 512), (65, 512), (300, 512), (511, 512),
+            (1500, 2048)]
+
+
+def _da_case(device, M, H, S, pos, group, kvq, seed=0):
+    """decode_attention's inputs: qkv of the current token, one layer of a
+    (M, S, 64H) cache filled below pos (int8 with its scale rows for kvq),
+    rows starting at 0, 5, 10, ... and the last row fully padded (start =
+    pos + 1), a random in-group ancestry map at group > 1."""
+    g = torch.Generator().manual_seed(seed)
+    D = 64 * H
+    qkv = torch.randn((M, 3 * D), generator=g).to(device, torch.bfloat16)
+    k, v = torch.randn((2, M, S, D), generator=g).to(device, torch.bfloat16)
+    k[:, pos:], v[:, pos:] = 0, 0
+    valid = torch.zeros((M, S), dtype=torch.bool)
+    for r in range(M - 1):
+        valid[r, min(5 * r, pos):pos + 1] = True
+    anc = torch.randint(0, group, (M, S), generator=g, dtype=torch.int32).to(device) \
+        if group > 1 else None
+    cache = dict(zip("k v kvs".split(), kv_quantize_flat(k, v, H))) if kvq else {"k": k, "v": v}
+    return qkv, cache, valid.to(device), anc
+
+
+def _da_counter(kvq):
+    return decode_step.decode_attention.kvq_launches if kvq \
+        else decode_step.decode_attention.launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvq", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("group", [1, 3])
+@pytest.mark.parametrize("pos,S", DA_EDGES)
+def test_decode_attention_kernel_matches_plain(cuda_device, pos, S, group, kvq):
+    """Against the twin (rel-L2 <= 1e-2, the written rows bit-identical),
+    two launches bit-identical, and with the ancestry map bit-identical to
+    the same kernel on the physically gathered cache."""
+    qkv, base, valid, anc = _da_case(cuda_device, 3, 20, S, pos, group, kvq)
+    caches = [{k: t.clone() for k, t in base.items()} for _ in range(3)]
+    before = _da_counter(kvq)
+    out = decode_step.decode_attention(qkv, caches[0]["k"], caches[0]["v"], valid, pos, 20, anc,
+                                       group, caches[0].get("kvs"))
+    assert _da_counter(kvq) == before + 1
+    again = decode_step.decode_attention(qkv, caches[1]["k"], caches[1]["v"], valid, pos, 20,
+                                         anc, group, caches[1].get("kvs"))
+    ref = decode_step.decode_attention_plain(qkv, caches[2]["k"], caches[2]["v"], valid, pos, 20,
+                                             anc, group, caches[2].get("kvs"))
+    torch.cuda.synchronize()
+    assert rel_l2(out, ref) <= 1e-2
+    assert torch.equal(out[-1], torch.zeros_like(out[-1]))      # the fully padded row
+    assert torch.equal(out, again)
+    for key in base:
+        assert torch.equal(caches[0][key], caches[1][key])
+        assert torch.equal(caches[0][key][:, pos], caches[2][key][:, pos])
+    if anc is not None:
+        rows = (torch.arange(3, device=cuda_device)[:, None] // group) * group + anc.long()
+        slot = torch.arange(S, device=cuda_device)[None, :]
+        gat = {key: t[rows, slot].contiguous() for key, t in base.items()}
+        out_gat = decode_step.decode_attention(qkv, gat["k"], gat["v"], valid, pos, 20,
+                                               kvs=gat.get("kvs"))
+        assert torch.equal(out, out_gat)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvq", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("pos,S", [(65, 512), (300, 512), (1500, 2048)])
+def test_decode_attention_heads_do_not_depend_on_h(cuda_device, pos, S, kvq):
+    """Heads [0, 10) of an H=10 call (K6's shard) equal the same heads of an
+    H=20 call bit for bit (at pos 1500 the two launch with other plans)."""
+    qkv, base, valid, anc = _da_case(cuda_device, 3, 20, S, pos, 3, kvq, seed=1)
+    full = {k: t.clone() for k, t in base.items()}
+    out = decode_step.decode_attention(qkv, full["k"], full["v"], valid, pos, 20, anc, 3,
+                                       full.get("kvs"))
+    Dh = 640
+    sub_qkv = torch.cat([qkv[:, j * 1280:j * 1280 + Dh] for j in range(3)], 1).contiguous()
+    sub = {k: (t.clone() if k == "kvs" else t[..., :Dh].contiguous()) for k, t in base.items()}
+    half = decode_step.decode_attention(sub_qkv, sub["k"], sub["v"], valid, pos, 10, anc, 3,
+                                        sub.get("kvs"))
+    torch.cuda.synchronize()
+    assert torch.equal(half, out[:, :Dh])
+    assert torch.equal(sub["k"][:, pos], full["k"][:, pos, :Dh])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvq", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("pos,S", [(1, 512), (65, 512), (300, 512), (1500, 2048)])
+def test_decode_attention_plan_does_not_change_the_bits(cuda_device, pos, S, kvq):
+    """The output and the written rows are bit-identical under every plan of
+    1, 2, 4 or 5 heads a block (`attention_plan(heads=)`)."""
+    qkv, base, valid, anc = _da_case(cuda_device, 3, 20, S, pos, 3, kvq, seed=2)
+    outs, caches = [], []
+    for heads in (None, 1, 2, 4, 5):
+        c = {k: t.clone() for k, t in base.items()}
+        plan = None if heads is None else decode_step.attention_plan(3, 20, pos, kvq,
+                                                                     heads=heads)
+        outs.append(decode_step.decode_attention(qkv, c["k"], c["v"], valid, pos, 20, anc, 3,
+                                                 c.get("kvs"), plan))
+        caches.append(c)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert all(torch.equal(c[k], caches[0][k]) for c in caches[1:] for k in c)
+
+
+@pytest.mark.cuda
+def test_decode_attention_refuses_a_misaligned_operand(cuda_device):
+    qkv, base, valid, anc = _da_case(cuda_device, 3, 20, 512, 300, 3, False)
+    shifted = torch.zeros(3 * 512 + 1, dtype=torch.bool, device=cuda_device)[1:].view(3, 512)
+    shifted.copy_(valid)
+    with pytest.raises(ValueError, match="aligned"):
+        decode_step.decode_attention(qkv, base["k"], base["v"], shifted, 300, 20, anc, 3)
+
+
+def _edge_ulps(out, ref, L):
+    """The largest error on the 4 rows at each edge of [0, L), over the
+    rows' largest magnitude, in units of 2 bf16 ulps (2**-6 relative)."""
+    worst = 0.0
+    for rows in (slice(0, min(4, L)), slice(max(0, L - 4), L)):
+        o, r = out[rows].float(), ref[rows].float()
+        worst = max(worst, ((o - r).abs().max() / (2 ** -6 * r.abs().max()).clamp_min(1e-30))
+                    .item())
+    return worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logscale", [True, False])
+@pytest.mark.parametrize("C", [24, 768])
+@pytest.mark.parametrize("T,lengths", [(10, [10, 3]), (100, [1, 100]), (1000, [37, 999])])
+def test_antialias_kernels_at_the_edges(cuda_device, T, lengths, C, logscale):
+    """K3, K5 and K3' at T under the 16-row run, L = 1, L < T, the narrowest
+    and a wide width: rel-L2 <= 1e-3 over the valid rows, the 4 rows at each
+    edge within 2 bf16 ulps, and the three entries bit-identical."""
+    x, alpha, beta, lens = _snake_args(T, C, lengths, cuda_device)
+    if not logscale:
+        alpha, beta = alpha.exp(), beta.exp()
+    ref = snake.antialias_snake_plain(x, alpha, beta, lens, logscale)
+    f = 2 if T % 2 == 0 else 1
+    outs = [snake.antialias_snake(x, alpha, beta, lens, logscale),
+            snake.fused_antialias_activation(x, alpha, beta, lens, logscale),
+            snake.antialias_activation_prefolded(x.view(2, T // f, f * C), alpha, beta, f, C,
+                                                 lens, logscale).view(2, T, C)]
+    torch.cuda.synchronize()
+    for b, L in enumerate(lengths):
+        L = min(L, T)
+        assert rel_l2(outs[0][b, :L], ref[b, :L]) <= 1e-3
+        assert _edge_ulps(outs[0][b], ref[b], L) <= 1.0
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.cuda
+def test_antialias_kernel_takes_a_width_off_8_and_refuses_one_off_4(cuda_device):
+    s = _snake_args(100, 20, [100, 61], cuda_device)
+    out, ref = snake.antialias_snake(*s), snake.antialias_snake_plain(*s)
+    torch.cuda.synchronize()
+    assert rel_l2(out[0], ref[0]) <= 1e-3 and rel_l2(out[1, :61], ref[1, :61]) <= 1e-3
+    x, alpha, beta, lens = _snake_args(64, 22, [64], cuda_device)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        snake.antialias_snake(x, alpha, beta, lens)
 
 
 @pytest.mark.cuda
