@@ -24,12 +24,22 @@
      CUDA graph of 20 calls; K7a and the int4 GEMV, and F.linear beside them,
      are timed 5 times in turns (`timing_spread`: median and range, graph
      replay and eager);
-   - K1 `fused_decode_step` at L=24, D=1280, H=20, B*K=3, S=512, pos=300,
+   - K1 `fused_decode_step` (the persistent kernel, `csrc/decode_step.cu`:
+     one launch a step) at L=24, D=1280, H=20, B*K=3, S=512, pos=300,
      staggered starts and a random ancestry map (hidden state rel-L2 <= 1e-2;
      written k/v rows of layer 0 within 1 bf16 ulp, of every layer rel-L2 <=
-     1e-2), and bit-identical to K1 on the physically gathered cache;
-     yardstick: the port's bf16 `gpt2_decode_step` at the same shape; and
-     K1 at group=1 (one row, no ancestry map), the sampling decode's route;
+     1e-2), bit-identical to K1 on the physically gathered cache, and
+     bit-identical to the chain of standalone kernels it replaced
+     (`fused_decode_step_chain`: the hidden state, the whole cache after the
+     step, every layer's input; two launches alike; `step_barriers` grid
+     barriers), timed beside that chain in the same call (graph replay and
+     eager) with its timeline (`step_timeline`: µs a layer in each phase
+     and barrier); yardstick: the port's bf16 `gpt2_decode_step` at the
+     same shape; and K1 at group=1 (one row, no ancestry map), the sampling
+     decode's route; then (`k1_phase`) each variant (int8, KVQ, W4,
+     int4kv) at group=3 and group=1, layer by layer against the twin and
+     bit-identical to the chain at the K1 case, and bit-identical to the
+     chain at pos=0, pos=1, S=2048 pos=1500 and 24 rows (`K1_EDGE_CASES`);
    - K1's attention alone (`decode_attention`, `decode_attention_phase`) at
      `DA_CASES`: the K1 case's layer (3 rows, the ancestry map, pos=300), 1
      row, the int8 cache, S=2048 at pos=1500, and the K1 case over 24
@@ -71,9 +81,9 @@
    sampling pass does too.
 4. int8 pipeline pass: the same with `quantization="int8"` (the serving
    configuration), two requests. Checks: the wavs as above; K1 launched once
-   per decode step (399 a request), K7a twice, K7b and the attention kernel
-   once per layer and step; the bf16 decode step and the per-step K/V
-   gather never ran (the ancestry route did). The first 8 K1 calls of the
+   per decode step (399 a request) and none of the standalone GEMV or
+   attention kernels; the bf16 decode step and the per-step K/V gather
+   never ran (the ancestry route did). The first 8 K1 calls of the
    first request are also run through the twin on the same inputs, layer
    by layer (each layer's twin takes the kernel path's input of that layer):
    every layer's output and the hidden state after ln_f within rel-L2 1e-2,
@@ -97,8 +107,7 @@
    variant), `"int4"` (nibble-packed int4 weights: K1's W4 variant, the
    int4 GEMVs) and `"int4kv"` (both), the first 8 K1 calls twin-checked
    (the written int8 rows and their scale rows bit-identical); exact launch
-   counts per pass (the int4 GEMVs replace K7a / K7b, the int8-cache
-   attention replaces the bf16-cache one).
+   counts per pass (K1 once a step, no standalone GEMV or attention launch).
    The kernel phase holds the int4 GEMV at the four K7a shapes and the MLP
    (rel-L2 <= 1e-3, yardstick F.linear on the bf16 weight), and K1-KVQ,
    K1-W4 and K1 int4kv at the K1 shape layer by layer against the twin, and
@@ -123,8 +132,9 @@
    drops at a window's end then fall): the device's busy share (the union
    of the records' intervals over the wall: the tp pass runs two streams),
    kernel launches per step and the largest device consumers; the recorded
-   launches of the port's kernels and of the scorer's top-k equal the
-   counters of that run.
+   launches of the port's kernels (K1: one `decode_step_kernel` record a
+   step, no GEMV or attention record on its route) and of the scorer's
+   top-k equal the counters of that run.
 
 `tools/torch_tp_two_cards.py` runs K6 with its shards on two cards, on a
 machine that has two.
@@ -187,6 +197,9 @@ QUANT_PASSES = {"int8kv": (1, True), "int4": (1, True), "int4kv": (1, False)}
 # K1's variants in the kernel phase: name -> (int4 weights, int8 cache)
 K1_VARIANTS = {"fused_decode_step_kvq": (False, True), "fused_decode_step_w4": (True, False),
                "fused_decode_step_w4_kvq": (True, True)}
+# K1's bit-identity cases beside the K1 case: label -> (rows, S, pos)
+K1_EDGE_CASES = {"pos=0": (K1_ROWS, K1_S, 0), "pos=1": (K1_ROWS, K1_S, 1),
+                 "S=2048 pos=1500": (K1_ROWS, 2048, 1500), "24 rows": (24, K1_S, K1_POS)}
 # the tp pass: both tp=2 shards on this card
 TP_DEVICES = ("cuda:0", "cuda:0")
 # H100 SXM datasheet peaks: HBM bytes/s, bf16 tensor-core
@@ -800,6 +813,138 @@ def k1_bound(starts, params, M: int, S: int, L: int, D: int, H: int = K1_H,
     return bound(nbytes, ops, BF16_FLOPS)
 
 
+def k1_against_chain(params, x, dims, pos: int, base: dict, valid, anc, group: int) -> dict:
+    """The persistent K1 (`fused_decode_step`, `csrc/decode_step.cu`) and
+    the chain of standalone kernels it replaced (`fused_decode_step_chain`)
+    on copies of one cache: whether the hidden state, the whole cache after
+    the step (every written k/v row and scale row, and nothing else), and
+    every layer's input are bit-identical; whether a second launch repeats
+    the first; and whether the launch took `step_barriers` grid barriers
+    (the barrier's count word)."""
+    import torch
+
+    from indextts_tpu_torch.ops.decode_step import (fused_decode_step, fused_decode_step_chain,
+                                                    step_barrier, step_barriers)
+
+    caches = [{k: t.clone() for k, t in base.items()} for _ in range(3)]
+    count = step_barrier(x.device)
+    before = int(count[1])
+    lk, lc = [], []
+    h = fused_decode_step(params, x, dims, pos, caches[0], valid, anc, group, layer_inputs=lk)
+    torch.cuda.synchronize()
+    barriers = int(count[1]) - before
+    hc = fused_decode_step_chain(params, x, dims, pos, caches[1], valid, anc, group,
+                                 layer_inputs=lc)
+    h2 = fused_decode_step(params, x, dims, pos, caches[2], valid, anc, group)
+    torch.cuda.synchronize()
+    out = {"hidden": torch.equal(h, hc),
+           "cache": all(torch.equal(caches[0][k], caches[1][k]) for k in base),
+           "layers": len(lk) == len(lc) and all(map(torch.equal, lk, lc)),
+           "again": torch.equal(h, h2) and all(torch.equal(caches[0][k], caches[2][k])
+                                              for k in base),
+           "barriers": barriers == step_barriers(len(params["h"]))}
+    out["ok"] = all(out.values())
+    return out
+
+
+def k1_timing(params, x, dims, pos: int, cache: dict, valid, anc, group: int) -> dict:
+    """The persistent K1 and, in the same call, the chain it replaced:
+    device time by graph replay, and eager (CUDA events over the calls,
+    host work included)."""
+    from indextts_tpu_torch.ops.decode_step import fused_decode_step, fused_decode_step_chain
+
+    def call(fn):
+        return lambda: fn(params, x, dims, pos, cache, valid, anc, group)
+
+    return {"ms": graph_ms(call(fused_decode_step)),
+            "chain_ms": graph_ms(call(fused_decode_step_chain)),
+            "eager_ms": time_ms(call(fused_decode_step), iters=20),
+            "chain_eager_ms": time_ms(call(fused_decode_step_chain), iters=10)}
+
+
+def timing_text(t: dict) -> str:
+    return (f"persistent {t['ms']:.4f} ms (eager {t['eager_ms']:.4f}), the chain it replaced "
+            f"{t['chain_ms']:.4f} ms (eager {t['chain_eager_ms']:.4f})")
+
+
+def k1_edge_inputs(g, rows: int, S: int, pos: int):
+    """A K1 case of ``rows`` rows at (S, pos): a random bf16 cache zero from
+    pos, staggered starts, a random in-group ancestry map (groups of 3)."""
+    import torch
+
+    shape = (K1_L, rows, S, K1_D)
+    kv = [torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2)]
+    for t in kv:
+        t[:, :, pos:] = 0
+    valid = torch.zeros((rows, S), dtype=torch.bool, device="cuda")
+    for r in range(rows):
+        valid[r, (37 * r) % (pos + 1):pos + 1] = True
+    x = torch.randn((rows, K1_D), generator=g, device="cuda").to(torch.bfloat16)
+    anc = torch.randint(0, K1_ROWS, (rows, S), generator=g, device="cuda", dtype=torch.int32)
+    return kv, valid, x, anc
+
+
+def k1_phase(card: str) -> dict:
+    """The persistent K1 for each variant (int8, KVQ, W4, int4kv) at
+    group=3 and group=1: at the K1 case layer by layer against the twin
+    (`twin_by_layer`) and bit-identical to the chain (`k1_against_chain`),
+    then bit-identical to the chain at `K1_EDGE_CASES` (pos=0, pos=1, S=2048
+    pos=1500, 24 rows). Returns the case count."""
+    import torch
+
+    from indextts_tpu_torch.models.gpt.gpt2 import kv_quantize_flat, quantize_gpt2_int4
+    from indextts_tpu_torch.ops.decode_step import fused_decode_step
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dims, bf16_params, params8, kv, valid, x, anc, _ = k1_case(g)
+    params4 = quantize_gpt2_int4(bf16_params)
+    del bf16_params
+    variants = {"int8": (False, False), "kvq": (False, True), "w4": (True, False),
+                "int4kv": (True, True)}
+
+    def caches(kv_, kvq):
+        if not kvq:
+            return {"k": kv_[0], "v": kv_[1]}
+        kq, vq, kvs = kv_quantize_flat(kv_[0], kv_[1], K1_H)
+        return {"k": kq, "v": vq, "kvs": kvs}
+
+    n = 0
+    for name, (w4, kvq) in variants.items():
+        params = params4 if w4 else params8
+        base = caches(kv, kvq)
+        for group in (K1_ROWS, 1):
+            rows = slice(0, group)
+            b = {k: t[:, rows].contiguous() for k, t in base.items()}
+            v, a = valid[rows].contiguous(), (anc if group > 1 else None)
+            args = dict(params=params, x=x[rows], dims=dims, pos=K1_POS,
+                        kv_cache={k: t.clone() for k, t in b.items()}, kv_valid=v, anc=a,
+                        group=group, layer_inputs=[])
+            h = fused_decode_step(**args)
+            torch.cuda.synchronize()
+            tw = twin_by_layer(args, h)
+            vs = k1_against_chain(params, x[rows], dims, K1_POS, b, v, a, group)
+            print(f"K1 {name} group={group} K1 case: twin layer by layer rel_l2 <= "
+                  f"{tw['layer']:.3e}, hidden {tw['hidden']:.3e}, rows {tw['rows_exact']}; "
+                  f"against the chain {vs} [{card}]", flush=True)
+            assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2, (name, group, tw)
+            assert tw["rows_exact"] and vs["ok"], (name, group, tw, vs)
+            n += 1
+        for label, (rows, S, pos) in K1_EDGE_CASES.items():
+            kv_e, valid_e, x_e, anc_e = k1_edge_inputs(g, rows, S, pos)
+            base_e = caches(kv_e, kvq)
+            del kv_e
+            for group in (K1_ROWS, 1):
+                vs = k1_against_chain(params, x_e, dims, pos, base_e, valid_e,
+                                      anc_e if group > 1 else None, group)
+                print(f"K1 {name} group={group} {label} ({rows} rows, S={S}, pos={pos}): "
+                      f"against the chain {vs} [{card}]", flush=True)
+                assert vs["ok"], (name, group, label, vs)
+                n += 1
+            del base_e
+            torch.cuda.empty_cache()
+    return n
+
+
 def da_case(g, M: int, group: int, kvq: bool, S: int, pos: int, H: int = K1_H):
     """`decode_attention`'s inputs: a random qkv (M, 3 * 64H) of the current
     token, one layer of a (M, S, 64H) cache filled below ``pos`` (the int8
@@ -966,7 +1111,8 @@ def int8_kernel_phase(card: str) -> dict:
     import torch.nn.functional as F
 
     from indextts_tpu_torch.models.gpt.gpt2 import gpt2_decode_step
-    from indextts_tpu_torch.ops.decode_step import fused_decode_step, fused_decode_step_plain
+    from indextts_tpu_torch.ops.decode_step import (fused_decode_step, fused_decode_step_plain,
+                                                    step_timeline)
     from indextts_tpu_torch.ops.int8 import (int8_matvec, int8_matvec_plain, int8_mlp,
                                              int8_mlp_plain)
 
@@ -1029,26 +1175,29 @@ def int8_kernel_phase(card: str) -> dict:
     exact = torch.equal(h, h_gat) and all(
         torch.equal(caches[0][k][:, :, K1_POS], gathered[k][:, :, K1_POS]) for k in "kv")
     cache = caches[2]
-    ms = graph_ms(lambda: fused_decode_step(params, x, dims, K1_POS, cache, valid, anc, M))
+    vs = k1_against_chain(params, x, dims, K1_POS, {"k": kv[0], "v": kv[1]}, valid, anc, M)
+    t = k1_timing(params, x, dims, K1_POS, cache, valid, anc, M)
     pms = graph_ms(lambda: fused_decode_step_plain(params, x, dims, K1_POS, cache, valid, anc,
                                                    M), iters=3, replays=2)
     yms = graph_ms(lambda: gpt2_decode_step(bf16_params, x, dims, K1_POS, cache, valid),
                    iters=5, replays=2)
-    eager = time_ms(lambda: fused_decode_step(params, x, dims, K1_POS, cache, valid, anc, M),
-                    iters=20)
+    timeline = step_timeline(params, x, dims, K1_POS, cache, valid, anc, M)
     b = k1_bound(starts, params, M, K1_S, K1_L, K1_D)
     print(f"K1 fused_decode_step L={K1_L} D={K1_D} H={K1_H} B*K={M} S={K1_S} pos={K1_POS} "
           f"starts={starts}: hidden rel_l2 {err:.3e} max_abs {mab:.3e}, k/v rows layer 0 "
           f"{row_ulps:.3f} ulps, all layers rel_l2 {row_err:.3e}, ancestry bit-identical to "
-          f"the gathered cache: {exact}; device: kernel {ms:.4f} ms plain {pms:.4f} ms bf16 "
-          f"gpt2_decode_step (yardstick) {yms:.4f} ms bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}); eager call {eager:.4f} ms [{card}]", flush=True)
+          f"the gathered cache: {exact}; against the chain {vs}; device: {timing_text(t)}, "
+          f"plain {pms:.4f} ms, bf16 gpt2_decode_step (yardstick) {yms:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
+    print("K1 timeline, µs a layer (mean over blocks and layers; 'slowest': a phase's slowest "
+          "block): " + ", ".join(f"{k} {v:.2f}" for k, v in timeline.items()), flush=True)
     assert err <= K1_REL_L2 and np.isfinite(err), f"K1 hidden rel-L2 {err}"
     assert row_ulps <= 1.0 and row_err <= K1_REL_L2, (row_ulps, row_err)
     assert exact, "K1 with the ancestry map differs from K1 on the gathered cache"
+    assert vs["ok"], f"K1 against the chain: {vs}"
     assert gpt2_decode_step.calls > 0                       # the yardstick ran
-    res["fused_decode_step"] = dict(err=err, abs=mab, ms=ms, plain_ms=pms, library_ms=None,
-                                    bf16_step_ms=yms, **b)
+    res["fused_decode_step"] = dict(err=err, abs=mab, plain_ms=pms, library_ms=None,
+                                    bf16_step_ms=yms, timeline=timeline, **t, **b)
 
     # K1 at group=1, the sampling decode's route: one row, no ancestry map
     x1, valid1 = x[:1], valid[:1]
@@ -1057,15 +1206,15 @@ def int8_kernel_phase(card: str) -> dict:
     ref1 = fused_decode_step_plain(params, x1, dims, K1_POS, c1[1], valid1)
     torch.cuda.synchronize()
     err, mab = rel_l2(h1, ref1), (h1.float() - ref1.float()).abs().max().item()
-    ms = graph_ms(lambda: fused_decode_step(params, x1, dims, K1_POS, c1[0], valid1))
+    t = k1_timing(params, x1, dims, K1_POS, c1[0], valid1, None, 1)
     pms = graph_ms(lambda: fused_decode_step_plain(params, x1, dims, K1_POS, c1[0], valid1),
                    iters=3, replays=2)
     b = k1_bound(starts[:1], params, 1, K1_S, K1_L, K1_D)
     print(f"K1 fused_decode_step group=1 L={K1_L} D={K1_D} H={K1_H} B=1 S={K1_S} pos={K1_POS}:"
-          f" hidden rel_l2 {err:.3e} max_abs {mab:.3e}; device: kernel {ms:.4f} ms plain "
-          f"{pms:.4f} ms bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
+          f" hidden rel_l2 {err:.3e} max_abs {mab:.3e}; device: {timing_text(t)}, plain "
+          f"{pms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
     assert err <= K1_REL_L2 and np.isfinite(err), f"K1 group=1 hidden rel-L2 {err}"
-    res["fused_decode_step_g1"] = dict(err=err, abs=mab, ms=ms, plain_ms=pms, library_ms=None,
+    res["fused_decode_step_g1"] = dict(err=err, abs=mab, plain_ms=pms, library_ms=None, **t,
                                        **b)
     return res
 
@@ -1187,7 +1336,8 @@ def quant_kernel_phase(card: str, int8_k1: dict) -> dict:
             torch.equal(args["kv_cache"][k][:, :, K1_POS], gathered[k][:, :, K1_POS])
             for k in base)
         c = cache()
-        ms = graph_ms(lambda: fused_decode_step(params, x, dims, K1_POS, c, valid, anc, M))
+        vs = k1_against_chain(params, x, dims, K1_POS, base, valid, anc, M)
+        t = k1_timing(params, x, dims, K1_POS, c, valid, anc, M)
         pms = graph_ms(lambda: fused_decode_step_plain(params, x, dims, K1_POS, c, valid, anc,
                                                        M), iters=3, replays=2)
         b = k1_bound(starts, params, M, K1_S, K1_L, K1_D, K1_H, kvq)
@@ -1197,13 +1347,15 @@ def quant_kernel_phase(card: str, int8_k1: dict) -> dict:
               f" write of the kernel's qkv: {tw['rows_exact']}; 24-layer chain against the "
               f"twin {chain:.3e}"
               f" (max_abs {mab:.3e}); ancestry bit-identical to the gathered cache: {exact};"
-              f" device: kernel {ms:.4f} ms plain {pms:.4f} ms bound {b['bound_ms']:.4f} ms"
-              f" ({b['bound_by']}); yardsticks: int8 K1 {int8_k1['ms']:.4f} ms, bf16 "
-              f"gpt2_decode_step {int8_k1['bf16_step_ms']:.4f} ms [{card}]", flush=True)
+              f" against the chain {vs}; device: {timing_text(t)}, plain {pms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}); yardsticks: int8 K1 "
+              f"{int8_k1['ms']:.4f} ms, bf16 gpt2_decode_step {int8_k1['bf16_step_ms']:.4f} ms "
+              f"[{card}]", flush=True)
         assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2, (name, tw)
         assert tw["rows_exact"], (name, tw)
         assert exact, f"K1 {name} with the ancestry map differs from the gathered cache"
-        res[name] = dict(err=tw["hidden"], abs=mab, ms=ms, plain_ms=pms, library_ms=None, **b)
+        assert vs["ok"], f"K1 {name} against the chain: {vs}"
+        res[name] = dict(err=tw["hidden"], abs=mab, plain_ms=pms, library_ms=None, **t, **b)
     return res
 
 
@@ -1707,10 +1859,12 @@ def profile_decode(tts, prompt: str, card: str, label: str) -> None:
 
     # each scorer step (the prefill's and the 399 decode steps') calls
     # torch.topk twice: the top-k warper and the candidate draw
-    got = {"gemv": recorded("int8_gemv_kernel"), "attention": recorded("decode_attention_kernel"),
+    got = {"step": recorded("decode_step_kernel"), "gemv": recorded("int8_gemv_kernel"),
+           "attention": recorded("decode_attention_kernel"),
            "allreduce": recorded("tp_allreduce_kernel"), "topk": recorded("gatherTopK")}
-    # one GEMV launch a matvec, two an MLP
-    want = {"gemv": counts["int8_matvec"] + counts["int4_matvec"]
+    # K1: one persistent launch a step; one GEMV launch a matvec, two an MLP
+    want = {"step": counts["fused_decode_step"],
+            "gemv": counts["int8_matvec"] + counts["int4_matvec"]
             + 2 * (counts["int8_mlp"] + counts["int4_mlp"]),
             "attention": counts["decode_attention"] + counts["decode_attention_kvq"],
             "allreduce": counts["tp_allreduce"], "topk": 2 * (DECODE_STEPS + 1)}
@@ -1772,21 +1926,18 @@ def want_counts(tts, quantization: str, n: int) -> dict:
     from indextts_tpu_torch.models.vocoder.bigvgan import activation1d_calls
 
     steps, L = n * DECODE_STEPS, tts.cfg.gpt.layers
-    w4, kvq = quantization.startswith("int4"), quantization.endswith("kv")
     tp = tts.mesh.tp if tts.mesh is not None else 0
-    # K1 runs one GEMV set a layer; K6 one a layer and shard, and each shard
-    # two exchanges (`tp_allreduce`) a layer
-    sets = tp or 1
+    # K1 is one persistent launch a step and launches none of the standalone
+    # kernels; K6 runs the int8 GEMVs and the attention a layer and shard,
+    # and each shard two exchanges (`tp_allreduce`) a layer
     return {"attention_rope": n * tts.cfg.s2mel.DiT.depth * 25,
             "rope_qk": n * tts.cfg.s2mel.DiT.depth * 25,      # K2's rope pass
             "antialias_snake": n * activation1d_calls(tts.cfg.bigvgan),
             "fused_decode_step": 0 if tp else steps, "fused_decode_step_tp": steps if tp else 0,
             "tp_allreduce": 2 * tp * L * steps,
-            "int8_matvec": 0 if w4 else 2 * sets * L * steps,
-            "int8_mlp": 0 if w4 else sets * L * steps,
-            "int4_matvec": 2 * L * steps if w4 else 0, "int4_mlp": L * steps if w4 else 0,
-            "decode_attention": 0 if kvq else sets * L * steps,
-            "decode_attention_kvq": L * steps if kvq else 0,
+            "int8_matvec": 2 * tp * L * steps, "int8_mlp": tp * L * steps,
+            "int4_matvec": 0, "int4_mlp": 0,
+            "decode_attention": tp * L * steps, "decode_attention_kvq": 0,
             "single_block_attention": 0, "packed_pair_attention": 0,
             "fused_antialias_activation": 0, "antialias_activation_prefolded": 0,
             "gpt2_decode_step": 0, "kv_gathers": 0, "span_growths": 0}
@@ -2070,7 +2221,12 @@ def main() -> int:
     kres.update(int8_kernel_phase(card))
     kres.update(decode_attention_phase(card))
     kres.update(quant_kernel_phase(card, kres["fused_decode_step"]))
+    n_k1 = k1_phase(card)
+    mark(f"K1 phase done ({n_k1} cases bit-identical to the chain)")
     kres.update(tp_kernel_phase(card, kres))
+    phase_counts = read_counts()
+    for name in ("int4_matvec", "int4_mlp", "decode_attention_kvq"):  # the chain's only
+        kres[name]["launches"] = phase_counts[name]
     mark("kernel phase done")
     with tempfile.TemporaryDirectory(prefix="indextts_smoke_") as d:
         prompt = build_fake_assets(d)
@@ -2091,7 +2247,7 @@ def main() -> int:
     assert not any(m == "indextts_tpu" or m.startswith("indextts_tpu.") for m in sys.modules)
 
     k1 = "decode_step.py:460"
-    k1_src = ("decode_attention.cu", "int8_gemv.cu")
+    k1_src = ("decode_step.cu", "gemv_core.cuh", "decode_attention_core.cuh")
     k6_src = ("tp_allreduce.cu", "int8_gemv.cu", "decode_attention.cu")
     # name, counter, sources (the first the row's "source"; a decode step's
     # time covers all of them), TPU kernel replaced, the pass whose
@@ -2101,18 +2257,21 @@ def main() -> int:
              ("antialias_snake", "antialias_snake", "antialias_snake.cu", "antialias.py:269",
               "bf16"),
              ("fused_decode_step", "fused_decode_step", k1_src, k1, "int8"),
-             ("decode_attention", "decode_attention", "decode_attention.cu",
-              f"{k1} (attention, :257-419)", "int8"),
-             ("decode_attention_kvq", "decode_attention_kvq", "decode_attention.cu",
-              f"{k1} (attention, KVQ)", "int8kv"),
-             ("int8_matvec", "int8_matvec", "int8_gemv.cu", "int8_matmul.py:104", "int8"),
-             ("int8_mlp", "int8_mlp", "int8_gemv.cu", "int8_matmul.py:71", "int8"),
+             ("decode_attention", "decode_attention", ("decode_attention.cu",
+                                                        "decode_attention_core.cuh"),
+              f"{k1} (attention, :257-419)", "tp"),
+             ("decode_attention_kvq", None, ("decode_attention.cu", "decode_attention_core.cuh"),
+              f"{k1} (attention, KVQ)", None),
+             ("int8_matvec", "int8_matvec", ("int8_gemv.cu", "gemv_core.cuh"),
+              "int8_matmul.py:104", "tp"),
+             ("int8_mlp", "int8_mlp", ("int8_gemv.cu", "gemv_core.cuh"), "int8_matmul.py:71",
+              "tp"),
              ("fused_decode_step_kvq", "fused_decode_step", k1_src, f"{k1} (KVQ)", "int8kv"),
-             ("fused_decode_step_w4", "fused_decode_step", k1_src[::-1], f"{k1} (W4)", "int4"),
+             ("fused_decode_step_w4", "fused_decode_step", k1_src, f"{k1} (W4)", "int4"),
              ("fused_decode_step_w4_kvq", "fused_decode_step", k1_src, f"{k1} (W4, KVQ)",
               "int4kv"),
-             ("int4_matvec", "int4_matvec", "int8_gemv.cu", f"{k1} (W4)", "int4"),
-             ("int4_mlp", "int4_mlp", "int8_gemv.cu", f"{k1} (W4)", "int4"),
+             ("int4_matvec", None, ("int8_gemv.cu", "gemv_core.cuh"), f"{k1} (W4)", None),
+             ("int4_mlp", None, ("int8_gemv.cu", "gemv_core.cuh"), f"{k1} (W4)", None),
              ("fused_decode_step_g1", "fused_decode_step", k1_src, f"{k1} (group=1)",
               "sampling"),
              ("single_block_attention", "single_block_attention",
@@ -2141,11 +2300,20 @@ def main() -> int:
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         **r.get("spread", {})})
+    for k, name in zip(kernels, (spec[0] for spec in specs)):
+        r = kres[name]
+        if "chain_ms" in r:   # K1: the persistent kernel's eager time, the chain's as "was"
+            k.update(eager_ms=r["eager_ms"], was_chain_ms=r["chain_ms"],
+                     was_chain_eager_ms=r["chain_eager_ms"])
     assert all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels), kernels
     print(f"kernels line: ms and library_ms of attention_rope, packed_pair_attention, "
           f"single_block_attention, int8_matvec and int4_matvec are graph-replay medians of "
           f"{ATTN_REPS} (their rows' ms_timing; the GEMV rows at qkv, M=3, every shape under "
-          f"'shapes'); every other row as timed in its phase", flush=True)
+          f"'shapes'); the K1 rows' ms (graph replay) and eager_ms are the persistent "
+          f"kernel's, was_chain_ms the chain it replaced in the same call; the standalone "
+          f"GEMV and attention rows count their launches in the tp pass (K6), or, for the "
+          f"chain's only (int4, KVQ), in the kernel phase; every other row as timed in its "
+          f"phase", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # q, k, freqs_cis, q out, k out, B, T, H, D, stream
     "rope_qk_launch": [_P] * 5 + [_I] * 4 + [_P],
@@ -54,6 +55,17 @@ _SIGNATURES = {
     "tp_allreduce_launch": [_P] * 6 + [_I] * 3 + [_P],
     # device, peer
     "tp_enable_peer_access": [_I] * 2,
+    # w4, kvq, n-tiles, cluster, smem, resident clusters (out)
+    "decode_step_occupancy": [_I] * 5 + [_IP],
+    # layers, x_in, xs, xslots, qkv, att, xb, h, ck, cv, kvs, kv_valid, anc,
+    # bar, trace, L, M, D, H, F, S, pos, group, scale, half_d, half_f, the launch
+    # plan (ops/decode_step.py::StepPlan: cluster, blocks, slots, split_d,
+    # span_d, split_f, span_f, heads, chunks, stages, smem), stream
+    "decode_step_launch": [_P] * 3 + [_I] + [_P] * 11 + [_I] * 8 + [_F] + [_I] * 13 + [_P],
+    # cluster, smem, resident clusters (out)
+    "step_barrier_occupancy": [_I, _I, _IP],
+    # bar, barriers, blocks, cluster, smem, cooperative, stream
+    "step_barrier_launch": [_P] + [_I] * 5 + [_P],
 }
 
 

@@ -5,27 +5,29 @@ fused_decode_step` at ``group=1`` and with the beam ancestry map at
 ``group=K``, in the TPU kernel's four configurations: int8 or nibble-packed
 int4 weights (its ``W4`` variant, `nn.quantize_dense_int4`) against the
 flat bf16 (L, B, S, D) cache or the flat int8 cache with its packed bf16
-scale rows ``"kvs"`` (its ``KVQ`` variant, `gpt2.kv_quantize_flat`). On the
-TPU it is one kernel over the layers; here every operation of a layer runs
-in one of the hand-written Hopper kernels, with no library call between
-them:
+scale rows ``"kvs"`` (its ``KVQ`` variant, `gpt2.kv_quantize_flat`). As on
+the TPU, it is one kernel over the layers: `csrc/decode_step.cu`, one
+persistent launch a step, whose blocks walk the layers in phases separated
+by grid-wide barriers, each layer's weights streamed ahead across them
+(`step_plan` is its launch plan). A layer's phases:
 
-- ``ln_1`` + qkv projection: `int8_matvec` (int4: `int4_matvec`) with the
-  LayerNorm prologue (K7a, `csrc/int8_gemv.cu`);
+- ``ln_1`` + qkv projection (the GEMV of `csrc/gemv_core.cuh`, with the
+  LayerNorm prologue);
 - attention over the cache plus the current token, which also writes the
-  token's k and v into the cache at ``pos`` (quantized for the int8 cache):
-  `decode_attention` (`csrc/decode_attention.cu`, one launch: the positions
-  split over a thread-block cluster, merged on its rank 0; the launch plan
-  is `attention_plan`);
-- attention out-projection + residual: `int8_matvec` / `int4_matvec` with
-  the residual epilogue;
-- ``ln_2`` + MLP + residual: `int8_mlp` / `int4_mlp` (K7b, two GEMV
-  launches).
+  token's k and v into the cache at ``pos`` (quantized for the int8 cache;
+  `csrc/decode_attention_core.cuh`: the positions split over a thread-block
+  cluster, merged on its rank 0);
+- attention out-projection + residual;
+- ``ln_2`` + fc + gelu_new, then the MLP projection + residual.
 
-``ln_f`` is applied after the layers, outside the kernels, as in the TPU
-kernel's wrapper. The rounding chain is the TPU kernel's (see the two CUDA
+``ln_f`` is applied after the layers, outside the kernel, as in the TPU
+kernel's wrapper. The rounding chain is the TPU kernel's (see the CUDA
 sources); `fused_decode_step_plain` repeats it in plain PyTorch with the
-same split of the positions into chunks of `CHUNK`.
+same split of the positions into chunks of `CHUNK`. The chain of the
+standalone kernels, five launches a layer (K7a / K7b / the int4 GEMVs and
+`decode_attention`, over the same two core headers), stays as
+`fused_decode_step_chain`: it gives the same bits and is held against the
+persistent kernel and timed beside it.
 
 Unlike the JAX kernel, which returns the new k/v rows for the caller to
 write, the cache is updated in place (the port's cache is always updated in
@@ -34,6 +36,7 @@ place: the decode loop never holds two copies of it).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import Callable, Dict, NamedTuple, Optional
@@ -43,10 +46,10 @@ import torch
 from indextts_tpu_torch import nn
 from indextts_tpu_torch.models.gpt.gpt2 import SCALE_LANES, kv_quantize_flat
 from indextts_tpu_torch.ops import cuda
-from indextts_tpu_torch.ops.int8 import (MAX_ROWS, SMEM_MAX, SMS, int4_matvec,
-                                         int4_matvec_plain, int4_mlp, int4_mlp_plain,
-                                         int8_matvec, int8_matvec_plain, int8_mlp,
-                                         int8_mlp_plain)
+from indextts_tpu_torch.ops.int8 import (GEMV_WARPS, MAX_ROWS, SMEM_MAX, SMS, gemv_plan,
+                                         int4_matvec, int4_matvec_plain, int4_mlp,
+                                         int4_mlp_plain, int8_matvec, int8_matvec_plain,
+                                         int8_mlp, int8_mlp_plain)
 
 CHUNK = 64          # positions a chunk of `decode_attention`: the rounding unit
 HEAD_DIM = 64       # the CUDA kernel's head dim
@@ -330,6 +333,352 @@ def fused_decode_step_plain(params, x: torch.Tensor, dims, pos: int,
                  layer_inputs)
 
 
+def fused_decode_step_chain(params, x: torch.Tensor, dims, pos: int,
+                            kv_cache: Dict[str, torch.Tensor], kv_valid: torch.Tensor,
+                            anc: Optional[torch.Tensor] = None, group: int = 1,
+                            layer_inputs: Optional[list] = None) -> torch.Tensor:
+    """K1 as the chain of standalone kernels, five launches a layer (K7a,
+    K7b or the int4 GEMVs, and `decode_attention`): off the decode's path;
+    `chip_smoke.py` holds `fused_decode_step` bit-identical to it and
+    `tools/torch_kernel_bench.py` times it beside it."""
+    _check_step(params, x, kv_cache, group, anc)
+    return _step(KERNELS, params, x, dims.heads, pos, kv_cache, kv_valid, anc, group,
+                 layer_inputs)
+
+
+# ---------------------------------------------------------------------------
+# the persistent step kernel (`csrc/decode_step.cu`, whose header says why)
+
+STEP_MAX_SLOTS = 16         # weight slots of a block's ring
+STEP_MAX_CLUSTER = 8
+STEP_MISC = 256             # the mbarriers
+STEP_MAX_LAYERS = 32        # the layer table's room in shared memory (128 bytes a layer)
+STEP_ATTN_REGION = 80 * 1024  # the attention phase's shared memory, at least
+STEP_PHASES = ("qkv", "attn-proj", "fc", "mlp-proj")
+STEP_MARKS = 34             # trace stamps a layer and block
+STEP_MAX_TILES = 4          # a GEMV phase's tiles a block takes together
+
+
+class StepPlan(NamedTuple):
+    cluster: int   # blocks of a cluster: the split of K = F
+    blocks: int    # the persistent grid: resident clusters x cluster
+    slots: int     # weight slots of a block's ring
+    split_d: int   # the GEMVs' split of K = D (gemv_plan's), and its span
+    span_d: int
+    split_f: int   # ... of K = F (the MLP projection)
+    span_f: int
+    heads: int     # the attention at pos: heads a (row, head span) unit,
+    chunks: int    # 64-position chunks a rank at most,
+    stages: int    # chunk stages of a rank's ring
+    smem: int      # dynamic shared-memory bytes a block
+
+
+class StepShape(NamedTuple):
+    cluster: int
+    split_d: int
+    span_d: int
+    split_f: int
+    span_f: int
+    slots: int
+    slot_bytes: int
+    region: int    # the union of a GEMV phase's and the attention's shared memory
+    smem: int
+
+
+def step_barriers(layers: int) -> int:
+    """Grid barriers a step: after qkv, the attention, the out-projection,
+    fc and (but in the last layer) the MLP projection."""
+    return 5 * layers - 1
+
+
+def _x_stride(span: int) -> int:
+    return -(-span * 2 // 128) * 128 + 16
+
+
+def _step_gemv_region(M: int, span: int, cluster: int) -> int:
+    nt = -(-M // 8)
+    return (M * _x_stride(span) + 2 * span * 2
+            + (GEMV_WARPS + cluster - 1) * STEP_MAX_TILES * nt * 32 * 4 * 4 + 2 * MAX_ROWS * 4)
+
+
+def _step_layout(M: int, D: int, F: int, w4: bool, cluster: int, split_d: int, span_d: int,
+                 split_f: int, span_f: int, slots: int):
+    """(slot bytes, region, shared-memory bytes) of a block: the kernel's
+    `layout` (`csrc/decode_step.cu`) in the same formula."""
+    span = max(D if split_d == 1 else span_d, F if split_f == 1 else span_f)
+    slot_bytes = -(-(16 * (span // 2 if w4 else span) + 64) // 128) * 128
+    region = -(-max(_step_gemv_region(M, span, cluster), STEP_ATTN_REGION) // 128) * 128
+    return (slot_bytes, region,
+            slots * slot_bytes + region + STEP_MISC + STEP_MAX_LAYERS * 128 + 4 * D * 2)
+
+
+@functools.lru_cache(maxsize=256)
+def step_shape(M: int, D: int, F: int, w4: bool = False) -> StepShape:
+    """What of the step kernel's plan the rows and widths fix: the GEMVs'
+    splits (`gemv_plan`'s, so every output sums in the chain's order; K = D
+    unsplit, as the LayerNorm phases take their statistics from the staged
+    rows), the cluster (the split of K = F), and as many weight slots as shared memory
+    holds (at least two) beside the larger of a GEMV phase's and the
+    attention's region, the layer table and the LayerNorm vectors.
+    Raises ValueError for a shape no plan fits."""
+    if not 1 <= M <= MAX_ROWS:
+        raise ValueError(f"decode step: 1..{MAX_ROWS} rows, got {M}")
+    half_d = nn.int4_halfspan(D // 2) if w4 else 0
+    half_f = nn.int4_halfspan(F // 2) if w4 else 0
+    gd, gf = gemv_plan(M, 3 * D, D, half_d), gemv_plan(M, D, F, half_f)
+    cluster = gf.split
+    if gd.split != 1 or cluster > STEP_MAX_CLUSTER:
+        raise ValueError(f"decode step: the LayerNorm phases (K = {D}) must span K in one "
+                         f"block (split {gd.split}) and K = {F} split over a cluster of at "
+                         f"most {STEP_MAX_CLUSTER} ({gf.split})")
+    slot_bytes, region, fixed = _step_layout(M, D, F, w4, cluster, gd.split, gd.span, gf.split,
+                                             gf.span, 0)
+    slots = min(STEP_MAX_SLOTS, (SMEM_MAX - fixed) // slot_bytes)
+    if slots < 2:
+        raise ValueError(f"decode step: two weight slots of {slot_bytes} bytes do not fit "
+                         f"beside {fixed} bytes in {SMEM_MAX} bytes of shared memory")
+    return StepShape(cluster, gd.split, gd.span, gf.split, gf.span, slots, slot_bytes, region,
+                     fixed + slots * slot_bytes)
+
+
+def step_attention(M: int, H: int, pos: int, kvq: bool, cluster: int, clusters: int,
+                   region: int):
+    """The attention phase's (heads, chunks, stages) at ``pos``: a cluster
+    takes a (row, head span) unit, its ranks ``chunks`` of the row's
+    ceil(pos / 64) chunks each; the heads a unit that take the fewest rounds
+    of units over the ``clusters``, then the fewest heads; as many ring
+    stages (at most 4) as fit the region. Raises ValueError if none fits."""
+    n = -(-pos // CHUNK)
+    chunks = max(1, -(-n // cluster))
+    best = None
+    for heads in range(1, min(H, MAX_HEADS) + 1):
+        if H % heads:
+            continue
+        stages = next((s for s in range(min(chunks, MAX_STAGES), 0, -1)
+                       if _attention_smem(heads, chunks, cluster, s, kvq) <= region), 0)
+        if not stages:
+            continue
+        rounds = -(-M * (H // heads) // clusters)
+        if best is None or rounds < best[0]:
+            best = (rounds, (heads, chunks, stages))
+    if best is None:
+        raise ValueError(f"decode step: no attention plan takes {H} heads at pos {pos} in "
+                         f"{region} bytes of shared memory")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=4096)   # a decode asks for one plan a position
+def step_plan(M: int, D: int, H: int, F: int, S: int, pos: int, kvq: bool = False,
+              w4: bool = False, blocks: int = 128) -> StepPlan:
+    """The launch plan of `decode_step_launch` for M rows at widths D (H
+    heads of 64) and F, a cache of S slots at ``pos``, on a grid of
+    ``blocks`` (the resident clusters times `step_shape`'s cluster). Raises
+    ValueError for a shape no plan fits."""
+    if not 0 <= pos < S:
+        raise ValueError(f"decode step: pos {pos} outside the cache of {S} slots")
+    if D != H * HEAD_DIM:
+        raise ValueError(f"decode step: the kernel takes head dim {HEAD_DIM}, got {D}/{H}")
+    sh = step_shape(M, D, F, w4)
+    if blocks < sh.cluster or blocks % sh.cluster:
+        raise ValueError(f"decode step: {blocks} blocks are not whole clusters of {sh.cluster}")
+    heads, chunks, stages = step_attention(M, H, pos, kvq, sh.cluster, blocks // sh.cluster,
+                                           sh.region)
+    return StepPlan(sh.cluster, blocks, sh.slots, sh.split_d, sh.span_d, sh.split_f, sh.span_f,
+                    heads, chunks, stages, sh.smem)
+
+
+def step_tiles(plan: StepPlan, D: int, F: int, layers: int):
+    """The weight tiles each block takes, as the kernel's `owned` derives
+    them: {(layer, phase): {block: [tile, ...]}}, a tile being 16 output rows
+    (and, where K is split, the block's rank's span of K). Tiles go
+    round-robin over the blocks (unsplit K) or the clusters (split K), rotated
+    by the block units handed out before in the step."""
+    N = (3 * D, D, F, D)
+    split = (plan.split_d,) * 3 + (plan.split_f,)
+    units = [-(-n // 16) * s for n, s in zip(N, split)]
+    clusters = plan.blocks // plan.cluster
+    out = {}
+    for li in range(layers):
+        for ph in range(4):
+            acc = li * sum(units) + sum(units[:ph])
+            tiles = -(-N[ph] // 16)
+            owned = {}
+            for b in range(plan.blocks):
+                if split[ph] == 1:
+                    first, stride = (b - acc % plan.blocks) % plan.blocks, plan.blocks
+                else:
+                    first = (b // plan.cluster - (acc // plan.cluster) % clusters) % clusters
+                    stride = clusters
+                owned[b] = list(range(first, tiles, stride))
+            out[li, ph] = owned
+    return out
+
+
+def step_units(plan: StepPlan, M: int, H: int, pos: int):
+    """The attention phase's units as the kernel walks them: {cluster:
+    [(row, first head, [(rank, chunks of the row it takes), ...]), ...]},
+    the ranks in their runs' order (the merge order): rank k takes run
+    k - 1, rank 0 (which merges) the last."""
+    spans, clusters = H // plan.heads, plan.blocks // plan.cluster
+    n = -(-pos // CHUNK)
+    out = {c: [] for c in range(clusters)}
+    for c in range(clusters):
+        for u in range(c, M * spans, clusters):
+            runs = [((run + 1) % plan.cluster,
+                     list(range(run * plan.chunks, min(n, (run + 1) * plan.chunks))))
+                    for run in range(plan.cluster)]
+            out[c].append((u // spans, (u % spans) * plan.heads, runs))
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _step_blocks(device: torch.device, w4: bool, kvq: bool, nt: int, cluster: int,
+                 smem: int) -> int:
+    """The persistent grid: the resident clusters the occupancy query
+    allows for this variant, times the cluster."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = cuda.library().decode_step_occupancy(int(w4), int(kvq), nt, cluster, smem,
+                                                    ctypes.byref(n))
+    cuda.check(code, "decode_step occupancy")
+    if n.value < 1:
+        raise RuntimeError(f"decode step: no cluster of {cluster} blocks with {smem} bytes of "
+                           f"shared memory is resident on {device}")
+    return n.value * cluster
+
+
+_BARRIERS: Dict[torch.device, torch.Tensor] = {}
+_TABLES: Dict[tuple, torch.Tensor] = {}
+
+
+def step_barrier(device: torch.device) -> torch.Tensor:
+    """The device's grid-barrier words, made once, zeroed: the arrival word
+    (its low bits 0 between launches) and the count of barriers completed,
+    which grows by `step_barriers` a step. Step launches on one device must
+    not overlap: they share the words (and the grid must be resident
+    alone)."""
+    device = torch.device(device)
+    bar = _BARRIERS.get(device)
+    if bar is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode step: the first launch on a device must run outside a "
+                               "CUDA graph capture (it makes the grid barrier)")
+        bar = torch.zeros(8, dtype=torch.int32, device=device)
+        torch.cuda.synchronize(device)
+        _BARRIERS[device] = bar
+    return bar
+
+
+def _layer_table(params, device: torch.device, D: int, F: int, w4: bool) -> torch.Tensor:
+    """The (L, 16) int64 table of the layers' weight pointers the kernel
+    reads (`Layer` in `csrc/decode_step.cu`), checked and uploaded once per
+    set of pointers."""
+    w = "q4" if w4 else "q"
+    layers = params["h"]
+    mats = [(lp["attn"]["c_attn"], lp["attn"]["c_proj"], lp["mlp"]["c_fc"], lp["mlp"]["c_proj"])
+            for lp in layers]
+    lns = [(lp["ln_1"]["weight"], lp["ln_1"]["bias"], lp["ln_2"]["weight"], lp["ln_2"]["bias"])
+           for lp in layers]
+    ptrs = tuple(t.data_ptr() for ms, ln in zip(mats, lns)
+                 for t in (*(m[w] for m in ms), *(m["scale"] for m in ms),
+                           *(m["bias"] for m in ms), *ln))
+    key = (device, ptrs)
+    table = _TABLES.get(key)
+    if table is not None:
+        return table
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("decode step: call it once outside a CUDA graph capture with these "
+                           "weights (it uploads their pointer table)")
+    shapes = ((3 * D, D), (D, D), (F, D), (D, F))
+    for ms, ln in zip(mats, lns):
+        for m, (N, K) in zip(ms, shapes):
+            for name, t, dtype, shape in ((w, m.get(w), torch.int8, (N, K // 2 if w4 else K)),
+                                          ("scale", m["scale"], torch.float32, (N,)),
+                                          ("bias", m["bias"], torch.bfloat16, (N,))):
+                if t is None or t.dtype != dtype or tuple(t.shape) != shape \
+                        or t.device != device or not t.is_contiguous():
+                    raise ValueError(f"fused_decode_step: a layer's {name} must be contiguous "
+                                     f"{dtype} {shape} on {device}")
+            if m[w].data_ptr() % 16:
+                raise ValueError("fused_decode_step: weights must be 16-byte aligned (TMA)")
+        for t in ln:
+            if t.dtype != torch.bfloat16 or tuple(t.shape) != (D,) or t.device != device \
+                    or not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError(f"fused_decode_step: LayerNorm vectors must be contiguous, "
+                                 f"16-byte aligned bf16 ({D},) on {device}")
+    if len(_TABLES) >= 16:
+        _TABLES.clear()
+    table = torch.tensor(ptrs, dtype=torch.int64).view(len(layers), 16).to(device)
+    torch.cuda.synchronize(device)
+    _TABLES[key] = table
+    return table
+
+
+def _persistent_step(params, x, dims, pos: int, kv_cache, kv_valid, anc, group: int,
+                     layer_inputs: Optional[list], trace: Optional[list] = None) -> torch.Tensor:
+    dev = x.device
+    M, D = x.shape
+    L, H = len(params["h"]), dims.heads
+    c_fc = params["h"][0]["mlp"]["c_fc"]
+    w4 = "q4" in c_fc
+    F = c_fc["scale"].shape[0]
+    ck, cv, kvs = kv_cache["k"], kv_cache["v"], kv_cache.get("kvs")
+    S = ck.shape[2]
+    cache_dtype = torch.bfloat16 if kvs is None else torch.int8
+    checks = [("x", x, torch.bfloat16, (M, D)), ("k cache", ck, cache_dtype, (L, M, S, D)),
+              ("v cache", cv, cache_dtype, (L, M, S, D)), ("kv_valid", kv_valid, torch.bool, (M, S))]
+    if kvs is not None:
+        checks.append(("scale rows", kvs, torch.bfloat16, (L, M, S, SCALE_LANES)))
+    if group > 1:
+        if M % group:
+            raise ValueError(f"fused_decode_step: {M} rows are not groups of {group}")
+        checks.append(("anc", anc, torch.int32, (M, S)))
+    for name, t, dtype, shape in checks:
+        if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"fused_decode_step: {name} must be contiguous, 16-byte aligned "
+                             f"{dtype} {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    if kvs is not None and H > SCALE_LANES // 2:
+        raise ValueError(f"fused_decode_step: the int8 cache's scale row holds at most "
+                         f"{SCALE_LANES // 2} heads, got {H}")
+    if L > STEP_MAX_LAYERS:
+        raise ValueError(f"fused_decode_step: the kernel takes at most {STEP_MAX_LAYERS} layers, "
+                         f"got {L}")
+    sh = step_shape(M, D, F, w4)
+    kvq = kvs is not None
+    blocks = _step_blocks(dev, w4, kvq, -(-M // 8), sh.cluster, sh.smem)
+    plan = step_plan(M, D, H, F, S, pos, kvq, w4, blocks)
+    table = _layer_table(params, dev, D, F, w4)
+    bar = step_barrier(dev)
+    xslots = 2 if layer_inputs is None else L + 1
+    bf16 = torch.bfloat16
+    xs = torch.empty((xslots, M, D), dtype=bf16, device=dev)
+    qkv = torch.empty((M, 3 * D), dtype=bf16, device=dev)
+    att = torch.empty((M, D), dtype=bf16, device=dev)
+    xb = torch.empty((M, D), dtype=bf16, device=dev)
+    h = torch.empty((M, F), dtype=bf16, device=dev)
+    half_d = nn.int4_halfspan(D // 2) if w4 else 0
+    half_f = nn.int4_halfspan(F // 2) if w4 else 0
+    stamps = None
+    if trace is not None:
+        stamps = torch.zeros((plan.blocks, L, STEP_MARKS), dtype=torch.int64, device=dev)
+        trace.append(stamps)
+    with torch.cuda.device(dev):
+        code = cuda.library().decode_step_launch(
+            table.data_ptr(), x.data_ptr(), xs.data_ptr(), xslots, qkv.data_ptr(),
+            att.data_ptr(), xb.data_ptr(), h.data_ptr(), ck.data_ptr(), cv.data_ptr(),
+            None if kvs is None else kvs.data_ptr(), kv_valid.data_ptr(),
+            anc.data_ptr() if group > 1 else None, bar.data_ptr(),
+            None if stamps is None else stamps.data_ptr(), L, M, D, H, F, S, pos,
+            group, 1.0 / math.sqrt(HEAD_DIM), half_d, half_f, *plan, cuda.stream_ptr(x))
+    cuda.check(code, "decode_step")
+    if layer_inputs is not None:
+        layer_inputs.append(x)
+        layer_inputs.extend(xs[1:])
+    return nn.layer_norm(params["ln_f"], xs[L % xslots])
+
+
 def fused_decode_step(params, x: torch.Tensor, dims, pos: int,
                       kv_cache: Dict[str, torch.Tensor], kv_valid: torch.Tensor,
                       anc: Optional[torch.Tensor] = None, group: int = 1,
@@ -343,14 +692,84 @@ def fused_decode_step(params, x: torch.Tensor, dims, pos: int,
     cache is unordered and ``anc`` (B, S) int32 names, for each row and
     position, the row of its beam group that holds the entry. Returns (B, D)
     after ``ln_f``; a ``layer_inputs`` list receives each layer's input and
-    the last layer's output. Raises on what it does not take: float weights,
-    another cache layout, B > 24."""
+    the last layer's output. CPU tensors run the plain twin; CUDA tensors
+    launch the persistent kernel, one launch a step
+    (``fused_decode_step.launches``); anything else raises, as does what it
+    does not take: float weights, another cache layout, B > 24."""
     _check_step(params, x, kv_cache, group, anc)
-    h = _step(KERNELS, params, x, dims.heads, pos, kv_cache, kv_valid, anc, group,
-              layer_inputs)
-    if x.device.type == "cuda":
-        fused_decode_step.launches += 1
+    if x.device.type == "cpu":
+        return _step(TWINS, params, x, dims.heads, pos, kv_cache, kv_valid, anc, group,
+                     layer_inputs)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_decode_step: unsupported device {x.device}")
+    h = _persistent_step(params, x, dims, pos, kv_cache, kv_valid, anc, group, layer_inputs)
+    fused_decode_step.launches += 1
     return h
 
 
 fused_decode_step.launches = 0
+
+
+def step_timeline(params, x: torch.Tensor, dims, pos: int, kv_cache: Dict[str, torch.Tensor],
+                  kv_valid: torch.Tensor, anc: Optional[torch.Tensor] = None,
+                  group: int = 1) -> Dict[str, float]:
+    """One launch of the persistent step (CUDA tensors; the cache's rows at
+    pos are written) with every block stamping %globaltimer at each phase's
+    and each barrier's end: the step's mean µs a layer in each phase and in
+    each barrier's wait, averaged over blocks and layers, the mean of a
+    phase's slowest block, and the stamps' whole span (the timer ticks in
+    ns on the H100; the stamps cost a store a phase and block)."""
+    _check_step(params, x, kv_cache, group, anc)
+    stamps: list = []
+    _persistent_step(params, x, dims, pos, kv_cache, kv_valid, anc, group, None, stamps)
+    t = stamps[0].double().cpu()                    # (blocks, L, 26) ns
+    d = t[:, :, 1:10] - t[:, :, :9]                 # (blocks, L, 9)
+    names = ("qkv", "barrier 1", "attention", "barrier 2", "attn-proj", "barrier 3", "fc",
+             "barrier 4", "mlp-proj")
+    out = {f"{n} us": float(d[:, :, i].mean()) / 1e3 for i, n in enumerate(names)}
+    out.update({f"{n} slowest us": float(d[:, :, i].amax(0).mean()) / 1e3
+                for i, n in enumerate(names) if not n.startswith("barrier")})
+    last = t[:, 1:, 0] - t[:, :-1, 9]               # the layer's last barrier
+    out["barrier 5 us"] = float(last.mean()) / 1e3
+    out["span us"] = float(t[:, -1, 9].max() - t[:, 0, 0].min()) / 1e3
+    # inside a GEMV phase (its blocks with tiles; the first batch): x staged,
+    # products (of which the wait for the first tile's slab), the epilogue
+    # with the slots' refill beside it
+    for ph, (name, start) in enumerate(zip(STEP_PHASES, (0, 4, 6, 8))):
+        marks = t[:, :, 10 + 4 * ph:14 + 4 * ph]
+        busy = marks[:, :, 0] > 0
+        if not busy.any():
+            continue
+        steps = torch.stack([marks[:, :, 0] - t[:, :, start], marks[:, :, 1] - marks[:, :, 0],
+                             marks[:, :, 3] - marks[:, :, 1]])
+        for part, v in zip(("stage", "products", "epilogue and refill"), steps):
+            out[f"{name} {part} us"] = float(v[busy].mean()) / 1e3
+        out[f"{name} first wait us"] = float((t[:, :, 26 + ph] - marks[:, :, 0])[busy].mean()) / 1e3
+        if ph in (0, 2):   # a LayerNorm phase: x's rows staged, the LayerNorm, the next vectors
+            rows, norm = t[:, :, 30 + ph // 2], t[:, :, 32 + ph // 2]
+            out[f"{name} rows staged us"] = float((rows - t[:, :, start])[busy].mean()) / 1e3
+            out[f"{name} layernorm us"] = float((norm - rows)[busy].mean()) / 1e3
+            out[f"{name} next vectors us"] = float((marks[:, :, 0] - norm)[busy].mean()) / 1e3
+    return out
+
+
+def grid_barriers(device, barriers: int, M: int = 3, D: int = 1280, F: int = 5120,
+                  cooperative: bool = False) -> None:
+    """Launch the bare-barrier kernel: ``barriers`` grid barriers on the
+    step kernel's grid for M rows at widths D and F (int8 weights: its
+    cluster and shared memory, so its residency), nothing else; the floor
+    the step's barriers cost (`tools/torch_kernel_bench.py --only barrier`).
+    ``cooperative`` adds the cooperative-launch attribute (a launch error
+    where the driver refuses it with clusters)."""
+    device = torch.device(device)
+    sh = step_shape(M, D, F)
+    n = ctypes.c_int(0)
+    lib = cuda.library()
+    with torch.cuda.device(device):
+        cuda.check(lib.step_barrier_occupancy(sh.cluster, sh.smem, ctypes.byref(n)),
+                   "step_barrier occupancy")
+        code = lib.step_barrier_launch(step_barrier(device).data_ptr(), barriers,
+                                       n.value * sh.cluster, sh.cluster, sh.smem,
+                                       int(cooperative),
+                                       torch.cuda.current_stream(device).cuda_stream)
+    cuda.check(code, "step_barrier")

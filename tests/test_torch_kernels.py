@@ -34,7 +34,12 @@ and without the ancestry map: rel-L2 <= 1e-2 against the twin, written
 rows bit-identical to the twin's, two launches bit-identical, the ancestry
 route bit-identical to the gathered cache, heads [0, 10) of an H=10 call
 bit-identical to an H=20 call's, every plan of 1, 2, 4 or 5 heads a block
-bit-identical, and a misaligned operand refused. The
+bit-identical, and a misaligned operand refused. K1 is one persistent
+launch a step (`csrc/decode_step.cu`), bit-identical to the chain of
+standalone kernels it replaced (`fused_decode_step_chain`) for every
+variant at group=3 and group=1 and pos 0, 1 and 150 (the hidden state, the
+whole cache after the step, every layer's input, a second launch), with
+`step_barriers` grid barriers and no standalone kernel launched. The
 num_beams=1 sampling decode with int8
 weights launches K1 once a step (at group=1) and never the bf16 step. K6's
 all-reduce (tp_allreduce) is bit-identical to its twin, for either rank; K6
@@ -315,6 +320,65 @@ def test_fused_decode_step_kernel_matches_plain_and_ancestry_is_exact(cuda_devic
         assert torch.equal(caches[0][key][:, :, pos], gathered[key][:, :, pos])
 
 
+def _k1_counters():
+    """K1's launches, then the standalone kernels' of its chain."""
+    return (decode_step.fused_decode_step.launches, int8.int8_matvec.launches,
+            int8.int8_mlp.launches, int8.int4_matvec.launches, int8.int4_mlp.launches,
+            decode_step.decode_attention.launches, decode_step.decode_attention.kvq_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [0, 1, 150])
+@pytest.mark.parametrize("group", [3, 1])
+@pytest.mark.parametrize("variant", ["int8", "kvq", "w4", "w4-kvq"])
+def test_fused_decode_step_bit_identical_to_the_chain(cuda_device, variant, group, pos):
+    """K1's persistent kernel (one launch a step) against the chain of
+    standalone kernels it replaced, on copies of one cache: the hidden
+    state, the whole cache after the step and every layer's input
+    bit-identical, a second launch repeating the first, `step_barriers`
+    grid barriers, and none of the standalone kernels launched."""
+    kvq = variant.endswith("kvq")
+    quantize = quantize_gpt2_int4 if variant.startswith("w4") else quantize_gpt2_int8
+    params, dims, x, kv, valid, anc, _ = _k1_case(cuda_device, quantize=quantize, pos=pos)
+    rows = slice(0, group)
+    x, valid = x[rows], valid[rows].contiguous()
+    anc = anc if group > 1 else None
+    make = _kvq_cache if kvq else (lambda t: {"k": t[0].clone(), "v": t[1].clone()})
+    base = {k: t[:, rows].contiguous() for k, t in make(kv).items()}
+    caches = [{k: t.clone() for k, t in base.items()} for _ in range(3)]
+    count = decode_step.step_barrier(x.device)
+    before = (int(count[1]), *_k1_counters())
+    lk, lc = [], []
+    h = decode_step.fused_decode_step(params, x, dims, pos, caches[0], valid, anc, group,
+                                      layer_inputs=lk)
+    torch.cuda.synchronize()
+    assert int(count[1]) - before[0] == decode_step.step_barriers(dims.layers)
+    after = _k1_counters()
+    assert after[0] == before[1] + 1 and after[1:] == before[2:]   # K1 only
+    hc = decode_step.fused_decode_step_chain(params, x, dims, pos, caches[1], valid, anc, group,
+                                             layer_inputs=lc)
+    h2 = decode_step.fused_decode_step(params, x, dims, pos, caches[2], valid, anc, group)
+    torch.cuda.synchronize()
+    assert torch.equal(h, hc) and torch.equal(h, h2)
+    for key in base:
+        assert torch.equal(caches[0][key], caches[1][key])
+        assert torch.equal(caches[0][key], caches[2][key])
+    assert len(lk) == len(lc) == dims.layers + 1 and all(map(torch.equal, lk, lc))
+
+
+@pytest.mark.cuda
+def test_fused_decode_step_refuses_what_it_does_not_take(cuda_device):
+    params, dims, x, kv, valid, anc, pos = _k1_case(cuda_device)
+    cache = {"k": kv[0].clone(), "v": kv[1].clone()}
+    with pytest.raises(ValueError):   # the ancestry map's rows do not match
+        decode_step.fused_decode_step(params, x, dims, pos, cache, valid, anc[:2], 3)
+    with pytest.raises(ValueError):   # a non-contiguous cache
+        decode_step.fused_decode_step(params, x, dims, pos,
+                                      {"k": kv[0].transpose(2, 3), "v": kv[1]}, valid, anc, 3)
+    with pytest.raises(ValueError):   # pos outside the cache
+        decode_step.fused_decode_step(params, x, dims, kv.shape[3], cache, valid, anc, 3)
+
+
 def _int4_args(M, K, N, device):
     """x, an int4 weight (N, K/2) from random bf16 values, scale, bias."""
     x, _, _, bias = _int8_args(M, K, N, device)
@@ -423,7 +487,7 @@ def test_fused_decode_step_variants_match_plain_and_ancestry_is_exact(cuda_devic
     before = (decode_step.fused_decode_step.launches, decode_step.decode_attention.kvq_launches)
     h = decode_step.fused_decode_step(params, x, dims, pos, caches[0], valid, anc, 3)
     assert decode_step.fused_decode_step.launches == before[0] + 1
-    assert decode_step.decode_attention.kvq_launches == before[1] + (dims.layers if kvq else 0)
+    assert decode_step.decode_attention.kvq_launches == before[1]   # one persistent launch
     ref = decode_step.fused_decode_step_plain(params, x, dims, pos, caches[1], valid, anc, 3)
     torch.cuda.synchronize()
     assert rel_l2(h, ref) <= 1e-2

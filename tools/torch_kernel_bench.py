@@ -14,9 +14,21 @@ Parts (``--only``, comma-separated; all by default):
   5 heads a block, the one `attention_plan` chooses marked;
 - k3: K3, K5 and K3' (`csrc/antialias_snake.cu`) summed over BigVGAN's six
   stage shapes;
-- steps: K1 (`fused_decode_step`) at chip_smoke.py's case: group=3,
-  group=1, the int8 cache (KVQ), int4 weights (W4), both (int4kv), and K6
-  co-located (`fused_decode_step_tp`, both shards on this card, group=3).
+- steps: K1 (`fused_decode_step`, the persistent kernel `csrc/
+  decode_step.cu`) at chip_smoke.py's case: group=3, group=1, the int8
+  cache (KVQ), int4 weights (W4), both (int4kv), each beside the chain of
+  standalone kernels it replaced (`fused_decode_step_chain`, in turns), and
+  K6 co-located (`fused_decode_step_tp`, both shards on this card,
+  group=3). A checkout without the chain (an older one, via ``--root``)
+  times its `fused_decode_step` alone;
+  Each persistent case also prints its timeline (`decode_step.step_timeline`:
+  the mean µs a layer in each phase and barrier wait, from %globaltimer
+  stamps);
+- barrier: the bare-barrier floor of the persistent step, the kernel of
+  `decode_step.grid_barriers` (nothing but grid barriers, on the step's grid
+  at the K1 case's cluster and shared memory) at 0, 1, 24, 119 (= a
+  24-layer step's) and 240 barriers, and the time a barrier from the slope;
+  then whether the cooperative-launch attribute combines with the cluster.
 
 Each reading is the median and [min, max] of 5 CUDA-graph replays, and the
 median eager time (`chip_smoke.timing_spread`). ``--attention-pos 0,64,300``
@@ -58,8 +70,9 @@ PLAN_HEADS = (1, 2, 4, 5)
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
-    ap.add_argument("--only", default="gemv,attention,plans,k3,steps",
-                    help="what to time: gemv, attention, plans, k3, steps (comma-separated)")
+    ap.add_argument("--only", default="gemv,attention,plans,k3,steps,barrier",
+                    help="what to time: gemv, attention, plans, k3, steps, barrier "
+                         "(comma-separated)")
     ap.add_argument("--attention-pos", default="",
                     help="more positions (comma-separated) at which to time decode_attention "
                          "alone at the K1 case's 3 rows with the ancestry map")
@@ -111,6 +124,8 @@ def main() -> int:
             time_k3(cs, g, emit)
     if "steps" in only:
         time_steps(cs, g, emit)
+    if "barrier" in only:
+        time_barriers(cs, emit)
     print(card, flush=True)
     return 0
 
@@ -234,7 +249,7 @@ def run_k3_variant(spec: str) -> None:
 
 def time_steps(cs, g, emit) -> None:
     from indextts_tpu_torch.models.gpt.gpt2 import kv_quantize_flat, quantize_gpt2_int4
-    from indextts_tpu_torch.ops.decode_step import fused_decode_step
+    from indextts_tpu_torch.ops import decode_step
     from indextts_tpu_torch.ops.decode_step_tp import fused_decode_step_tp
     from indextts_tpu_torch.parallel.mesh import make_mesh, shard_gpt2_tp
 
@@ -245,21 +260,63 @@ def time_steps(cs, g, emit) -> None:
     M, P = cs.K1_ROWS, cs.K1_POS
     bf16_cache, int8_cache = {"k": kv[0], "v": kv[1]}, {"k": kq, "v": vq, "kvs": kvs}
     c1 = {k: t[:, :1].contiguous() for k, t in bf16_cache.items()}
-    steps = {
-        "k1 group=3": lambda: fused_decode_step(params8, x, dims, P, bf16_cache, valid, anc, M),
-        "k1 group=1": lambda: fused_decode_step(params8, x[:1], dims, P, c1, valid[:1]),
-        "k1 kvq": lambda: fused_decode_step(params8, x, dims, P, int8_cache, valid, anc, M),
-        "k1 w4": lambda: fused_decode_step(params4, x, dims, P, bf16_cache, valid, anc, M),
-        "k1 int4kv": lambda: fused_decode_step(params4, x, dims, P, int8_cache, valid, anc,
-                                               M)}
+    cases = {"k1 group=3": (params8, x, bf16_cache, valid, anc, M),
+             "k1 group=1": (params8, x[:1], c1, valid[:1], None, 1),
+             "k1 kvq": (params8, x, int8_cache, valid, anc, M),
+             "k1 w4": (params4, x, bf16_cache, valid, anc, M),
+             "k1 int4kv": (params4, x, int8_cache, valid, anc, M)}
+    chain = getattr(decode_step, "fused_decode_step_chain", None)
+    for label, (p, xi, c, v, a, grp) in cases.items():
+        def step(fn=decode_step.fused_decode_step):
+            return fn(p, xi, dims, P, c, v, a, grp)
+
+        if chain is None:
+            emit(kernel="step", case=label, **graph(cs, step))
+            continue
+        kt, lt = cs.timing_spread(step, lambda: step(chain))
+        emit(kernel="step", case=label, ms=kt["graph"], ms_range=kt["graph_range"],
+             eager_ms=kt["eager"], chain_ms=lt["graph"], chain_ms_range=lt["graph_range"],
+             chain_eager_ms=lt["eager"])
+        emit(kernel="step timeline", case=label, **{
+            k: round(v, 3) for k, v in decode_step.step_timeline(p, xi, dims, P, c, v, a,
+                                                                 grp).items()})
     tp = shard_gpt2_tp(params8, make_mesh(["cuda:0", "cuda:0"]))
     Dl = cs.K1_D // 2
     tp_cache = {"shards": [{k: t[..., r * Dl:(r + 1) * Dl].contiguous()
                             for k, t in bf16_cache.items()} for r in range(2)]}
-    steps["k6 co-located group=3"] = lambda: fused_decode_step_tp(tp, x, dims, P, tp_cache,
-                                                                  valid, anc, M)
-    for label, fn in steps.items():
-        emit(kernel="step", case=label, **graph(cs, fn))
+    emit(kernel="step", case="k6 co-located group=3", **graph(
+        cs, lambda: fused_decode_step_tp(tp, x, dims, P, tp_cache, valid, anc, M)))
+
+
+def time_barriers(cs, emit) -> None:
+    """The persistent step's bare-barrier floor: graph replay of the
+    barrier kernel at a few counts, and the time a barrier from the slope."""
+    import torch
+
+    from indextts_tpu_torch.ops import decode_step
+
+    if not hasattr(decode_step, "grid_barriers"):
+        print("barrier: this checkout has no persistent step", flush=True)
+        return
+    dev = torch.device("cuda:0")
+    sh = decode_step.step_shape(cs.K1_ROWS, cs.K1_D, 4 * cs.K1_D)
+    blocks = decode_step._step_blocks(dev, False, False, 1, sh.cluster, sh.smem)
+    counts = (0, 1, 24, decode_step.step_barriers(cs.K1_L), 240)
+    ms = {}
+    for n in counts:
+        kt, _ = cs.timing_spread(lambda n=n: decode_step.grid_barriers(dev, n), None)
+        ms[n] = kt["graph"]
+        emit(kernel="grid_barriers", barriers=n, ms=kt["graph"], ms_range=kt["graph_range"],
+             eager_ms=kt["eager"])
+    emit(kernel="grid_barrier", blocks=blocks, cluster=sh.cluster,
+         us_per_barrier=1e3 * (ms[240] - ms[0]) / 240)
+    try:
+        decode_step.grid_barriers(dev, 1, cooperative=True)
+        torch.cuda.synchronize()
+        coop = "launched"
+    except RuntimeError as e:
+        coop = f"refused: {e}"
+    emit(kernel="grid_barriers", cooperative_with_cluster=coop)
 
 
 if __name__ == "__main__":
