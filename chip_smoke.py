@@ -120,11 +120,17 @@
    rel-L2 1e-2, the two shards' residual streams bit-identical, the written
    k/v rows bit-identical to K1's qkv GEMV on the same input, per head
    slice) and one num_beams=1 request, exact launch counts (K6 once a decode
-   step, `tp_allreduce` twice a layer, step and shard, each shard's GEMVs and
-   attention; K1 never), its gpt stage beside the int8 pass's, and a
-   profiled tp decode. The kernel phase holds K6 at K1's shape (3 rows at
-   group=3, and 1 row) the same way, beside K1 on the same inputs, and
-   `tp_allreduce` alone, bit-identical to its twin for either rank.
+   step: one launch of the persistent kernel's TP variant, the exchange
+   folded into it; no `tp_allreduce`, standalone GEMV or attention launch,
+   K1 never), its gpt stage beside the int8 pass's, and a profiled tp
+   decode. The kernel phase holds K6 at K1's shape (3 rows at group=3, and
+   1 row) the same way, beside K1 on the same inputs, bit-identical to the
+   chain it replaced (`fused_decode_step_tp_chain`) and timed beside it in
+   the same call (graph replay and eager) with its timeline; then
+   (`k6_phase`) at group=3 and group=1 layer by layer against the twin and
+   bit-identical to the chain at the K1 case, pos=0, pos=1, S=2048 pos=1500
+   and 24 rows; and `tp_allreduce` alone (the chain's exchange),
+   bit-identical to its twin for either rank.
 8. Decode profile, after the bf16, int8, int8kv, int4 and tp passes: one
    request's `generate_beam` (399 steps) timed unprofiled, then under
    `torch.profiler` (its window opens after a discarded warm-up step and
@@ -132,9 +138,9 @@
    drops at a window's end then fall): the device's busy share (the union
    of the records' intervals over the wall: the tp pass runs two streams),
    kernel launches per step and the largest device consumers; the recorded
-   launches of the port's kernels (K1: one `decode_step_kernel` record a
-   step, no GEMV or attention record on its route) and of the scorer's
-   top-k equal the counters of that run.
+   launches of the port's kernels (K1 and K6: one `decode_step_kernel`
+   record a step, no GEMV, attention or `tp_allreduce` record on their
+   route) and of the scorer's top-k equal the counters of that run.
 
 `tools/torch_tp_two_cards.py` runs K6 with its shards on two cards, on a
 machine that has two.
@@ -1420,46 +1426,173 @@ def tp_twin_by_layer(args, h, full_layers) -> dict:
 
 def tp_bound(tp, starts, M: int, S: int, ranks=(0, 1)) -> dict:
     """Bytes and operations of K6 at this run's inputs on the shards
-    ``ranks``: each shard's weights, scales, biases and LayerNorm vectors
-    once (the replicated ones once a shard), x in and its residual stream
-    out, kv_valid and the ancestry map, its valid cached k/v of every layer
-    and its written rows, and each (layer, exchange)'s f32 partial written
-    once and read by both shards; operations: two per weight value and row
-    plus the attention's products. All ranks: the step on one card (K1's
-    bytes plus the partials' and the replicated vectors); one rank: what one
-    card would move with the shards on two (not measured)."""
-    total_b = total_ops = 0
+    ``ranks``: every weight, scale, bias and LayerNorm tensor once (the
+    shards' copies on one card are one tensor), x in and its residual
+    stream out, kv_valid and the ancestry map, each shard's valid cached
+    k/v of every layer and its written rows; operations: two per weight
+    value and row plus the attention's products. All ranks: the step on
+    one card, where the exchange stays inside the kernel (no partial in
+    device memory). One rank: what one card would move with the shards on
+    two, its f32 partial written and the peer's read at each of a layer's
+    two exchanges (not measured)."""
+    seen, nbytes, ops = set(), 0, 0
     for r in ranks:
         layers = tp["shards"][r]
         L = len(layers)
         D = layers[0]["attn"]["c_proj"]["q"].shape[0]
         Dl = layers[0]["attn"]["c_proj"]["q"].shape[1]
-        wbytes = sum(t.numel() * t.element_size() for lp in layers
-                     for grp in (lp["attn"], lp["mlp"], {"a": lp["ln_1"], "b": lp["ln_2"]})
-                     for d in grp.values() for t in d.values())
+        for lp in layers:
+            for grp in (lp["attn"], lp["mlp"], {"a": lp["ln_1"], "b": lp["ln_2"]}):
+                for d in grp.values():
+                    for t in d.values():
+                        if t.data_ptr() not in seen:
+                            seen.add(t.data_ptr())
+                            nbytes += t.numel() * t.element_size()
         n_weights = sum(d["q"].numel() for lp in layers
                         for d in (*lp["attn"].values(), *lp["mlp"].values()))
         cached = sum(K1_POS - st for st in starts)
-        total_b += (wbytes + 2 * M * D * 2 + M * S * (1 + 4) + L * cached * 4 * Dl
-                    + L * M * 4 * Dl + L * 2 * M * D * 4 * 3)
-        total_ops += 2 * M * n_weights + L * 4 * (cached + M) * Dl
-    return bound(total_b, total_ops, BF16_FLOPS)
+        nbytes += L * cached * 4 * Dl + L * M * 4 * Dl
+        ops += 2 * M * n_weights + L * 4 * (cached + M) * Dl
+    nbytes += 2 * M * D * 2 + M * S * (1 + 4)
+    if len(ranks) == 1:
+        nbytes += L * 2 * M * D * 4 * 2
+    return bound(nbytes, ops, BF16_FLOPS)
+
+
+def tp_split_cache(kv, tp_width: int = 2) -> dict:
+    """A (L, M, S, D) k, v pair as the tp step's per-shard cache: shard t
+    holds columns [t D/2, (t + 1) D/2), contiguous."""
+    Dl = kv[0].shape[-1] // tp_width
+    return {"shards": [{k: t[..., r * Dl:(r + 1) * Dl].contiguous() for k, t in zip("kv", kv)}
+                       for r in range(tp_width)]}
+
+
+def k6_against_chain(tp, x, dims, pos: int, base: dict, valid, anc, group: int) -> dict:
+    """K6 co-located (`fused_decode_step_tp`: the persistent kernel's TP
+    variant) and the chain of standalone kernels it replaced
+    (`fused_decode_step_tp_chain`) on copies of the shards' caches, as
+    `k1_against_chain`: the hidden state, both shards' whole caches after
+    the step, every layer's input (both entries of a layer's tuple), a
+    second launch, `step_barriers` grid barriers."""
+    import torch
+
+    from indextts_tpu_torch.ops.decode_step import step_barrier, step_barriers
+    from indextts_tpu_torch.ops.decode_step_tp import (fused_decode_step_tp,
+                                                       fused_decode_step_tp_chain)
+
+    def copy():
+        return {"shards": [{k: t.clone() for k, t in c.items()} for c in base["shards"]]}
+
+    caches = [copy() for _ in range(3)]
+    count = step_barrier(x.device)
+    before = int(count[1])
+    lk, lc = [], []
+    h = fused_decode_step_tp(tp, x, dims, pos, caches[0], valid, anc, group, layer_inputs=lk)
+    torch.cuda.synchronize()
+    barriers = int(count[1]) - before
+    hc = fused_decode_step_tp_chain(tp, x, dims, pos, caches[1], valid, anc, group,
+                                    layer_inputs=lc)
+    h2 = fused_decode_step_tp(tp, x, dims, pos, caches[2], valid, anc, group)
+    torch.cuda.synchronize()
+
+    def same_cache(a, b):
+        return all(torch.equal(ca[k], cb[k]) for ca, cb in zip(a["shards"], b["shards"])
+                   for k in ca)
+
+    out = {"hidden": torch.equal(h, hc), "cache": same_cache(caches[0], caches[1]),
+           "layers": len(lk) == len(lc) and all(torch.equal(a[0], t) for a, b in zip(lk, lc)
+                                                for t in (*a, *b)),
+           "again": torch.equal(h, h2) and same_cache(caches[0], caches[2]),
+           "barriers": barriers == step_barriers(len(tp["shards"][0]))}
+    out["ok"] = all(out.values())
+    return out
+
+
+def k6_timing(tp, x, dims, pos: int, cache: dict, valid, anc, group: int) -> dict:
+    """K6's persistent kernel and, in the same call, the chain it replaced
+    (its two shard streams forked inside the capture): device time by graph
+    replay, and eager (CUDA events over the calls, host work included)."""
+    from indextts_tpu_torch.ops.decode_step_tp import (fused_decode_step_tp,
+                                                       fused_decode_step_tp_chain)
+
+    def call(fn):
+        return lambda: fn(tp, x, dims, pos, cache, valid, anc, group)
+
+    return {"ms": graph_ms(call(fused_decode_step_tp)),
+            "chain_ms": graph_ms(call(fused_decode_step_tp_chain)),
+            "eager_ms": time_ms(call(fused_decode_step_tp), iters=20),
+            "chain_eager_ms": time_ms(call(fused_decode_step_tp_chain), iters=10)}
+
+
+def k6_phase(card: str) -> int:
+    """K6 co-located (the persistent kernel's TP variant) at group=3 and
+    group=1: at the K1 case layer by layer against the twin
+    (`tp_twin_by_layer`) and bit-identical to the chain it replaced
+    (`k6_against_chain`), then bit-identical to the chain at
+    `K1_EDGE_CASES` (pos=0, pos=1, S=2048 pos=1500, 24 rows). Returns the
+    case count."""
+    import torch
+
+    from indextts_tpu_torch import nn
+    from indextts_tpu_torch.ops.decode_step_tp import fused_decode_step_tp
+    from indextts_tpu_torch.parallel.mesh import make_mesh, shard_gpt2_tp
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dims, bf16_params, params, kv, valid, x, anc, _ = k1_case(g)
+    del bf16_params
+    tp = shard_gpt2_tp(params, make_mesh(list(TP_DEVICES)))
+    full = [{"c_attn": lp["attn"]["c_attn"], "ln_1": lp["ln_1"]} for lp in params["h"]]
+    n = 0
+    for group in (K1_ROWS, 1):
+        rows = slice(0, group)
+        base = tp_split_cache([t[:, rows] for t in kv])
+        v, a = valid[rows].contiguous(), (anc if group > 1 else None)
+        args = dict(params=tp, x=x[rows], dims=dims, pos=K1_POS, kv_cache=tp_split_cache(
+            [t[:, rows] for t in kv]), kv_valid=v, anc=a, group=group, layer_inputs=[])
+        h = nn.layer_norm(tp["ln_f"], fused_decode_step_tp(**args))
+        torch.cuda.synchronize()
+        tw = tp_twin_by_layer(args, h, full)
+        vs = k6_against_chain(tp, x[rows], dims, K1_POS, base, v, a, group)
+        print(f"K6 group={group} K1 case: twin layer by layer rel_l2 <= {tw['layer']:.3e}, "
+              f"hidden {tw['hidden']:.3e}, residual streams {tw['streams_equal']}, rows "
+              f"{tw['rows_exact']}; against the chain {vs} [{card}]", flush=True)
+        assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2, (group, tw)
+        assert tw["streams_equal"] and tw["rows_exact"] and vs["ok"], (group, tw, vs)
+        n += 1
+    for label, (rows, S, pos) in K1_EDGE_CASES.items():
+        kv_e, valid_e, x_e, anc_e = k1_edge_inputs(g, rows, S, pos)
+        base_e = tp_split_cache(kv_e)
+        del kv_e
+        for group in (K1_ROWS, 1):
+            vs = k6_against_chain(tp, x_e, dims, pos, base_e, valid_e,
+                                  anc_e if group > 1 else None, group)
+            print(f"K6 group={group} {label} ({rows} rows, S={S}, pos={pos}): against the chain "
+                  f"{vs} [{card}]", flush=True)
+            assert vs["ok"], (group, label, vs)
+            n += 1
+        del base_e
+        torch.cuda.empty_cache()
+    return n
 
 
 def tp_kernel_phase(card: str, kres: dict) -> dict:
     """K6 `fused_decode_step_tp` with both shards on this card
-    (`make_mesh(["cuda:0", "cuda:0"])`, each shard on its own stream) at
-    K1's shape: 3 rows at group=3 with a random ancestry map, and 1 row at
-    group=1. Each against the twin layer by layer on the kernel path's
-    inputs (`tp_twin_by_layer`: rel-L2 <= 1e-2, residual streams and
-    written rows bit-identical), its hidden state beside K1's on the same
-    inputs; device ms from the replay of a CUDA graph of 20 steps with both
-    shard streams forked inside the capture. And `tp_allreduce` alone at
-    M=3, N=1280, bit-identical to its twin for either rank."""
+    (`make_mesh(["cuda:0", "cuda:0"])`: one launch a step of the persistent
+    kernel's TP variant) at K1's shape: 3 rows at group=3 with a random
+    ancestry map, and 1 row at group=1. Each against the twin layer by layer
+    on the kernel path's inputs (`tp_twin_by_layer`: rel-L2 <= 1e-2,
+    residual streams and written rows bit-identical), bit-identical to the
+    chain it replaced (`k6_against_chain`), its hidden state beside K1's on
+    the same inputs; device ms by graph replay and eager beside the chain's
+    in the same call (`k6_timing`), and at group=3 its timeline
+    (`step_timeline`: µs a layer in each phase and barrier). And
+    `tp_allreduce` alone at M=3, N=1280, bit-identical to its twin for
+    either rank (the chain's exchange; folded into K6's kernel on this
+    route)."""
     import torch
 
     from indextts_tpu_torch import nn
-    from indextts_tpu_torch.ops.decode_step import fused_decode_step
+    from indextts_tpu_torch.ops.decode_step import fused_decode_step, step_timeline
     from indextts_tpu_torch.ops.decode_step_tp import (fused_decode_step_tp,
                                                        fused_decode_step_tp_plain, tp_allreduce,
                                                        tp_allreduce_plain)
@@ -1471,15 +1604,13 @@ def tp_kernel_phase(card: str, kres: dict) -> dict:
     mesh = make_mesh(list(TP_DEVICES))
     tp = shard_gpt2_tp(params, mesh)
     full = [{"c_attn": lp["attn"]["c_attn"], "ln_1": lp["ln_1"]} for lp in params["h"]]
-    Dl = K1_D // mesh.tp
     res = {}
     for name, M, group in (("fused_decode_step_tp", K1_ROWS, K1_ROWS),
                            ("fused_decode_step_tp_g1", 1, 1)):
         xr, vr, ar = x[:M], valid[:M], anc if group > 1 else None
 
         def cache():
-            return {"shards": [{k: kv[i][:, :M, :, t * Dl:(t + 1) * Dl].contiguous()
-                                for i, k in enumerate("kv")} for t in range(mesh.tp)]}
+            return tp_split_cache([t[:, :M] for t in kv])
 
         args = dict(params=tp, x=xr, dims=dims, pos=K1_POS, kv_cache=cache(), kv_valid=vr,
                     anc=ar, group=group, layer_inputs=[])
@@ -1489,26 +1620,35 @@ def tp_kernel_phase(card: str, kres: dict) -> dict:
         torch.cuda.synchronize()
         tw = tp_twin_by_layer(args, h, full)
         vs_k1, mab = rel_l2(h, h_k1), (h.float() - h_k1.float()).abs().max().item()
+        vs = k6_against_chain(tp, xr, dims, K1_POS, cache(), vr, ar, group)
         c = cache()
-        ms = graph_ms(lambda: fused_decode_step_tp(tp, xr, dims, K1_POS, c, vr, ar, group))
+        t = k6_timing(tp, xr, dims, K1_POS, c, vr, ar, group)
         pms = graph_ms(lambda: fused_decode_step_tp_plain(tp, xr, dims, K1_POS, c, vr, ar, group),
                        iters=3, replays=2)
         b = tp_bound(tp, starts[:M], M, K1_S)
         shard_b = tp_bound(tp, starts[:M], M, K1_S, ranks=(0,))
         k1_ms = kres["fused_decode_step" if M == K1_ROWS else "fused_decode_step_g1"]["ms"]
         print(f"K6 {name} L={K1_L} D={K1_D} H={K1_H} (10 a shard) B*K={M} group={group} "
-              f"S={K1_S} pos={K1_POS}, shards co-located on two streams: layer by layer on the "
+              f"S={K1_S} pos={K1_POS}, shards co-located: layer by layer on the "
               f"kernel path's inputs: layer outputs rel_l2 <= {tw['layer']:.3e}, hidden after "
               f"ln_f {tw['hidden']:.3e}; residual streams bit-identical: {tw['streams_equal']};"
-              f" written rows bit-identical to K1's qkv kernel: {tw['rows_exact']}; hidden "
-              f"against K1 on the same inputs {vs_k1:.3e} (max_abs {mab:.3e}); device: kernel "
-              f"{ms:.4f} ms plain {pms:.4f} ms K1 {k1_ms:.4f} ms bound {b['bound_ms']:.4f} ms "
-              f"({b['bound_by']}); bound of one shard on two cards (half the weight bytes a "
-              f"card; not measured) {shard_b['bound_ms']:.4f} ms [{card}]", flush=True)
+              f" written rows bit-identical to K1's qkv kernel: {tw['rows_exact']}; against "
+              f"the chain {vs}; hidden against K1 on the same inputs {vs_k1:.3e} (max_abs "
+              f"{mab:.3e}); device: {timing_text(t)}, plain {pms:.4f} ms, K1 {k1_ms:.4f} ms, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); bound of one shard on two "
+              f"cards (half the weight bytes a card; not measured) {shard_b['bound_ms']:.4f} ms "
+              f"[{card}]", flush=True)
         assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2, (name, tw)
         assert tw["streams_equal"] and tw["rows_exact"], (name, tw)
+        assert vs["ok"], f"K6 {name} against the chain: {vs}"
         assert vs_k1 <= K1_REL_L2 and np.isfinite(vs_k1), (name, vs_k1)
-        res[name] = dict(err=tw["hidden"], abs=mab, ms=ms, plain_ms=pms, library_ms=None, **b)
+        res[name] = dict(err=tw["hidden"], abs=mab, plain_ms=pms, library_ms=None, **t, **b)
+        if group > 1:
+            timeline = step_timeline(tp, xr, dims, K1_POS, c, vr, ar, group)
+            print("K6 timeline, µs a layer (mean over blocks and layers; 'slowest': a phase's "
+                  "slowest block): " + ", ".join(f"{k} {v:.2f}" for k, v in timeline.items()),
+                  flush=True)
+            res[name]["timeline"] = timeline
 
     M, N = K1_ROWS, K1_D
     p0, p1 = (torch.randn((M, N), generator=g, device="cuda") * 1e3 for _ in range(2))
@@ -1862,8 +2002,9 @@ def profile_decode(tts, prompt: str, card: str, label: str) -> None:
     got = {"step": recorded("decode_step_kernel"), "gemv": recorded("int8_gemv_kernel"),
            "attention": recorded("decode_attention_kernel"),
            "allreduce": recorded("tp_allreduce_kernel"), "topk": recorded("gatherTopK")}
-    # K1: one persistent launch a step; one GEMV launch a matvec, two an MLP
-    want = {"step": counts["fused_decode_step"],
+    # K1 and K6 co-located: one persistent launch a step (one kernel, its TP
+    # variant for K6); one GEMV launch a matvec, two an MLP
+    want = {"step": counts["fused_decode_step"] + counts["fused_decode_step_tp"],
             "gemv": counts["int8_matvec"] + counts["int4_matvec"]
             + 2 * (counts["int8_mlp"] + counts["int4_mlp"]),
             "attention": counts["decode_attention"] + counts["decode_attention_kvq"],
@@ -1916,28 +2057,22 @@ def pipeline_phase(card: str, prompt: str, model_dir: str) -> dict:
 
 def want_counts(tts, quantization: str, n: int) -> dict:
     """The launches ``n`` requests of a quantized pass must make: K1 once a
-    decode step (under a tp mesh K6, with two `tp_allreduce` a layer and
-    shard);
-    per layer and step (and shard) the int8 or int4 GEMVs (qkv and
-    attn-proj, and the MLP) and the bf16- or int8-cache attention; K2 / K3
+    decode step (under the tp mesh, both shards on this card, K6 once a
+    decode step), and none of the standalone GEMV, attention or
+    `tp_allreduce` kernels; K2 / K3
     (and K2's rope pass) as in the bf16 pass; no bf16 step, no cache gather, no cache growth
     (the beam engine sizes its cache once), and none of the kernels without
     a caller on this path."""
     from indextts_tpu_torch.models.vocoder.bigvgan import activation1d_calls
 
-    steps, L = n * DECODE_STEPS, tts.cfg.gpt.layers
-    tp = tts.mesh.tp if tts.mesh is not None else 0
-    # K1 is one persistent launch a step and launches none of the standalone
-    # kernels; K6 runs the int8 GEMVs and the attention a layer and shard,
-    # and each shard two exchanges (`tp_allreduce`) a layer
+    steps = n * DECODE_STEPS
+    tp = tts.mesh is not None
     return {"attention_rope": n * tts.cfg.s2mel.DiT.depth * 25,
             "rope_qk": n * tts.cfg.s2mel.DiT.depth * 25,      # K2's rope pass
             "antialias_snake": n * activation1d_calls(tts.cfg.bigvgan),
             "fused_decode_step": 0 if tp else steps, "fused_decode_step_tp": steps if tp else 0,
-            "tp_allreduce": 2 * tp * L * steps,
-            "int8_matvec": 2 * tp * L * steps, "int8_mlp": tp * L * steps,
-            "int4_matvec": 0, "int4_mlp": 0,
-            "decode_attention": tp * L * steps, "decode_attention_kvq": 0,
+            "tp_allreduce": 0, "int8_matvec": 0, "int8_mlp": 0, "int4_matvec": 0,
+            "int4_mlp": 0, "decode_attention": 0, "decode_attention_kvq": 0,
             "single_block_attention": 0, "packed_pair_attention": 0,
             "fused_antialias_activation": 0, "antialias_activation_prefolded": 0,
             "gpt2_decode_step": 0, "kv_gathers": 0, "span_growths": 0}
@@ -2224,8 +2359,12 @@ def main() -> int:
     n_k1 = k1_phase(card)
     mark(f"K1 phase done ({n_k1} cases bit-identical to the chain)")
     kres.update(tp_kernel_phase(card, kres))
+    n_k6 = k6_phase(card)
+    mark(f"K6 phase done ({n_k6} cases bit-identical to the chain)")
     phase_counts = read_counts()
-    for name in ("int4_matvec", "int4_mlp", "decode_attention_kvq"):  # the chain's only
+    # the chains' kernels only: no pipeline caller on one card
+    for name in ("int4_matvec", "int4_mlp", "decode_attention_kvq", "int8_matvec", "int8_mlp",
+                 "decode_attention", "tp_allreduce"):
         kres[name]["launches"] = phase_counts[name]
     mark("kernel phase done")
     with tempfile.TemporaryDirectory(prefix="indextts_smoke_") as d:
@@ -2248,7 +2387,7 @@ def main() -> int:
 
     k1 = "decode_step.py:460"
     k1_src = ("decode_step.cu", "gemv_core.cuh", "decode_attention_core.cuh")
-    k6_src = ("tp_allreduce.cu", "int8_gemv.cu", "decode_attention.cu")
+    k6_src = k1_src
     # name, counter, sources (the first the row's "source"; a decode step's
     # time covers all of them), TPU kernel replaced, the pass whose
     # launches count (None: no pipeline caller, the kernel phase's launches)
@@ -2257,15 +2396,13 @@ def main() -> int:
              ("antialias_snake", "antialias_snake", "antialias_snake.cu", "antialias.py:269",
               "bf16"),
              ("fused_decode_step", "fused_decode_step", k1_src, k1, "int8"),
-             ("decode_attention", "decode_attention", ("decode_attention.cu",
-                                                        "decode_attention_core.cuh"),
-              f"{k1} (attention, :257-419)", "tp"),
+             ("decode_attention", None, ("decode_attention.cu", "decode_attention_core.cuh"),
+              f"{k1} (attention, :257-419)", None),
              ("decode_attention_kvq", None, ("decode_attention.cu", "decode_attention_core.cuh"),
               f"{k1} (attention, KVQ)", None),
-             ("int8_matvec", "int8_matvec", ("int8_gemv.cu", "gemv_core.cuh"),
-              "int8_matmul.py:104", "tp"),
-             ("int8_mlp", "int8_mlp", ("int8_gemv.cu", "gemv_core.cuh"), "int8_matmul.py:71",
-              "tp"),
+             ("int8_matvec", None, ("int8_gemv.cu", "gemv_core.cuh"), "int8_matmul.py:104",
+              None),
+             ("int8_mlp", None, ("int8_gemv.cu", "gemv_core.cuh"), "int8_matmul.py:71", None),
              ("fused_decode_step_kvq", "fused_decode_step", k1_src, f"{k1} (KVQ)", "int8kv"),
              ("fused_decode_step_w4", "fused_decode_step", k1_src, f"{k1} (W4)", "int4"),
              ("fused_decode_step_w4_kvq", "fused_decode_step", k1_src, f"{k1} (W4, KVQ)",
@@ -2285,8 +2422,11 @@ def main() -> int:
               "tp"),
              ("fused_decode_step_tp_g1", "fused_decode_step_tp", k6_src,
               "decode_step_tp.py:367 (group=1)", "tp_sampling"),
-             ("tp_allreduce", "tp_allreduce", "tp_allreduce.cu",
-              "decode_step_tp.py:367 (all_reduce, :201)", "tp"))
+             ("tp_allreduce", None, "tp_allreduce.cu",
+              "decode_step_tp.py:367 (all_reduce, :201)", None))
+    # where a row's launches come from when no pipeline pass launches it
+    launched_in = {"tp_allreduce": "kernel phase (the chain's exchange; folded into K6's kernel "
+                                   "on the co-located route, launched on two cards)"}
     kernels = []
     for name, counter, src, tpu, pass_ in specs:
         r = kres[name]
@@ -2295,25 +2435,25 @@ def main() -> int:
                         **({"sources": srcs} if len(srcs) > 1 else {}),
                         "replaces": f"indextts_tpu/ops/pallas/{tpu}",
                         "launches": r["launches"] if pass_ is None else counts[pass_][counter],
-                        "launched_in": pass_ or "kernel phase (no pipeline caller)",
+                        "launched_in": pass_ or launched_in.get(
+                            name, "kernel phase (no pipeline caller)"),
                         "max_abs_err": r["abs"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         **r.get("spread", {})})
     for k, name in zip(kernels, (spec[0] for spec in specs)):
         r = kres[name]
-        if "chain_ms" in r:   # K1: the persistent kernel's eager time, the chain's as "was"
+        if "chain_ms" in r:   # K1, K6: the persistent kernel's eager time, the chain's as "was"
             k.update(eager_ms=r["eager_ms"], was_chain_ms=r["chain_ms"],
                      was_chain_eager_ms=r["chain_eager_ms"])
     assert all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels), kernels
     print(f"kernels line: ms and library_ms of attention_rope, packed_pair_attention, "
           f"single_block_attention, int8_matvec and int4_matvec are graph-replay medians of "
           f"{ATTN_REPS} (their rows' ms_timing; the GEMV rows at qkv, M=3, every shape under "
-          f"'shapes'); the K1 rows' ms (graph replay) and eager_ms are the persistent "
+          f"'shapes'); the K1 and K6 rows' ms (graph replay) and eager_ms are the persistent "
           f"kernel's, was_chain_ms the chain it replaced in the same call; the standalone "
-          f"GEMV and attention rows count their launches in the tp pass (K6), or, for the "
-          f"chain's only (int4, KVQ), in the kernel phase; every other row as timed in its "
-          f"phase", flush=True)
+          f"GEMV, attention and tp_allreduce rows, the chains' kernels, count their launches "
+          f"in the kernel phase; every other row as timed in its phase", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
 // The arithmetic of the weight-only int8 / int4 GEMV, shared by the
-// standalone kernel (int8_gemv.cu: K7a, K7b, the int4 GEMVs, K6's
-// projections) and the persistent decode step (decode_step.cu: K1). Each
+// standalone kernel (int8_gemv.cu: K7a, K7b, the int4 GEMVs, the chains of
+// K1 and K6) and the persistent decode step (decode_step.cu: K1, and K6
+// with both tp shards on one card). Each
 // piece below is one step of int8_gemv.cu's design (its header says why):
 // staging x (and the LayerNorm prologue), a 16-row tile's tensor-core
 // products into the warps' partial sums, the fixed-order sums of the warps
@@ -29,7 +30,10 @@ constexpr int MAXM = 24;        // rows a launch takes (B*K of the decode)
 constexpr int CB = 64;          // weight bytes of a chunk row
 constexpr int SMEM_MAX = 227 * 1024;
 
-enum Epilogue { EPI_NONE = 0, EPI_BIAS = 1, EPI_GELU = 2, EPI_RESIDUAL = 3 };
+// EPI_TP: K6's exchange folded into the row-parallel product (decode_step.cu
+// with TP): tp_allreduce.cu's arithmetic on the summed pair, a product and a
+// sum each rounded to f32 (no FMA), then the bf16 residual add
+enum Epilogue { EPI_NONE = 0, EPI_BIAS = 1, EPI_GELU = 2, EPI_RESIDUAL = 3, EPI_TP = 4 };
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -231,10 +235,14 @@ __device__ __forceinline__ void stage_x(const bf16* x, const bf16* ln_w, const b
 // (1, 3), hi (1, 3), against the lane's lo-nibble columns 4w + (0, 2) and
 // hi-nibble columns 4w + (0, 2), then + (1, 3). The warp's sums (its even and
 // odd k-step sets added) go to red_w[(n * 32 + lane) * 4 ...] for n-tile n.
+// ``warp`` (-1: this warp) takes another warp's chunks: the sums depend on
+// the chunks alone, so a block may spread two short slabs' heavy warps.
 template <bool W4, int NT>
 __device__ __forceinline__ void tile_products(const unsigned char* wt, int sw, const XStage& s,
-                                              int M, int kb, int ks, int half, float* red_w) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+                                              int M, int kb, int ks, int half, float* red_w,
+                                              int warp = -1) {
+  if (warp < 0) warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int rb = W4 ? ks / 2 : ks;  // this split's bytes of a row
   const int nch = (rb + CB - 1) / CB;
@@ -357,6 +365,24 @@ __device__ __forceinline__ void send_to_rank0(const float* red, const float* slo
     attn_tma::store_to_rank0(dst + 4 * e, *reinterpret_cast<const float4*>(red + e), bar);
 }
 
+// The sum of a tp pair's row-parallel tile (decode_step.cu with TP), whose
+// 2q parts are the block's own sums (red) and q ... 2q - 1 more at slots +
+// (s - 1) * per, [0, q) shard 0's spans of K and [q, 2q) shard 1's: each
+// shard's sum in sum_peers' order, as the chain's two partial products take
+// it, then lo + hi, as tp_allreduce.cu adds them. (sum_peers' one
+// sequential order over the 2q parts differs in the last bit.) With q = 1
+// and slots = red + per it adds the two halves of red.
+__device__ __forceinline__ void sum_shards(float* red, const float* slots, int per, int q) {
+#pragma unroll 1
+  for (int e = threadIdx.x; e < per; e += THREADS) {
+    float lo = red[e];
+    for (int s = 1; s < q; ++s) lo = __fadd_rn(lo, slots[(s - 1) * per + e]);
+    float hi = slots[(q - 1) * per + e];
+    for (int s = q + 1; s < 2 * q; ++s) hi = __fadd_rn(hi, slots[(s - 1) * per + e]);
+    red[e] = __fadd_rn(lo, hi);
+  }
+}
+
 // The outputs of a block: M rows x `tiles` 16-row tiles, tile r at output
 // rows n0 + 16 r tstride (tstride 1: contiguous tiles). Output e is row m
 // of tile r, its row rr: n = n0 + 16 r tstride + rr; false past N.
@@ -375,6 +401,9 @@ struct Pre {
   float scale = 0.f, bias = 0.f, res = 0.f;
 };
 
+// TP: the kernel takes EPI_TP (decode_step.cu's TP variant; the others
+// compile without it).
+template <bool TP = false>
 __device__ __forceinline__ Pre pre_read(const float* scale, const bf16* bias, const bf16* res,
                                         int epi, int M, int N, int n0, int tiles, int tstride) {
   Pre p;
@@ -383,7 +412,7 @@ __device__ __forceinline__ Pre pre_read(const float* scale, const bf16* bias, co
       out_index(threadIdx.x, tiles, n0, tstride, N, m, r, rr, n)) {
     p.scale = scale[n];
     p.bias = bf(bias[n]);
-    if (epi == EPI_RESIDUAL) p.res = bf(__ldcg(res + (size_t)m * N + n));
+    if (epi == EPI_RESIDUAL || (TP && epi == EPI_TP)) p.res = bf(__ldcg(res + (size_t)m * N + n));
   }
   return p;
 }
@@ -393,8 +422,9 @@ __device__ __forceinline__ Pre pre_read(const float* scale, const bf16* bias, co
 // 2t, 2t + 1. ``whole`` (the block spans K): the warps' sums are added
 // here, in turn; else red holds the summed split already. Epilogue: none
 // (f32 out), or acc * scale + bias in f32 rounded to bf16, then gelu_new on
-// that in f32 rounded again, or a bf16 residual add.
-template <int NT>
+// that in f32 rounded again, or a bf16 residual add (EPI_TP, with TP: the
+// product and the sum rounded apart, as tp_allreduce.cu).
+template <int NT, bool TP = false>
 __device__ __forceinline__ void epilogue(const float* red, int per, bool whole, int M, int N,
                                          int n0, int tiles, int tstride, int epi,
                                          const float* scale, const bf16* bias, const bf16* res,
@@ -415,6 +445,13 @@ __device__ __forceinline__ void epilogue(const float* red, int per, bool whole, 
       continue;
     }
     const bool first = e == (int)threadIdx.x;
+    if (TP && epi == EPI_TP) {
+      const float v = round_bf(__fadd_rn(__fmul_rn(acc_v, first ? pre.scale : scale[n]),
+                                         first ? pre.bias : bf(bias[n])));
+      static_cast<bf16*>(out)[o] =
+          __float2bfloat16(__fadd_rn(first ? pre.res : bf(__ldcg(res + o)), v));
+      continue;
+    }
     float v = round_bf(__fmaf_rn(acc_v, first ? pre.scale : scale[n],
                                  first ? pre.bias : bf(bias[n])));
     if (epi == EPI_GELU) {

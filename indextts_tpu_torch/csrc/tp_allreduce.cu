@@ -33,8 +33,11 @@
 // residual and writes the bf16 output, ~46 KB at M = 3, N = 1280: bytes, and
 // so little that one launch costs more than the transfer. Design: one thread
 // per output element (M <= 24 rows, N = 1280), neighbouring threads on
-// neighbouring addresses. Later work: fold it into the epilogue of the
-// partial GEMV, or one persistent kernel for the whole step.
+// neighbouring addresses. With both shards on one card the persistent step
+// folds this exchange, with the same arithmetic, into its row-parallel
+// products (decode_step.cu, TP; gemv_core.cuh's EPI_TP); this kernel serves
+// the chain (ops/decode_step_tp.py::fused_decode_step_tp_chain), the route
+// of a mesh over two cards.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

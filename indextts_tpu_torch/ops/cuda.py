@@ -62,6 +62,12 @@ _SIGNATURES = {
     # plan (ops/decode_step.py::StepPlan: cluster, blocks, slots, split_d,
     # span_d, split_f, span_f, heads, chunks, stages, smem), stream
     "decode_step_launch": [_P] * 3 + [_I] + [_P] * 11 + [_I] * 8 + [_F] + [_I] * 13 + [_P],
+    # n-tiles, cluster, smem, resident clusters (out)
+    "decode_step_tp_occupancy": [_I] * 3 + [_IP],
+    # layers, x_in, xs, xslots, qkv, att, xb, h, ck0, cv0, ck1, cv1, kv_valid,
+    # anc, bar, trace, L, M, D, H, F, S, pos, group, scale, the launch plan
+    # (ops/decode_step.py::step_tp_plan: a StepPlan), stream
+    "decode_step_tp_launch": [_P] * 3 + [_I] + [_P] * 12 + [_I] * 8 + [_F] + [_I] * 11 + [_P],
     # cluster, smem, resident clusters (out)
     "step_barrier_occupancy": [_I, _I, _IP],
     # bar, barriers, blocks, cluster, smem, cooperative, stream

@@ -27,7 +27,9 @@ same split of the positions into chunks of `CHUNK`. The chain of the
 standalone kernels, five launches a layer (K7a / K7b / the int4 GEMVs and
 `decode_attention`, over the same two core headers), stays as
 `fused_decode_step_chain`: it gives the same bits and is held against the
-persistent kernel and timed beside it.
+persistent kernel and timed beside it. The kernel's TP variant runs K6 with
+both tp shards on one card (`ops/decode_step_tp.py`); `step_tp_plan` is its
+plan.
 
 Unlike the JAX kernel, which returns the new k/v rows for the caller to
 write, the cache is updated in place (the port's cache is always updated in
@@ -402,14 +404,29 @@ def _step_gemv_region(M: int, span: int, cluster: int) -> int:
 
 
 def _step_layout(M: int, D: int, F: int, w4: bool, cluster: int, split_d: int, span_d: int,
-                 split_f: int, span_f: int, slots: int):
+                 split_f: int, span_f: int, slots: int, shards: int = 1):
     """(slot bytes, region, shared-memory bytes) of a block: the kernel's
-    `layout` (`csrc/decode_step.cu`) in the same formula."""
+    `layout` (`csrc/decode_step.cu`) in the same formula; F is the MLP
+    projection's K (K6, ``shards`` 2: a shard's F / 2)."""
     span = max(D if split_d == 1 else span_d, F if split_f == 1 else span_f)
     slot_bytes = -(-(16 * (span // 2 if w4 else span) + 64) // 128) * 128
     region = -(-max(_step_gemv_region(M, span, cluster), STEP_ATTN_REGION) // 128) * 128
     return (slot_bytes, region,
-            slots * slot_bytes + region + STEP_MISC + STEP_MAX_LAYERS * 128 + 4 * D * 2)
+            slots * slot_bytes + region + STEP_MISC + shards * STEP_MAX_LAYERS * 128 + 4 * D * 2)
+
+
+def _slots(M: int, D: int, F: int, w4: bool, cluster: int, split_d: int, span_d: int,
+           split_f: int, span_f: int, shards: int = 1):
+    """(slots, slot bytes, region, shared-memory bytes): as many weight slots
+    as shared memory holds beside the rest (at most `STEP_MAX_SLOTS`);
+    raises ValueError below two."""
+    slot_bytes, region, fixed = _step_layout(M, D, F, w4, cluster, split_d, span_d, split_f,
+                                             span_f, 0, shards)
+    slots = min(STEP_MAX_SLOTS, (SMEM_MAX - fixed) // slot_bytes)
+    if slots < 2:
+        raise ValueError(f"decode step: two weight slots of {slot_bytes} bytes do not fit "
+                         f"beside {fixed} bytes in {SMEM_MAX} bytes of shared memory")
+    return slots, slot_bytes, region, fixed + slots * slot_bytes
 
 
 @functools.lru_cache(maxsize=256)
@@ -431,20 +448,17 @@ def step_shape(M: int, D: int, F: int, w4: bool = False) -> StepShape:
         raise ValueError(f"decode step: the LayerNorm phases (K = {D}) must span K in one "
                          f"block (split {gd.split}) and K = {F} split over a cluster of at "
                          f"most {STEP_MAX_CLUSTER} ({gf.split})")
-    slot_bytes, region, fixed = _step_layout(M, D, F, w4, cluster, gd.split, gd.span, gf.split,
-                                             gf.span, 0)
-    slots = min(STEP_MAX_SLOTS, (SMEM_MAX - fixed) // slot_bytes)
-    if slots < 2:
-        raise ValueError(f"decode step: two weight slots of {slot_bytes} bytes do not fit "
-                         f"beside {fixed} bytes in {SMEM_MAX} bytes of shared memory")
+    slots, slot_bytes, region, smem = _slots(M, D, F, w4, cluster, gd.split, gd.span, gf.split,
+                                             gf.span)
     return StepShape(cluster, gd.split, gd.span, gf.split, gf.span, slots, slot_bytes, region,
-                     fixed + slots * slot_bytes)
+                     smem)
 
 
 def step_attention(M: int, H: int, pos: int, kvq: bool, cluster: int, clusters: int,
-                   region: int):
+                   region: int, shards: int = 1):
     """The attention phase's (heads, chunks, stages) at ``pos``: a cluster
-    takes a (row, head span) unit, its ranks ``chunks`` of the row's
+    takes a (row, head span) unit (K6: a (shard, row, head span) unit of
+    ``shards`` shards of H heads each), its ranks ``chunks`` of the row's
     ceil(pos / 64) chunks each; the heads a unit that take the fewest rounds
     of units over the ``clusters``, then the fewest heads; as many ring
     stages (at most 4) as fit the region. Raises ValueError if none fits."""
@@ -458,7 +472,7 @@ def step_attention(M: int, H: int, pos: int, kvq: bool, cluster: int, clusters: 
                        if _attention_smem(heads, chunks, cluster, s, kvq) <= region), 0)
         if not stages:
             continue
-        rounds = -(-M * (H // heads) // clusters)
+        rounds = -(-shards * M * (H // heads) // clusters)
         if best is None or rounds < best[0]:
             best = (rounds, (heads, chunks, stages))
     if best is None:
@@ -531,6 +545,112 @@ def step_units(plan: StepPlan, M: int, H: int, pos: int):
     return out
 
 
+# K6 with both tp shards on one card: the TP variant of the same kernel
+# (`decode_step_tp_launch`), one launch a step for both shards' layers
+# (`ops/decode_step_tp.py`).
+
+
+@functools.lru_cache(maxsize=256)
+def step_tp_shape(M: int, D: int, F: int) -> StepShape:
+    """What of K6's plan the rows and the model's widths fix. Each shard's
+    GEMV takes the split `gemv_plan` gives its K, as the chain's do: qkv and
+    fc K = D (unsplit, so the LayerNorm takes its statistics from the staged
+    rows), the out-projection a shard's K = D / 2 (unsplit), the MLP
+    projection a shard's K = F / 2 (``split_f`` spans of ``span_f``). A
+    row-parallel tile's ranks hold both shards' spans: the cluster is
+    2 ``split_f`` (4 at D = 1280), at most 8. ``split_d`` / ``span_d`` are
+    K = D's (1, D). Raises ValueError for a shape no plan fits."""
+    if not 1 <= M <= MAX_ROWS:
+        raise ValueError(f"tp decode step: 1..{MAX_ROWS} rows, got {M}")
+    if D % 128 or F % 64:
+        raise ValueError(f"tp decode step: D a multiple of 128 and F of 64, got {D}, {F}")
+    gd, gp = gemv_plan(M, 3 * D // 2, D), gemv_plan(M, D, D // 2)
+    gf = gemv_plan(M, D, F // 2)
+    cluster = 2 * gf.split
+    if gd.split != 1 or gp.split != 1 or cluster > STEP_MAX_CLUSTER:
+        raise ValueError(f"tp decode step: K = {D} and a shard's K = {D // 2} must not be split "
+                         f"({gd.split}, {gp.split}), and both shards' spans of K = {F // 2} "
+                         f"must fit a cluster of at most {STEP_MAX_CLUSTER} ({cluster})")
+    slots, slot_bytes, region, smem = _slots(M, D, F // 2, False, cluster, 1, D, gf.split,
+                                             gf.span, shards=2)
+    return StepShape(cluster, 1, D, gf.split, gf.span, slots, slot_bytes, region, smem)
+
+
+@functools.lru_cache(maxsize=4096)
+def step_tp_plan(M: int, D: int, H: int, F: int, S: int, pos: int, blocks: int = 120) -> StepPlan:
+    """The launch plan of `decode_step_tp_launch` (K6 co-located) for M rows
+    of the model's widths D (H heads of 64, H / 2 a shard) and F, each
+    shard's cache of S slots at ``pos``, on a grid of ``blocks``. Raises
+    ValueError for a shape no plan fits."""
+    if not 0 <= pos < S:
+        raise ValueError(f"tp decode step: pos {pos} outside the cache of {S} slots")
+    if D != H * HEAD_DIM or H % 2:
+        raise ValueError(f"tp decode step: an even number of heads of {HEAD_DIM}, got {D}/{H}")
+    sh = step_tp_shape(M, D, F)
+    if blocks < sh.cluster or blocks % sh.cluster:
+        raise ValueError(f"tp decode step: {blocks} blocks are not whole clusters of "
+                         f"{sh.cluster}")
+    heads, chunks, stages = step_attention(M, H // 2, pos, False, sh.cluster,
+                                           blocks // sh.cluster, sh.region, shards=2)
+    return StepPlan(sh.cluster, blocks, sh.slots, sh.split_d, sh.span_d, sh.split_f, sh.span_f,
+                    heads, chunks, stages, sh.smem)
+
+
+def step_tp_tiles(plan: StepPlan, D: int, F: int, layers: int):
+    """K6's weight slabs each block takes, as the kernel's `owned` and
+    `issue_tile` derive them: {(layer, phase): {block: [(shard, tile, span),
+    ...]}}, a slab being 16 output rows of a shard's weight (``tile`` counts
+    in the shard's rows) and ``span`` the block's span of that shard's K (0
+    where K is whole). qkv and fc: both shards' tiles interleaved (tile i
+    is shard i % 2's tile i // 2) round-robin over the blocks, so that a
+    block's tiles, an even number of blocks apart, are one shard's; attn-proj: its D / 16 tiles round-robin
+    over the blocks, a block taking both shards' slabs of each; mlp-proj:
+    its tiles round-robin over the clusters, rank r taking shard r //
+    split_f's span r % split_f. Rotated by the units handed out before in
+    the step, as `step_tiles`."""
+    tiles = (2 * -(-3 * D // 2 // 16), -(-D // 16), 2 * -(-F // 2 // 16), -(-D // 16))
+    split = (1, 1, 1, plan.cluster)
+    units = [t * s for t, s in zip(tiles, split)]
+    clusters = plan.blocks // plan.cluster
+    out = {}
+    for li in range(layers):
+        for ph in range(4):
+            acc = li * sum(units) + sum(units[:ph])
+            owned = {}
+            for b in range(plan.blocks):
+                if split[ph] == 1:
+                    mine = range((b - acc % plan.blocks) % plan.blocks, tiles[ph], plan.blocks)
+                    if ph == 1:
+                        owned[b] = [(t, i, 0) for i in mine for t in range(2)]
+                    else:
+                        owned[b] = [(i % 2, i // 2, 0) for i in mine]
+                    continue
+                first = (b // plan.cluster - (acc // plan.cluster) % clusters) % clusters
+                r = b % plan.cluster
+                owned[b] = [(r // plan.split_f, i, r % plan.split_f)
+                            for i in range(first, tiles[ph], clusters)]
+            out[li, ph] = owned
+    return out
+
+
+def step_tp_units(plan: StepPlan, M: int, H: int, pos: int):
+    """K6's attention units as the kernel walks them: {cluster: [(shard,
+    row, first head, [(rank, chunks of the row it takes), ...]), ...]} over
+    H / 2 heads a shard, shard 0's units first; the ranks in their runs'
+    order, as `step_units`."""
+    spans, clusters = H // 2 // plan.heads, plan.blocks // plan.cluster
+    per_shard, n = M * spans, -(-pos // CHUNK)
+    out = {c: [] for c in range(clusters)}
+    for c in range(clusters):
+        for u in range(c, 2 * per_shard, clusters):
+            runs = [((run + 1) % plan.cluster,
+                     list(range(run * plan.chunks, min(n, (run + 1) * plan.chunks))))
+                    for run in range(plan.cluster)]
+            r = u % per_shard
+            out[c].append((u // per_shard, r // spans, (r % spans) * plan.heads, runs))
+    return out
+
+
 @functools.lru_cache(maxsize=64)
 def _step_blocks(device: torch.device, w4: bool, kvq: bool, nt: int, cluster: int,
                  smem: int) -> int:
@@ -569,16 +689,19 @@ def step_barrier(device: torch.device) -> torch.Tensor:
     return bar
 
 
-def _layer_table(params, device: torch.device, D: int, F: int, w4: bool) -> torch.Tensor:
-    """The (L, 16) int64 table of the layers' weight pointers the kernel
-    reads (`Layer` in `csrc/decode_step.cu`), checked and uploaded once per
+def _layer_table(layers, device: torch.device, shapes, D: int, w4: bool,
+                 name: str = "fused_decode_step") -> torch.Tensor:
+    """The (L, shards * 16) int64 table of the layers' weight pointers the
+    kernel reads (`Layer` in `csrc/decode_step.cu`): ``layers`` holds, per
+    layer, its shards' trees (one for K1; K6's two, each with its own
+    pointers) and ``shapes`` the (N, K) of the four weights of one shard's
+    (their scale and bias have N entries). Checked and uploaded once per
     set of pointers."""
     w = "q4" if w4 else "q"
-    layers = params["h"]
     mats = [(lp["attn"]["c_attn"], lp["attn"]["c_proj"], lp["mlp"]["c_fc"], lp["mlp"]["c_proj"])
-            for lp in layers]
+            for shards in layers for lp in shards]
     lns = [(lp["ln_1"]["weight"], lp["ln_1"]["bias"], lp["ln_2"]["weight"], lp["ln_2"]["bias"])
-           for lp in layers]
+           for shards in layers for lp in shards]
     ptrs = tuple(t.data_ptr() for ms, ln in zip(mats, lns)
                  for t in (*(m[w] for m in ms), *(m["scale"] for m in ms),
                            *(m["bias"] for m in ms), *ln))
@@ -587,28 +710,27 @@ def _layer_table(params, device: torch.device, D: int, F: int, w4: bool) -> torc
     if table is not None:
         return table
     if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("decode step: call it once outside a CUDA graph capture with these "
+        raise RuntimeError(f"{name}: call it once outside a CUDA graph capture with these "
                            "weights (it uploads their pointer table)")
-    shapes = ((3 * D, D), (D, D), (F, D), (D, F))
     for ms, ln in zip(mats, lns):
         for m, (N, K) in zip(ms, shapes):
-            for name, t, dtype, shape in ((w, m.get(w), torch.int8, (N, K // 2 if w4 else K)),
+            for leaf, t, dtype, shape in ((w, m.get(w), torch.int8, (N, K // 2 if w4 else K)),
                                           ("scale", m["scale"], torch.float32, (N,)),
                                           ("bias", m["bias"], torch.bfloat16, (N,))):
                 if t is None or t.dtype != dtype or tuple(t.shape) != shape \
                         or t.device != device or not t.is_contiguous():
-                    raise ValueError(f"fused_decode_step: a layer's {name} must be contiguous "
-                                     f"{dtype} {shape} on {device}")
+                    raise ValueError(f"{name}: a layer's {leaf} must be contiguous {dtype} "
+                                     f"{shape} on {device}")
             if m[w].data_ptr() % 16:
-                raise ValueError("fused_decode_step: weights must be 16-byte aligned (TMA)")
+                raise ValueError(f"{name}: weights must be 16-byte aligned (TMA)")
         for t in ln:
             if t.dtype != torch.bfloat16 or tuple(t.shape) != (D,) or t.device != device \
                     or not t.is_contiguous() or t.data_ptr() % 16:
-                raise ValueError(f"fused_decode_step: LayerNorm vectors must be contiguous, "
-                                 f"16-byte aligned bf16 ({D},) on {device}")
+                raise ValueError(f"{name}: LayerNorm vectors must be contiguous, 16-byte "
+                                 f"aligned bf16 ({D},) on {device}")
     if len(_TABLES) >= 16:
         _TABLES.clear()
-    table = torch.tensor(ptrs, dtype=torch.int64).view(len(layers), 16).to(device)
+    table = torch.tensor(ptrs, dtype=torch.int64).view(len(layers), -1).to(device)
     torch.cuda.synchronize(device)
     _TABLES[key] = table
     return table
@@ -649,7 +771,8 @@ def _persistent_step(params, x, dims, pos: int, kv_cache, kv_valid, anc, group: 
     kvq = kvs is not None
     blocks = _step_blocks(dev, w4, kvq, -(-M // 8), sh.cluster, sh.smem)
     plan = step_plan(M, D, H, F, S, pos, kvq, w4, blocks)
-    table = _layer_table(params, dev, D, F, w4)
+    table = _layer_table([(lp,) for lp in params["h"]], dev,
+                         ((3 * D, D), (D, D), (F, D), (D, F)), D, w4)
     bar = step_barrier(dev)
     xslots = 2 if layer_inputs is None else L + 1
     bf16 = torch.bfloat16
@@ -710,19 +833,27 @@ def fused_decode_step(params, x: torch.Tensor, dims, pos: int,
 fused_decode_step.launches = 0
 
 
-def step_timeline(params, x: torch.Tensor, dims, pos: int, kv_cache: Dict[str, torch.Tensor],
-                  kv_valid: torch.Tensor, anc: Optional[torch.Tensor] = None,
-                  group: int = 1) -> Dict[str, float]:
+def step_timeline(params, x: torch.Tensor, dims, pos: int, kv_cache: Dict,
+                  kv_valid, anc=None, group: int = 1) -> Dict[str, float]:
     """One launch of the persistent step (CUDA tensors; the cache's rows at
     pos are written) with every block stamping %globaltimer at each phase's
     and each barrier's end: the step's mean µs a layer in each phase and in
     each barrier's wait, averaged over blocks and layers, the mean of a
     phase's slowest block, and the stamps' whole span (the timer ticks in
-    ns on the H100; the stamps cost a store a phase and block)."""
-    _check_step(params, x, kv_cache, group, anc)
+    ns on the H100; the stamps cost a store a phase and block). K1 for a
+    GPT-2 tree; K6 co-located for the tp tree of `shard_gpt2_tp` (its
+    per-shard cache, both shards on one card)."""
     stamps: list = []
-    _persistent_step(params, x, dims, pos, kv_cache, kv_valid, anc, group, None, stamps)
-    t = stamps[0].double().cpu()                    # (blocks, L, 26) ns
+    if "shards" in params:
+        from indextts_tpu_torch.ops import decode_step_tp
+
+        decode_step_tp._check_step_tp(params, x, dims, kv_cache, group, anc)
+        decode_step_tp._persistent_step_tp(params, x, dims, pos, kv_cache, kv_valid, anc, group,
+                                          None, stamps)
+    else:
+        _check_step(params, x, kv_cache, group, anc)
+        _persistent_step(params, x, dims, pos, kv_cache, kv_valid, anc, group, None, stamps)
+    t = stamps[0].double().cpu()                    # (blocks, L, 34) ns
     d = t[:, :, 1:10] - t[:, :, :9]                 # (blocks, L, 9)
     names = ("qkv", "barrier 1", "attention", "barrier 2", "attn-proj", "barrier 3", "fc",
              "barrier 4", "mlp-proj")

@@ -7,49 +7,73 @@ run on both shards of the mesh, the shard_map entry ``tp_decode_step``
 itself (`tp_decode_step` is its name there). Scope is the TPU kernel's: tp=2, int8 weights,
 the bf16 cache, the sampling decode at ``group=1`` and the beam ancestry map
 at ``group=K``. Per layer, each shard t (its weights from
-`parallel/mesh.py::shard_gpt2_tp`, its (L, B, S, D/2) cache) runs:
+`parallel/mesh.py::shard_gpt2_tp`, its (L, B, S, D/2) cache) computes:
 
-1. ``ln_1`` + its column-parallel qkv projection (its 10 of 20 heads):
-   `int8_matvec` with the LayerNorm prologue and the scale / bias epilogue;
+1. ``ln_1`` + its column-parallel qkv projection (its 10 of 20 heads), with
+   the scale / bias epilogue;
 2. attention over its cache at ``heads = H/2``, with the ancestry map, which
-   writes the token's k/v row at ``pos``: `decode_attention`;
-3. its row-parallel out-projection: `int8_matvec` with no epilogue, an f32
-   partial, unscaled;
+   writes the token's k/v row at ``pos``;
+3. its row-parallel out-projection: an f32 partial, unscaled;
 4. the all-reduce of the pair's partials, lo + hi, then the full scale and
-   bias, the bf16 rounding and the residual add: `tp_allreduce`
-   (`csrc/tp_allreduce.cu`), the new kernel, which reads the peer's partial
-   through its device pointer;
+   bias, the bf16 rounding and the residual add;
 5. ``ln_2`` + its column-parallel c_fc with the gelu epilogue, and its
-   row-parallel down-projection as an f32 partial: `int8_mlp` with no second
-   epilogue;
+   row-parallel down-projection as an f32 partial;
 6. the second all-reduce, as in 4.
 
 ``ln_f`` applies outside, on rank 0's device, as in the JAX engine. Both
 shards hold bit-identical residual streams (the same reduce on the same
 partials), so rank 0's is the result.
 
-On the card each shard runs on its own stream (`Mesh.streams`); the step
-forks both from the caller's stream and joins them back at its end. A
-shard's all-reduce waits on an event recorded on the peer's stream after the
-peer's partial product. Every (layer, exchange) has its own partial buffers,
-held until the join: no write of a later layer can race the peer's read, and
-the join orders every write of the next step after this step's reads. No
-library call, torch copy or collective sits between the shards: they meet
-only inside `tp_allreduce`. The token x (B, D) is placed on each shard's
-device, as shard_map replicates it (on one card that is the same tensor);
-kv_valid and the ancestry map come as `parallel.mesh.Replicated`, a copy on
-each device that the engines keep up to date, so the step copies neither.
+Two routes on the card, chosen by ``mesh.devices`` alone (never a retry
+after a failure):
+
+- both shards on one card (`make_mesh(["cuda:0", "cuda:0"])`, the tp
+  pipeline's and `chip_smoke.py`'s layout): ONE launch a step of the
+  persistent kernel's TP variant (`csrc/decode_step.cu`,
+  `decode_step_tp_launch`; `decode_step.step_tp_plan` is its plan), which
+  runs both shards' layers and folds each all-reduce into the row-parallel
+  product's own sum (the out-projection's in one block, which takes both
+  shards' weight slabs of a tile; the MLP projection's over a thread-block
+  cluster, whose ranks take both shards' spans of K): no partial in device
+  memory, no `tp_allreduce` launch, no stream fork. It shares the card's grid-barrier
+  words with K1 (`decode_step.step_barrier`): K1 and K6 launches on one
+  card must not overlap;
+- the shards on two cards: `fused_decode_step_tp_chain`, K1's standalone
+  kernels at shard shapes (`int8_matvec`, `int8_mlp` with no second
+  epilogue, `decode_attention`) and `tp_allreduce` (`csrc/tp_allreduce.cu`),
+  which reads the peer's f32 partial through its device pointer. Each
+  shard runs on its own stream (`Mesh.streams`); the step forks both from
+  the caller's stream and joins them back at its end. A shard's all-reduce
+  waits on an event recorded on the peer's stream after the peer's partial
+  product. Every (layer, exchange) has its own partial buffers, held until
+  the join: no write of a later layer can race the peer's read, and the
+  join orders every write of the next step after this step's reads. No
+  library call, torch copy or collective sits between the shards: they
+  meet only inside `tp_allreduce`.
+
+The persistent kernel gives the chain's bits (the same arithmetic, in the
+same order), and `chip_smoke.py` holds it to that. The token x (B, D) is
+placed on each shard's device, as shard_map replicates it (on one card
+that is the same tensor); kv_valid and the ancestry map come as
+`parallel.mesh.Replicated`, a copy on each device that the engines keep up
+to date, so the step copies neither.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
+import math
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
 from indextts_tpu_torch.ops import cuda
-from indextts_tpu_torch.ops.decode_step import decode_attention, decode_attention_plain
+from indextts_tpu_torch.ops.decode_step import (HEAD_DIM, STEP_MARKS, STEP_MAX_LAYERS,
+                                                _layer_table, decode_attention,
+                                                decode_attention_plain, step_barrier,
+                                                step_tp_plan, step_tp_shape)
 from indextts_tpu_torch.ops.int8 import (MAX_ROWS, int8_matvec, int8_matvec_plain, int8_mlp,
                                          int8_mlp_plain)
 from indextts_tpu_torch.parallel.mesh import Replicated
@@ -243,6 +267,99 @@ def fused_decode_step_tp_plain(params, x: torch.Tensor, dims, pos: int, kv_cache
     return _step_tp(TWINS, params, x, dims, pos, kv_cache, kv_valid, anc, group, layer_inputs)
 
 
+def fused_decode_step_tp_chain(params, x: torch.Tensor, dims, pos: int, kv_cache: Dict,
+                               kv_valid: torch.Tensor, anc: Optional[torch.Tensor] = None,
+                               group: int = 1,
+                               layer_inputs: Optional[list] = None) -> torch.Tensor:
+    """K6 as the chain of standalone kernels, seven launches a layer and
+    shard, on a stream a shard (any mesh): the route of a mesh over two
+    cards; on one card `chip_smoke.py` holds the persistent kernel
+    bit-identical to it and `tools/torch_kernel_bench.py` times it beside
+    it. CPU tensors run the twins."""
+    return _step_tp(KERNELS, params, x, dims, pos, kv_cache, kv_valid, anc, group, layer_inputs)
+
+
+def co_located(mesh) -> bool:
+    """Whether both tp shards of ``mesh`` live on one CUDA card, so that
+    `fused_decode_step_tp` takes the persistent kernel."""
+    d0, d1 = mesh.devices
+    return d0 == d1 and d0.type == "cuda"
+
+
+@functools.lru_cache(maxsize=16)
+def _step_tp_blocks(device: torch.device, nt: int, cluster: int, smem: int) -> int:
+    """K6's persistent grid: the resident clusters the occupancy query
+    allows for its kernel, times the cluster."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = cuda.library().decode_step_tp_occupancy(nt, cluster, smem, ctypes.byref(n))
+    cuda.check(code, "decode_step_tp occupancy")
+    if n.value < 1:
+        raise RuntimeError(f"tp decode step: no cluster of {cluster} blocks with {smem} bytes "
+                           f"of shared memory is resident on {device}")
+    return n.value * cluster
+
+
+def _persistent_step_tp(params, x, dims, pos: int, kv_cache, kv_valid, anc, group: int,
+                        layer_inputs: Optional[list], trace: Optional[list] = None):
+    """One launch of K6's persistent kernel, both shards on x's card."""
+    dev = x.device
+    M, D = x.shape
+    shards, caches = params["shards"], kv_cache["shards"]
+    L, H = len(shards[0]), dims.heads
+    F = 2 * shards[0][0]["mlp"]["c_fc"]["scale"].shape[0]
+    Dl = D // 2
+    S = caches[0]["k"].shape[2]
+    valid, a = per_rank(kv_valid, params["mesh"].devices)[0], None
+    checks = [("x", x, torch.bfloat16, (M, D)), ("kv_valid", valid, torch.bool, (M, S))]
+    checks += [(f"shard {t}'s {k} cache", c[k], torch.bfloat16, (L, M, S, Dl))
+               for t, c in enumerate(caches) for k in "kv"]
+    if group > 1:
+        if M % group:
+            raise ValueError(f"fused_decode_step_tp: {M} rows are not groups of {group}")
+        a = per_rank(anc, params["mesh"].devices)[0]
+        checks.append(("anc", a, torch.int32, (M, S)))
+    for name, t, dtype, shape in checks:
+        if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"fused_decode_step_tp: {name} must be contiguous, 16-byte aligned "
+                             f"{dtype} {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    if L > STEP_MAX_LAYERS:
+        raise ValueError(f"fused_decode_step_tp: the kernel takes at most {STEP_MAX_LAYERS} "
+                         f"layers, got {L}")
+    sh = step_tp_shape(M, D, F)
+    blocks = _step_tp_blocks(dev, -(-M // 8), sh.cluster, sh.smem)
+    plan = step_tp_plan(M, D, H, F, S, pos, blocks)
+    table = _layer_table(list(zip(*shards)), dev,
+                         ((3 * Dl, D), (D, Dl), (F // 2, D), (D, F // 2)), D, False,
+                         "fused_decode_step_tp")
+    bar = step_barrier(dev)
+    xslots = 2 if layer_inputs is None else L + 1
+    bf16 = torch.bfloat16
+    xs = torch.empty((xslots, M, D), dtype=bf16, device=dev)
+    qkv = torch.empty((2, M, 3 * Dl), dtype=bf16, device=dev)
+    att = torch.empty((2, M, Dl), dtype=bf16, device=dev)
+    xb = torch.empty((M, D), dtype=bf16, device=dev)
+    h = torch.empty((2, M, F // 2), dtype=bf16, device=dev)
+    stamps = None
+    if trace is not None:
+        stamps = torch.zeros((plan.blocks, L, STEP_MARKS), dtype=torch.int64, device=dev)
+        trace.append(stamps)
+    with torch.cuda.device(dev):
+        code = cuda.library().decode_step_tp_launch(
+            table.data_ptr(), x.data_ptr(), xs.data_ptr(), xslots, qkv.data_ptr(),
+            att.data_ptr(), xb.data_ptr(), h.data_ptr(), caches[0]["k"].data_ptr(),
+            caches[0]["v"].data_ptr(), caches[1]["k"].data_ptr(), caches[1]["v"].data_ptr(),
+            valid.data_ptr(), None if a is None else a.data_ptr(), bar.data_ptr(),
+            None if stamps is None else stamps.data_ptr(), L, M, D, H, F, S, pos, group,
+            1.0 / math.sqrt(HEAD_DIM), *plan, cuda.stream_ptr(x))
+    cuda.check(code, "decode_step_tp")
+    if layer_inputs is not None:
+        layer_inputs.extend((t, t) for t in (x, *xs[1:]))
+    return xs[L % xslots]
+
+
 def fused_decode_step_tp(params, x: torch.Tensor, dims, pos: int, kv_cache: Dict,
                          kv_valid: torch.Tensor, anc: Optional[torch.Tensor] = None,
                          group: int = 1, layer_inputs: Optional[list] = None) -> torch.Tensor:
@@ -253,11 +370,17 @@ def fused_decode_step_tp(params, x: torch.Tensor, dims, pos: int, kv_cache: Dict
     in-group ancestry map, as for K1) on every rank's (`per_rank`). Writes each shard's k/v rows at ``pos``
     in place. Returns the hidden state before ``ln_f``, (B, D) on rank 0's
     device; a ``layer_inputs`` list receives, per layer, the tuple of the
-    shards' inputs, and the shards' outputs last. Counts one launch a step
-    (``fused_decode_step_tp.launches``) on the card."""
-    h = _step_tp(KERNELS, params, x, dims, pos, kv_cache, kv_valid, anc, group, layer_inputs)
-    if x.device.type == "cuda":
-        fused_decode_step_tp.launches += 1
+    shards' inputs, and the shards' outputs last (on one card both entries
+    are the one residual stream). CPU tensors run the twins; with both
+    shards on one card, ONE launch of the persistent kernel
+    (``fused_decode_step_tp.launches``); on two cards the chain
+    (`fused_decode_step_tp_chain`). The module docstring says why."""
+    if x.device.type == "cpu" or not co_located(params["mesh"]):
+        return fused_decode_step_tp_chain(params, x, dims, pos, kv_cache, kv_valid, anc, group,
+                                          layer_inputs)
+    _check_step_tp(params, x, dims, kv_cache, group, anc)
+    h = _persistent_step_tp(params, x, dims, pos, kv_cache, kv_valid, anc, group, layer_inputs)
+    fused_decode_step_tp.launches += 1
     return h
 
 

@@ -43,10 +43,15 @@ whole cache after the step, every layer's input, a second launch), with
 num_beams=1 sampling decode with int8
 weights launches K1 once a step (at group=1) and never the bf16 step. K6's
 all-reduce (tp_allreduce) is bit-identical to its twin, for either rank; K6
-(fused_decode_step_tp, both shards co-located on one card, each on its own
-stream) holds each layer within rel-L2 1e-2 of the twin on the kernel path's
-input, keeps the two shards' residual streams bit-identical, and writes k/v
-rows bit-identical to K1's qkv kernel on the same input, per head slice.
+(fused_decode_step_tp) with both shards co-located on one card is one
+launch a step of the persistent kernel's TP variant, bit-identical to the
+chain of standalone kernels it replaced (`fused_decode_step_tp_chain`) at
+group=3 and group=1, pos 0, 1 and 150, S=2048 pos=1500 and 24 rows (the
+hidden state, both shards' caches, every layer's input, a second launch;
+`step_barriers` grid barriers; no tp_allreduce, GEMV or attention launch),
+a CUDA graph of it replays bit-identically, and it holds each layer within
+rel-L2 1e-2 of the twin on the kernel path's input and writes k/v rows
+bit-identical to K1's qkv kernel on the same input, per head slice.
 With two cards, K6 with its shards on cuda:0 and cuda:1 (the exchange
 reading the peer card's partial) is bit-identical to the co-located run,
 and greedy tp decodes (beams on the ancestry and the gather route, the
@@ -854,9 +859,9 @@ def test_fused_decode_step_tp_co_located_matches_plain(cuda_device, group):
     h = decode_step_tp.fused_decode_step_tp(tp, x, dims, pos, kc, valid, anc, group,
                                             layer_inputs=xs)
     torch.cuda.synchronize()
+    # one persistent launch; the exchange is folded into it, no tp_allreduce
     assert (decode_step_tp.fused_decode_step_tp.launches,
-            decode_step_tp.tp_allreduce.launches) == (before[0] + 1,
-                                                      before[1] + 2 * 2 * dims.layers)
+            decode_step_tp.tp_allreduce.launches) == (before[0] + 1, before[1])
     D, Dl = dims.dim, dims.dim // 2
     for li, layers in enumerate(zip(*tp["shards"])):
         assert torch.equal(*xs[li])                       # the residual streams agree
@@ -876,6 +881,82 @@ def test_fused_decode_step_tp_co_located_matches_plain(cuda_device, group):
     assert torch.equal(h, xs[-1][0]) and torch.equal(*xs[-1])
     ref = decode_step_tp.fused_decode_step_tp_plain(tp, x, dims, pos, cache(), valid, anc, group)
     assert rel_l2(h, ref) <= 1e-2
+
+
+# K6's bit-identity cases: label -> (rows, S, pos)
+TP_CASES = {"pos=0": (3, 256, 0), "pos=1": (3, 256, 1), "pos=150": (3, 256, 150),
+            "S=2048 pos=1500": (3, 2048, 1500), "24 rows": (24, 256, 150)}
+
+
+def _tp_counters():
+    """K6's launches, then those of the kernels of its chain and K1's."""
+    return (decode_step_tp.fused_decode_step_tp.launches, decode_step_tp.tp_allreduce.launches,
+            int8.int8_matvec.launches, int8.int8_mlp.launches,
+            decode_step.decode_attention.launches, decode_step.fused_decode_step.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TP_CASES))
+@pytest.mark.parametrize("group", [3, 1])
+def test_fused_decode_step_tp_bit_identical_to_the_chain(cuda_device, group, case):
+    """K6 co-located (one persistent launch a step) against the chain of
+    standalone kernels it replaced, on copies of the shards' caches: the
+    hidden state, both caches after the step and every layer's input
+    bit-identical, a second launch repeating the first, `step_barriers`
+    grid barriers, and no tp_allreduce, GEMV, attention or K1 launch."""
+    B, S, pos = TP_CASES[case]
+    params, dims, x, kv, valid, anc, _ = _k1_case(cuda_device, B=B, S=S, pos=pos)
+    anc = anc % 3 if group > 1 else None      # in-group rows
+    tp = shard_gpt2_tp(params, make_mesh([cuda_device, cuda_device]))
+    Dl = dims.dim // 2
+    base = [{k: kv[i][..., t * Dl:(t + 1) * Dl].contiguous() for i, k in enumerate("kv")}
+            for t in range(2)]
+    caches = [{"shards": [{k: c.clone() for k, c in b.items()} for b in base]} for _ in range(3)]
+    count = decode_step.step_barrier(x.device)
+    before = (int(count[1]), *_tp_counters())
+    lk, lc = [], []
+    h = decode_step_tp.fused_decode_step_tp(tp, x, dims, pos, caches[0], valid, anc, group,
+                                            layer_inputs=lk)
+    torch.cuda.synchronize()
+    assert int(count[1]) - before[0] == decode_step.step_barriers(dims.layers)
+    after = _tp_counters()
+    assert after[0] == before[1] + 1 and after[1:] == before[2:]   # K6's kernel only
+    hc = decode_step_tp.fused_decode_step_tp_chain(tp, x, dims, pos, caches[1], valid, anc,
+                                                   group, layer_inputs=lc)
+    h2 = decode_step_tp.fused_decode_step_tp(tp, x, dims, pos, caches[2], valid, anc, group)
+    torch.cuda.synchronize()
+    assert torch.equal(h, hc) and torch.equal(h, h2)
+    for t in range(2):
+        for key in "kv":
+            assert torch.equal(caches[0]["shards"][t][key], caches[1]["shards"][t][key])
+            assert torch.equal(caches[0]["shards"][t][key], caches[2]["shards"][t][key])
+    assert len(lk) == len(lc) == dims.layers + 1
+    for a, b in zip(lk, lc):
+        assert all(torch.equal(a[0], t) for t in (*a, *b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [3, 1])
+def test_fused_decode_step_tp_graph_replays_bit_identically(cuda_device, group):
+    """A CUDA graph of K6's step (captured after one eager call, which
+    uploads the pointer table) replays the eager step's bits, twice."""
+    params, tp, dims, x, cache, valid, anc, pos = _tp_case(cuda_device, group)
+    eager, captured = cache(), cache()
+    h = decode_step_tp.fused_decode_step_tp(tp, x, dims, pos, eager, valid, anc, group)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_step_tp.fused_decode_step_tp(tp, x, dims, pos, captured, valid, anc, group)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_step_tp.fused_decode_step_tp(tp, x, dims, pos, captured, valid, anc, group)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, h)
+        for a, b in zip(eager["shards"], captured["shards"]):
+            assert all(torch.equal(a[k], b[k]) for k in "kv")
 
 
 def _two_cards():

@@ -189,6 +189,17 @@ def test_cuda_device_requires_cuda(model_dir):
         IndexTTS2(cfg_path=None, model_dir=model_dir, device="cuda", cfg=tiny_config())
 
 
+def test_default_device_is_the_card(model_dir):
+    """With no ``device`` the pipeline takes the card: without one it raises,
+    it does not fall back to the CPU."""
+    from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the CPU-only behaviour")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        IndexTTS2(cfg_path=None, model_dir=model_dir, cfg=tiny_config())
+
+
 def test_port_imports_no_jax():
     code = ("import sys, importlib, pkgutil\n"
             "sys.modules['jax'] = None\n"

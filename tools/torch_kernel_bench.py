@@ -18,9 +18,10 @@ Parts (``--only``, comma-separated; all by default):
   decode_step.cu`) at chip_smoke.py's case: group=3, group=1, the int8
   cache (KVQ), int4 weights (W4), both (int4kv), each beside the chain of
   standalone kernels it replaced (`fused_decode_step_chain`, in turns), and
-  K6 co-located (`fused_decode_step_tp`, both shards on this card,
-  group=3). A checkout without the chain (an older one, via ``--root``)
-  times its `fused_decode_step` alone;
+  K6 co-located (`fused_decode_step_tp`, both shards on this card: the
+  persistent kernel's TP variant) at group=3 and group=1, each beside the
+  chain it replaced (`fused_decode_step_tp_chain`, in turns). A checkout
+  without a chain (an older one, via ``--root``) times its step alone;
   Each persistent case also prints its timeline (`decode_step.step_timeline`:
   the mean µs a layer in each phase and barrier wait, from %globaltimer
   stamps);
@@ -249,8 +250,7 @@ def run_k3_variant(spec: str) -> None:
 
 def time_steps(cs, g, emit) -> None:
     from indextts_tpu_torch.models.gpt.gpt2 import kv_quantize_flat, quantize_gpt2_int4
-    from indextts_tpu_torch.ops import decode_step
-    from indextts_tpu_torch.ops.decode_step_tp import fused_decode_step_tp
+    from indextts_tpu_torch.ops import decode_step, decode_step_tp
     from indextts_tpu_torch.parallel.mesh import make_mesh, shard_gpt2_tp
 
     dims, bf16_params, params8, kv, valid, x, anc, _ = cs.k1_case(g)
@@ -282,10 +282,26 @@ def time_steps(cs, g, emit) -> None:
                                                                  grp).items()})
     tp = shard_gpt2_tp(params8, make_mesh(["cuda:0", "cuda:0"]))
     Dl = cs.K1_D // 2
-    tp_cache = {"shards": [{k: t[..., r * Dl:(r + 1) * Dl].contiguous()
-                            for k, t in bf16_cache.items()} for r in range(2)]}
-    emit(kernel="step", case="k6 co-located group=3", **graph(
-        cs, lambda: fused_decode_step_tp(tp, x, dims, P, tp_cache, valid, anc, M)))
+    tp_chain = getattr(decode_step_tp, "fused_decode_step_tp_chain", None)
+    for label, rows, a, grp in (("k6 co-located group=3", M, anc, M),
+                                ("k6 co-located group=1", 1, None, 1)):
+        tp_cache = {"shards": [{k: t[:, :rows, :, r * Dl:(r + 1) * Dl].contiguous()
+                                for k, t in bf16_cache.items()} for r in range(2)]}
+
+        def tp_step(fn=decode_step_tp.fused_decode_step_tp, rows=rows, a=a, grp=grp,
+                    c=tp_cache):
+            return fn(tp, x[:rows], dims, P, c, valid[:rows], a, grp)
+
+        if tp_chain is None:   # an older checkout: K6 was the chain
+            emit(kernel="step", case=label, **graph(cs, tp_step))
+            continue
+        kt, lt = cs.timing_spread(tp_step, lambda: tp_step(tp_chain))
+        emit(kernel="step", case=label, ms=kt["graph"], ms_range=kt["graph_range"],
+             eager_ms=kt["eager"], chain_ms=lt["graph"], chain_ms_range=lt["graph_range"],
+             chain_eager_ms=lt["eager"])
+        emit(kernel="step timeline", case=label, **{
+            k: round(v, 3) for k, v in decode_step.step_timeline(
+                tp, x[:rows], dims, P, tp_cache, valid[:rows], a, grp).items()})
 
 
 def time_barriers(cs, emit) -> None:

@@ -3,8 +3,9 @@
 
 At chip_smoke.py's K1 shape (L=24, D=1280, H=20, S=512, pos=300, 3 rows at
 group=3 with a random ancestry map), for the shards co-located on cuda:0
-and then on cuda:0 and cuda:1 (the exchange reading the peer card's partial
-over NVLink): layer by layer against the plain twin (`tp_twin_by_layer`:
+(the persistent kernel, the exchange folded into it) and then on cuda:0 and
+cuda:1 (the chain: the exchange, `tp_allreduce`, reading the peer card's
+partial over NVLink): layer by layer against the plain twin (`tp_twin_by_layer`:
 rel-L2 <= 1e-2, residual streams and written k/v rows bit-identical), and
 the two layouts bit-identical to each other. Then the device ms a step on
 each card of K1 (one card), K6 co-located and K6 on two cards, each summed
@@ -68,7 +69,7 @@ def main() -> int:
     from indextts_tpu_torch import nn
     from indextts_tpu_torch.ops import cuda
     from indextts_tpu_torch.ops.decode_step import fused_decode_step
-    from indextts_tpu_torch.ops.decode_step_tp import fused_decode_step_tp
+    from indextts_tpu_torch.ops.decode_step_tp import co_located, fused_decode_step_tp
     from indextts_tpu_torch.parallel.mesh import Replicated, make_mesh, shard_gpt2_tp
 
     card = cs.card_line()
@@ -99,17 +100,18 @@ def main() -> int:
         timing = per_card_ms(lambda: fused_decode_step_tp(tp, x, dims, cs.K1_POS, c, vr, ar, M),
                              sorted(set(mesh.devices), key=str))
         runs[label] = h
+        reduces = 0 if co_located(mesh) else 4 * cs.K1_L * STEPS
         print(f"K6 {label} {[str(d) for d in mesh.devices]} L={cs.K1_L} D={cs.K1_D} B*K={M} "
               f"group={M} S={cs.K1_S} pos={cs.K1_POS}: layer outputs rel_l2 <= "
               f"{tw['layer']:.3e}, hidden {tw['hidden']:.3e}, residual streams bit-identical: "
               f"{tw['streams_equal']}, written rows bit-identical to K1's qkv kernel: "
               f"{tw['rows_exact']}; device ms a step by card (eager, profiler): "
               f"{ {f'cuda:{d}': round(v, 4) for d, v in timing['ms'].items()} }, "
-              f"tp_allreduce launches recorded by card {timing['reduces']} of "
-              f"{4 * cs.K1_L * STEPS} [{card}]", flush=True)
+              f"tp_allreduce launches recorded by card {timing['reduces']} of {reduces} "
+              f"[{card}]", flush=True)
         assert tw["layer"] <= cs.K1_REL_L2 and tw["hidden"] <= cs.K1_REL_L2, (label, tw)
         assert tw["streams_equal"] and tw["rows_exact"], (label, tw)
-        assert sum(timing["reduces"].values()) == 4 * cs.K1_L * STEPS, timing
+        assert sum(timing["reduces"].values()) == reduces, timing
     assert torch.equal(runs["co-located"], runs["two cards"]), "two cards differ from one"
     k1_cache = {k: kv[i].clone() for i, k in enumerate("kv")}
     k1 = per_card_ms(lambda: fused_decode_step(params, x, dims, cs.K1_POS, k1_cache, valid, anc,
