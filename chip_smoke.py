@@ -142,6 +142,35 @@
    record a step, no GEMV, attention or `tp_allreduce` record on their
    route) and of the scorer's top-k equal the counters of that run.
 
+9. Streaming pass (`longform_phase`), int8: SENTENCE repeated until it
+   splits into 8 segments at the default 120 tokens (x 36: seven of 115
+   tokens and one of 23), three requests at the JAX bench's streaming
+   settings (num_beams=1, 60 codes a segment, more_segment_before=8,
+   stream_return=True): the time to the first yielded chunk (median of the
+   last two printed), 16 chunks (each segment's wav, then its silence),
+   exact launches of the last request (K1 8 x 59, K2 and K3 8
+   single-segment requests' worth).
+10. Long-form int8 pass, same model: first the batched synthesis
+   (`IndexTTS2.codes_to_wav`) of the 8 segment rows at 400, 355, ..., 85
+   codes (`ragged_synthesis`): each row sounds up to its own
+   int(clen * 1.72) * 256 samples and is zero past them, and K2 at the
+   CFM's first DiT call (16 rows) and K3 at the vocoder's first call of
+   each stage shape (8 rows), each row at its own length, against their
+   twins and timed (the `*_longform` rows). Then one num_beams=3 request
+   of the long text, every segment pinned to 400 codes. The segments run
+   as one batch: the wav is 8 x int(400 * 1.72) * 256 samples plus 7
+   silences of 4410; K1 launched once per decode step of the one 24-row
+   chunk (399, not 8 x 399), K2 and K3 as often as in one single-segment
+   request (one CFM over a DiT batch of 16 rows, one BigVGAN call over 8
+   rows), exact counts as in the int8 pass; its stage times and RTF. K1
+   at two of its decode steps (24 rows, per-row left padding, the beam
+   ancestry map) layer by layer against the twin and bit-identical to its
+   chain (the twin's 24-layer chain printed beside its noise floor), timed
+   at those inputs (`fused_decode_step_longform`).
+11. Long-form bf16 pass: the same long text at bf16, num_beams=3, one
+   request: a 24-row decode on the gather route (the bf16 step once a
+   decode step, cache gathers), K2 and K3 as in one single-segment request.
+
 `tools/torch_tp_two_cards.py` runs K6 with its shards on two cards, on a
 machine that has two.
 
@@ -208,6 +237,19 @@ K1_EDGE_CASES = {"pos=0": (K1_ROWS, K1_S, 0), "pos=1": (K1_ROWS, K1_S, 1),
                  "S=2048 pos=1500": (K1_ROWS, 2048, 1500), "24 rows": (24, K1_S, K1_POS)}
 # the tp pass: both tp=2 shards on this card
 TP_DEVICES = ("cuda:0", "cuda:0")
+# the long-form passes: SENTENCE repeated until it splits into
+# LONGFORM_SEGMENTS segments at the default 120 tokens (as many as the JAX
+# bench's long text); the long-form int8 decode's K1 calls kept for the
+# twin (0 = the first decode step); the silence between two segments
+# (interval_silence=200 ms at 22.05 kHz)
+LONGFORM_SEGMENTS = 8
+LONGFORM_K1_CALLS = (0, 200)
+# the long-form synthesis's code lengths, one a segment row: 400 down by 45
+RAGGED_CODES = tuple(400 - 45 * b for b in range(LONGFORM_SEGMENTS))
+SILENCE_SAMPLES = 4410
+# the streaming first-audio pass: the JAX bench's streaming settings
+STREAM_REQUESTS = 3
+STREAM_KWARGS = dict(num_beams=1, max_mel_tokens=60, min_new_tokens=59, more_segment_before=8)
 # H100 SXM datasheet peaks: HBM bytes/s, bf16 tensor-core
 # and f32 FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -395,89 +437,111 @@ def build_fake_assets(d: str) -> str:
 
 
 def kernel_phase(card: str) -> dict:
+    """K2 at `K2_TS` (its row from the first) and K3 at the six BigVGAN stage
+    shapes, each against its twin (`k2_case`, `k3_sum`)."""
     import torch
-    import torch.nn.functional as F
 
-    from indextts_tpu_torch.ops.attn import (attention_rope, attention_rope_plain, rope_qk,
-                                             rope_qk_plain)
-    from indextts_tpu_torch.ops.rope import apply_rotary_emb_half, precompute_freqs_cis
-    from indextts_tpu_torch.ops.snake import antialias_snake, antialias_snake_plain
+    from indextts_tpu_torch.ops.rope import precompute_freqs_cis
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    res = {"attention_rope": {"err": 0.0, "abs": 0.0}, "antialias_snake": {"err": 0.0, "abs": 0.0}}
-
+    k2 = []
     H, D = 8, 64
     for T in K2_TS:
         q, k, v = (torch.randn((2, T, H * D), generator=g, device=dev).to(torch.bfloat16)
                    for _ in range(3))
         lens = torch.tensor([T - 37, T // 2 + 5], device=dev, dtype=torch.int32)
         fc = torch.as_tensor(precompute_freqs_cis(T, D), device=dev)
-        out = attention_rope(q, k, v, lens, fc, H)
-        ref = attention_rope_plain(q, k, v, lens, fc, H)
-        torch.cuda.synchronize()
-        err = max(rel_l2(out[b, :L], ref[b, :L]) for b, L in enumerate(lens.tolist()))
-        mab = max((out[b, :L].float() - ref[b, :L].float()).abs().max().item()
-                  for b, L in enumerate(lens.tolist()))
-        rope_equal = all(torch.equal(a, b) for a, b in zip(rope_qk(q, k, fc, H),
-                                                            rope_qk_plain(q, k, fc, H)))
-        pms = time_ms(lambda: attention_rope_plain(q, k, v, lens, fc, H))
-        # yardstick: SDPA on q and k roped beforehand (attention only)
-        qr, kr = (apply_rotary_emb_half(t.reshape(2, T, H, D), fc).transpose(1, 2).contiguous()
-                  for t in (q, k))
-        vh = v.reshape(2, T, H, D).transpose(1, 2).contiguous()
-        key_ok = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-        kt, lt = timing_spread(lambda: attention_rope(q, k, v, lens, fc, H),
-                               lambda: F.scaled_dot_product_attention(qr, kr, vh,
-                                                                      attn_mask=key_ok))
-        rope_ms = graph_ms(lambda: rope_qk(q, k, fc, H))
-        # QK^T and PV over each row's valid keys for all T query rows
-        b = bound(4 * 2 * T * H * D * 2 + 2 * 4 + T * D * 4,
-                  sum(4 * H * D * T * L for L in lens.tolist()), BF16_FLOPS)
-        print(f"K2 attention_rope B=2 H={H} D={D} T={T}: rel_l2 {err:.3e} max_abs {mab:.3e}"
-              f" rope pass bit-identical {rope_equal}, kernel (rope pass + attention) "
-              f"{spread_text(kt)} (rope pass alone graph {rope_ms:.4f} ms), plain {pms:.4f} ms,"
-              f" SDPA (attention only) {spread_text(lt)}; medians and [min-max] of "
-              f"{ATTN_REPS}; bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]",
-              flush=True)
-        assert err <= K2_REL_L2 and np.isfinite(err), f"K2 rel-L2 {err} > {K2_REL_L2} at T={T}"
-        assert rope_equal, "K2's rope pass differs from its twin"
-        r = res["attention_rope"]
-        r["err"], r["abs"] = max(r["err"], err), max(r["abs"], mab)
-        if T == K2_TS[0]:
-            r.update(plain_ms=pms, **spread_row(kt, lt, rope_pass_ms=rope_ms), **b)
+        k2.append(k2_case(q, k, v, lens, fc, H, card, ""))
+    k3 = k3_sum([k3_inputs(g, C, MEL_FRAMES * up, 700 * up) for C, up in K3_SHAPES], card, "")
+    return {"attention_rope": {**k2[0], "err": max(r["err"] for r in k2),
+                               "abs": max(r["abs"] for r in k2)},
+            "antialias_snake": k3}
 
-    tot, tot_pms = {}, 0.0
-    k3_bytes = k3_ops = 0
-    for C, up in K3_SHAPES:
-        T, L = MEL_FRAMES * up, 700 * up
-        x, alpha, beta, lens = k3_inputs(g, C, T, L)
-        out = antialias_snake(x, alpha, beta, lens)
-        ref = antialias_snake_plain(x, alpha, beta, lens)
+
+def k2_case(q, k, v, lens, fc, H: int, card: str, where: str) -> dict:
+    """K2 on one input against its twin over each row's valid query rows
+    (rel-L2 <= 2e-2), its rope pass bit-identical to the twin's; timed
+    beside the plain twin and SDPA on q and k roped beforehand (attention
+    only); its bound from the lengths. ``where`` names the input."""
+    import torch
+    import torch.nn.functional as F
+
+    from indextts_tpu_torch.ops.attn import (attention_rope, attention_rope_plain, rope_qk,
+                                             rope_qk_plain)
+    from indextts_tpu_torch.ops.rope import apply_rotary_emb_half
+
+    B, T, HD = q.shape
+    D = HD // H
+    out, ref = attention_rope(q, k, v, lens, fc, H), attention_rope_plain(q, k, v, lens, fc, H)
+    torch.cuda.synchronize()
+    L = lens.tolist()
+    err = max(rel_l2(out[b, :n], ref[b, :n]) for b, n in enumerate(L))
+    mab = max((out[b, :n].float() - ref[b, :n].float()).abs().max().item()
+              for b, n in enumerate(L))
+    rope_equal = all(torch.equal(a, b) for a, b in zip(rope_qk(q, k, fc, H),
+                                                        rope_qk_plain(q, k, fc, H)))
+    pms = time_ms(lambda: attention_rope_plain(q, k, v, lens, fc, H))
+    qr, kr = (apply_rotary_emb_half(t.reshape(B, T, H, D), fc).transpose(1, 2).contiguous()
+              for t in (q, k))
+    vh = v.reshape(B, T, H, D).transpose(1, 2).contiguous()
+    key_ok = (torch.arange(T, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
+    kt, lt = timing_spread(lambda: attention_rope(q, k, v, lens, fc, H),
+                           lambda: F.scaled_dot_product_attention(qr, kr, vh, attn_mask=key_ok))
+    rope_ms = graph_ms(lambda: rope_qk(q, k, fc, H))
+    # QK^T and PV over each row's valid keys for all T query rows
+    b = bound(4 * B * T * HD * 2 + B * 4 + T * D * 4, sum(4 * HD * T * n for n in L),
+              BF16_FLOPS)
+    print(f"K2 attention_rope{where} B={B} H={H} D={D} T={T}: rel_l2 {err:.3e} max_abs "
+          f"{mab:.3e} rope pass bit-identical {rope_equal}, kernel (rope pass + attention) "
+          f"{spread_text(kt)} (rope pass alone graph {rope_ms:.4f} ms), plain {pms:.4f} ms, "
+          f"SDPA (attention only) {spread_text(lt)}; medians and [min-max] of {ATTN_REPS}; "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
+    assert err <= K2_REL_L2 and np.isfinite(err), f"K2 rel-L2 {err} > {K2_REL_L2} at T={T}"
+    assert rope_equal, "K2's rope pass differs from its twin"
+    return dict(err=err, abs=mab, plain_ms=pms, **spread_row(kt, lt, rope_pass_ms=rope_ms), **b)
+
+
+def k3_sum(cases, card: str, where: str) -> dict:
+    """K3 on each (x, alpha, beta, lengths) of ``cases`` against its twin
+    over each row's valid frames (rel-L2 <= 1e-3; the 4 rows at each edge
+    within 2 bf16 ulps), timed by graph replay beside the plain twin; the
+    row of the kernels line: times summed over the cases, the bound from
+    their bytes and operations. ``where`` names the inputs."""
+    import torch
+
+    from indextts_tpu_torch.ops.snake import antialias_snake, antialias_snake_plain
+
+    row, tot, tot_pms, nbytes, ops = {"err": 0.0, "abs": 0.0}, {}, 0.0, 0, 0
+    for x, alpha, beta, lens in cases:
+        B, T, C = x.shape
+        out, ref = antialias_snake(x, alpha, beta, lens), antialias_snake_plain(x, alpha, beta,
+                                                                                lens)
         torch.cuda.synchronize()
-        err = rel_l2(out[0, :L], ref[0, :L])
-        edge = edge_err(out[0], ref[0], L)
-        mab = (out[0, :L].float() - ref[0, :L].float()).abs().max().item()
+        L = lens.tolist()
+        err = max(rel_l2(out[b, :n], ref[b, :n]) for b, n in enumerate(L))
+        edge = max(edge_err(out[b], ref[b], n) for b, n in enumerate(L))
+        mab = max((out[b, :n].float() - ref[b, :n].float()).abs().max().item()
+                  for b, n in enumerate(L))
         kt = timing_spread(lambda: antialias_snake(x, alpha, beta, lens), None)[0]
         pms = time_ms(lambda: antialias_snake_plain(x, alpha, beta, lens))
         tot, tot_pms = add_spread(tot, kt), tot_pms + pms
-        k3_bytes += 2 * T * C * 2 + 2 * C * 4
-        k3_ops += K3_OPS_PER_ELEMENT * T * C
-        print(f"K3 antialias_snake B=1 C={C} T={T} L={L} ({k3_plan_text(1, T, C)}): rel_l2 "
-              f"{err:.3e} max_abs {mab:.3e} edge rows {edge:.3f} of 2 ulps kernel "
-              f"{spread_text(kt)} plain {pms:.4f} ms [{card}]", flush=True)
+        nbytes += 2 * B * T * C * 2 + 2 * C * 4
+        ops += K3_OPS_PER_ELEMENT * B * T * C
+        print(f"K3 antialias_snake{where} B={B} C={C} T={T} L={sorted(set(L))} "
+              f"({k3_plan_text(B, T, C)}): rel_l2 {err:.3e} max_abs {mab:.3e} edge rows "
+              f"{edge:.3f} of 2 ulps kernel {spread_text(kt)} plain {pms:.4f} ms [{card}]",
+              flush=True)
         assert err <= K3_REL_L2 and np.isfinite(err), f"K3 rel-L2 {err} > {K3_REL_L2} at C={C}"
         assert edge <= 1.0, f"K3 edge rows off by {edge} x 2 ulps at C={C}"
-        r = res["antialias_snake"]
-        r["err"], r["abs"] = max(r["err"], err), max(r["abs"], mab)
-    b = bound(k3_bytes, k3_ops, F32_FLOPS)
-    res["antialias_snake"].update(ms=tot["graph"], plain_ms=tot_pms, library_ms=None, **b,
-                                  spread=k3_spread(tot))
-    print(f"K3 sum over the six stage shapes: kernel {spread_text(tot)} (medians and [min-max] "
-          f"of {ATTN_REPS} a shape, summed) plain {tot_pms:.4f} ms bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}: {k3_bytes} B, {k3_ops} f32 ops); "
-          f"{k3_floor_text(k3_ops // K3_OPS_PER_ELEMENT)} [{card}]", flush=True)
-    return res
+        row["err"], row["abs"] = max(row["err"], err), max(row["abs"], mab)
+    b = bound(nbytes, ops, F32_FLOPS)
+    print(f"K3{where}, sum over the {len(cases)} stage shapes: kernel {spread_text(tot)} "
+          f"(medians and [min-max] of {ATTN_REPS} a shape, summed) plain {tot_pms:.4f} ms bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {nbytes} B, {ops} f32 ops); "
+          f"{k3_floor_text(ops // K3_OPS_PER_ELEMENT)} [{card}]", flush=True)
+    row.update(ms=tot["graph"], plain_ms=tot_pms, library_ms=None, spread=k3_spread(tot), **b)
+    return row
 
 
 def k3_inputs(g, C: int, T: int, L: int, B: int = 1):
@@ -795,7 +859,7 @@ def k1_case(g):
 
 
 def k1_bound(starts, params, M: int, S: int, L: int, D: int, H: int = K1_H,
-             kvq: bool = False) -> dict:
+             kvq: bool = False, pos: int = K1_POS) -> dict:
     """Bytes K1 must move at this run's inputs: every weight (int8, or int4
     packed two a byte), scale, bias and LayerNorm vector once, x in and out,
     kv_valid and the ancestry map, each row's valid cached k and v of every
@@ -811,7 +875,7 @@ def k1_bound(starts, params, M: int, S: int, L: int, D: int, H: int = K1_H,
                   for ln in (lp["ln_1"], lp["ln_2"]) for t in ln.values())
     n_weights = sum(d["q"].numel() if "q" in d else 2 * d["q4"].numel() for lp in params["h"]
                     for d in (*lp["attn"].values(), *lp["mlp"].values()))
-    cached = sum(K1_POS - s for s in starts)
+    cached = sum(pos - s for s in starts)
     per_pos, per_row = (2 * D + 2 * H * 2, 2 * D + SCALE_LANES * 2) if kvq else (4 * D, 4 * D)
     nbytes = (wbytes + 2 * M * D * 2 + M * S * (1 + 4)
               + L * cached * per_pos + L * M * per_row)
@@ -2084,9 +2148,6 @@ def k1_twin_check():
     24-layer chain of the twin with f32 and with f64 sums beside it; and
     the ``site`` dict it fills (``groups`` records every call's group and
     whether it had an ancestry map)."""
-    from indextts_tpu_torch import nn
-    from indextts_tpu_torch.ops.decode_step import TWINS, decode_layer
-
     site = {"n": 0, "layer": 0.0, "hidden": 0.0, "rows_exact": True, "chain": 0.0,
             "floor": 0.0, "groups": set()}
 
@@ -2099,20 +2160,31 @@ def k1_twin_check():
         for key in ("layer", "hidden"):
             site[key] = max(site[key], tw[key])
         site["rows_exact"] &= tw["rows_exact"]
-        kv = args["kv_cache"]
-        rest = dict(heads=args["dims"].heads, pos=args["pos"], kv_valid=args["kv_valid"],
-                    anc=args["anc"], group=args["group"])
-        chains = []
-        for ops in (TWINS, _f64_twins()):
-            x, twin = args["x"], {k: t.clone() for k, t in kv.items()}
-            for li, lp in enumerate(args["params"]["h"]):
-                x = decode_layer(ops, lp, x, ck=twin["k"][li], cv=twin["v"][li],
-                                 kvs=twin["kvs"][li] if "kvs" in twin else None, **rest)
-            chains.append(nn.layer_norm(args["params"]["ln_f"], x))
+        chains = twin_chains(args)
         site["chain"] = max(site["chain"], rel_l2(h, chains[0]))
         site["floor"] = max(site["floor"], rel_l2(chains[1], chains[0]))
 
     return site, check
+
+
+def twin_chains(args) -> list:
+    """The 24-layer chain of the twin on K1's call ``args`` (its own copy of
+    the cache), with f32 and with f64 sums: the hidden state after ln_f of
+    each (the second against the first is the chain's noise floor)."""
+    from indextts_tpu_torch import nn
+    from indextts_tpu_torch.ops.decode_step import TWINS, decode_layer
+
+    kv = args["kv_cache"]
+    rest = dict(heads=args["dims"].heads, pos=args["pos"], kv_valid=args["kv_valid"],
+                anc=args["anc"], group=args["group"])
+    chains = []
+    for ops in (TWINS, _f64_twins()):
+        x, twin = args["x"], {k: t.clone() for k, t in kv.items()}
+        for li, lp in enumerate(args["params"]["h"]):
+            x = decode_layer(ops, lp, x, ck=twin["k"][li], cv=twin["v"][li],
+                             kvs=twin["kvs"][li] if "kvs" in twin else None, **rest)
+        chains.append(nn.layer_norm(args["params"]["ln_f"], x))
+    return chains
 
 
 def report_k1_twin_check(site: dict, label: str, card: str) -> None:
@@ -2320,6 +2392,289 @@ def sampling_pipeline_phase(card: str, prompt: str, model_dir: str) -> dict:
     return counts
 
 
+def longform_text(tts) -> str:
+    """The long-form text: SENTENCE repeated until the tokenizer splits it
+    into LONGFORM_SEGMENTS segments at 120 tokens (the last one shorter, so
+    its rows are left-padded more than the others)."""
+    def segments(n):
+        return tts.tokenizer.split_segments(tts.tokenizer.tokenize(SENTENCE * n), 120)
+
+    n = 1
+    while len(segments(n)) < LONGFORM_SEGMENTS:
+        n += 1
+    segs = segments(n)
+    print(f"long-form text: SENTENCE x {n} -> {len(segs)} segments of "
+          f"{[len(s) for s in segs]} tokens at max_text_tokens_per_segment=120", flush=True)
+    assert len(segs) == LONGFORM_SEGMENTS, len(segs)
+    return SENTENCE * n
+
+
+def longform_request(tts, prompt: str, text: str, card: str, label: str, **kwargs) -> dict:
+    """One long-form request, every segment pinned to 400 codes: the wav
+    holds 8 segments of int(400 * 1.72) * 256 samples and the 7 silences
+    between them; prints the stage times and the RTF."""
+    sr, wav = tts.infer(spk_audio_prompt=prompt, text=text, output_path=None,
+                        max_mel_tokens=400, min_new_tokens=399, **kwargs)
+    st = dict(tts.last_stage_times)
+    expect = (LONGFORM_SEGMENTS * int(np.float32(400) * np.float32(1.72)) * 256
+              + (LONGFORM_SEGMENTS - 1) * SILENCE_SAMPLES)
+    assert st["segment_codes"] == [400] * LONGFORM_SEGMENTS, st["segment_codes"]
+    assert sr == 22050 and wav.shape == (expect, 1), (wav.shape, expect)
+    assert np.abs(wav).max() > 0
+    stages = " ".join(f"{k}={st[k]:.4f}s" for k in
+                      ("prompt", "gpt", "gpt_forward", "s2mel", "bigvgan", "total"))
+    print(f"{label} long-form request: {LONGFORM_SEGMENTS} segments x 400 codes, "
+          f"{wav.shape[0]} samples, audio={st['audio_s']:.4f}s {stages} RTF={st['rtf']:.4f} "
+          f"[{card}]", flush=True)
+    return st
+
+
+def record_first_calls(module, name: str, seen: dict):
+    """Wrap ``module.name`` so that its first call at each input shape keeps
+    clones of its arguments in ``seen`` (shape -> args); returns the
+    function that restores it."""
+    import torch
+
+    orig = getattr(module, name)
+
+    def run(*args):
+        key = tuple(args[0].shape)
+        if key not in seen:
+            seen[key] = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+        return orig(*args)
+
+    setattr(module, name, run)
+    return lambda: setattr(module, name, orig)
+
+
+def k1_recorder(calls=LONGFORM_K1_CALLS):
+    """A ``decode_check`` hook that keeps clones of the arguments and output
+    of the K1 calls numbered in ``calls`` (0 = the first decode step), and
+    the list it fills."""
+    kept, n = [], [0]
+
+    def check(args, h):
+        if n[0] in calls:
+            kept.append(({**args, "x": args["x"].clone(), "kv_valid": args["kv_valid"].clone(),
+                          "anc": None if args["anc"] is None else args["anc"].clone(),
+                          "kv_cache": {k: t.clone() for k, t in args["kv_cache"].items()},
+                          "layer_inputs": [t.clone() for t in args["layer_inputs"]]},
+                         h.clone()))
+        n[0] += 1
+
+    return kept, check
+
+
+def longform_k1_row(kept, card: str) -> dict:
+    """K1 at the long-form decode's own inputs (24 rows: 8 segments x 3
+    beams, the rows of a segment's group left-padded alike, the beam
+    ancestry map): each kept call layer by layer against the twin
+    (`twin_by_layer`) and bit-identical to the chain (`k1_against_chain`);
+    its hidden state against the twin's 24-layer chain is printed with that
+    chain's noise floor (f64 against f32 sums), not gated, as in the int8
+    pass; the last kept call timed (graph replay and eager, beside the
+    chain) with the plain twin's time and its bound from its own valid
+    positions."""
+    from indextts_tpu_torch.ops.decode_step import fused_decode_step_plain
+
+    row = {"err": 0.0, "abs": 0.0}
+    for args, h in kept:
+        params, x, dims, pos = args["params"], args["x"], args["dims"], args["pos"]
+        valid, anc, group = args["kv_valid"], args["anc"], args["group"]
+        tw = twin_by_layer(args, h)
+        vs = k1_against_chain(params, x, dims, pos, args["kv_cache"], valid, anc, group)
+        ref, ref64 = twin_chains(args)
+        err, mab = rel_l2(h, ref), (h.float() - ref.float()).abs().max().item()
+        starts = (pos + 1 - valid.sum(1)).tolist()
+        print(f"K1 at the long-form decode's inputs ({x.shape[0]} rows, group={group}, pos={pos}"
+              f", S={valid.shape[1]}, row starts {sorted(set(starts))}): twin layer by layer "
+              f"rel_l2 <= {tw['layer']:.3e}, hidden {tw['hidden']:.3e}, rows {tw['rows_exact']};"
+              f" against the chain {vs}; the twin's 24-layer chain: rel_l2 {err:.3e} max_abs "
+              f"{mab:.3e} (noise floor, twin with f64 against f32 sums: "
+              f"{rel_l2(ref64, ref):.3e}) [{card}]", flush=True)
+        assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2 and tw["rows_exact"], tw
+        assert vs["ok"], vs
+        row["err"], row["abs"] = max(row["err"], err), max(row["abs"], mab)
+    cache = {k: t.clone() for k, t in args["kv_cache"].items()}
+    t = k1_timing(params, x, dims, pos, cache, valid, anc, group)
+    pms = graph_ms(lambda: fused_decode_step_plain(params, x, dims, pos, cache, valid, anc,
+                                                   group), iters=3, replays=2)
+    b = k1_bound(starts, params, x.shape[0], valid.shape[1], len(params["h"]), x.shape[1],
+                 dims.heads, pos=pos)
+    print(f"K1 at the long-form decode's inputs, step at pos={pos}: device {timing_text(t)}, "
+          f"plain {pms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]",
+          flush=True)
+    row.update(plain_ms=pms, library_ms=None, **t, **b)
+    return row
+
+
+def ragged_synthesis(tts, prompt: str, text: str, card: str) -> tuple:
+    """The batched synthesis (`IndexTTS2.codes_to_wav`) of the long text's
+    LONGFORM_SEGMENTS rows at a different code length a row
+    (`RAGGED_CODES`; seeded random codes), as segments that stop at
+    different lengths give it: every row finite and sound up to its own
+    int(f32(clen) * f32(1.72)) * 256 samples and zero past them. K2's first
+    DiT call (2B rows) and K3's first call at each stage shape (B rows) are
+    kept, each row with its own length, and held against their twins
+    (`k2_case`, `k3_sum`: the `*_longform` rows of the kernels line)."""
+    import torch
+
+    from indextts_tpu_torch.models.s2mel import dit as dit_mod
+    from indextts_tpu_torch.models.vocoder import bigvgan as bv_mod
+
+    tok = tts.tokenizer
+    seg_ids = [tok.convert_tokens_to_ids(s) for s in
+               tok.split_segments(tok.tokenize(text), 120)]
+    tlens = [len(ids) for ids in seg_ids]
+    g = torch.Generator(device=tts.device).manual_seed(0)
+    codes = torch.randint(0, tts.cfg.gpt.start_mel_token, (len(seg_ids), max(RAGGED_CODES)),
+                          generator=g, device=tts.device)
+    k2_seen, k3_seen = {}, {}
+    restore = [record_first_calls(dit_mod, "attention_rope", k2_seen),
+               record_first_calls(bv_mod, "antialias_snake", k3_seen)]
+    times = {}
+    try:
+        with torch.inference_mode():
+            spk = tts._prepare_spk_prompt(prompt)
+            cond_latents, emovec = tts.conditioning(spk, tts._prepare_emo_cond(prompt), 1.0)
+            wav = tts.codes_to_wav(spk, cond_latents, emovec, tts._text_rows(seg_ids), tlens,
+                                   codes, RAGGED_CODES, times=times)
+    finally:
+        for r in restore:
+            r()
+    n = [tts._n_samples(c) for c in RAGGED_CODES]
+    print(f"long-form synthesis of {len(n)} rows at {list(RAGGED_CODES)} codes: wav {wav.shape}, "
+          f"rows sound to {n} samples, zero past them; "
+          + " ".join(f"{k}={v:.4f}s" for k, v in times.items()) + f" [{card}]", flush=True)
+    assert wav.shape == (len(n), max(n)), (wav.shape, n)
+    for b, m in enumerate(n):
+        assert np.all(np.isfinite(wav[b])) and np.abs(wav[b, :m]).max() > 0, b
+        assert not wav[b, m:].any(), f"row {b} sounds past its {m} samples"
+    (k2_args,) = k2_seen.values()
+    assert len(set(k2_args[3].tolist())) == len(n), k2_args[3]
+    assert len(k3_seen) == len(K3_SHAPES) and all(len(set(a[3].tolist())) == len(n)
+                                     for a in k3_seen.values()), k3_seen.keys()
+    where = " at the long-form synthesis's rows of different lengths"
+    return k2_case(*k2_args, card, where), k3_sum(list(k3_seen.values()), card, where)
+
+
+def longform_phase(card: str, prompt: str, model_dir: str) -> tuple:
+    """The streaming pass, then the long-form int8 pass on the same model.
+
+    Streaming: STREAM_REQUESTS requests of the long text at the JAX bench's
+    streaming settings (num_beams=1, 60 codes a segment,
+    more_segment_before=8): the time to the first yielded chunk, the
+    chunks (each segment's wav, then its silence), and the launches of the
+    last request.
+
+    Long-form: `ragged_synthesis` (K2 and K3 against their twins at rows of
+    different lengths), then one request of 8 segments at num_beams=3,
+    every segment pinned to 400 codes: one decode of 24 rows (one chunk of
+    8 segments x 3 beams), so K1 once a decode step (399, not 8 x 399), and
+    K2 and K3 as often as one single-segment request (one CFM over a DiT
+    batch of 16 rows, one vocoder call over 8 rows). The request's K1 calls
+    of LONGFORM_K1_CALLS are kept, then held against the twin and the chain
+    and timed at those inputs. Returns the counts, the kernels rows and the
+    request's stage times."""
+    import statistics
+
+    import torch
+
+    from indextts_tpu_torch.engine import beam, decode
+    from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
+
+    t0 = time.perf_counter()
+    tts = IndexTTS2(cfg_path=None, model_dir=model_dir, device="cuda", seed=0,
+                    quantization="int8")
+    torch.cuda.synchronize()
+    print(f"int8 model build for the long-form pass: {time.perf_counter() - t0:.2f} s [{card}]",
+          flush=True)
+    text = longform_text(tts)
+
+    firsts, counts = [], {}
+    for i in range(STREAM_REQUESTS):
+        reset_counts()
+        t0 = time.perf_counter()
+        gen = tts.infer(spk_audio_prompt=prompt, text=text, output_path=None, stream_return=True,
+                        **STREAM_KWARGS)
+        chunks = [next(gen)]
+        firsts.append(time.perf_counter() - t0)
+        chunks += list(gen)
+        wall = time.perf_counter() - t0
+        st_s = tts.last_stage_times
+        seg = st_s["segment_codes"]
+        want_shapes = [s for c in seg for s in ((1, int(np.float32(c) * np.float32(1.72)) * 256),
+                                                (1, SILENCE_SAMPLES))]
+        assert len(seg) == LONGFORM_SEGMENTS, seg
+        assert [c.shape for c in chunks] == want_shapes, [c.shape for c in chunks]
+        assert all(np.all(np.isfinite(c)) for c in chunks) and np.abs(chunks[0]).max() > 0
+        stages = " ".join(f"{k}={st_s[k]:.4f}s" for k in ("gpt", "s2mel", "bigvgan"))
+        print(f"streaming request {i + 1}: first chunk after {1e3 * firsts[-1]:.1f} ms, "
+              f"{len(chunks)} chunks ({len(seg)} segments of {seg} codes, each then its "
+              f"silence) in {wall:.4f} s; {stages} [{card}]", flush=True)
+    counts["streaming"] = read_counts()
+    steps = STREAM_KWARGS["max_mel_tokens"] - 1
+    want = {k: v * len(seg) for k, v in want_counts(tts, "int8", 1).items()}
+    want["fused_decode_step"] = len(seg) * steps
+    print(f"streaming first audio: median of requests 2-{STREAM_REQUESTS} "
+          f"{1e3 * statistics.median(firsts[1:]):.1f} ms (all: "
+          f"{', '.join(f'{1e3 * f:.1f}' for f in firsts)} ms); launches of the last request: "
+          f"{counts['streaming']} (expect {want}); decode route {decode.last_route} [{card}]",
+          flush=True)
+    assert counts["streaming"] == want, (counts["streaming"], want)
+    assert decode.last_route == "fused"
+
+    k2_row, k3_row = ragged_synthesis(tts, prompt, text, card)
+    torch.cuda.empty_cache()
+    kept, check = k1_recorder()
+    tts.decode_check = check
+    reset_counts()
+    try:
+        st = longform_request(tts, prompt, text, card, "int8 num_beams=3")
+    finally:
+        tts.decode_check = None
+    counts["longform"] = read_counts()
+    want = want_counts(tts, "int8", 1)
+    print(f"launches of the long-form int8 request: {counts['longform']} (expect {want}: K1 once "
+          f"a decode step of the one 24-row chunk, K2 and K3 as in one single-segment request); "
+          f"ancestry route {beam.last_use_anc} [{card}]", flush=True)
+    assert counts["longform"] == want, (counts["longform"], want)
+    assert beam.last_use_anc is True and len(kept) == len(LONGFORM_K1_CALLS)
+    assert kept[0][0]["x"].shape[0] == LONGFORM_SEGMENTS * 3 and kept[0][0]["group"] == 3
+    rows = {"fused_decode_step_longform": longform_k1_row(kept, card),
+            "attention_rope_longform": k2_row, "antialias_snake_longform": k3_row}
+    del tts, kept
+    torch.cuda.empty_cache()
+    return counts, rows, st
+
+
+def longform_bf16_phase(card: str, prompt: str, model_dir: str) -> tuple:
+    """The long-form text at bf16, num_beams=3: one request, a 24-row decode
+    on the gather route (the bf16 step once a decode step, the cache
+    gathered by the beams), K2 and K3 as in one single-segment request."""
+    import torch
+
+    from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
+
+    t0 = time.perf_counter()
+    tts = IndexTTS2(cfg_path=None, model_dir=model_dir, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    print(f"bf16 model build for the long-form pass: {time.perf_counter() - t0:.2f} s [{card}]",
+          flush=True)
+    text = longform_text(tts)
+    reset_counts()
+    st = longform_request(tts, prompt, text, card, "bf16 num_beams=3")
+    counts = read_counts()
+    want = want_counts(tts, "int8", 1)
+    want.update(fused_decode_step=0, gpt2_decode_step=DECODE_STEPS, kv_gathers=counts["kv_gathers"])
+    print(f"launches of the long-form bf16 request: {counts} (expect {want}, kv_gathers > 0) "
+          f"[{card}]", flush=True)
+    assert counts == want and counts["kv_gathers"] > 0, (counts, want)
+    del tts
+    torch.cuda.empty_cache()
+    return counts, st
+
+
 def main() -> int:
     try:
         import torch
@@ -2382,6 +2737,17 @@ def main() -> int:
             mark(f"{quantization} pass done")
         counts.update(tp_pipeline_phase(card, prompt, d, int8_reports[-1]["gpt"]))
         mark("tp pass done")
+        lf_counts, lf_rows, lf_int8 = longform_phase(card, prompt, d)
+        counts.update(lf_counts)
+        kres.update(lf_rows)
+        mark("streaming and long-form int8 passes done")
+        counts["longform_bf16"], lf_bf16 = longform_bf16_phase(card, prompt, d)
+        mark("long-form bf16 pass done")
+        print("long-form stages (one request, 8 segments x 400 codes): " + "; ".join(
+            f"{label} " + " ".join(f"{k}={st[k]:.4f}s" for k in
+                                   ("gpt", "gpt_forward", "s2mel", "bigvgan", "total"))
+            + f" audio={st['audio_s']:.4f}s RTF={st['rtf']:.4f}"
+            for label, st in (("int8", lf_int8), ("bf16", lf_bf16))) + f" [{card}]", flush=True)
     assert "jax" not in sys.modules, "the port imported jax"
     assert not any(m == "indextts_tpu" or m.startswith("indextts_tpu.") for m in sys.modules)
 
@@ -2423,7 +2789,13 @@ def main() -> int:
              ("fused_decode_step_tp_g1", "fused_decode_step_tp", k6_src,
               "decode_step_tp.py:367 (group=1)", "tp_sampling"),
              ("tp_allreduce", None, "tp_allreduce.cu",
-              "decode_step_tp.py:367 (all_reduce, :201)", None))
+              "decode_step_tp.py:367 (all_reduce, :201)", None),
+             ("fused_decode_step_longform", "fused_decode_step", k1_src,
+              f"{k1} (group=3, 24 rows: 8 segments x 3 beams)", "longform"),
+             ("attention_rope_longform", "attention_rope", k2_src,
+              "attn.py:188 (DiT batch 2B = 16 rows)", "longform"),
+             ("antialias_snake_longform", "antialias_snake", "antialias_snake.cu",
+              "antialias.py:269 (8 segment rows)", "longform"))
     # where a row's launches come from when no pipeline pass launches it
     launched_in = {"tp_allreduce": "kernel phase (the chain's exchange; folded into K6's kernel "
                                    "on the co-located route, launched on two cards)"}
@@ -2453,7 +2825,11 @@ def main() -> int:
           f"'shapes'); the K1 and K6 rows' ms (graph replay) and eager_ms are the persistent "
           f"kernel's, was_chain_ms the chain it replaced in the same call; the standalone "
           f"GEMV, attention and tp_allreduce rows, the chains' kernels, count their launches "
-          f"in the kernel phase; every other row as timed in its phase", flush=True)
+          f"in the kernel phase; the *_longform rows are K1 at the long-form int8 request's "
+          f"own inputs (two decode steps of 24 rows), K2 and K3 at the long-form synthesis's "
+          f"rows of different lengths (the CFM's first DiT call of 16 rows, the vocoder's first "
+          f"call of each stage shape over 8 rows), with the request's launches; every other "
+          f"row as timed in its phase", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -114,8 +114,10 @@ def decode_route(params: Params, batch: int, kv_quant: bool = False) -> str:
         return "plain"
     if batch > MAX_ROWS:
         raise NotImplementedError(
-            f"quantized decode of {batch} rows: kernel K1 takes at most {MAX_ROWS} "
-            "(larger batches are not ported; see ROADMAP.md, queue 2)")
+            f"quantized decode of {batch} rows: kernel K1 takes at most {MAX_ROWS}; the "
+            "pipeline's row chunks stay within it up to num_beams=24 (the JAX package's plain "
+            "quantized decode step for larger batches is not ported; see ROADMAP.md, queue 1 "
+            "item 3)")
     return "fused"
 
 

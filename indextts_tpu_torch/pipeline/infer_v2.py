@@ -12,9 +12,12 @@ One request runs, on ``device``:
   [P] speaker prompt (cached per prompt path): SeamlessM4T features (host)
       -> w2v-bert hidden[17], standardized -> RepCodec quantize; 22 kHz mel;
       Kaldi fbank -> CAMPPlus style; the prompt through the length regulator
-  [E] conformer + perceiver speaker latents, merged emotion vector (the
-      emotion prompt defaults to the speaker prompt, alpha 1), left-padded
-      prefix embeddings
+  [T] the text, tokenized and split into segments of at most
+      ``max_text_tokens_per_segment`` tokens (the JAX segmenter's quirks kept)
+  [E] conformer + perceiver speaker latents and the merged emotion vector
+      (the emotion prompt defaults to the speaker prompt, alpha 1; with
+      ``emo_vector`` the emotion-matrix mix of `IndexTTS2.emotion_mix` is
+      merged in), then left-padded prefix embeddings
   [G] GPT-2 prefill + decode: beam search / sampling for num_beams > 1
       (`engine/beam.py`, K = num_beams), the sampling decode for
       num_beams=1 (`engine/decode.py::generate_adaptive`); with a
@@ -26,8 +29,22 @@ One request runs, on ``device``:
       K2, or K4 on its flash tier)
   [V] BigVGAN-v2 (kernel K3) -> 22.05 kHz wav
 
-This slice covers one text segment with beam decode (num_beams > 1) or the
-sampling decode (num_beams=1, typical sampling accepted), with bf16 weights
+Long-form text, as in the JAX pipeline (`infer_generator`): with more than
+one segment and ``cfg.engine.batch_segments`` (the default), all segments
+run as one batch: one speaker's conditioning broadcast over B left-padded
+text rows at one text bucket, one decode over the B rows in row chunks that
+keep every quantized chunk on K1 (beams: ``max(1, 24 // num_beams)``
+segments; sampling: 24 rows; no chunks under a mesh, where kernel K6 takes
+at most 24 rows), one teacher-forced pass and one CFM over the B
+rows (a DiT batch of 2B rows) and one BigVGAN call; each segment's wav is
+then sliced out on the host. One segment, ``batch_segments=False`` and
+streaming run the segments one by one. ``stream_return=True`` makes
+`infer` return a generator that yields each segment's wav and then the
+silence after it; the segments are joined with ``interval_silence`` ms of
+silence. An empty text gives no segment and a 0-sample wav.
+
+Decodes run beam search (num_beams > 1) or the sampling decode (num_beams=1,
+typical sampling accepted), with bf16 weights
 or with one of the JAX pipeline's quantizations, all bf16-only:
 ``"int8"`` (the serving configuration: weight-only int8 for the four dense
 layers of every GPT-2 block, quantized after the cast to bf16 as the JAX
@@ -41,18 +58,19 @@ pipeline's own switch), the GPT-2 stack is split over the two ranks
 shard; conditioning, s2mel and BigVGAN run on rank 0's device (the DiT's tp
 sharding is not ported). Every other mesh combination raises
 NotImplementedError: the JAX package's GSPMD decode for float, int4 and
-int8kv weights, the dp axis, the DiT's tp and sp. At num_beams=1 the JAX
-pipeline's default is its self-gating
-speculative decoder, which its own comment documents as token-identical to
-`generate()`; the port runs the plain adaptive sampling decode there (the
-speculative engine is ROADMAP queue 1; under a mesh the JAX pipeline turns
-speculation off too). Paths of the JAX pipeline that are
-not ported yet raise NotImplementedError naming their ROADMAP item:
-multi-segment text, streaming, emotion from text or emo_vector, and the aux
-modes (diverse beam, contrastive, DoLa). Weights are random at the
-configured architecture (drawn on the device from ``seed``) or handed over
-from the JAX package through `load_params`; checkpoint files are not read
-yet, and a model directory that holds one raises (`checkpoint_files`).
+int8kv weights and for tp batches of more than 24 rows, the dp axis, the
+DiT's tp and sp. At num_beams=1 the JAX pipeline's default for a segment
+run on its own is its self-gating speculative decoder, which its own
+comment documents as token-identical to `generate()`; the port runs the
+plain adaptive sampling decode there (the speculative engine is ROADMAP
+queue 1; under a mesh the JAX pipeline turns speculation off too). Paths of
+the JAX pipeline that are not ported yet raise NotImplementedError naming
+their ROADMAP item: emotion from text (Qwen), and the aux modes (diverse
+beam, contrastive, DoLa). Weights are random at the configured architecture
+(drawn on the device from ``seed``, the emotion and speaker matrices too)
+or handed over from the JAX package through `load_params`; checkpoint files
+are not read yet, and a model directory that holds one raises
+(`checkpoint_files`).
 
 Precision: weights and activations in ``dtype`` (bf16 by default) except
 CAMPPlus and the mel / fbank front-ends (f32), as on the TPU. TF32 is off
@@ -64,9 +82,10 @@ for both matmuls and cuDNN convolutions
 from __future__ import annotations
 
 import os
+import random
 import time
 import warnings
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -86,6 +105,7 @@ from indextts_tpu_torch.models.s2mel.cfm import cfm_inference
 from indextts_tpu_torch.models.s2mel.length_regulator import length_regulate
 from indextts_tpu_torch.models.s2mel.s2mel import gpt_layer_forward, init_s2mel
 from indextts_tpu_torch.models.vocoder.bigvgan import bigvgan_forward, init_bigvgan
+from indextts_tpu_torch.ops.int8 import MAX_ROWS
 from indextts_tpu_torch.ops.mel import kaldi_fbank, mel_spectrogram, seamless_m4t_features
 from indextts_tpu_torch.parallel.mesh import Mesh, shard_gpt2_tp
 from indextts_tpu_torch.pipeline.buckets import pad_to, pick_bucket
@@ -103,6 +123,27 @@ QUANTIZATIONS = {"int8": (quantize_gpt2_int8, False), "int8kv": (quantize_gpt2_i
 
 def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported to the PyTorch pipeline yet ({_ROADMAP})")
+
+
+def normalize_emo_vec(emo_vector, apply_bias: bool = True):
+    """Per-emotion bias + sum<=0.8 rescale (a copy of the JAX package's
+    `pipeline/emotion.py::normalize_emo_vec`)."""
+    if apply_bias:
+        emo_bias = [0.9375, 0.875, 1.0, 1.0, 0.9375, 0.9375, 0.6875, 0.5625]
+        emo_vector = [v * b for v, b in zip(emo_vector, emo_bias)]
+    s = sum(emo_vector)
+    if s > 0.8:
+        emo_vector = [v * (0.8 / s) for v in emo_vector]
+    return emo_vector
+
+
+def find_most_similar_cosine(query: torch.Tensor, matrix: torch.Tensor) -> int:
+    """The row of ``matrix`` with the largest cosine similarity to ``query``
+    (norms floored at 1e-8), in f32."""
+    q, m = query.float(), matrix.float()
+    qn = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=1e-8)
+    mn = m / torch.clamp(torch.linalg.norm(m, dim=-1, keepdim=True), min=1e-8)
+    return int(torch.argmax(mn @ qn.reshape(-1)))
 
 
 def checkpoint_files(cfg: IndexTTS2Config, model_dir: str,
@@ -221,19 +262,27 @@ class IndexTTS2:
     # ------------------------------------------------------------------ params
     def random_params(self, seed: int) -> dict:
         """Seeded random weights at the configured widths, in the JAX
-        package's layouts, drawn on the device."""
+        package's layouts, drawn on the device; the emotion and speaker
+        matrices (sum(emo_num) rows of gpt.model_dim and of 192) standard
+        normal, as the JAX pipeline draws them without their files."""
         rng = nn.InitRng(seed, self.device)
         cfg = self.cfg
+        n_rows = sum(cfg.emo_num)
         return {"gpt": uv.init_unified_voice(rng, cfg.gpt),
                 "s2mel": init_s2mel(rng, cfg.s2mel),
                 "codec": init_repcodec(rng, cfg.semantic_codec),
                 "campplus": init_campplus(rng),
                 "bigvgan": init_bigvgan(rng, cfg.bigvgan),
-                "w2v": init_w2vbert(rng, cfg.w2v_bert)}
+                "w2v": init_w2vbert(rng, cfg.w2v_bert),
+                "emo_matrix": rng.normal((n_rows, cfg.gpt.model_dim), std=1.0),
+                "spk_matrix": rng.normal((n_rows, 192), std=1.0)}
 
     def load_params(self, trees: dict) -> None:
         """Take JAX-layout parameter trees (keys gpt, s2mel, codec, campplus,
-        bigvgan, w2v; optional w2v_mean / w2v_std) through the weight bridge.
+        bigvgan, w2v; optional w2v_mean / w2v_std, and emo_matrix /
+        spk_matrix, (sum(emo_num), D) arrays split by ``cfg.emo_num`` into
+        the per-emotion matrices, kept f32; without them the matrices stay)
+        through the weight bridge.
         CAMPPlus stays f32; everything else is cast to the pipeline dtype.
         Under a ``quantization`` the GPT-2 backbone is then quantized (int8
         or int4), unless the tree handed over already is; under a mesh it is
@@ -256,6 +305,10 @@ class IndexTTS2:
                                  torch.float32)
         self.w2v_std = to_torch(trees.get("w2v_std", np.ones(H, np.float32)), dev,
                                 torch.float32)
+        for key in ("emo_matrix", "spk_matrix"):
+            if key in trees:
+                rows = to_torch(trees[key], dev, torch.float32)
+                setattr(self, key, list(torch.split(rows, list(self.cfg.emo_num))))
 
     def _load_frontend(self):
         bpe_path = os.path.join(self.model_dir, self.cfg.dataset.get("bpe_model", "bpe.model"))
@@ -329,9 +382,9 @@ class IndexTTS2:
         return self.cache_emo_cond
 
     # ----------------------------------------------------------------- stages
-    def prefix(self, spk: dict, emo_cond, emo_alpha: float, text_ids: np.ndarray,
-               tlen: int):
-        """[E] (cond_latents, emovec, prefix embeds, prefix mask)."""
+    def conditioning(self, spk: dict, emo_cond, emo_alpha: float):
+        """[E] (cond_latents (1, 32, D), merged emovec (1, D)) of a speaker
+        prompt and an emotion prompt's features, computed once a request."""
         dev, dt, g = self.device, self.dtype, self.cfg.gpt
         emo_emb, emo_len = emo_cond
         spk_emb = spk["spk_cond_emb"].to(dt)
@@ -339,33 +392,100 @@ class IndexTTS2:
         cond_latents = uv.get_conditioning(self.gpt_params, g, spk_emb, spk_len)
         emovec = uv.merge_emovec(self.gpt_params, g, spk_emb, emo_emb.to(dt), spk_len,
                                  torch.tensor([emo_len], device=dev), float(emo_alpha))
+        return cond_latents, emovec
+
+    def prefix_embeds(self, cond_latents, emovec, text_ids: np.ndarray, tlens):
+        """[E] left-padded prefix embeddings and mask of B text rows (B, tb)
+        with lengths ``tlens``: one speaker's conds broadcast over the rows,
+        at prefix length 34 + tb + 2."""
+        dev, g = self.device, self.cfg.gpt
+        B = text_ids.shape[0]
         conds = uv.build_conds_latent(self.gpt_params, cond_latents, emovec)
         prefix_len = g.condition_num_latent + 2 + text_ids.shape[1] + 2
-        embeds, mask = uv.prepare_prefix_embeds(
-            self.gpt_params, g, conds, torch.as_tensor(text_ids, device=dev),
-            torch.tensor([tlen], device=dev), prefix_len, dtype=dt)
+        return uv.prepare_prefix_embeds(
+            self.gpt_params, g, conds.expand(B, -1, -1), torch.as_tensor(text_ids, device=dev),
+            torch.as_tensor(np.asarray(tlens).reshape(B), device=dev), prefix_len,
+            dtype=self.dtype)
+
+    def prefix(self, spk: dict, emo_cond, emo_alpha: float, text_ids: np.ndarray,
+               tlen: int):
+        """[E] (cond_latents, emovec, prefix embeds, prefix mask) of one text
+        row."""
+        cond_latents, emovec = self.conditioning(spk, emo_cond, emo_alpha)
+        embeds, mask = self.prefix_embeds(cond_latents, emovec, text_ids, [tlen])
         return cond_latents, emovec, embeds, mask
 
+    def emotion_mix(self, spk: dict, emo_vector, use_random: bool):
+        """The ``emo_vector`` branch: one row of each emotion's matrix (the
+        one whose speaker row is closest in cosine to the prompt's style, or
+        a random one with ``use_random``), mixed by the weights. Returns
+        (emovec_mat (1, D) f32, the weights' sum); the request's emovec
+        becomes ``emovec_mat + (1 - sum) * emovec``."""
+        weights = torch.as_tensor(np.asarray(emo_vector, np.float32), device=self.device)
+        if use_random:
+            idxs = [random.randint(0, n - 1) for n in self.cfg.emo_num]
+        else:
+            idxs = [find_most_similar_cosine(spk["style"][0], m) for m in self.spk_matrix]
+        emo_mat = torch.cat([m[i][None, :] for i, m in zip(idxs, self.emo_matrix)], dim=0)
+        return (weights[:, None] * emo_mat).sum(0)[None, :], float(weights.sum())
+
+    def decode(self, embeds: torch.Tensor, mask: torch.Tensor, sampling: SamplingConfig,
+               max_mel_tokens: int):
+        """[G] codes (B, max_mel_tokens) on the device, stop-padded, and
+        lengths (B,) numpy, of B prefix rows. Off a mesh the rows decode in
+        chunks of at most MAX_ROWS decode rows, so that a quantized chunk
+        stays on K1: beams ``max(1, MAX_ROWS // num_beams)`` prefix rows (K
+        decode rows each), sampling MAX_ROWS (both engines return
+        max_mel_tokens columns, so the parts need no padding to one width).
+        The pipeline's generator serves the chunks in order."""
+        B = embeds.shape[0]
+        if sampling.num_beams > 1:
+            fn = generate_beam
+            chunk = max(1, MAX_ROWS // sampling.num_beams)
+        else:
+            fn = generate_adaptive
+            chunk = MAX_ROWS
+        if self.mesh is not None:
+            chunk = B
+        parts = [fn(self.gpt_params, self.cfg.gpt, self.gpt_dims, embeds[i:i + chunk],
+                    mask[i:i + chunk], self.generator, max_mel_tokens, sampling, self.dtype,
+                    step_check=self.decode_check) for i in range(0, B, chunk)]
+        return (torch.cat([p[0] for p in parts]),
+                np.concatenate([np.asarray(p[1]) for p in parts]))
+
+    def cfm_noise(self, shape) -> torch.Tensor:
+        """The CFM's initial noise (B, T, 80), a standard normal draw from
+        the pipeline's generator."""
+        return torch.randn(tuple(shape), generator=self.generator, device=self.device)
+
     def codes_to_wav(self, spk: dict, cond_latents, emovec, text_ids: np.ndarray,
-                     tlen: int, codes: torch.Tensor, clen: int,
-                     z: Optional[torch.Tensor] = None, times: Optional[dict] = None):
-        """[S1] + [S2] + [V]: mel codes (1, >= clen) -> float wav (1, n) numpy,
-        n = int(clen * 1.72) * 256. ``z`` is the CFM's initial noise
-        (1, prompt_bucket + mel_bucket, 80); drawn from the pipeline's
-        generator when None. ``times`` accumulates per-stage seconds."""
+                     tlens, codes: torch.Tensor, clens, z: Optional[torch.Tensor] = None,
+                     times: Optional[dict] = None) -> np.ndarray:
+        """[S1] + [S2] + [V] of B rows at once: mel codes (B, >= max clen)
+        of the text rows ``text_ids`` (B, tb) -> float wav (B, n) numpy, n =
+        int(max clen * 1.72) * 256; row b is zero past int(clens[b] * 1.72)
+        * 256. ``tlens`` / ``clens``: an int each, or B of them. One
+        teacher-forced pass, one length-regulated CFM (a DiT batch of 2B
+        rows) and one BigVGAN call. ``z`` is the CFM's initial noise (B,
+        prompt_bucket + mel_bucket, 80); `cfm_noise` draws it when None.
+        ``times`` accumulates per-stage seconds."""
         cfg, dev, dt = self.cfg, self.device, self.dtype
         times = {} if times is None else times
         eng = cfg.engine
         t0 = time.perf_counter()
-        cb = pick_bucket(clen, eng.mel_len_buckets)
+        B = codes.shape[0]
+        tlens = np.broadcast_to(np.asarray(tlens, np.int64).reshape(-1), (B,)).copy()
+        clens = np.broadcast_to(np.asarray(clens, np.int64).reshape(-1), (B,)).copy()
+        cmax = int(clens.max())
+        cb = pick_bucket(cmax, eng.mel_len_buckets)
         codes = codes[:, :cb]
         if codes.shape[1] < cb:
             codes = torch.nn.functional.pad(codes, (0, cb - codes.shape[1]),
                                             value=cfg.gpt.stop_mel_token)
-        clen_t = torch.tensor([clen], device=dev)
-        latent = uv.forward_latents(self.gpt_params, cfg.gpt, cond_latents, emovec,
-                                    torch.as_tensor(text_ids, device=dev),
-                                    torch.tensor([tlen], device=dev), codes, clen_t,
+        clen_t = torch.as_tensor(clens, device=dev)
+        latent = uv.forward_latents(self.gpt_params, cfg.gpt, cond_latents.expand(B, -1, -1),
+                                    emovec.expand(B, -1), torch.as_tensor(text_ids, device=dev),
+                                    torch.as_tensor(tlens, device=dev), codes, clen_t,
                                     dtype=dt)[:, :cb]
         s_infer = repcodec_vq2emb(self.codec_params, codes) \
             + gpt_layer_forward(self.s2mel_params, latent)
@@ -373,11 +493,11 @@ class IndexTTS2:
         t1 = time.perf_counter()
         times["gpt_forward"] = times.get("gpt_forward", 0.0) + t1 - t0
 
-        mel_bucket = pick_bucket(int(clen * self.MEL_PER_CODE) + 1, eng.mel_len_buckets)
+        mel_bucket = pick_bucket(int(cmax * self.MEL_PER_CODE) + 1, eng.mel_len_buckets)
         prompt_bucket = spk["prompt_cond"].shape[1]
         total = prompt_bucket + mel_bucket
         target_len = (clen_t.float() * self.MEL_PER_CODE).int()
-        prompt_len = torch.tensor([spk["ref_len"]], device=dev)
+        prompt_len = torch.full((B,), spk["ref_len"], device=dev)
         cond = length_regulate(self.s2mel_params["length_regulator"],
                                cfg.s2mel.length_regulator, clen_t, target_len,
                                out_size=mel_bucket, features=s_infer)
@@ -386,16 +506,18 @@ class IndexTTS2:
         in_tgt = (idx >= 0) & (idx < mel_bucket)
         gathered = torch.gather(cond, 1, idx.clamp(0, mel_bucket - 1)[:, :, None]
                                 .expand(-1, -1, cond.shape[-1]))
-        buf = torch.zeros((1, total, cond.shape[-1]), dtype=cond.dtype, device=dev)
+        buf = torch.zeros((B, total, cond.shape[-1]), dtype=cond.dtype, device=dev)
         buf[:, :prompt_bucket] = spk["prompt_cond"][:, :prompt_bucket].to(cond.dtype)
         cat_cond = torch.where((in_tgt & (pos >= prompt_len[:, None]))[:, :, None],
                                gathered, buf)
-        prompt_mel = torch.zeros((1, total, cfg.s2mel.DiT.in_channels), device=dev)
+        C = cfg.s2mel.DiT.in_channels
+        prompt_mel = torch.zeros((B, total, C), device=dev)
         prompt_mel[:, :prompt_bucket] = spk["ref_mel"][:, :prompt_bucket].float()
+        z = self.cfm_noise((B, total, C)) if z is None else z
         vc = cfm_inference(self.s2mel_params["cfm"], cfg.s2mel, cat_cond.to(dt),
                            prompt_len + target_len, prompt_mel.to(dt),
-                           spk["style"].to(dt), n_timesteps=25, inference_cfg_rate=0.7,
-                           prompt_len=prompt_len, z=z, generator=self.generator)
+                           spk["style"].expand(B, -1).to(dt), n_timesteps=25,
+                           inference_cfg_rate=0.7, prompt_len=prompt_len, z=z)
         idx2 = torch.clamp(torch.arange(mel_bucket, device=dev)[None, :]
                            + prompt_len[:, None], max=total - 1)
         vc_tgt = torch.gather(vc, 1, idx2[:, :, None].expand(-1, -1, vc.shape[-1]))
@@ -404,13 +526,41 @@ class IndexTTS2:
         times["s2mel"] = times.get("s2mel", 0.0) + t2 - t1
 
         wav = bigvgan_forward(self.bigvgan_params, cfg.bigvgan, vc_tgt.to(dt), target_len)
-        n_samples = int(np.float32(clen) * np.float32(self.MEL_PER_CODE)) * 256
-        wav_np = wav[:, :n_samples].float().cpu().numpy()
+        wav_np = wav[:, :self._n_samples(cmax)].float().cpu().numpy()
         times["bigvgan"] = times.get("bigvgan", 0.0) + time.perf_counter() - t2
         return wav_np
 
+    def _n_samples(self, clen: int) -> int:
+        """Samples of a segment of ``clen`` codes: int(float32(clen) *
+        float32(1.72)) * 256, as the JAX pipeline slices them."""
+        return int(np.float32(clen) * np.float32(self.MEL_PER_CODE)) * 256
+
+    def interval_silence(self, wavs, sampling_rate=22050, interval_silence=200):
+        """The silence streamed after each segment (``wavs`` itself when
+        there is nothing before it or ``interval_silence`` <= 0, as in the
+        JAX pipeline)."""
+        if not wavs or interval_silence <= 0:
+            return wavs
+        ch = wavs[0].shape[0]
+        return np.zeros((ch, int(sampling_rate * interval_silence / 1000.0)), np.float32)
+
+    def insert_interval_silence(self, wavs, sampling_rate=22050, interval_silence=200):
+        """``wavs`` with the silence between every two of them."""
+        if not wavs or interval_silence <= 0:
+            return wavs
+        ch = wavs[0].shape[0]
+        sil = np.zeros((ch, int(sampling_rate * interval_silence / 1000.0)), np.float32)
+        out = []
+        for i, w in enumerate(wavs):
+            out.append(w)
+            if i < len(wavs) - 1:
+                out.append(sil)
+        return out
+
+    def normalize_emo_vec(self, emo_vector, apply_bias=True):
+        return normalize_emo_vec(emo_vector, apply_bias)
+
     # ------------------------------------------------------------------ infer
-    @torch.inference_mode()
     def infer(self, spk_audio_prompt, text, output_path, emo_audio_prompt=None,
               emo_alpha=1.0, emo_vector=None, use_emo_text=False, emo_text=None,
               use_random=False, interval_silence=200, verbose=False,
@@ -418,13 +568,38 @@ class IndexTTS2:
               more_segment_before=0, **generation_kwargs):
         """Synthesize ``text`` in the voice of ``spk_audio_prompt``. Returns
         ``output_path`` after writing the wav there, or (22050, int16 (T, 1))
-        when output_path is None."""
-        del use_random, emo_text, more_segment_before
+        when output_path is None; with ``stream_return`` the generator of
+        `infer_generator`. As in the JAX pipeline, ``more_segment_before``
+        reaches the generator as its ``quick_streaming_tokens``."""
+        args = (spk_audio_prompt, text, output_path, emo_audio_prompt, emo_alpha, emo_vector,
+                use_emo_text, emo_text, use_random, interval_silence, verbose,
+                max_text_tokens_per_segment, stream_return, more_segment_before)
         if stream_return:
-            _not_ported("streaming (stream_return=True)")
-        if use_emo_text or emo_vector is not None:
-            _not_ported("emotion from text (Qwen) / emo_vector")
+            return self.infer_generator(*args, **generation_kwargs)
+        try:
+            return list(self.infer_generator(*args, **generation_kwargs))[0]
+        except IndexError:
+            return None
+
+    @torch.inference_mode()
+    def infer_generator(self, spk_audio_prompt, text, output_path, emo_audio_prompt=None,
+                        emo_alpha=1.0, emo_vector=None, use_emo_text=False, emo_text=None,
+                        use_random=False, interval_silence=200, verbose=False,
+                        max_text_tokens_per_segment=120, stream_return=False,
+                        quick_streaming_tokens=0, **generation_kwargs):
+        """The request, segment by segment (`infer`). Under
+        ``stream_return`` it yields each segment's clipped float wav (1, n)
+        and then the silence after it, and nothing at the end; otherwise it
+        yields the result once."""
+        del emo_text
+        if use_emo_text:
+            _not_ported("emotion from text (Qwen; ROADMAP.md queue 1 item 4)")
         start = time.perf_counter()
+        if emo_vector is not None:
+            emo_audio_prompt = None
+            scale = max(0.0, min(1.0, emo_alpha))
+            if scale != 1.0:
+                emo_vector = [int(x * scale * 10000) / 10000 for x in emo_vector]
         if emo_audio_prompt is None:
             emo_audio_prompt, emo_alpha = spk_audio_prompt, 1.0
         sampling = self._sampling(generation_kwargs)
@@ -432,42 +607,73 @@ class IndexTTS2:
 
         spk = self._prepare_spk_prompt(spk_audio_prompt)
         emo_cond = self._prepare_emo_cond(emo_audio_prompt)
+        emo_mix = None if emo_vector is None else self.emotion_mix(spk, emo_vector, use_random)
         if self.tokenizer is None:
             raise RuntimeError("no tokenizer loaded (missing bpe.model)")
-        segments = self.tokenizer.split_segments(self.tokenizer.tokenize(text),
-                                                 max_text_tokens_per_segment)
-        if len(segments) != 1:
-            _not_ported(f"multi-segment synthesis ({len(segments)} segments)")
-        ids = self.tokenizer.convert_tokens_to_ids(segments[0])
-        tlen = len(ids)
-        text_ids = np.zeros((1, pick_bucket(tlen, self.cfg.engine.text_buckets)), np.int64)
-        text_ids[0, :tlen] = ids
-        self._sync()
-        times = {"prompt": time.perf_counter() - start}
-
-        t0 = time.perf_counter()
-        cond_latents, emovec, embeds, mask = self.prefix(spk, emo_cond, emo_alpha,
-                                                         text_ids, tlen)
-        decode = generate_beam if sampling.num_beams > 1 else generate_adaptive
-        codes, code_lens = decode(self.gpt_params, self.cfg.gpt, self.gpt_dims, embeds, mask,
-                                  self.generator, max_mel_tokens, sampling, self.dtype,
-                                  step_check=self.decode_check)
-        if int(code_lens[0]) >= max_mel_tokens:
-            warnings.warn(
-                f"WARN: generation stopped due to exceeding `max_mel_tokens` "
-                f"({max_mel_tokens}). Consider reducing "
-                f"`max_text_tokens_per_segment`({max_text_tokens_per_segment}) "
-                f"or increasing `max_mel_tokens`.", RuntimeWarning)
-        clen = max(int(code_lens[0]), 1)
-        times["gpt"] = time.perf_counter() - t0
+        segments = self.tokenizer.split_segments(
+            self.tokenizer.tokenize(text), max_text_tokens_per_segment,
+            quick_streaming_tokens=quick_streaming_tokens)
+        seg_ids = [self.tokenizer.convert_tokens_to_ids(s) for s in segments]
         if verbose:
-            print(f"text_tokens={tlen}, codes={clen}")
-        wav = self.codes_to_wav(spk, cond_latents, emovec, text_ids, tlen, codes, clen,
-                                times=times)
-        wav = np.clip(32767 * wav, -32767.0, 32767.0)
+            print("segments count:", len(segments))
+        self._sync()
+        times = {"prompt": time.perf_counter() - start, "gpt": 0.0}
+        wavs: List[np.ndarray] = []
+        clens: List[int] = []
+        warned = False
+        if segments:
+            t0 = time.perf_counter()
+            cond_latents, emovec = self.conditioning(spk, emo_cond, emo_alpha)
+            if emo_mix is not None:
+                emovec = emo_mix[0] + (1.0 - emo_mix[1]) * emovec
+            times["gpt"] += time.perf_counter() - t0
+        if self.cfg.engine.batch_segments and len(segments) > 1 and not stream_return:
+            # every segment in one left-padded batch: one prefix, one decode
+            # (in row chunks), one synthesis; the rows sliced out on the host
+            t0 = time.perf_counter()
+            tlens = [len(ids) for ids in seg_ids]
+            text_ids = self._text_rows(seg_ids)
+            embeds, mask = self.prefix_embeds(cond_latents, emovec, text_ids, tlens)
+            codes, code_lens = self.decode(embeds, mask, sampling, max_mel_tokens)
+            times["gpt"] += time.perf_counter() - t0
+            clens = [max(int(n), 1) for n in code_lens]
+            batch_wav = self.codes_to_wav(spk, cond_latents, emovec, text_ids, tlens, codes,
+                                          clens, times=times)
+            for i, clen in enumerate(clens):
+                warned = warned or self._warn_max_mel(int(code_lens[i]), max_mel_tokens,
+                                                      max_text_tokens_per_segment)
+                if verbose:
+                    print(f"segment {i}: text_tokens={tlens[i]}, codes={clen}")
+                wavs.append(np.clip(32767 * batch_wav[i:i + 1, :self._n_samples(clen)],
+                                    -32767.0, 32767.0))
+        else:
+            silence = None
+            for i, ids in enumerate(seg_ids):
+                t0 = time.perf_counter()
+                text_ids = self._text_rows([ids])
+                embeds, mask = self.prefix_embeds(cond_latents, emovec, text_ids, [len(ids)])
+                codes, code_lens = self.decode(embeds, mask, sampling, max_mel_tokens)
+                times["gpt"] += time.perf_counter() - t0
+                warned = warned or self._warn_max_mel(int(code_lens[0]), max_mel_tokens,
+                                                      max_text_tokens_per_segment)
+                clens.append(max(int(code_lens[0]), 1))
+                if verbose:
+                    print(f"segment {i}: text_tokens={len(ids)}, codes={clens[-1]}")
+                wav = self.codes_to_wav(spk, cond_latents, emovec, text_ids, len(ids), codes,
+                                        clens[-1], times=times)
+                wavs.append(np.clip(32767 * wav, -32767.0, 32767.0))
+                if stream_return:
+                    yield wavs[-1]
+                    if silence is None:
+                        silence = self.interval_silence(wavs, self.SAMPLING_RATE,
+                                                        interval_silence)
+                    yield silence
+
+        wavs = self.insert_interval_silence(wavs, self.SAMPLING_RATE, interval_silence)
+        wav = np.concatenate(wavs, axis=1) if wavs else np.zeros((1, 0), np.float32)
         end = time.perf_counter()
         audio_s = wav.shape[-1] / self.SAMPLING_RATE
-        times.update(total=end - start, audio_s=audio_s, codes=clen,
+        times.update(total=end - start, audio_s=audio_s, codes=sum(clens), segment_codes=clens,
                      rtf=(end - start) / audio_s if audio_s > 0 else float("nan"))
         self.last_stage_times = times
         print(">> " + ", ".join(f"{k}: {v:.4f}" if isinstance(v, float) else f"{k}: {v}"
@@ -476,8 +682,35 @@ class IndexTTS2:
             if os.path.isfile(output_path):
                 os.remove(output_path)
             write_wav(output_path, wav.astype(np.int16), self.SAMPLING_RATE)
-            return output_path
-        return self.SAMPLING_RATE, wav.astype(np.int16).T
+            if stream_return:
+                return
+            yield output_path
+        else:
+            if stream_return:
+                return
+            yield self.SAMPLING_RATE, wav.astype(np.int16).T
+
+    @staticmethod
+    def _warn_max_mel(clen: int, max_mel_tokens: int, max_text_tokens_per_segment: int) -> bool:
+        """Warn, as the JAX pipeline does, when a segment's decode stopped at
+        ``max_mel_tokens``; returns whether it warned."""
+        if clen < max_mel_tokens:
+            return False
+        warnings.warn(
+            f"WARN: generation stopped due to exceeding `max_mel_tokens` "
+            f"({max_mel_tokens}). Consider reducing "
+            f"`max_text_tokens_per_segment`({max_text_tokens_per_segment}) "
+            f"or increasing `max_mel_tokens`.", RuntimeWarning)
+        return True
+
+    def _text_rows(self, seg_ids: Sequence[Sequence[int]]) -> np.ndarray:
+        """The segments' token ids as (B, text bucket of the longest) int64
+        rows, zero-padded on the right."""
+        rows = np.zeros((len(seg_ids), pick_bucket(max(len(ids) for ids in seg_ids),
+                                                   self.cfg.engine.text_buckets)), np.int64)
+        for i, ids in enumerate(seg_ids):
+            rows[i, :len(ids)] = ids
+        return rows
 
     def _sampling(self, kw: dict) -> SamplingConfig:
         """The generation kwargs of the reference's `infer` (same defaults),

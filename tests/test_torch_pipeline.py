@@ -6,8 +6,10 @@ across by the weight bridge and one prompt wav.
 - from those codes, latents -> CFM -> BigVGAN give the same wav (rel-L2 <=
   1e-3) when the port is handed the CFM noise the JAX side draws from its key;
 - the port's `infer` runs end to end, caches the prompt, writes the wav;
-- paths outside the slice raise NotImplementedError (num_beams=1 decodes;
-  its aux modes, such as contrastive search, raise); the port imports no jax.
+- paths outside the port raise NotImplementedError (emotion from text, the
+  aux decode modes: diverse beam, contrastive search, DoLa); the port
+  imports no jax. Long-form, streaming and emo_vector requests are held
+  against the JAX pipeline in `tests/test_torch_longform.py`.
 """
 
 import os
@@ -79,7 +81,8 @@ def torch_tts(model_dir, jax_tts):
     tts.load_params(jax.device_get({
         "gpt": j.gpt_params, "s2mel": j.s2mel_params, "codec": j.codec_params,
         "campplus": j.campplus_params, "bigvgan": j.bigvgan_params, "w2v": j.w2v_params,
-        "w2v_mean": j.w2v_mean, "w2v_std": j.w2v_std}))
+        "w2v_mean": j.w2v_mean, "w2v_std": j.w2v_std,
+        "emo_matrix": np.concatenate(j.emo_matrix), "spk_matrix": np.concatenate(j.spk_matrix)}))
     return tts
 
 
@@ -152,12 +155,10 @@ def test_port_infer_end_to_end(torch_tts, model_dir, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,what", [
-    ({"stream_return": True}, "streaming"),
     ({"num_beams": 1, "penalty_alpha": 0.6}, "num_beams=1"),
-    ({"emo_vector": [0.5] + [0] * 7}, "emo_vector"),
     ({"use_emo_text": True}, "Qwen"),
-    ({"text": "hello world . the cat . hello world . the cat .",
-      "max_text_tokens_per_segment": 4}, "multi-segment"),
+    ({"num_beams": 4, "num_beam_groups": 2, "do_sample": False}, "diverse beam"),
+    ({"num_beams": 1, "dola_layers": "low"}, "DoLa"),
 ])
 def test_unported_paths_raise(torch_tts, model_dir, kwargs, what):
     kw = dict(spk_audio_prompt=os.path.join(model_dir, "prompt.wav"), text=TEXT,

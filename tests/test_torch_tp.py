@@ -361,6 +361,76 @@ def test_tiny_pipeline_on_a_cpu_mesh_answers_a_request(tp_tts, tiny_assets, num_
         assert beam.last_use_anc is None and decode.last_route == "tp"
 
 
+@pytest.fixture(scope="module")
+def int8_tts(tiny_assets):
+    """The unsharded int8 pipeline with `tp_tts`'s weights (the same seed)."""
+    from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
+
+    return IndexTTS2(cfg_path=None, model_dir=str(tiny_assets), cfg=tiny_config(),
+                     device="cpu", quantization="int8")
+
+
+def _recorded_request(tts, monkeypatch, **kw):
+    """One greedy request; returns (its output, the prefix rows of each
+    `generate_beam` call, the codes and lengths of each `codes_to_wav`)."""
+    from indextts_tpu_torch.pipeline import infer_v2 as iv2
+
+    chunks, synth = [], []
+    orig_beam, orig_synth = iv2.generate_beam, tts.codes_to_wav
+
+    def beam_rows(params, cfg, dims, embeds, *args, **kwargs):
+        chunks.append(embeds.shape[0])
+        return orig_beam(params, cfg, dims, embeds, *args, **kwargs)
+
+    def record(*args, **kwargs):
+        synth.append((args[5].clone(), np.asarray(args[6])))
+        return orig_synth(*args, **kwargs)
+
+    monkeypatch.setattr(iv2, "generate_beam", beam_rows)
+    monkeypatch.setattr(tts, "codes_to_wav", record)
+    tts.generator.manual_seed(0)
+    try:
+        return tts.infer(**kw), chunks, synth
+    finally:
+        monkeypatch.undo()
+
+
+def test_long_form_request_on_a_cpu_mesh_equals_the_unsharded_route(tp_tts, int8_tts,
+                                                                     tiny_assets, monkeypatch):
+    """A greedy 4-segment request (3, 4, 3 and 3 text tokens) at num_beams=2
+    on the tp mesh: the segments decode as one batch of 8 rows (no row chunks under a mesh), token-equal
+    with the unsharded int8 port, and the batched synthesis gives its wav's
+    shape."""
+    from indextts_tpu_torch.engine import beam
+
+    kw = dict(spk_audio_prompt=str(tiny_assets / "prompt.wav"),
+              text="hello world . hello . world . hello world . hello world .", output_path=None,
+              num_beams=2, do_sample=False, max_mel_tokens=8, min_new_tokens=3,
+              max_text_tokens_per_segment=4)
+    runs = {name: _recorded_request(tts, monkeypatch, **kw)
+            for name, tts in (("tp", tp_tts), ("int8", int8_tts))}
+    assert "shards" in tp_tts.gpt_params["gpt"] and beam.last_use_anc is True
+    for name, ((sr, wav), chunks, synth) in runs.items():
+        assert chunks == [4] and len(synth) == 1, (name, chunks, len(synth))
+        assert sr == 22050 and np.all(np.isfinite(wav))
+    (_, wav_tp), _, ((codes_tp, clens_tp),) = runs["tp"]
+    (_, wav_1), _, ((codes_1, clens_1),) = runs["int8"]
+    np.testing.assert_array_equal(clens_tp, clens_1)
+    for b, n in enumerate(clens_1):
+        assert torch.equal(codes_tp[b, :n], codes_1[b, :n]), b
+    assert wav_tp.shape == wav_1.shape
+
+
+def test_tp_long_form_of_more_than_24_rows_raises(tp_tts, tiny_assets):
+    """9 segments at num_beams=3 are 27 decode rows: one batch under the
+    mesh, which kernel K6 does not take."""
+    with pytest.raises(NotImplementedError, match="27 rows.*GSPMD decode"):
+        tp_tts.infer(spk_audio_prompt=str(tiny_assets / "prompt.wav"),
+                     text="hello world . " * 9, output_path=None, num_beams=3,
+                     do_sample=False, max_mel_tokens=8, min_new_tokens=3,
+                     max_text_tokens_per_segment=4)
+
+
 def _raises_mesh_with_more_ranks_than_devices(_):
     n = torch.cuda.device_count()
     make_mesh([f"cuda:{n}", f"cuda:{n}"])
