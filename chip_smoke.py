@@ -93,6 +93,25 @@
    the twin against itself with f64 instead of f32 sums (the random-weight
    decoder amplifies f32 summation-order noise to about 1e-2 over 24
    layers, so the end-to-end difference is reported, not gated).
+   Then the checkpoint pass (`checkpoint_phase`): the int8 pass's seed-0
+   weights written by `tools/torch_reference_ckpt.py` as the released
+   model directory (config.yaml, gpt.pth, s2mel.pth under its 'net'
+   wrapper, the codec and w2v-bert as safetensors, campplus, BigVGAN's
+   config.json and bigvgan_generator.pt under its 'generator' wrapper with
+   the weight norm unfolded, the w2v-bert statistics, the emotion and
+   speaker matrices: about 6.9 GB of f32 under the temporary directory,
+   whose free space is printed first and must hold it), then
+   `IndexTTS2(cfg_path=<dir>/config.yaml, model_dir=<dir>,
+   quantization="int8", allow_random_init=False)`: per family the file's
+   bytes and the seconds to read, convert and place it, and the
+   constructor's wall; every loaded leaf bit-identical to the random-weight
+   model's (the writer nudges the few weight-norm elements whose fold would
+   round to another bf16 value); one warm
+   num_beams=3, do_sample=False request on each model with the generator
+   reseeded alike: codes token-equal, the int16 wav within rel-L2 1e-3, the
+   loaded request's launches exactly one int8 request's (K1 399), and its
+   stage seconds beside the random-weight model's. The directory is
+   deleted afterwards.
 5. Sampling pass (num_beams=1, `engine/decode.py::generate_adaptive`), int8
    weights, two requests pinned to 400 codes (the cache grows once, from
    the 256-code span to 400): K1 once per decode step, every call at
@@ -2236,6 +2255,147 @@ def quant_pipeline_phase(card: str, prompt: str, model_dir: str, quantization: s
     return counts, reports
 
 
+CKPT_BYTES = 7.0e9                         # the f32 model directory's size, about
+
+
+def _state_leaves(tts) -> dict:
+    """Every leaf of a pipeline's loaded state by its path."""
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from walk(v, f"{path}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from walk(v, f"{path}/{i}")
+        else:
+            yield path, tree
+
+    state = {"gpt": tts.gpt_params, "s2mel": tts.s2mel_params, "codec": tts.codec_params,
+             "campplus": tts.campplus_params, "bigvgan": tts.bigvgan_params,
+             "w2v": tts.w2v_params, "w2v_mean": tts.w2v_mean, "w2v_std": tts.w2v_std,
+             "emo_matrix": tts.emo_matrix, "spk_matrix": tts.spk_matrix}
+    return dict(walk(state, ""))
+
+
+def compare_loaded(loaded, ref) -> int:
+    """Every leaf of ``loaded`` bit-identical to ``ref``'s; returns their count."""
+    import torch
+
+    a, b = _state_leaves(loaded), _state_leaves(ref)
+    assert a.keys() == b.keys(), sorted(set(a) ^ set(b))[:10]
+    for path, x in a.items():
+        y = b[path]
+        assert x.dtype == y.dtype and x.shape == y.shape, (path, x.dtype, y.dtype)
+        assert torch.equal(x, y), path
+    return len(a)
+
+
+def checkpoint_phase(card: str, prompt: str, model_dir: str, int8_st=None) -> dict:
+    """The checkpoint pass: the int8 pass's random-weight model (seed 0)
+    written as a released model directory, read back, and served. The
+    weight-norm pairs are written as g = ||v||, v = w with the few elements
+    nudged whose fold would round to another bf16 value
+    (`tools/torch_reference_ckpt.py::match_fold`), so every loaded leaf is
+    the random model's bit for bit: left as they fold, 1-ulp differences
+    in the vocoder's and DiT's weights move the bf16 vocoder's wav by
+    rel-L2 5e-3 (`tools/torch_ckpt_fold_probe.py`)."""
+    import shutil
+
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import torch_reference_ckpt as refckpt
+
+    from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
+
+    root = tempfile.gettempdir()
+    usage = shutil.disk_usage(root)
+    print(f"checkpoint pass: {root} has {usage.free} bytes free of {usage.total} (the model "
+          f"directory needs about {CKPT_BYTES:.0f})", flush=True)
+    assert usage.free >= 1.2 * CKPT_BYTES, f"too little room under {root} for the model directory"
+    t_pass = time.perf_counter()
+    ref = IndexTTS2(cfg_path=None, model_dir=model_dir, device="cuda", seed=0,
+                    quantization="int8")
+    with tempfile.TemporaryDirectory(prefix="indextts_ckpt_") as d:
+        t0 = time.perf_counter()
+        trees = ref.random_params(0)
+        H = ref.cfg.w2v_bert.hidden_size
+        trees["w2v_mean"], trees["w2v_std"] = np.zeros(H, np.float32), np.ones(H, np.float32)
+        written = refckpt.write_model_dir(
+            d, trees, ref.cfg, wrapped=True, match_dtype=ref.dtype,
+            log=lambda p, n, s: print(f"  wrote {p}: {n} bytes in {s:.2f} s", flush=True))
+        del trees
+        torch.cuda.empty_cache()
+        build_fake_assets(d)
+        nudged = written.pop("nudged")
+        total = sum(written.values())
+        print(f"checkpoint pass: model directory written in the released layout, {total} bytes "
+              f"in {len(written)} files, {time.perf_counter() - t0:.2f} s; {nudged} weight_v "
+              f"elements nudged by an f32 ulp so that the fold's bf16 cast is the model's",
+              flush=True)
+        t0 = time.perf_counter()
+        tts = IndexTTS2(cfg_path=os.path.join(d, "config.yaml"), model_dir=d, device="cuda",
+                        quantization="int8", allow_random_init=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for r in tts.load_report:
+            print(f"  loaded {r['family']} from {os.path.relpath(r['path'], d)}: {r['bytes']} "
+                  f"bytes, read {r['read_s']:.3f} s, convert {r['convert_s']:.3f} s, place "
+                  f"{r['place_s']:.3f} s [{card}]", flush=True)
+        print(f"checkpoint pass: IndexTTS2(cfg_path=<dir>/config.yaml, model_dir=<dir>, "
+              f"quantization='int8', allow_random_init=False) built in {wall:.2f} s "
+              f"[{card}]", flush=True)
+        assert [r["family"] for r in tts.load_report] == [
+            "gpt", "s2mel", "codec", "campplus", "bigvgan", "w2v", "w2v_stat", "matrices"]
+        assert tts.cfg == ref.cfg, "config.yaml did not give the config back"
+        print(f"checkpoint pass: all {compare_loaded(tts, ref)} loaded leaves bit-identical "
+              f"to the random-weight int8 model's", flush=True)
+
+    def request(model):
+        kept = {}
+        decode = model.decode
+
+        def run(*args, **kwargs):
+            kept["codes"], kept["lens"] = decode(*args, **kwargs)
+            return kept["codes"], kept["lens"]
+
+        model.decode = run
+        model.generator.manual_seed(1234)
+        sr, wav = model.infer(spk_audio_prompt=prompt, text=SENTENCE, output_path=None,
+                              max_mel_tokens=400, min_new_tokens=399, num_beams=3,
+                              do_sample=False)
+        del model.decode
+        st = dict(model.last_stage_times)
+        assert st["codes"] == 400 and np.all(np.isfinite(wav)), st
+        return kept["codes"][0, :400].cpu(), wav.astype(np.float64), st
+
+    request(tts)                                   # warm: the prompt cache, the kernels
+    request(ref)
+    reset_counts()
+    codes, wav, st = request(tts)
+    counts = read_counts()
+    ref_codes, ref_wav, ref_st = request(ref)
+    rel = float(np.linalg.norm(wav - ref_wav) / np.linalg.norm(ref_wav))
+    want = want_counts(tts, "int8", 1)
+    print(f"checkpoint pass: one num_beams=3, do_sample=False request on each model: codes "
+          f"token-equal {bool(torch.equal(codes, ref_codes))}, wav rel_l2 {rel:.3e} (<= 1e-3); "
+          f"launches of the loaded model's request {counts} (expect {want})", flush=True)
+    for label, x in (("loaded", st), ("random-weight", ref_st),
+                     ("int8 pass (sampling, beams=3)", int8_st or {})):
+        if not x:
+            continue
+        print(f"  {label} int8 request: " + " ".join(
+            f"{k}={x[k]:.4f}s" for k in ("prompt", "gpt", "gpt_forward", "s2mel", "bigvgan",
+                                         "total")) + f" RTF={x['rtf']:.4f} [{card}]", flush=True)
+    assert torch.equal(codes, ref_codes), "codes differ between the loaded and the random model"
+    assert rel <= 1e-3, rel
+    assert counts == want, (counts, want)
+    del tts, ref
+    torch.cuda.empty_cache()
+    print(f"checkpoint pass: {time.perf_counter() - t_pass:.1f} s in all [{card}]", flush=True)
+    return counts
+
+
 def tp_twin_check():
     """A ``decode_check`` hook that holds the first 8 K6 calls against the
     twin layer by layer (`tp_twin_by_layer`), and the ``site`` dict it
@@ -2729,6 +2889,8 @@ def main() -> int:
         counts["int8"], int8_reports = quant_pipeline_phase(card, prompt, d, "int8",
                                                             INT8_REQUESTS, True)
         mark("int8 pass done")
+        counts["checkpoint"] = checkpoint_phase(card, prompt, d, int8_reports[-1])
+        mark("checkpoint pass done")
         counts.update(sampling_pipeline_phase(card, prompt, d))
         mark("sampling pass done")
         for quantization, (n, profiled) in QUANT_PASSES.items():

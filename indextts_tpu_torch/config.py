@@ -10,7 +10,8 @@ All hyperparameters are config-driven; the defaults below describe the shipped
 IndexTTS-2 checkpoint family (GPT latent dim 1280 per the reference's s2mel
 ``gpt_layer = Linear(1280, 256)``, `s2mel/modules/commons.py:415`; mel front-end
 22.05 kHz / 80 mel / hop 256 per `s2mel/modules/bigvgan/config.json`). When a
-real ``config.yaml`` is present in the model dir it overrides everything.
+real ``config.yaml`` is present in the model dir it overrides everything; it
+is read without PyYAML (`utils/yaml_subset.py`).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
+
+from indextts_tpu_torch.utils import yaml_subset
 
 
 # ---------------------------------------------------------------------------
@@ -411,11 +414,8 @@ class IndexTTS1Config:
 
 
 def load_config_v1(path: str) -> IndexTTS1Config:
-    import yaml
-
-    with open(path, "r", encoding="utf-8") as f:
-        raw = yaml.safe_load(f)
-    return IndexTTS1Config.from_dict(raw or {})
+    """Load a v1 config.yaml (`utils/yaml_subset.py`: no PyYAML)."""
+    return IndexTTS1Config.from_dict(yaml_subset.load(path) or {})
 
 
 # ---------------------------------------------------------------------------
@@ -518,9 +518,7 @@ class IndexTTS2Config:
 
 
 def load_config(path: str) -> IndexTTS2Config:
-    """Load a reference-layout config.yaml into typed dataclasses."""
-    import yaml
-
-    with open(path, "r", encoding="utf-8") as f:
-        raw = yaml.safe_load(f)
-    return IndexTTS2Config.from_dict(raw or {})
+    """Load a reference-layout config.yaml into typed dataclasses. The file
+    is read by `utils/yaml_subset.py` (PyYAML's ``safe_load`` results on the
+    subset the reference configs use; no PyYAML)."""
+    return IndexTTS2Config.from_dict(yaml_subset.load(path) or {})

@@ -1,6 +1,6 @@
 """IndexTTS2 pipeline on PyTorch (counterpart of `indextts_tpu/pipeline/infer_v2.py`).
 
-    tts = IndexTTS2(cfg_path=None, model_dir=..., device="cuda")
+    tts = IndexTTS2(cfg_path="checkpoints/config.yaml", model_dir="checkpoints")
     tts.infer(spk_audio_prompt=..., text=..., output_path=...)
 
     # the tp=2 int8 serving decode (kernel K6), as in the JAX package
@@ -66,11 +66,19 @@ plain adaptive sampling decode there (the speculative engine is ROADMAP
 queue 1; under a mesh the JAX pipeline turns speculation off too). Paths of
 the JAX pipeline that are not ported yet raise NotImplementedError naming
 their ROADMAP item: emotion from text (Qwen), and the aux modes (diverse
-beam, contrastive, DoLa). Weights are random at the configured architecture
-(drawn on the device from ``seed``, the emotion and speaker matrices too)
-or handed over from the JAX package through `load_params`; checkpoint files
-are not read yet, and a model directory that holds one raises
-(`checkpoint_files`).
+beam, contrastive, DoLa).
+
+Weights: the constructor reads the released IndexTTS2 model directory as
+the JAX pipeline does (`IndexTTS2._load_models`; the files in
+`checkpoint_files`): ``config.yaml`` (read without PyYAML), gpt.pth, s2mel.pth,
+hf_cache/semantic_codec_model.safetensors, hf_cache/campplus_cn_common.bin,
+hf_cache/bigvgan/ (config.json, then the weights), hf_cache/w2v-bert-2.0/,
+wav2vec2bert_stats.pt and the emotion and speaker matrices, ``aux_paths``
+first where it names a family. Each file is converted to the JAX package's
+layouts (`utils/convert.py`) and placed through the weight bridge one
+family at a time. A family without a file is drawn at random on the device
+from ``seed`` (`random_trees`); `load_params` also takes trees handed over
+from the JAX package.
 
 Precision: weights and activations in ``dtype`` (bf16 by default) except
 CAMPPlus and the mel / fbank front-ends (f32), as on the TPU. TF32 is off
@@ -81,6 +89,8 @@ for both matmuls and cuDNN convolutions
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
 import random
 import time
@@ -91,7 +101,7 @@ import numpy as np
 import torch
 
 from indextts_tpu_torch import nn
-from indextts_tpu_torch.config import IndexTTS2Config, load_config
+from indextts_tpu_torch.config import BigVGANConfig, IndexTTS2Config, load_config
 from indextts_tpu_torch.engine.beam import generate_beam
 from indextts_tpu_torch.engine.decode import SamplingConfig, generate_adaptive
 from indextts_tpu_torch.models.codec.repcodec import (init_repcodec, repcodec_quantize,
@@ -110,6 +120,7 @@ from indextts_tpu_torch.ops.mel import kaldi_fbank, mel_spectrogram, seamless_m4
 from indextts_tpu_torch.parallel.mesh import Mesh, shard_gpt2_tp
 from indextts_tpu_torch.pipeline.buckets import pad_to, pick_bucket
 from indextts_tpu_torch.text import TextNormalizer, TextTokenizer
+from indextts_tpu_torch.utils import convert
 from indextts_tpu_torch.utils.jax_params import to_torch
 from indextts_tpu_torch.utils.resample import resample_audio
 from indextts_tpu_torch.utils.wav_io import read_wav_mono, write_wav
@@ -148,12 +159,13 @@ def find_most_similar_cosine(query: torch.Tensor, matrix: torch.Tensor) -> int:
 
 def checkpoint_files(cfg: IndexTTS2Config, model_dir: str,
                      aux_paths: Optional[dict] = None) -> list:
-    """Every file the JAX pipeline's `_load_models` reads when it exists,
-    resolved as it resolves them: the GPT and s2mel checkpoints, the
-    ``aux_paths`` entries (semantic_codec, campplus, bigvgan, w2v_bert) or
-    their ``hf_cache`` defaults (BigVGAN's config.json and weights, the
-    w2v-bert weights), the w2v-bert statistics and the emotion and speaker
-    matrices."""
+    """Every file the loader (`IndexTTS2._load_models`, as the JAX pipeline's
+    `_load_models`) reads when it exists, resolved as it resolves them: the
+    GPT and s2mel checkpoints, the ``aux_paths`` entries (semantic_codec,
+    campplus, bigvgan, w2v_bert) or their ``hf_cache`` defaults (BigVGAN's
+    config.json and its weight candidates, the w2v-bert candidates, in the
+    order they are tried), the w2v-bert statistics and the emotion and
+    speaker matrices."""
     aux = aux_paths or {}
 
     def path(p):
@@ -165,13 +177,57 @@ def checkpoint_files(cfg: IndexTTS2Config, model_dir: str,
              aux.get("semantic_codec", path("hf_cache/semantic_codec_model.safetensors")),
              aux.get("campplus", path("hf_cache/campplus_cn_common.bin"))]
     if bigvgan:
-        files += [os.path.join(bigvgan, f) for f in
-                  ("config.json", "bigvgan_generator.pt", "pytorch_model.bin",
-                   "model.safetensors")]
+        files += [os.path.join(bigvgan, f) for f in ("config.json",) + BIGVGAN_FILES]
     if w2v:
-        files += [os.path.join(w2v, f) for f in ("model.safetensors", "pytorch_model.bin")]
+        files += [os.path.join(w2v, f) for f in W2V_FILES]
     files += [path(cfg.w2v_stat), path(cfg.emo_matrix), path(cfg.spk_matrix)]
     return [f for f in files if f]
+
+
+# the weight files tried in a BigVGAN and a w2v-bert directory, in order
+BIGVGAN_FILES = ("bigvgan_generator.pt", "pytorch_model.bin", "model.safetensors")
+W2V_FILES = ("model.safetensors", "pytorch_model.bin")
+# the random families, each drawn from its own generator (seed * 7 + its
+# index) so that loading one family from a file leaves the others' draws as
+# they were
+FAMILIES = ("gpt", "s2mel", "codec", "campplus", "bigvgan", "w2v", "matrices")
+
+
+def random_trees(cfg: IndexTTS2Config, seed: int, device,
+                 families: Sequence[str] = FAMILIES) -> dict:
+    """Seeded random weights at ``cfg``'s widths, in the JAX package's
+    layouts, drawn on ``device``, for ``families`` (keys as `IndexTTS2.
+    load_params` takes them; "matrices" gives emo_matrix and spk_matrix:
+    sum(emo_num) rows of gpt.model_dim and of 192, standard normal, as the
+    JAX pipeline draws them without their files)."""
+    inits = {"gpt": lambda r: uv.init_unified_voice(r, cfg.gpt),
+             "s2mel": lambda r: init_s2mel(r, cfg.s2mel),
+             "codec": lambda r: init_repcodec(r, cfg.semantic_codec),
+             "campplus": init_campplus,
+             "bigvgan": lambda r: init_bigvgan(r, cfg.bigvgan),
+             "w2v": lambda r: init_w2vbert(r, cfg.w2v_bert)}
+    out = {}
+    for name in families:
+        rng = nn.InitRng(seed * len(FAMILIES) + FAMILIES.index(name), device)
+        if name == "matrices":
+            n_rows = sum(cfg.emo_num)
+            out["emo_matrix"] = rng.normal((n_rows, cfg.gpt.model_dim), std=1.0)
+            out["spk_matrix"] = rng.normal((n_rows, 192), std=1.0)
+        else:
+            out[name] = inits[name](rng)
+    return out
+
+
+def _load_matrix(path: str) -> np.ndarray:
+    """An emotion or speaker matrix file: a safetensors file's first tensor
+    (the JAX pipeline's branch for the emotion matrix), else a pickled
+    tensor (`_load_plain_tensor`)."""
+    if path.endswith(".safetensors"):
+        return next(iter(convert.load_torch_state_dict(path).values()))
+    t = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().numpy()
+    return np.asarray(t, np.float32)
 
 
 def _check_mesh(mesh, quantization: Optional[str]) -> None:
@@ -206,10 +262,12 @@ class IndexTTS2:
         """Takes the JAX pipeline's keyword set. The CUDA-era knobs
         (use_cuda_kernel, use_deepspeed, use_accel, use_torch_compile) are
         accepted and ignored, as there. ``use_fp16=True`` raises: the port's
-        kernels take bf16 only. Checkpoint files are not read yet: a model
-        directory holding any file the JAX pipeline would load raises, and
-        with ``allow_random_init=False`` a missing GPT checkpoint raises
-        FileNotFoundError, as in the JAX pipeline."""
+        kernels take bf16 only. The weights are read from ``model_dir`` (and
+        ``aux_paths``) as the JAX pipeline reads them (`_load_models`); a
+        family without a file is drawn at random from ``seed``; with
+        ``allow_random_init=False`` a missing GPT checkpoint raises
+        FileNotFoundError, as in the JAX pipeline, and a file that exists but
+        cannot be read raises."""
         del use_cuda_kernel, use_deepspeed, use_accel, use_torch_compile
         if use_fp16:
             _not_ported("use_fp16=True (the float16 pipeline; the port's kernels take bf16)")
@@ -242,15 +300,10 @@ class IndexTTS2:
             self.cfg = IndexTTS2Config()
         self.model_dir = model_dir
         self.dtype = dtype
-        for path in checkpoint_files(self.cfg, model_dir, aux_paths):
-            if os.path.exists(path):
-                _not_ported(f"loading checkpoint {path}")
-        if not allow_random_init:          # the GPT checkpoint is missing (refused above if not)
-            raise FileNotFoundError(os.path.join(model_dir, self.cfg.gpt_checkpoint))
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.gpt_dims = GPT2Dims(self.cfg.gpt.layers, self.cfg.gpt.model_dim, self.cfg.gpt.heads)
-        self.load_params(self.random_params(seed))
+        self._load_models(aux_paths, allow_random_init, seed)
         self._load_frontend()
         self.cache_spk_audio_prompt = self.cache_spk = None
         self.cache_emo_audio_prompt = self.cache_emo_cond = None
@@ -262,49 +315,150 @@ class IndexTTS2:
     # ------------------------------------------------------------------ params
     def random_params(self, seed: int) -> dict:
         """Seeded random weights at the configured widths, in the JAX
-        package's layouts, drawn on the device; the emotion and speaker
-        matrices (sum(emo_num) rows of gpt.model_dim and of 192) standard
-        normal, as the JAX pipeline draws them without their files."""
-        rng = nn.InitRng(seed, self.device)
-        cfg = self.cfg
-        n_rows = sum(cfg.emo_num)
-        return {"gpt": uv.init_unified_voice(rng, cfg.gpt),
-                "s2mel": init_s2mel(rng, cfg.s2mel),
-                "codec": init_repcodec(rng, cfg.semantic_codec),
-                "campplus": init_campplus(rng),
-                "bigvgan": init_bigvgan(rng, cfg.bigvgan),
-                "w2v": init_w2vbert(rng, cfg.w2v_bert),
-                "emo_matrix": rng.normal((n_rows, cfg.gpt.model_dim), std=1.0),
-                "spk_matrix": rng.normal((n_rows, 192), std=1.0)}
+        package's layouts, drawn on the device (`random_trees`): what the
+        constructor draws for every family that has no file."""
+        return random_trees(self.cfg, seed, self.device)
+
+    def _load_models(self, aux_paths: Optional[dict], allow_random_init: bool,
+                     seed: int) -> None:
+        """The JAX pipeline's `_load_models`: the same files, tried in the
+        same order and resolved the same way (``aux_paths`` first, then the
+        ``hf_cache`` defaults; `checkpoint_files`), each family read,
+        converted to the JAX layouts (`utils/convert.py`) and placed
+        (`load_params`: the cast, the quantization, the tp split) before the
+        next is read. A family without a file is drawn at random
+        (`random_trees`). Two things differ from the JAX loader: BigVGAN is
+        converted (or drawn) at the config its ``config.json`` gives, the one
+        it then runs at; and the emotion and speaker matrices are read alike
+        (a safetensors file's first tensor, else a pickled tensor). Each
+        loaded family's file bytes and read / convert / place seconds go to
+        ``self.load_report``."""
+        cfg, aux = self.cfg, aux_paths or {}
+        self.load_report: List[dict] = []
+
+        def path(p):
+            return os.path.join(self.model_dir, p) if p else None
+
+        def first(d, names):
+            if d and os.path.isdir(d):
+                for name in names:
+                    if os.path.exists(os.path.join(d, name)):
+                        return os.path.join(d, name)
+            return None
+
+        def load(family, file, to_tree, read=convert.load_torch_state_dict, also=()):
+            t0 = time.perf_counter()
+            sd = read(file)
+            t1 = time.perf_counter()
+            trees = to_tree(sd)
+            del sd
+            t2 = time.perf_counter()
+            self.load_params(trees)
+            del trees
+            self._sync()
+            self.load_report.append({
+                "family": family, "path": file,
+                "bytes": sum(os.path.getsize(f) for f in (file,) + tuple(also)),
+                "read_s": t1 - t0, "convert_s": t2 - t1, "place_s": time.perf_counter() - t2})
+
+        def random(family):
+            self.load_params(random_trees(self.cfg, seed, self.device, (family,)))
+
+        gpt_path = path(cfg.gpt_checkpoint)
+        if gpt_path and os.path.exists(gpt_path):
+            load("gpt", gpt_path, lambda sd: {"gpt": convert.convert_unified_voice(sd, cfg.gpt)})
+        elif allow_random_init:
+            random("gpt")
+        else:
+            raise FileNotFoundError(gpt_path)
+
+        s2_path = path(cfg.s2mel_checkpoint)
+        if s2_path and os.path.exists(s2_path):
+            load("s2mel", s2_path, lambda sd: {"s2mel": convert.convert_s2mel(sd, cfg.s2mel)})
+        else:
+            random("s2mel")
+
+        codec_path = aux.get("semantic_codec",
+                             path("hf_cache/semantic_codec_model.safetensors"))
+        if codec_path and os.path.exists(codec_path):
+            load("codec", codec_path,
+                 lambda sd: {"codec": convert.convert_repcodec(sd, cfg.semantic_codec)})
+        else:
+            random("codec")
+
+        camp_path = aux.get("campplus", path("hf_cache/campplus_cn_common.bin"))
+        if camp_path and os.path.exists(camp_path):
+            load("campplus", camp_path, lambda sd: {"campplus": convert.convert_campplus(sd)})
+        else:
+            random("campplus")
+
+        # BigVGAN's own config.json (the reference's AttrDict) overrides the
+        # vocoder's config, and the weights are read at it
+        bv_dir = aux.get("bigvgan", path("hf_cache/bigvgan"))
+        if bv_dir and os.path.isfile(os.path.join(bv_dir, "config.json")):
+            with open(os.path.join(bv_dir, "config.json"), "r", encoding="utf-8") as f:
+                self.cfg = dataclasses.replace(self.cfg,
+                                               bigvgan=BigVGANConfig.from_dict(json.load(f)))
+        bv_ckpt = first(bv_dir, BIGVGAN_FILES)
+        if bv_ckpt:
+            load("bigvgan", bv_ckpt,
+                 lambda sd: {"bigvgan": convert.convert_bigvgan(sd, self.cfg.bigvgan)})
+        else:
+            random("bigvgan")
+
+        w2v_ckpt = first(aux.get("w2v_bert", path("hf_cache/w2v-bert-2.0")), W2V_FILES)
+        if w2v_ckpt:
+            load("w2v", w2v_ckpt, lambda sd: {"w2v": convert.convert_w2vbert(sd, cfg.w2v_bert)})
+        else:
+            random("w2v")
+
+        H = cfg.w2v_bert.hidden_size
+        stat_path = path(cfg.w2v_stat)
+        if stat_path and os.path.exists(stat_path):
+            load("w2v_stat", stat_path, lambda sd: {
+                "w2v_mean": sd.get("mean", np.zeros(H, np.float32)),
+                "w2v_std": sd.get("std", np.ones(H, np.float32))})
+        else:
+            self.load_params({"w2v_mean": np.zeros(H, np.float32),
+                              "w2v_std": np.ones(H, np.float32)})
+
+        # the emotion file decides, as in the JAX pipeline: with it both
+        # matrices are read (a missing speaker file raises), without it both
+        # are drawn
+        emo_path, spk_path = path(cfg.emo_matrix), path(cfg.spk_matrix)
+        if emo_path and os.path.exists(emo_path):
+            load("matrices", emo_path, lambda sd: sd, also=(spk_path,),
+                 read=lambda f: {"emo_matrix": _load_matrix(f),
+                                 "spk_matrix": _load_matrix(spk_path)})
+        else:
+            random("matrices")
 
     def load_params(self, trees: dict) -> None:
-        """Take JAX-layout parameter trees (keys gpt, s2mel, codec, campplus,
-        bigvgan, w2v; optional w2v_mean / w2v_std, and emo_matrix /
-        spk_matrix, (sum(emo_num), D) arrays split by ``cfg.emo_num`` into
-        the per-emotion matrices, kept f32; without them the matrices stay)
-        through the weight bridge.
+        """Take JAX-layout parameter trees through the weight bridge, for the
+        families present (keys gpt, s2mel, codec, campplus, bigvgan, w2v;
+        w2v_mean / w2v_std; and emo_matrix / spk_matrix, (sum(emo_num), D)
+        arrays split by ``cfg.emo_num`` into the per-emotion matrices, kept
+        f32); the others stay as they are.
         CAMPPlus stays f32; everything else is cast to the pipeline dtype.
         Under a ``quantization`` the GPT-2 backbone is then quantized (int8
         or int4), unless the tree handed over already is; under a mesh it is
         then split over the tp ranks (`shard_gpt2_tp`)."""
         dev, dt = self.device, self.dtype
-        self.gpt_params = to_torch(trees["gpt"], dev, dt)
-        gpt = self.gpt_params["gpt"]
-        if self.quantization and not is_quantized(gpt):
-            gpt = QUANTIZATIONS[self.quantization][0](gpt)
-        if self.mesh is not None:
-            gpt = shard_gpt2_tp(gpt, self.mesh)
-        self.gpt_params["gpt"] = gpt
-        self.s2mel_params = to_torch(trees["s2mel"], dev, dt)
-        self.codec_params = to_torch(trees["codec"], dev, dt)
-        self.bigvgan_params = to_torch(trees["bigvgan"], dev, dt)
-        self.w2v_params = to_torch(trees["w2v"], dev, dt)
-        self.campplus_params = to_torch(trees["campplus"], dev, torch.float32)
-        H = self.cfg.w2v_bert.hidden_size
-        self.w2v_mean = to_torch(trees.get("w2v_mean", np.zeros(H, np.float32)), dev,
-                                 torch.float32)
-        self.w2v_std = to_torch(trees.get("w2v_std", np.ones(H, np.float32)), dev,
-                                torch.float32)
+        if "gpt" in trees:
+            self.gpt_params = to_torch(trees["gpt"], dev, dt)
+            gpt = self.gpt_params["gpt"]
+            if self.quantization and not is_quantized(gpt):
+                gpt = QUANTIZATIONS[self.quantization][0](gpt)
+            if self.mesh is not None:
+                gpt = shard_gpt2_tp(gpt, self.mesh)
+            self.gpt_params["gpt"] = gpt
+        for key, attr, dtype in (("s2mel", "s2mel_params", dt), ("codec", "codec_params", dt),
+                                 ("bigvgan", "bigvgan_params", dt), ("w2v", "w2v_params", dt),
+                                 ("campplus", "campplus_params", torch.float32),
+                                 ("w2v_mean", "w2v_mean", torch.float32),
+                                 ("w2v_std", "w2v_std", torch.float32)):
+            if key in trees:
+                setattr(self, attr, to_torch(trees[key], dev, dtype))
         for key in ("emo_matrix", "spk_matrix"):
             if key in trees:
                 rows = to_torch(trees[key], dev, torch.float32)

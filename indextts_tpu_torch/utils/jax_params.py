@@ -45,10 +45,20 @@ def _tensor(x, device, dtype) -> torch.Tensor:
         t = x
     else:
         a = np.asarray(x)
+        on_host = device is None or torch.device(device).type == "cpu"
         # JAX's numpy bfloat16 (ml_dtypes) has no torch counterpart to
-        # convert from: carry its bits
-        t = (torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-             if a.dtype.name == "bfloat16" else torch.as_tensor(a))
+        # convert from: carry its bits. A host tensor gets its own copy (the
+        # array may be a view of a memory-mapped checkpoint file); a tensor
+        # bound for the card is copied there, from a view where numpy has
+        # one (a flipped conv-transpose kernel has negative strides, which
+        # torch does not take)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+        elif on_host:
+            t = torch.from_numpy(np.array(a, order="C"))
+        else:
+            t = torch.as_tensor(a if min(a.strides, default=0) >= 0
+                                else np.ascontiguousarray(a))
     t = t.to(device) if device is not None else t
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)

@@ -1,11 +1,18 @@
 """The port stands alone.
 
 - Importing every module of `indextts_tpu_torch` (the tensor-parallel
-  `parallel/mesh.py` and `ops/decode_step_tp.py` among them), and
-  `chip_smoke.py` as a module, loads neither jax nor any module of the JAX
-  package
-  (`indextts_tpu`): the port keeps its own copies of the host modules it
-  needs (config, text front end, buckets, resampling, wav I/O).
+  `parallel/mesh.py` and `ops/decode_step_tp.py` among them),
+  `chip_smoke.py` and `tools/torch_reference_ckpt.py` as modules, loads
+  neither jax nor any module of the JAX package (`indextts_tpu`): the port
+  keeps its own copies of the host modules it needs (config, text front
+  end, buckets, resampling, wav I/O, the checkpoint converters).
+- With ``yaml`` and ``safetensors`` blocked (as on the card's machine, which
+  has neither), the port builds `IndexTTS2` from a tiny model directory in
+  the reference's layout: its config.yaml, its safetensors files and its
+  torch pickles, every family read, each loaded tree equal to the one the
+  directory was written from (weight-normed leaves within 1 f32 ulp of
+  the fold). The import check above cannot see this: the config reader's
+  and the loader's imports sit inside functions.
 - The copied text front end gives the JAX package's normalized text, token
   ids and segments on English and Chinese sentences.
 """
@@ -35,6 +42,8 @@ def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import torch_reference_ckpt\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'indextts_tpu'))\n"
         "assert not bad, bad\n"
@@ -43,6 +52,71 @@ def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
         " <= set(names), names\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO)
     assert res.returncode == 0, res.stderr
+
+
+BLOCKED_LOAD = """
+import sys
+for name in ("yaml", "safetensors", "jax", "indextts_tpu"):
+    sys.modules[name] = None
+import torch
+from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
+d = sys.argv[1]
+tts = IndexTTS2(cfg_path=d + "/config.yaml", model_dir=d, device="cpu",
+                dtype=torch.float32, allow_random_init=False)
+assert [r["family"] for r in tts.load_report] == [
+    "gpt", "s2mel", "codec", "campplus", "bigvgan", "w2v", "w2v_stat", "matrices"]
+torch.save({"gpt": tts.gpt_params, "s2mel": tts.s2mel_params, "codec": tts.codec_params,
+            "campplus": tts.campplus_params, "bigvgan": tts.bigvgan_params,
+            "w2v": tts.w2v_params, "emo_matrix": torch.cat(tts.emo_matrix),
+            "spk_matrix": torch.cat(tts.spk_matrix), "cfg": repr(tts.cfg)}, d + "/loaded.pt")
+assert float(tts.w2v_mean[0]) == 0.5 and float(tts.w2v_std[0]) == 3.0
+assert not [k for k in sys.modules if sys.modules[k] is not None
+            and k.split(".")[0] in ("yaml", "safetensors", "jax", "indextts_tpu")]
+"""
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def test_port_loads_a_model_directory_without_yaml_or_safetensors(tmp_path):
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import torch_reference_ckpt as refckpt
+    from test_pipeline_e2e import tiny_config
+
+    from indextts_tpu_torch.pipeline.infer_v2 import random_trees
+    from indextts_tpu_torch.utils.jax_params import to_torch
+
+    cfg = tiny_config()
+    trees = random_trees(cfg, 2, "cpu")
+    H = cfg.w2v_bert.hidden_size
+    trees["w2v_mean"], trees["w2v_std"] = torch.full((H,), 0.5), torch.full((H,), 3.0)
+    written = refckpt.write_model_dir(str(tmp_path), trees, cfg)
+    assert {"config.yaml", "hf_cache/semantic_codec_model.safetensors",
+            "hf_cache/w2v-bert-2.0/model.safetensors"} <= set(written)
+    res = subprocess.run([sys.executable, "-c", BLOCKED_LOAD, str(tmp_path)],
+                         capture_output=True, text=True, cwd=REPO)
+    assert res.returncode == 0, res.stderr
+    loaded = torch.load(str(tmp_path / "loaded.pt"), weights_only=False)
+    for key in ("gpt", "s2mel", "codec", "campplus", "bigvgan", "w2v"):
+        got = dict(_leaves(loaded[key]))
+        want = dict(_leaves(to_torch(trees[key], "cpu", torch.float32)))
+        assert got.keys() == want.keys(), key
+        for path, w in want.items():
+            assert got[path].shape == w.shape, (key, path)
+            assert torch.allclose(got[path], w, rtol=2 ** -23, atol=0), (key, path)
+    assert torch.equal(loaded["emo_matrix"], trees["emo_matrix"])
+    assert torch.equal(loaded["spk_matrix"], trees["spk_matrix"])
 
 
 @pytest.fixture(scope="module")
