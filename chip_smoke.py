@@ -190,6 +190,25 @@
    request: a 24-row decode on the gather route (the bf16 step once a
    decode step, cache gathers), K2 and K3 as in one single-segment request.
 
+12. IndexTTS-1.5 passes (`v1_phase`): `IndexTTS(cfg=IndexTTS1Config())`
+   at the repository's default v1 widths (GPT 24 x 1280, 20 heads,
+   conformer + perceiver conditioning on the 24 kHz 100-bin mel; BigVGAN v1
+   1536 channels, rates 4.4.4.4 after the x4 feature upsampling, ECAPA
+   512), random weights from seed 0, the constructor's default fp16, the
+   same prompt and bpe.model: a warm-up and a measured request at the
+   default kwargs (num_beams=3, the plain decode route), the decode pinned
+   to 400 codes through the instance's `_sampling_from_kwargs` (the v1
+   `infer` takes no min_new_tokens): every synthesized row finite, the wav
+   400 x 1024 samples, exact launches (K3 73 times, the decode step 399, no
+   other kernel), stage seconds, audio seconds and RTF; K3 at fp16 at the
+   warm-up request's first call of each of its four stage shapes (B = 1,
+   T 8192 .. 524288, C 768 .. 96, the 400-code lengths) against its twin
+   with K3's gates in fp16 ulps, timed by graph replay (the
+   `antialias_snake_v1_fp16` row); then a bf16 model (use_fp16=False, the
+   CLI's default) and one `infer_fast` request over SENTENCE repeated into
+   two buckets of segments, 120 codes a segment: a finite wav of the
+   right length.
+
 `tools/torch_tp_two_cards.py` runs K6 with its shards on two cards, on a
 machine that has two.
 
@@ -277,12 +296,16 @@ HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 def edge_err(out, ref, L: int) -> float:
     """K3 at the rows whose taps reach the replicated edges, [0, 4) and
     [L-4, L): the largest error over the larger of the two blocks' magnitudes
-    in units of 2 bf16 ulps (2**-6 relative): <= 1 passes."""
+    in units of 2 ulps of out's type (2**-6 relative for bf16, 2**-9 for
+    fp16): <= 1 passes."""
+    import torch
+
+    unit = 2 * torch.finfo(out.dtype).eps
     worst = 0.0
     for rows in (slice(0, EDGE_ROWS), slice(L - EDGE_ROWS, L)):
         o, r = out[rows].float(), ref[rows].float()
         worst = max(worst, ((o - r).abs().max()
-                            / (2 ** -6 * r.abs().max()).clamp_min(1e-30)).item())
+                            / (unit * r.abs().max()).clamp_min(1e-30)).item())
     return worst
 
 
@@ -522,9 +545,10 @@ def k2_case(q, k, v, lens, fc, H: int, card: str, where: str) -> dict:
 
 
 def k3_sum(cases, card: str, where: str) -> dict:
-    """K3 on each (x, alpha, beta, lengths) of ``cases`` against its twin
+    """K3 on each (x, alpha, beta, lengths) of ``cases`` (log-scale alpha
+    and beta) against its twin
     over each row's valid frames (rel-L2 <= 1e-3; the 4 rows at each edge
-    within 2 bf16 ulps), timed by graph replay beside the plain twin; the
+    within 2 ulps of x's type), timed by graph replay beside the plain twin; the
     row of the kernels line: times summed over the cases, the bound from
     their bytes and operations. ``where`` names the inputs."""
     import torch
@@ -559,7 +583,8 @@ def k3_sum(cases, card: str, where: str) -> dict:
           f"(medians and [min-max] of {ATTN_REPS} a shape, summed) plain {tot_pms:.4f} ms bound "
           f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {nbytes} B, {ops} f32 ops); "
           f"{k3_floor_text(ops // K3_OPS_PER_ELEMENT)} [{card}]", flush=True)
-    row.update(ms=tot["graph"], plain_ms=tot_pms, library_ms=None, spread=k3_spread(tot), **b)
+    row.update(ms=tot["graph"], plain_ms=tot_pms, library_ms=None,
+               spread=k3_spread(tot, len(cases)), **b)
     return row
 
 
@@ -611,10 +636,11 @@ def k3_floor_text(elements: int) -> str:
             f"kernel's SASS; {SM_CLOCK_HZ / 1e9:.3f} GHz)")
 
 
-def k3_spread(kt: dict) -> dict:
-    """The ``spread`` of an anti-alias row: ``kt`` holds the six shapes'
-    `timing_spread` results summed."""
-    return {"ms_timing": f"graph replay, median of {ATTN_REPS} a shape, summed over the six",
+def k3_spread(kt: dict, shapes: int = len(K3_SHAPES)) -> dict:
+    """The ``spread`` of an anti-alias row: ``kt`` holds the `timing_spread`
+    results of its ``shapes`` stage shapes, summed."""
+    return {"ms_timing": f"graph replay, median of {ATTN_REPS} a shape, summed over the "
+                         f"{shapes}",
             "ms_range": kt["graph_range"], "eager_ms": kt["eager"],
             "eager_ms_range": kt["eager_range"]}
 
@@ -2712,10 +2738,11 @@ def ragged_synthesis(tts, prompt: str, text: str, card: str) -> tuple:
         assert not wav[b, m:].any(), f"row {b} sounds past its {m} samples"
     (k2_args,) = k2_seen.values()
     assert len(set(k2_args[3].tolist())) == len(n), k2_args[3]
-    assert len(k3_seen) == len(K3_SHAPES) and all(len(set(a[3].tolist())) == len(n)
+    assert len(k3_seen) == len(K3_SHAPES) and all(len(set(a[3].tolist())) == len(n) and a[4]
                                      for a in k3_seen.values()), k3_seen.keys()
     where = " at the long-form synthesis's rows of different lengths"
-    return k2_case(*k2_args, card, where), k3_sum(list(k3_seen.values()), card, where)
+    return k2_case(*k2_args, card, where), k3_sum([a[:4] for a in k3_seen.values()], card,
+                                                  where)
 
 
 def longform_phase(card: str, prompt: str, model_dir: str) -> tuple:
@@ -2835,6 +2862,136 @@ def longform_bf16_phase(card: str, prompt: str, model_dir: str) -> tuple:
     return counts, st
 
 
+def v1_pinned(tts, min_new_tokens: int, synth_rows: list):
+    """Pin a v1 model's decode: the sampling config its
+    ``_sampling_from_kwargs`` builds from the request's kwargs, with
+    ``min_new_tokens`` set (`IndexTTS.infer` takes no such keyword), on this
+    instance; every synthesized row's float wav is appended to
+    ``synth_rows`` (the int16 output cannot show a NaN)."""
+    import dataclasses
+
+    cls = type(tts)
+
+    def sampling(kw):
+        s, n = cls._sampling_from_kwargs(tts, kw)
+        return dataclasses.replace(s, min_new_tokens=min_new_tokens), n
+
+    def synthesize(*args, **kwargs):
+        rows = cls._synthesize_batch(tts, *args, **kwargs)
+        synth_rows.extend(rows)
+        return rows
+
+    tts._sampling_from_kwargs = sampling
+    tts._synthesize_batch = synthesize
+
+
+def v1_request(tts, fn, card: str, label: str, **kwargs) -> tuple:
+    """One v1 request (``fn``: infer or infer_fast, decode pinned by
+    `v1_pinned`): a finite float wav a row, the int16 output of codes x
+    total_upsample samples; prints its stage seconds and RTF; returns
+    (stage times, launches)."""
+    rows = []
+    v1_pinned(tts, kwargs.pop("min_new_tokens"), rows)
+    reset_counts()
+    sr, wav = fn(output_path=None, **kwargs)
+    counts = read_counts()
+    st = dict(tts.last_stage_times)
+    up = tts.cfg.bigvgan.total_upsample
+    assert sr == 24000 and wav.shape == (st["codes"] * up, 1), (wav.shape, st["codes"], up)
+    assert rows and all(np.all(np.isfinite(r)) for r in rows), "v1 wav not finite"
+    assert np.abs(wav).max() > 0
+    stages = " ".join(f"{k}={st[k]:.4f}s" for k in
+                      ("prompt", "gpt", "gpt_forward", "bigvgan", "total"))
+    print(f"{label}: codes={st['codes']} ({len(rows)} rows) samples={wav.shape[0]} "
+          f"audio={st['audio_s']:.4f}s {stages} RTF={st['rtf']:.4f}; K3 launches "
+          f"{counts['antialias_snake']} [{card}]", flush=True)
+    return st, counts
+
+
+def v1_fast_text(tts) -> str:
+    """SENTENCE repeated until `IndexTTS.infer_fast`'s segments (at its
+    default 100 tokens) fill two buckets."""
+    tok = tts.tokenizer
+    n = 1
+    while True:
+        segs = tok.split_segments(tok.tokenize(SENTENCE * n), 100)
+        if len(segs) >= 5 and len(tts.bucket_segments(segs)) == 2:
+            break
+        n += 1
+    print(f"v1 infer_fast text: SENTENCE x {n} -> {len(segs)} segments of "
+          f"{[len(x) for x in segs]} tokens, buckets of "
+          f"{[len(b) for b in tts.bucket_segments(segs)]} rows", flush=True)
+    return SENTENCE * n
+
+
+def v1_phase(card: str, prompt: str, model_dir: str) -> tuple:
+    """The IndexTTS-1.5 pass: `IndexTTS(cfg=IndexTTS1Config())` at the
+    repository's default v1 widths (GPT 24 x 1280, 20 heads, conformer +
+    perceiver conditioning; BigVGAN v1 1536 channels, rates 4.4.4.4 after
+    the x4 feature upsampling, ECAPA 512), random weights from seed 0, the
+    constructor's default fp16. A warm-up and a measured request at the
+    default kwargs (num_beams=3), the decode pinned to 400 codes: the wav
+    finite, codes x 1024 samples; exact launches (K3 once an anti-aliased
+    activation, 73; the bf16-or-fp16 plain decode step once a decode step;
+    no other kernel). K3 at fp16 at the request's four stage shapes (its
+    first call at each, kept from the warm-up request) against its twin:
+    the `antialias_snake_v1_fp16` row. Then a bf16 model (use_fp16=False,
+    the CLI's default) and one `infer_fast` request over a text of two
+    buckets, 120 codes a segment: a finite wav of the right length.
+    Returns (the measured request's launches, the K3 row)."""
+    import torch
+
+    from indextts_tpu_torch.config import IndexTTS1Config
+    from indextts_tpu_torch.models.vocoder import bigvgan as bv_mod
+    from indextts_tpu_torch.models.vocoder.bigvgan import activation1d_calls
+    from indextts_tpu_torch.pipeline.infer_v1 import IndexTTS
+
+    t0 = time.perf_counter()
+    tts = IndexTTS(cfg=IndexTTS1Config(), model_dir=model_dir, seed=0)
+    torch.cuda.synchronize()
+    print(f"v1 model build (fp16, random weights, default v1 widths): "
+          f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+    assert tts.dtype == torch.float16 and tts.device.type == "cuda"
+    n_seg = len(tts.tokenizer.split_segments(tts.tokenizer.tokenize(SENTENCE), 120))
+    assert n_seg == 1, f"smoke text must be one v1 segment, got {n_seg}"
+    k3_seen = {}
+    restore = record_first_calls(bv_mod, "antialias_snake", k3_seen)
+    try:
+        v1_request(tts, tts.infer, card, "v1 fp16 warm-up request", audio_prompt=prompt,
+                   text=SENTENCE, max_mel_tokens=400, min_new_tokens=399)
+    finally:
+        restore()
+    st, counts = v1_request(tts, tts.infer, card, "v1 fp16 request", audio_prompt=prompt,
+                            text=SENTENCE, max_mel_tokens=400, min_new_tokens=399)
+    want = {k: 0 for k in counts}
+    want.update(antialias_snake=activation1d_calls(tts.cfg.bigvgan),
+                gpt2_decode_step=DECODE_STEPS, kv_gathers=counts["kv_gathers"])
+    print(f"launches of the v1 fp16 request: {counts} (expect {want}, kv_gathers > 0) "
+          f"[{card}]", flush=True)
+    assert st["codes"] == 400 and counts == want and counts["kv_gathers"] > 0, (st, counts)
+    cases = sorted(k3_seen.values(), key=lambda a: -a[0].shape[2])
+    assert len(cases) == 4 and all(a[0].dtype == torch.float16 and a[4] for a in cases), \
+        [(a[0].shape, a[0].dtype) for a in cases]
+    k3 = k3_sum([a[:4] for a in cases], card, " fp16 at the v1 request's stage shapes")
+    del tts, k3_seen, cases
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    fast = IndexTTS(cfg=IndexTTS1Config(), model_dir=model_dir, seed=0, use_fp16=False)
+    torch.cuda.synchronize()
+    print(f"v1 model build (bf16): {time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+    assert fast.dtype == torch.bfloat16
+    text = v1_fast_text(fast)
+    n_seg = len(fast.tokenizer.split_segments(fast.tokenizer.tokenize(text), 100))
+    st_fast, _ = v1_request(fast, fast.infer_fast, card, "v1 bf16 infer_fast request",
+                            audio_prompt=prompt, text=text, max_mel_tokens=120,
+                            min_new_tokens=119)
+    assert st_fast["codes"] == 120 * n_seg, (st_fast["codes"], n_seg)
+    del fast
+    torch.cuda.empty_cache()
+    return counts, k3
+
+
 def main() -> int:
     try:
         import torch
@@ -2905,6 +3062,8 @@ def main() -> int:
         mark("streaming and long-form int8 passes done")
         counts["longform_bf16"], lf_bf16 = longform_bf16_phase(card, prompt, d)
         mark("long-form bf16 pass done")
+        counts["v1"], kres["antialias_snake_v1_fp16"] = v1_phase(card, prompt, d)
+        mark("v1 passes done")
         print("long-form stages (one request, 8 segments x 400 codes): " + "; ".join(
             f"{label} " + " ".join(f"{k}={st[k]:.4f}s" for k in
                                    ("gpt", "gpt_forward", "s2mel", "bigvgan", "total"))
@@ -2957,7 +3116,9 @@ def main() -> int:
              ("attention_rope_longform", "attention_rope", k2_src,
               "attn.py:188 (DiT batch 2B = 16 rows)", "longform"),
              ("antialias_snake_longform", "antialias_snake", "antialias_snake.cu",
-              "antialias.py:269 (8 segment rows)", "longform"))
+              "antialias.py:269 (8 segment rows)", "longform"),
+             ("antialias_snake_v1_fp16", "antialias_snake", "antialias_snake.cu",
+              "antialias.py:269 (fp16: BigVGAN v1's four stage shapes)", "v1"))
     # where a row's launches come from when no pipeline pass launches it
     launched_in = {"tp_allreduce": "kernel phase (the chain's exchange; folded into K6's kernel "
                                    "on the co-located route, launched on two cards)"}
@@ -2990,7 +3151,9 @@ def main() -> int:
           f"in the kernel phase; the *_longform rows are K1 at the long-form int8 request's "
           f"own inputs (two decode steps of 24 rows), K2 and K3 at the long-form synthesis's "
           f"rows of different lengths (the CFM's first DiT call of 16 rows, the vocoder's first "
-          f"call of each stage shape over 8 rows), with the request's launches; every other "
+          f"call of each stage shape over 8 rows), with the request's launches; "
+          f"antialias_snake_v1_fp16 is K3 at fp16 at the v1 request's first call of each of "
+          f"its four stage shapes, with that request's launches; every other "
           f"row as timed in its phase", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -29,8 +29,8 @@
 //     ahead), keeps the 6 newest rows in f32, and at each row computes the
 //     two snake values s0(n - 2), s1(n - 3) once and adds them, with their
 //     lowpass taps, into the 6 outputs they reach (y(n - 5) .. y(n)); y(n -
-//     5) is then whole and is written as bf16. The window and the outputs
-//     rotate through registers with a period of 6, so the loop runs
+//     5) is then whole and is written as bf16 (or fp16). The window and
+//     the outputs rotate through registers with a period of 6, so the loop runs
 //     unrolled by 6 with no register moves. 4 channels, not 8: with 8 (one
 //     16-byte piece) a thread's window and outputs took all 255 registers,
 //     two blocks of 128 threads an SM, and the kernel ran slower; with 4 it
@@ -47,6 +47,12 @@
 // C must be a multiple of 4 (every BigVGAN width is, 24-1536); the wrapper
 // refuses other widths.
 //
+// Element types: bf16 (IndexTTS2's BigVGAN-v2) and fp16 (IndexTTS-1's
+// BigVGAN v1, which runs at fp16 by default). The kernel is a template on
+// the 16-bit type: only the load's widening and the store's rounding differ
+// (`Io<E>`); the arithmetic is f32 in both, and the bf16 instantiation is
+// the kernel as it was before fp16 was added.
+//
 // The same kernel serves two more TPU kernels' entries, with a `logscale`
 // flag (alpha and beta taken as they are, or as logs): K5
 // fused_antialias_activation (ops/pallas/antialias.py:457, K3's math on
@@ -56,12 +62,14 @@
 // kept separate kernels only to fill its 128 lanes in different ways.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr int VEC = 4;        // channels a thread: one 8-byte row piece (ops/snake.py::SNAKE_VEC)
 constexpr int RUN = 16;       // output rows a thread (ops/snake.py::SNAKE_RUN)
@@ -87,32 +95,60 @@ __device__ __forceinline__ float snake(float u, float a, float inv_b) {
   return fmaf(s * s, inv_b, u);
 }
 
-// a thread's piece of a row: VEC bf16 values, VEC / 2 words
+// a thread's piece of a row: VEC 16-bit values, VEC / 2 words
 struct __align__(2 * VEC) Piece {
   uint32_t w[VEC / 2];
 };
 
-__device__ __forceinline__ Piece load_piece(const bf16* p) {
+template <typename E>
+__device__ __forceinline__ Piece load_piece(const E* p) {
   return *reinterpret_cast<const Piece*>(p);
 }
 
-__device__ __forceinline__ void unpack(const Piece& v, float (&x)[VEC]) {
-#pragma unroll
-  for (int i = 0; i < VEC / 2; ++i) {
-    x[2 * i] = __uint_as_float(v.w[i] << 16);
-    x[2 * i + 1] = __uint_as_float(v.w[i] & 0xffff0000u);
-  }
-}
+// the widening of a piece to f32 and the rounding of VEC f32 values to one
+template <typename E>
+struct Io;
 
-__device__ __forceinline__ Piece pack(const float (&y)[VEC]) {
-  Piece v;
+template <>
+struct Io<bf16> {
+  static __device__ __forceinline__ void unpack(const Piece& v, float (&x)[VEC]) {
 #pragma unroll
-  for (int i = 0; i < VEC / 2; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(y[2 * i], y[2 * i + 1]);
-    v.w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    for (int i = 0; i < VEC / 2; ++i) {
+      x[2 * i] = __uint_as_float(v.w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(v.w[i] & 0xffff0000u);
+    }
   }
-  return v;
-}
+  static __device__ __forceinline__ Piece pack(const float (&y)[VEC]) {
+    Piece v;
+#pragma unroll
+    for (int i = 0; i < VEC / 2; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(y[2 * i], y[2 * i + 1]);
+      v.w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return v;
+  }
+};
+
+template <>
+struct Io<f16> {
+  static __device__ __forceinline__ void unpack(const Piece& v, float (&x)[VEC]) {
+#pragma unroll
+    for (int i = 0; i < VEC / 2; ++i) {
+      const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&v.w[i]));
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ Piece pack(const float (&y)[VEC]) {
+    Piece v;
+#pragma unroll
+    for (int i = 0; i < VEC / 2; ++i) {
+      const __half2 h = __floats2half2_rn(y[2 * i], y[2 * i + 1]);
+      v.w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return v;
+  }
+};
 
 // One thread's run: output rows [t0, t0 + RUN) of channels [c0, c0 + VEC) of
 // batch row b. Step k = 0 .. RUN + 9 takes x row n = t0 - 5 + k (into
@@ -121,8 +157,8 @@ __device__ __forceinline__ Piece pack(const float (&y)[VEC]) {
 // = 0..5 (slot (k + 1 + i) % 6) with taps g[2(5 - i) + 1] and g[2(5 - i)];
 // from k = 10 on y(n - 5) = y(t0 + k - 10) is whole and written. EDGE adds
 // the clamps of x to [0, L - 1], the edge replication of s and the T mask.
-template <bool EDGE>
-__device__ __forceinline__ void run_rows(const bf16* __restrict__ xb, bf16* __restrict__ ob,
+template <typename E, bool EDGE>
+__device__ __forceinline__ void run_rows(const E* __restrict__ xb, E* __restrict__ ob,
                                          int t0, int T, int C, int L, const Taps& tp,
                                          const float (&a)[VEC], const float (&ib)[VEC],
                                          const float (&e0)[VEC], const float (&e1)[VEC]) {
@@ -146,7 +182,7 @@ __device__ __forceinline__ void run_rows(const bf16* __restrict__ xb, bf16* __re
       const int k = k0 + u;
       if (k >= STEPS) break;
       if (k + PREFETCH < STEPS) raw[(u + PREFETCH) % WIN] = load(k + PREFETCH);
-      unpack(raw[u], xw[u]);
+      Io<E>::unpack(raw[u], xw[u]);
       if (k < 5) continue;
       const int n = t0 - 5 + k;
 #pragma unroll
@@ -173,7 +209,7 @@ __device__ __forceinline__ void run_rows(const bf16* __restrict__ xb, bf16* __re
       if (k >= 10) {  // y(n - 5) is whole
         float(&done)[VEC] = y[(u + 1) % WIN];
         const int t = n - 5;
-        if (!EDGE || t < T) *reinterpret_cast<Piece*>(ob + (size_t)t * C) = pack(done);
+        if (!EDGE || t < T) *reinterpret_cast<Piece*>(ob + (size_t)t * C) = Io<E>::pack(done);
       }
 #pragma unroll
       for (int c = 0; c < VEC; ++c) y[(u + 1) % WIN][c] = 0.f;
@@ -182,7 +218,8 @@ __device__ __forceinline__ void run_rows(const bf16* __restrict__ xb, bf16* __re
 }
 
 // s0(0) (phase 0, left edge) or s1(L - 1) (phase 1, right edge) of VEC channels
-__device__ __forceinline__ void edge_value(const bf16* __restrict__ xb, int C, int L, int phase,
+template <typename E>
+__device__ __forceinline__ void edge_value(const E* __restrict__ xb, int C, int L, int phase,
                                            const Taps& tp, const float (&a)[VEC],
                                            const float (&ib)[VEC], float (&e)[VEC]) {
   float p[VEC] = {};
@@ -190,7 +227,7 @@ __device__ __forceinline__ void edge_value(const bf16* __restrict__ xb, int C, i
   for (int j = 0; j < 6; ++j) {
     const int n = phase == 0 ? j - 3 : L - 3 + j;
     float x[VEC];
-    unpack(load_piece(xb + (size_t)min(max(n, 0), L - 1) * C), x);
+    Io<E>::unpack(load_piece(xb + (size_t)min(max(n, 0), L - 1) * C), x);
 #pragma unroll
     for (int c = 0; c < VEC; ++c) p[c] = fmaf(phase == 0 ? tp.f0[j] : tp.f1[j], x[c], p[c]);
   }
@@ -198,10 +235,11 @@ __device__ __forceinline__ void edge_value(const bf16* __restrict__ xb, int C, i
   for (int c = 0; c < VEC; ++c) e[c] = snake(p[c], a[c], ib[c]);
 }
 
+template <typename E>
 __global__ void __launch_bounds__(THREADS)
-antialias_snake_kernel(const bf16* __restrict__ x, const float* __restrict__ alpha,
+antialias_snake_kernel(const E* __restrict__ x, const float* __restrict__ alpha,
                        const float* __restrict__ beta, const int* __restrict__ lengths,
-                       const float* __restrict__ taps, bf16* __restrict__ out, int B, int T,
+                       const float* __restrict__ taps, E* __restrict__ out, int B, int T,
                        int C, int logscale) {
   const int vecs = C / VEC, runs = (T + RUN - 1) / RUN;
   const long long gid = (long long)blockIdx.x * THREADS + threadIdx.x;
@@ -211,8 +249,8 @@ antialias_snake_kernel(const bf16* __restrict__ x, const float* __restrict__ alp
   const int run = (int)(rest % runs), b = (int)(rest / runs);
   const int t0 = run * RUN, c0 = v * VEC;
   const int L = max(1, min(lengths[b], T));
-  const bf16* xb = x + (size_t)b * T * C + c0;
-  bf16* ob = out + (size_t)b * T * C + c0;
+  const E* xb = x + (size_t)b * T * C + c0;
+  E* ob = out + (size_t)b * T * C + c0;
 
   Taps tp;
 #pragma unroll
@@ -232,35 +270,43 @@ antialias_snake_kernel(const bf16* __restrict__ x, const float* __restrict__ alp
 
   float e0[VEC], e1[VEC];
   if (t0 >= 5 && t0 + RUN + 4 <= L - 1) {  // the run's x rows all lie in [0, L - 1]
-    run_rows<false>(xb, ob, t0, T, C, L, tp, a, ib, e0, e1);
+    run_rows<E, false>(xb, ob, t0, T, C, L, tp, a, ib, e0, e1);
   } else {
     edge_value(xb, C, L, 0, tp, a, ib, e0);
     edge_value(xb, C, L, 1, tp, a, ib, e1);
-    run_rows<true>(xb, ob, t0, T, C, L, tp, a, ib, e0, e1);
+    run_rows<E, true>(xb, ob, t0, T, C, L, tp, a, ib, e0, e1);
   }
 }
 
 }  // namespace
 
-// x, out: (B, T, C) bf16, contiguous, 8-byte aligned, C % 4 == 0; alpha,
-// beta: (C,) f32 (logs when logscale != 0); lengths: (B,) int32; taps: 24
-// f32 = [2 f[0::2] | 2 f[1::2] | g]. Returns cudaGetLastError() after the
-// launch.
+// x, out: (B, T, C) 16-bit floats (half == 0: bf16, half == 1: fp16),
+// contiguous, 8-byte aligned, C % 4 == 0; alpha, beta: (C,) f32 (logs when
+// logscale != 0); lengths: (B,) int32; taps: 24 f32 = [2 f[0::2] | 2
+// f[1::2] | g]. Returns cudaGetLastError() after the launch.
 extern "C" int antialias_snake_launch(const void* x, const void* alpha,
                                       const void* beta, const void* lengths,
                                       const void* taps, void* out, int B,
-                                      int T, int C, int logscale,
+                                      int T, int C, int logscale, int half,
                                       void* stream) {
-  if (B < 1 || T < 1 || C < VEC || C % VEC != 0 ||
+  if (B < 1 || T < 1 || C < VEC || C % VEC != 0 || (half != 0 && half != 1) ||
       (reinterpret_cast<uintptr_t>(x) & (2 * VEC - 1)) != 0 ||
       (reinterpret_cast<uintptr_t>(out) & (2 * VEC - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   const long long threads = (long long)B * ((T + RUN - 1) / RUN) * (C / VEC);
   const long long blocks = (threads + THREADS - 1) / THREADS;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  antialias_snake_kernel<<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(alpha),
-      static_cast<const float*>(beta), static_cast<const int*>(lengths),
-      static_cast<const float*>(taps), static_cast<bf16*>(out), B, T, C, logscale);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* a = static_cast<const float*>(alpha);
+  const float* b = static_cast<const float*>(beta);
+  const int* lens = static_cast<const int*>(lengths);
+  const float* tp = static_cast<const float*>(taps);
+  if (half)
+    antialias_snake_kernel<f16><<<(unsigned)blocks, THREADS, 0, s>>>(
+        static_cast<const f16*>(x), a, b, lens, tp, static_cast<f16*>(out), B, T, C, logscale);
+  else
+    antialias_snake_kernel<bf16><<<(unsigned)blocks, THREADS, 0, s>>>(
+        static_cast<const bf16*>(x), a, b, lens, tp, static_cast<bf16*>(out), B, T, C,
+        logscale);
   return (int)cudaGetLastError();
 }

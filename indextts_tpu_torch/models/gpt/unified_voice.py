@@ -150,7 +150,19 @@ def forward_latents(params: Params, cfg: GPTConfig, cond_latents: torch.Tensor,
                     mel_lens: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """Teacher-forced pass: final-norm hidden states over the mel span minus
     its last two positions, (B, T_mel, dim)."""
-    B, Lt = text_ids.shape
+    return teacher_forced(params, cfg, build_conds_latent(params, cond_latents, emo_vec),
+                          text_ids, text_lens, mel_codes, mel_lens, dtype)
+
+
+def teacher_forced(params: Params, cfg: GPTConfig, conds: torch.Tensor,
+                   text_ids: torch.Tensor, text_lens: torch.Tensor, mel_codes: torch.Tensor,
+                   mel_lens: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """[conds][start_text][text][stop_text][start_mel][mel][stop_mel]
+    through GPT-2 and the final norm; the hidden states over the mel span
+    minus its last two positions, (B, T_mel, dim). Ids past each row's
+    length become the stop token. v2 passes its conditioning prefix, v1 its
+    latents."""
+    B = text_ids.shape[0]
     dev = text_ids.device
 
     def framed(ids, lens, start, stop):
@@ -162,13 +174,14 @@ def forward_latents(params: Params, cfg: GPTConfig, cond_latents: torch.Tensor,
 
     text_in = framed(text_ids, text_lens, cfg.start_text_token, cfg.stop_text_token)
     mel_in = framed(mel_codes, mel_lens, cfg.start_mel_token, cfg.stop_mel_token)
-    conds = build_conds_latent(params, cond_latents, emo_vec).to(dtype)
+    conds = conds.to(dtype)
     text_emb = nn.embedding(params["text_embedding"], text_in, dtype) \
         + params["text_pos_embedding"]["weight"][: text_in.shape[1]].to(dtype)[None]
     mel_emb = nn.embedding(params["mel_embedding"], mel_in, dtype) \
         + params["mel_pos_embedding"]["weight"][: mel_in.shape[1]].to(dtype)[None]
     emb = torch.cat([conds, text_emb, mel_emb], dim=1)
-    hidden = gpt2_forward(params["gpt"], emb, make_dims(cfg)["gpt"])
+    hidden = gpt2_forward(params["gpt"], emb,
+                          GPT2Dims(cfg.layers, cfg.model_dim, cfg.heads))
     enc = nn.layer_norm(params["final_norm"], hidden[:, conds.shape[1]:])
     return enc[:, text_in.shape[1]:][:, :-2]
 

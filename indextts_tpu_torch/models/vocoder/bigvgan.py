@@ -58,17 +58,18 @@ def _mask(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
     return x * nn.sequence_mask(lengths, x.shape[1])[:, :, None].to(x.dtype)
 
 
-def _act(a: Params, x: torch.Tensor, lengths) -> torch.Tensor:
-    return antialias_snake(x.contiguous(), a["alpha"], a.get("beta"), lengths)
+def _act(a: Params, x: torch.Tensor, lengths, logscale: bool) -> torch.Tensor:
+    return antialias_snake(x.contiguous(), a["alpha"], a.get("beta"), lengths, logscale)
 
 
-def _amp_block(bp: Params, x: torch.Tensor, ks: int, dils, lengths) -> torch.Tensor:
-    """AMPBlock1."""
+def _amp_block(bp: Params, x: torch.Tensor, ks: int, dils, lengths,
+               logscale: bool) -> torch.Tensor:
+    """AMPBlock1; the snake parameters are logs when ``logscale``."""
     for j, d in enumerate(dils):
-        xt = _mask(_act(bp["acts"][2 * j], x, lengths), lengths)
+        xt = _mask(_act(bp["acts"][2 * j], x, lengths, logscale), lengths)
         xt = _mask(nn.conv1d(bp["convs1"][j], xt, padding=(ks * d - d) // 2, dilation=d),
                    lengths)
-        xt = _mask(_act(bp["acts"][2 * j + 1], xt, lengths), lengths)
+        xt = _mask(_act(bp["acts"][2 * j + 1], xt, lengths, logscale), lengths)
         xt = nn.conv1d(bp["convs2"][j], xt, padding=(ks - 1) // 2)
         x = _mask(x + xt, lengths)
     return x
@@ -78,10 +79,8 @@ def _amp_block(bp: Params, x: torch.Tensor, ks: int, dils, lengths) -> torch.Ten
 def bigvgan_forward(p: Params, h: BigVGANConfig, mel: torch.Tensor,
                     mel_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """mel (B, T, num_mels) -> wav (B, T * prod(rates)) in [-1, 1], zero past
-    mel_lens * prod(rates)."""
-    if not h.snake_logscale:
-        raise NotImplementedError("linear-scale snake parameters are not ported "
-                                  "(BigVGAN-v2 stores them in log scale)")
+    mel_lens * prod(rates). The snake parameters are logs when
+    ``h.snake_logscale`` (BigVGAN-v2's), taken as they are otherwise."""
     x = nn.conv1d(p["conv_pre"], _mask(mel, mel_lens), padding=3)
     lens = mel_lens
     n_k = len(h.resblock_kernel_sizes)
@@ -91,10 +90,10 @@ def bigvgan_forward(p: Params, h: BigVGANConfig, mel: torch.Tensor,
         x = _mask(x, lens)
         xs = None
         for j, (ks, dils) in enumerate(zip(h.resblock_kernel_sizes, h.resblock_dilation_sizes)):
-            r = _amp_block(p["resblocks"][i * n_k + j], x, ks, dils, lens)
+            r = _amp_block(p["resblocks"][i * n_k + j], x, ks, dils, lens, h.snake_logscale)
             xs = r if xs is None else xs + r
         x = xs / n_k
-    x = _mask(_act(p["activation_post"], x, lens), lens)
+    x = _mask(_act(p["activation_post"], x, lens, h.snake_logscale), lens)
     x = nn.conv1d(p["conv_post"], x, padding=3)
     x = torch.tanh(x) if h.use_tanh_at_final else torch.clamp(x, -1.0, 1.0)
     return _mask(x, lens)[..., 0]

@@ -308,12 +308,14 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, H, Tq, D) x (B, H, Tk, D) -> (B, H, Tq, D) with a boolean keep-mask
     broadcastable to (B, H, Tq, Tk). The fused library attention keeps the
     scores and the softmax in f32, as the JAX package's `nn.mha` does; masked
-    scores get -1e9 added, so a fully masked row stays finite (its output is
-    garbage that callers mask, as in the JAX package)."""
+    scores get -1e9 added (fp16's most negative value, -65504, for fp16
+    operands, whose bias cannot hold -1e9; either is exp-zero against the
+    f32 scores), so a fully masked row stays finite (its output is garbage
+    that callers mask, as in the JAX package)."""
     bias = None
     if mask is not None:
         bias = torch.zeros(mask.shape, dtype=q.dtype, device=q.device)
-        bias = bias.masked_fill(~mask, -1e9)
+        bias = bias.masked_fill(~mask, max(-1e9, torch.finfo(q.dtype).min))
     return F.scaled_dot_product_attention(q, k.to(q.dtype), v.to(q.dtype),
                                           attn_mask=bias, scale=scale)
 

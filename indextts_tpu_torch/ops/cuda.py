@@ -42,8 +42,8 @@ _SIGNATURES = {
     # q, k, v, lengths, out, B, H, T, D, the (b, h, t) strides of q, k, v and
     # out, scale, stream
     "attention_block_launch": [_P] * 5 + [_I] * 4 + [_L] * 12 + [_F, _P],
-    # x, alpha, beta, lengths, taps, out, B, T, C, logscale, stream
-    "antialias_snake_launch": [_P] * 6 + [_I] * 4 + [_P],
+    # x, alpha, beta, lengths, taps, out, B, T, C, logscale, half (fp16 x), stream
+    "antialias_snake_launch": [_P] * 6 + [_I] * 5 + [_P],
     # x, q, ln_w, ln_b, scale, bias, res, out, M, N, K, half_span, epilogue,
     # the launch plan (ops/int8.py::GemvPlan: rows, split, span, smem), stream
     "int8_gemv_launch": [_P] * 8 + [_I] * 9 + [_P],

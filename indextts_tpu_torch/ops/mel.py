@@ -3,6 +3,9 @@
 - `mel_spectrogram`: HiFiGAN-style 80-mel / 22.05 kHz log-mel feeding the
   s2mel DiT prompt and BigVGAN-v2.
 - `kaldi_fbank`: Kaldi-compatible 80-bin log fbank at 16 kHz feeding CAMPPlus.
+- `mel_spectrogram_24k_v1`: the IndexTTS-1 conditioning mel, 100 bins at
+  24 kHz with torchaudio's defaults (htk scale, no norm, power 1, centered
+  reflect padding), feeding the v1 GPT's conditioning and ECAPA.
 - `seamless_m4t_features`: host-side (numpy) replacement for transformers'
   `SeamlessM4TFeatureExtractor` as the pipeline calls it for w2v-bert: 80-bin
   kaldi fbank of the int16-scaled wave, per-bin normalisation, stride-2
@@ -42,25 +45,42 @@ def _mel_to_hz_slaney(m):
                     f_sp * m)
 
 
+def _hz_to_mel_htk(f):
+    return 2595.0 * np.log10(1.0 + np.asarray(f, dtype=np.float64) / 700.0)
+
+
+def _mel_to_hz_htk(m):
+    return 700.0 * (10.0 ** (np.asarray(m, dtype=np.float64) / 2595.0) - 1.0)
+
+
 def _hz_to_mel_kaldi(f):
     return 1127.0 * np.log(1.0 + np.asarray(f, dtype=np.float64) / 700.0)
 
 
 def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float = 0.0,
-                   fmax: Optional[float] = None) -> np.ndarray:
-    """Slaney-scale, slaney-normalized triangles (librosa defaults),
-    (n_mels, n_fft//2 + 1) float32."""
+                   fmax: Optional[float] = None, scale: str = "slaney",
+                   norm: Optional[str] = "slaney") -> np.ndarray:
+    """Triangular mel filterbank, (n_mels, n_fft//2 + 1) float32.
+    ``scale='slaney', norm='slaney'`` are librosa's defaults (the 22 kHz
+    front end); ``scale='htk', norm=None`` torchaudio's (the v1 24 kHz
+    front end)."""
     if fmax is None:
         fmax = sr / 2.0
+    if scale == "slaney":
+        to_mel, to_hz = _hz_to_mel_slaney, _mel_to_hz_slaney
+    elif scale == "htk":
+        to_mel, to_hz = _hz_to_mel_htk, _mel_to_hz_htk
+    else:
+        raise ValueError(f"unknown mel scale {scale}")
     fft_freqs = np.linspace(0.0, sr / 2.0, n_fft // 2 + 1)
-    hz_pts = _mel_to_hz_slaney(np.linspace(_hz_to_mel_slaney(fmin),
-                                           _hz_to_mel_slaney(fmax), n_mels + 2))
+    hz_pts = to_hz(np.linspace(to_mel(fmin), to_mel(fmax), n_mels + 2))
     fdiff = np.diff(hz_pts)
     ramps = hz_pts[:, None] - fft_freqs[None, :]
     lower = -ramps[:-2] / fdiff[:-1, None]
     upper = ramps[2:] / fdiff[1:, None]
     weights = np.maximum(0.0, np.minimum(lower, upper))
-    weights *= (2.0 / (hz_pts[2:n_mels + 2] - hz_pts[:n_mels]))[:, None]
+    if norm == "slaney":
+        weights *= (2.0 / (hz_pts[2:n_mels + 2] - hz_pts[:n_mels]))[:, None]
     return weights.astype(np.float32)
 
 
@@ -99,6 +119,27 @@ def mel_spectrogram(y: torch.Tensor, n_fft: int = 1024, num_mels: int = 80,
     mag = stft_magnitude(y, torch.as_tensor(win, device=y.device), n_fft, hop_size)
     mel = torch.einsum("mf,bft->bmt", torch.as_tensor(fb, device=y.device), mag)
     return torch.log(torch.clamp(mel, min=1e-5))
+
+
+@functools.lru_cache(maxsize=4)
+def _mel24k_consts(n_fft, n_mels, sr, fmin, fmax):
+    return (mel_filterbank(sr, n_fft, n_mels, fmin, fmax, scale="htk", norm=None),
+            hann_window(n_fft))
+
+
+def mel_spectrogram_24k_v1(y: torch.Tensor, sample_rate: int = 24000, n_fft: int = 1024,
+                           hop_length: int = 256, n_mels: int = 100, mel_fmin: float = 0.0,
+                           mel_fmax: Optional[float] = None) -> torch.Tensor:
+    """(B, T) -> (B, n_mels, 1 + T // hop_length) v1 conditioning log-mel:
+    reflect pad n_fft // 2 on both sides (torchaudio's center=True), hann
+    window, |stft| with +1e-9 under the sqrt, htk mel without norm (power
+    1), log(clamp(x, 1e-7))."""
+    fb, win = _mel24k_consts(n_fft, n_mels, sample_rate, float(mel_fmin), mel_fmax)
+    pad = n_fft // 2
+    y = torch.nn.functional.pad(y.float()[:, None], (pad, pad), mode="reflect")[:, 0]
+    mag = stft_magnitude(y, torch.as_tensor(win, device=y.device), n_fft, hop_length)
+    mel = torch.einsum("mf,bft->bmt", torch.as_tensor(fb, device=y.device), mag)
+    return torch.log(torch.clamp(mel, min=1e-7))
 
 
 @functools.lru_cache(maxsize=4)

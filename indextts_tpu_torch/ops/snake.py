@@ -133,6 +133,9 @@ def antialias_snake_plain(x: torch.Tensor, alpha: torch.Tensor,
 SNAKE_VEC = 4
 SNAKE_RUN = 16
 SNAKE_THREADS = 128
+# the element types the kernel reads and writes (its arithmetic is f32):
+# bf16, BigVGAN-v2's, and fp16, BigVGAN v1's default
+SNAKE_DTYPES = (torch.bfloat16, torch.float16)
 
 
 class SnakePlan(NamedTuple):
@@ -158,8 +161,8 @@ def _launch(name: str, x: torch.Tensor, alpha: torch.Tensor, beta: Optional[torc
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     B, T, C = x.shape
-    if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 8:
-        raise ValueError(f"{name}: x must be contiguous 8-byte aligned bf16, got "
+    if x.dtype not in SNAKE_DTYPES or not x.is_contiguous() or x.data_ptr() % 8:
+        raise ValueError(f"{name}: x must be contiguous 8-byte aligned bf16 or fp16, got "
                          f"{x.dtype} (contiguous={x.is_contiguous()})")
     snake_plan(B, T, C)                         # refuses a C the kernel does not take
     beta = alpha if beta is None else beta
@@ -178,7 +181,8 @@ def _launch(name: str, x: torch.Tensor, alpha: torch.Tensor, beta: Optional[torc
     with torch.cuda.device(x.device):
         code = cuda.library().antialias_snake_launch(
             x.data_ptr(), a.data_ptr(), b.data_ptr(), lens.data_ptr(),
-            taps.data_ptr(), out.data_ptr(), B, T, C, int(logscale), cuda.stream_ptr(x))
+            taps.data_ptr(), out.data_ptr(), B, T, C, int(logscale),
+            int(x.dtype == torch.float16), cuda.stream_ptr(x))
     cuda.check(code, name)
     return out
 
@@ -189,8 +193,8 @@ def antialias_snake(x: torch.Tensor, alpha: torch.Tensor,
                     logscale: bool = True) -> torch.Tensor:
     """K3. x: (B, T, C); alpha, beta: (C,), logs when ``logscale`` (beta None
     = Snake); lengths: (B,) valid frames. CPU tensors run the plain version;
-    CUDA tensors (x contiguous bf16) launch the kernel; anything else
-    raises."""
+    CUDA tensors (x contiguous bf16 or fp16) launch the kernel; anything
+    else raises."""
     if x.device.type == "cpu":
         return antialias_snake_plain(x, alpha, beta, lengths, logscale)
     out = _launch("antialias_snake", x, alpha, beta, lengths, logscale)
@@ -208,7 +212,7 @@ def fused_antialias_activation(x: torch.Tensor, alpha: torch.Tensor, beta: torch
     C), alpha and beta (C,), lengths (B,) valid frames (default T). The TPU
     kernel's tiling (T % t_tile, C % c_tile) is its own; any T and C run
     here. CPU tensors run the plain version; CUDA tensors (x contiguous
-    bf16) launch the kernel; anything else raises."""
+    bf16 or fp16) launch the kernel; anything else raises."""
     if x.device.type == "cpu":
         return antialias_snake_plain(x, alpha, beta, lengths, logscale)
     out = _launch("fused_antialias_activation", x, alpha, beta, lengths, logscale)
@@ -229,7 +233,7 @@ def antialias_activation_prefolded(xf: torch.Tensor, alpha: torch.Tensor,
     unfolded time axis (default R*f). The folded tensor must be contiguous:
     it is then, row-major, the (B, R*f, C) tensor, which the kernel takes
     as a view (no copy). CPU tensors run the plain version; CUDA tensors
-    (bf16) launch the kernel; anything else raises."""
+    (bf16 or fp16) launch the kernel; anything else raises."""
     B, R, fC = xf.shape
     if fC != f * C:
         raise ValueError(f"antialias_activation_prefolded: last axis {fC} != f*C = {f}*{C}")

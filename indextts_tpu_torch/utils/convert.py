@@ -23,8 +23,9 @@ The converters work on numpy arrays and return views where they can
 released files use (``model``, ``state_dict``, ``generator``, and ``net``'s
 per-module dicts) and casts every tensor to f32 numpy, as the JAX loader does.
 
-The v1 converters (attention blocks, the v1 UnifiedVoice, ECAPA, BigVGAN v1,
-the DVAE) and the Qwen converter are not ported yet (ROADMAP queue 1).
+The v1 family's converters (attention blocks, the v1 UnifiedVoice, ECAPA,
+BigVGAN v1) are copies of the JAX package's too; the DVAE and Qwen
+converters are not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -586,6 +587,111 @@ def convert_bigvgan(sd: SD, h) -> dict:
         ap["beta"] = sd["activation_post.act.beta"]
     p["activation_post"] = ap
     p["conv_post"] = conv1d(sd, "conv_post")
+    return p
+
+
+# -- v1 family -------------------------------------------------------------------
+
+def convert_attention_block(sd: SD, key: str) -> dict:
+    return {
+        "norm": {"weight": sd[key + ".norm.weight"], "bias": sd[key + ".norm.bias"]},
+        "qkv": conv1d(sd, key + ".qkv"),
+        "proj_out": conv1d(sd, key + ".proj_out"),
+    }
+
+
+def convert_unified_voice_v1(sd: SD, cfg) -> dict:
+    """cfg: GPTConfig (v1 flavor). Handles both condition types."""
+    sd = fold_weight_norm(sd)
+    p: dict = {}
+    if cfg.condition_type == "conformer_perceiver":
+        cm = cfg.condition_module
+        p["conditioning_encoder"] = convert_conformer(
+            sd, cm.num_blocks, cm.input_layer, "conditioning_encoder.")
+    else:
+        n_blocks = 0
+        while f"conditioning_encoder.attn.{n_blocks}.qkv.weight" in sd:
+            n_blocks += 1
+        p["conditioning_encoder"] = {
+            "init": conv1d(sd, "conditioning_encoder.init"),
+            "attn": [convert_attention_block(sd, f"conditioning_encoder.attn.{i}")
+                     for i in range(n_blocks)],
+        }
+    p["perceiver_encoder"] = convert_perceiver(sd, 2, "perceiver_encoder.")
+    p.update({
+        "text_embedding": embedding(sd, "text_embedding"),
+        "mel_embedding": embedding(sd, "mel_embedding"),
+        "text_pos_embedding": embedding(sd, "text_pos_embedding.emb"),
+        "mel_pos_embedding": embedding(sd, "mel_pos_embedding.emb"),
+        "gpt": convert_gpt2(sd, cfg.layers, "gpt."),
+        "final_norm": layer_norm(sd, "final_norm"),
+        "mel_head": linear(sd, "mel_head"),
+        "text_head": linear(sd, "text_head"),
+    })
+    return p
+
+
+def _convert_tdnn(sd: SD, key: str) -> dict:
+    return {"conv": conv1d(sd, key + ".conv.conv"),
+            "bn": batch_norm(sd, key + ".norm.norm")}
+
+
+def convert_ecapa(sd: SD, prefix: str, n_se_blocks: int = 3,
+                  res2net_scale: int = 8) -> dict:
+    p: dict = {"block0": _convert_tdnn(sd, prefix + "blocks.0")}
+    blocks = []
+    for i in range(1, n_se_blocks + 1):
+        b = f"{prefix}blocks.{i}."
+        blocks.append({
+            "tdnn1": _convert_tdnn(sd, b + "tdnn1"),
+            "res2net": [_convert_tdnn(sd, b + f"res2net_block.blocks.{j}")
+                        for j in range(res2net_scale - 1)],
+            "tdnn2": _convert_tdnn(sd, b + "tdnn2"),
+            "se": {"conv1": conv1d(sd, b + "se_block.conv1.conv"),
+                   "conv2": conv1d(sd, b + "se_block.conv2.conv")},
+        })
+    p["blocks"] = blocks
+    p["mfa"] = _convert_tdnn(sd, prefix + "mfa")
+    p["asp"] = {"tdnn": _convert_tdnn(sd, prefix + "asp.tdnn"),
+                "conv": conv1d(sd, prefix + "asp.conv.conv")}
+    p["asp_bn"] = batch_norm(sd, prefix + "asp_bn.norm")
+    p["fc"] = conv1d(sd, prefix + "fc.conv")
+    return p
+
+
+def convert_bigvgan_v1(sd: SD, h) -> dict:
+    """h: BigVGANV1Config; expects the generator state_dict."""
+    sd = fold_weight_norm(sd)
+    p: dict = {"conv_pre": conv1d(sd, "conv_pre")}
+    ups, resblocks, conds = [], [], []
+    num_kernels = len(h.resblock_kernel_sizes)
+    for i in range(len(h.upsample_rates)):
+        ups.append(conv_transpose1d(sd, f"ups.{i}.0"))
+        if f"conds.{i}.weight" in sd:
+            conds.append(conv1d(sd, f"conds.{i}"))
+        for j, dils in enumerate(h.resblock_dilation_sizes):
+            n = i * num_kernels + j
+            convs1 = [conv1d(sd, f"resblocks.{n}.convs1.{m}") for m in range(len(dils))]
+            convs2 = [conv1d(sd, f"resblocks.{n}.convs2.{m}") for m in range(len(dils))]
+            acts = []
+            for m in range(2 * len(dils)):
+                a = {"alpha": sd[f"resblocks.{n}.activations.{m}.act.alpha"]}
+                bk = f"resblocks.{n}.activations.{m}.act.beta"
+                if bk in sd:
+                    a["beta"] = sd[bk]
+                acts.append(a)
+            resblocks.append({"convs1": convs1, "convs2": convs2, "acts": acts})
+    p["ups"] = ups
+    p["resblocks"] = resblocks
+    if conds:
+        p["conds"] = conds
+    ap = {"alpha": sd["activation_post.act.alpha"]}
+    if "activation_post.act.beta" in sd:
+        ap["beta"] = sd["activation_post.act.beta"]
+    p["activation_post"] = ap
+    p["conv_post"] = conv1d(sd, "conv_post")
+    p["speaker_encoder"] = convert_ecapa(sd, "speaker_encoder.")
+    p["cond_layer"] = conv1d(sd, "cond_layer")
     return p
 
 

@@ -660,6 +660,36 @@ def test_antialias_kernels_at_the_edges(cuda_device, T, lengths, C, logscale):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("logscale", [True, False])
+@pytest.mark.parametrize("C", [96, 768])
+@pytest.mark.parametrize("T,lengths", [(10, [10, 3]), (1000, [37, 999])])
+def test_antialias_kernels_at_fp16(cuda_device, T, lengths, C, logscale):
+    """K3, K5 and K3' on fp16 (BigVGAN v1's type): rel-L2 <= 1e-3 over the
+    valid rows, the 4 rows at each edge within 2 fp16 ulps (2**-9 of their
+    largest magnitude), the three entries bit-identical; an f32 input is
+    refused."""
+    x, alpha, beta, lens = _snake_args(T, C, lengths, cuda_device, torch.float16)
+    if not logscale:
+        alpha, beta = alpha.exp(), beta.exp()
+    ref = snake.antialias_snake_plain(x, alpha, beta, lens, logscale)
+    f = 2 if T % 2 == 0 else 1
+    outs = [snake.antialias_snake(x, alpha, beta, lens, logscale),
+            snake.fused_antialias_activation(x, alpha, beta, lens, logscale),
+            snake.antialias_activation_prefolded(x.view(2, T // f, f * C), alpha, beta, f, C,
+                                                 lens, logscale).view(2, T, C)]
+    torch.cuda.synchronize()
+    assert all(o.dtype == torch.float16 for o in outs)
+    for b, L in enumerate(lengths):
+        assert rel_l2(outs[0][b, :L], ref[b, :L]) <= 1e-3
+        for rows in (slice(0, min(4, L)), slice(max(0, L - 4), L)):
+            o, r = outs[0][b, rows].float(), ref[b, rows].float()
+            assert (o - r).abs().max() <= 2 ** -9 * r.abs().max()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    with pytest.raises(ValueError, match="bf16 or fp16"):
+        snake.antialias_snake(x.float(), alpha, beta, lens, logscale)
+
+
+@pytest.mark.cuda
 def test_antialias_kernel_takes_a_width_off_8_and_refuses_one_off_4(cuda_device):
     s = _snake_args(100, 20, [100, 61], cuda_device)
     out, ref = snake.antialias_snake(*s), snake.antialias_snake_plain(*s)

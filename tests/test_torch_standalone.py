@@ -1,7 +1,9 @@
 """The port stands alone.
 
 - Importing every module of `indextts_tpu_torch` (the tensor-parallel
-  `parallel/mesh.py` and `ops/decode_step_tp.py` among them),
+  `parallel/mesh.py` and `ops/decode_step_tp.py`, and the IndexTTS-1
+  family's `pipeline/infer_v1.py`, `cli.py`, `unified_voice_v1.py`,
+  `bigvgan_v1.py` and `ecapa.py` among them),
   `chip_smoke.py` and `tools/torch_reference_ckpt.py` as modules, loads
   neither jax nor any module of the JAX package (`indextts_tpu`): the port
   keeps its own copies of the host modules it needs (config, text front
@@ -48,8 +50,11 @@ def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
         "             ('jax', 'jaxlib', 'indextts_tpu'))\n"
         "assert not bad, bad\n"
         "assert len(names) > 30, names\n"
-        "assert {'indextts_tpu_torch.parallel.mesh', 'indextts_tpu_torch.ops.decode_step_tp'}"
-        " <= set(names), names\n")
+        "assert {'indextts_tpu_torch.parallel.mesh', 'indextts_tpu_torch.ops.decode_step_tp',\n"
+        "        'indextts_tpu_torch.cli', 'indextts_tpu_torch.pipeline.infer_v1',\n"
+        "        'indextts_tpu_torch.models.gpt.unified_voice_v1',\n"
+        "        'indextts_tpu_torch.models.vocoder.bigvgan_v1',\n"
+        "        'indextts_tpu_torch.models.vocoder.ecapa'} <= set(names), names\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO)
     assert res.returncode == 0, res.stderr
 

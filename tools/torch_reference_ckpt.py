@@ -33,7 +33,8 @@ discrete-path embeddings) are not written.
 writes the whole directory at the shipped widths from the port's seeded
 random weights (`indextts_tpu_torch.pipeline.infer_v2.random_trees`), about
 6.9 GB of f32 files. Used by the tests (tiny configs) and by chip_smoke.py's
-checkpoint pass.
+checkpoint pass. `write_model_dir_v1` writes an IndexTTS-1 directory
+(config.yaml, gpt.pth, bigvgan_generator.pth) the same way, for the tests.
 """
 
 from __future__ import annotations
@@ -421,6 +422,102 @@ def repcodec_state_dict(p: dict) -> SD:
         conv1d(sd, "down", p["down"])
         conv1d(sd, "up", p["up"])
     return sd
+
+
+# -- the IndexTTS-1 family ------------------------------------------------------------
+
+def attention_block(sd: SD, key: str, p: dict) -> None:
+    layer_norm(sd, key + ".norm", p["norm"])
+    conv1d(sd, key + ".qkv", p["qkv"])
+    conv1d(sd, key + ".proj_out", p["proj_out"])
+
+
+def unified_voice_v1_state_dict(p: dict, cfg) -> SD:
+    """The v1 gpt.pth (cfg: GPTConfig of either condition type); a raw
+    state dict."""
+    sd: SD = {}
+    enc = p["conditioning_encoder"]
+    if cfg.condition_type == "conformer_perceiver":
+        conformer(sd, enc, cfg.condition_module.input_layer, "conditioning_encoder.")
+    else:
+        conv1d(sd, "conditioning_encoder.init", enc["init"])
+        for i, bp in enumerate(enc["attn"]):
+            attention_block(sd, f"conditioning_encoder.attn.{i}", bp)
+    perceiver(sd, p["perceiver_encoder"], "perceiver_encoder.")
+    embedding(sd, "text_embedding", p["text_embedding"])
+    embedding(sd, "mel_embedding", p["mel_embedding"])
+    embedding(sd, "text_pos_embedding.emb", p["text_pos_embedding"])
+    embedding(sd, "mel_pos_embedding.emb", p["mel_pos_embedding"])
+    gpt2(sd, p["gpt"], "gpt.")
+    layer_norm(sd, "final_norm", p["final_norm"])
+    linear(sd, "mel_head", p["mel_head"])
+    linear(sd, "text_head", p["text_head"])
+    return sd
+
+
+def tdnn(sd: SD, key: str, p: dict) -> None:
+    conv1d(sd, key + ".conv.conv", p["conv"])
+    batch_norm(sd, key + ".norm.norm", p["bn"])
+
+
+def ecapa(sd: SD, p: dict, prefix: str) -> None:
+    tdnn(sd, prefix + "blocks.0", p["block0"])
+    for i, bp in enumerate(p["blocks"], start=1):
+        b = f"{prefix}blocks.{i}."
+        tdnn(sd, b + "tdnn1", bp["tdnn1"])
+        for j, rp in enumerate(bp["res2net"]):
+            tdnn(sd, b + f"res2net_block.blocks.{j}", rp)
+        tdnn(sd, b + "tdnn2", bp["tdnn2"])
+        conv1d(sd, b + "se_block.conv1.conv", bp["se"]["conv1"])
+        conv1d(sd, b + "se_block.conv2.conv", bp["se"]["conv2"])
+    tdnn(sd, prefix + "mfa", p["mfa"])
+    tdnn(sd, prefix + "asp.tdnn", p["asp"]["tdnn"])
+    conv1d(sd, prefix + "asp.conv.conv", p["asp"]["conv"])
+    batch_norm(sd, prefix + "asp_bn.norm", p["asp_bn"])
+    conv1d(sd, prefix + "fc.conv", p["fc"])
+
+
+def bigvgan_v1_state_dict(p: dict) -> SD:
+    """BigVGAN v1's generator: BigVGAN-v2's weight-normed layout, plus the
+    per-stage ``conds``, ``cond_layer`` and the ECAPA ``speaker_encoder``
+    (plain convolutions)."""
+    sd = bigvgan_state_dict({k: p[k] for k in ("conv_pre", "ups", "resblocks",
+                                               "activation_post", "conv_post")})
+    for i, cp in enumerate(p.get("conds", [])):
+        conv1d(sd, f"conds.{i}", cp)
+    conv1d(sd, "cond_layer", p["cond_layer"])
+    ecapa(sd, p["speaker_encoder"], "speaker_encoder.")
+    return sd
+
+
+def config_tree_v1(cfg) -> dict:
+    """The v1 config.yaml's tree for ``cfg`` (IndexTTS1Config)."""
+    asdict = dataclasses.asdict
+    return {"dataset": dict(cfg.dataset), "gpt": asdict(cfg.gpt),
+            "bigvgan": asdict(cfg.bigvgan), "gpt_checkpoint": cfg.gpt_checkpoint,
+            "bigvgan_checkpoint": cfg.bigvgan_checkpoint, "version": cfg.version}
+
+
+def write_model_dir_v1(out_dir: str, trees: dict, cfg, wrapped: bool = False) -> Dict[str, int]:
+    """The IndexTTS-1 model directory for ``trees`` (keys gpt, bigvgan, as
+    `IndexTTS.load_params` takes them) at ``cfg``: config.yaml, gpt.pth and
+    bigvgan_generator.pth (``{'generator': state_dict}`` when ``wrapped``).
+    Returns {file: bytes}."""
+    os.makedirs(out_dir, exist_ok=True)
+    written = {}
+    path = os.path.join(out_dir, "config.yaml")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(to_yaml(config_tree_v1(cfg)))
+    written["config.yaml"] = os.path.getsize(path)
+    if "gpt" in trees:
+        sd = {k: _host(v) for k, v in unified_voice_v1_state_dict(trees["gpt"], cfg.gpt).items()}
+        written[cfg.gpt_checkpoint] = _save_torch(sd, os.path.join(out_dir, cfg.gpt_checkpoint))
+    if "bigvgan" in trees:
+        sd = {k: _host(v) for k, v in bigvgan_v1_state_dict(trees["bigvgan"]).items()}
+        written[cfg.bigvgan_checkpoint] = _save_torch({"generator": sd} if wrapped else sd,
+                                                      os.path.join(out_dir,
+                                                                   cfg.bigvgan_checkpoint))
+    return written
 
 
 def state_dicts(trees: dict, cfg) -> Dict[str, SD]:
