@@ -112,11 +112,14 @@
    loaded request's launches exactly one int8 request's (K1 399), and its
    stage seconds beside the random-weight model's. The directory is
    deleted afterwards.
-5. Sampling pass (num_beams=1, `engine/decode.py::generate_adaptive`), int8
+5. Sampling pass (num_beams=1: the JAX pipeline's default for a segment
+   decoded alone, the self-gating speculative decoder
+   `engine/speculative.py::generate_spec_adaptive`, gamma 8), int8
    weights, two requests pinned to 400 codes (the cache grows once, from
-   the 256-code span to 400): K1 once per decode step, every call at
-   group=1 with no ancestry map, the first 8 twin-checked as in the int8
-   pass; the bf16 step and the beam engine never run; one span growth. The
+   the 256-code span to 400): K1 once per single step and the chunk step
+   once per verify (`last_spec_stats`), every K1 call at group=1 with no
+   ancestry map, the first 8 twin-checked as in the int8 pass; the bf16
+   step and the beam engine never run; one span growth. The
    second request runs with INDEXTTS_PACKED_ATTN=0, the DiT's flash tier:
    K4 once per DiT layer and CFG step (13 x 25), K2 never, a finite wav,
    then every K4 call of the DiT on a small input against its twin; its
@@ -150,6 +153,26 @@
    bit-identical to the chain at the K1 case, pos=0, pos=1, S=2048 pos=1500
    and 24 rows; and `tp_allreduce` alone (the chain's exchange),
    bit-identical to its twin for either rank.
+7a. Speculative passes (`spec_phase`), int8 then bf16, after a short
+   warm-up request: one num_beams=1 request pinned to 400 codes with
+   speculation on and one with INDEXTTS_SPEC_DECODE=0, each from the
+   generator seeded 0 (stats, gpt stage, exact K1 / chunk / plain step
+   counts, the tokens the two share before they first differ); a forced
+   oracle decode of 200 codes (greedy, the sequential greedy decode's codes
+   as drafts) beside that sequential decode; `gpt2_chunk_step` over 9
+   tokens against 9 single steps at the decode's layout and at a
+   contiguous one (`chunk_against_steps`: each position's hidden, and
+   every layer on the chunk's own inputs within rel-L2 1e-2 of the plain
+   step's, and of K1's at the contiguous layout) and the verify /
+   single-step cost ratio beside the JAX gate `spec_commit_ratio(8)` =
+   1.98 (a TPU fit); the int8 speculative decode's device busy share.
+   Between them, the aux pass (`aux_phase`, int8): diverse beam search
+   (num_beams=4, two groups: K1 at group=2 once a step), contrastive
+   search (top_k=4, alpha 0.6) and DoLa ("high"), both on the plain step,
+   one request each at 400 codes with exact launch counts. The kernel
+   phase holds K1 at group=2 (4 rows, a random ancestry map) against its
+   twin layer by layer and bit-identical to its chain, timed beside both
+   (`k1_group2_phase`).
 8. Decode profile, after the bf16, int8, int8kv, int4 and tp passes: one
    request's `generate_beam` (399 steps) timed unprofiled, then under
    `torch.profiler` (its window opens after a discarded warm-up step and
@@ -167,8 +190,9 @@
    settings (num_beams=1, 60 codes a segment, more_segment_before=8,
    stream_return=True): the time to the first yielded chunk (median of the
    last two printed), 16 chunks (each segment's wav, then its silence),
-   exact launches of the last request (K1 8 x 59, K2 and K3 8
-   single-segment requests' worth).
+   exact launches of the last request (K1 once a single step of the
+   segments' speculative decodes, the chunk step once a verify, K2 and K3
+   8 single-segment requests' worth).
 10. Long-form int8 pass, same model: first the batched synthesis
    (`IndexTTS2.codes_to_wav`) of the 8 segment rows at 400, 355, ..., 85
    codes (`ragged_synthesis`): each row sounds up to its own
@@ -288,6 +312,16 @@ SILENCE_SAMPLES = 4410
 # the streaming first-audio pass: the JAX bench's streaming settings
 STREAM_REQUESTS = 3
 STREAM_KWARGS = dict(num_beams=1, max_mel_tokens=60, min_new_tokens=59, more_segment_before=8)
+# the speculative pass: the JAX pipeline's gamma, the chunk step's last hidden
+# against gamma + 1 single steps (K1's layer tolerance), and the aux pass's
+# requests (int8): label -> generation kwargs
+SPEC_GAMMA = 8
+SPEC_CHUNK_REL_L2 = 1e-2
+SPEC_ORACLE_CODES = 200                    # the forced oracle decode's depth
+AUX_REQUESTS = {"diverse beam": dict(num_beams=4, num_beam_groups=2, diversity_penalty=1.0,
+                                     do_sample=False),
+                "contrastive": dict(num_beams=1, penalty_alpha=0.6, top_k=4, do_sample=False),
+                "dola": dict(num_beams=1, dola_layers="high", do_sample=False)}
 # H100 SXM datasheet peaks: HBM bytes/s, bf16 tensor-core
 # and f32 FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -1334,6 +1368,58 @@ def int8_kernel_phase(card: str) -> dict:
     return res
 
 
+def k1_group2_phase(card: str) -> dict:
+    """K1 at group=2, diverse beam search's configuration at num_beams=4,
+    num_beam_groups=2 (`engine/beam.py::generate_group_beam`): 4 rows in two
+    groups of two beams, the groups' prefixes starting at 0 and 41, a random
+    in-group ancestry map, int8 weights, S=512, pos=300. Layer by layer
+    against the twin (`twin_by_layer`), bit-identical to the chain
+    (`k1_against_chain`), and timed beside it and the twin."""
+    import torch
+
+    from indextts_tpu_torch.ops.decode_step import fused_decode_step, fused_decode_step_plain
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dims, _, params, _, _, _, _, _ = k1_case(g)
+    M, group = 4, 2
+    kv = [torch.randn((K1_L, M, K1_S, K1_D), generator=g, device="cuda").to(torch.bfloat16)
+          for _ in range(2)]
+    for t in kv:
+        t[:, :, K1_POS:] = 0
+    starts = [0, 0, 41, 41]
+    valid = torch.zeros((M, K1_S), dtype=torch.bool, device="cuda")
+    for r, st in enumerate(starts):
+        valid[r, st:K1_POS + 1] = True
+    x = torch.randn((M, K1_D), generator=g, device="cuda").to(torch.bfloat16)
+    anc = torch.randint(0, group, (M, K1_S), generator=g, device="cuda", dtype=torch.int32)
+    base = {"k": kv[0], "v": kv[1]}
+    args = dict(params=params, x=x, dims=dims, pos=K1_POS,
+                kv_cache={k: t.clone() for k, t in base.items()}, kv_valid=valid, anc=anc,
+                group=group, layer_inputs=[])
+    h = fused_decode_step(**args)
+    ref = fused_decode_step_plain(params, x, dims, K1_POS, {k: t.clone() for k, t in base.items()},
+                                  valid, anc, group)
+    torch.cuda.synchronize()
+    err, mab = rel_l2(h, ref), (h.float() - ref.float()).abs().max().item()
+    tw = twin_by_layer(args, h)
+    vs = k1_against_chain(params, x, dims, K1_POS, base, valid, anc, group)
+    cache = {k: t.clone() for k, t in base.items()}
+    t = k1_timing(params, x, dims, K1_POS, cache, valid, anc, group)
+    pms = graph_ms(lambda: fused_decode_step_plain(params, x, dims, K1_POS, cache, valid, anc,
+                                                   group), iters=3, replays=2)
+    b = k1_bound(starts, params, M, K1_S, K1_L, K1_D)
+    print(f"K1 fused_decode_step group=2 (diverse beam: 2 groups of 2) L={K1_L} D={K1_D} "
+          f"H={K1_H} rows={M} S={K1_S} pos={K1_POS} starts={starts}: hidden rel_l2 {err:.3e} "
+          f"max_abs {mab:.3e}; twin layer by layer rel_l2 <= {tw['layer']:.3e}, hidden "
+          f"{tw['hidden']:.3e}, rows {tw['rows_exact']}; against the chain {vs}; device: "
+          f"{timing_text(t)}, plain {pms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}) [{card}]", flush=True)
+    assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2 and tw["rows_exact"], tw
+    assert err <= K1_REL_L2 and np.isfinite(err) and vs["ok"], (err, vs)
+    return {"fused_decode_step_g2": dict(err=err, abs=mab, plain_ms=pms, library_ms=None, **t,
+                                         **b)}
+
+
 def twin_by_layer(args, h) -> dict:
     """K1's call ``args`` (each layer's input under "layer_inputs") and its
     output ``h`` against the twins, layer by layer on the kernel path's
@@ -1895,21 +1981,22 @@ def kernel_counters() -> dict:
 
 def reset_counts() -> None:
     from indextts_tpu_torch.engine import beam, decode
-    from indextts_tpu_torch.models.gpt.gpt2 import gpt2_decode_step
+    from indextts_tpu_torch.models.gpt.gpt2 import gpt2_chunk_step, gpt2_decode_step
 
     for f, attr in kernel_counters().values():
         setattr(f, attr, 0)
-    gpt2_decode_step.calls = 0
+    gpt2_decode_step.calls = gpt2_chunk_step.calls = 0
     beam.kv_gathers = 0
     decode.span_growths = 0
 
 
 def read_counts() -> dict:
     from indextts_tpu_torch.engine import beam, decode
-    from indextts_tpu_torch.models.gpt.gpt2 import gpt2_decode_step
+    from indextts_tpu_torch.models.gpt.gpt2 import gpt2_chunk_step, gpt2_decode_step
 
     counts = {name: getattr(f, attr) for name, (f, attr) in kernel_counters().items()}
-    counts.update(gpt2_decode_step=gpt2_decode_step.calls, kv_gathers=beam.kv_gathers,
+    counts.update(gpt2_decode_step=gpt2_decode_step.calls,
+                  gpt2_chunk_step=gpt2_chunk_step.calls, kv_gathers=beam.kv_gathers,
                   span_growths=decode.span_growths)
     return counts
 
@@ -2184,7 +2271,7 @@ def want_counts(tts, quantization: str, n: int) -> dict:
             "int4_mlp": 0, "decode_attention": 0, "decode_attention_kvq": 0,
             "single_block_attention": 0, "packed_pair_attention": 0,
             "fused_antialias_activation": 0, "antialias_activation_prefolded": 0,
-            "gpt2_decode_step": 0, "kv_gathers": 0, "span_growths": 0}
+            "gpt2_decode_step": 0, "gpt2_chunk_step": 0, "kv_gathers": 0, "span_growths": 0}
 
 
 def k1_twin_check():
@@ -2513,13 +2600,42 @@ def tp_pipeline_phase(card: str, prompt: str, model_dir: str, int8_gpt: float) -
     return counts
 
 
+def spec_want(want: dict, stats: list, steps: int = DECODE_STEPS) -> dict:
+    """``want`` with the launches of speculative decodes of ``steps`` steps
+    each whose `last_spec_stats` are ``stats``: K1 once a step that no
+    verify committed (the single steps, and the plain loop's steps after a
+    demotion, which the stats do not count), the chunk step once a
+    verify."""
+    return {**want, "fused_decode_step": sum(steps - s[2] for s in stats),
+            "gpt2_chunk_step": sum(s[1] for s in stats)}
+
+
+def record_decodes(tts) -> list:
+    """Wrap ``tts.decode``: each call appends (codes on the host, lengths,
+    the call's `last_spec_stats` or None) to the returned list. ``del
+    tts.decode`` unwraps."""
+    seen = []
+    orig = tts.decode
+
+    def decode(*args, **kwargs):
+        tts.last_spec_stats = None
+        codes, lens = orig(*args, **kwargs)
+        seen.append((codes.cpu(), np.asarray(lens), tts.last_spec_stats))
+        return codes, lens
+
+    tts.decode = decode
+    return seen
+
+
 def sampling_pipeline_phase(card: str, prompt: str, model_dir: str) -> dict:
-    """The num_beams=1 sampling decode (`engine/decode.py::
-    generate_adaptive`) with int8 weights, two requests pinned to 400 codes,
-    so the cache grows once (the 256-code span, then 400). Request 1, on
-    the packed DiT tier: K1 once a decode step, every call at group=1
+    """The num_beams=1 decode of one segment with int8 weights, two requests
+    pinned to 400 codes: the JAX pipeline's default there, the self-gating
+    speculative decoder (`engine/speculative.py::generate_spec_adaptive`),
+    whose cache grows once (the 256-code span, then 400). Request 1, on
+    the packed DiT tier: K1 once a single step, every call at group=1
     without an ancestry map, the first 8 held against the twin layer by
-    layer; the bf16 step and the beam engine never run; one span growth.
+    layer; the chunk step once a verify (`last_spec_stats`); the bf16 step
+    and the beam engine never run; one span growth.
     Request 2 with INDEXTTS_PACKED_ATTN=0, the DiT's flash tier: the same,
     with K4 once per DiT layer and CFG step and K2 never; then every K4
     call of the DiT on a small input against its twin. Returns the counts
@@ -2544,11 +2660,12 @@ def sampling_pipeline_phase(card: str, prompt: str, model_dir: str) -> dict:
                           "steps twin-checked)", num_beams=1)[0]
     tts.decode_check = None
     counts = {"sampling": read_counts()}
-    want = want_counts(tts, "int8", 1)
+    want = spec_want(want_counts(tts, "int8", 1), [tts.last_spec_stats])
     want["span_growths"] = 1
     print(f"launches of the num_beams=1 request: {counts['sampling']} (expect {want}); decode "
-          f"route {decode.last_route}, K1 calls (group, ancestry map): {site['groups']}",
-          flush=True)
+          f"route {decode.last_route}, K1 calls (group, ancestry map): {site['groups']}; "
+          f"speculative decode (gamma, chunk verifies, tokens they committed, single steps): "
+          f"{tts.last_spec_stats}", flush=True)
     report_k1_twin_check(site, "int8 num_beams=1", card)
     assert counts["sampling"] == want, (counts["sampling"], want)
     assert decode.last_route == "fused" and site["groups"] == {(1, False)}, site["groups"]
@@ -2561,6 +2678,7 @@ def sampling_pipeline_phase(card: str, prompt: str, model_dir: str) -> dict:
         flash = run_requests(tts, prompt, 1, card, "int8 num_beams=1, DiT flash tier (K4)",
                              num_beams=1)[0]
         counts["flash"] = read_counts()
+        want = spec_want(want, [tts.last_spec_stats])
         reference_check(tts, card, flash=True)
         profile_s2mel(tts, prompt, card, "int8 num_beams=1 (DiT flash tier, K4)", num_beams=1)
     finally:
@@ -2575,6 +2693,320 @@ def sampling_pipeline_phase(card: str, prompt: str, model_dir: str) -> dict:
     assert counts["flash"] == want, (counts["flash"], want)
     del tts
     torch.cuda.empty_cache()
+    return counts
+
+
+def agree(a, b) -> int:
+    """Leading tokens two code rows share, before their first difference."""
+    a, b = np.asarray(a), np.asarray(b)
+    n = min(len(a), len(b))
+    diff = np.nonzero(a[:n] != b[:n])[0]
+    return int(diff[0]) if len(diff) else n
+
+
+def request_prefix(tts, prompt: str):
+    """The one-segment request's prefix embeds and mask (SENTENCE)."""
+    spk, emo = tts._prepare_spk_prompt(prompt), tts._prepare_emo_cond(prompt)
+    ids = tts.tokenizer.convert_tokens_to_ids(tts.tokenizer.tokenize(SENTENCE))
+    _, _, embeds, mask = tts.prefix(spk, emo, 1.0, tts._text_rows([ids]), len(ids))
+    return embeds, mask
+
+
+def profile_busy(run, card: str, label: str) -> float:
+    """``run``'s unprofiled wall (best of two) and its device busy share
+    under `torch.profiler` (device records only, spin pads inside the
+    window as in `profile_decode`). Returns the share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        _spin_pad(launches=PROFILE_WARMUP_LAUNCHES, seconds=0)
+        prof.step()
+        _spin_pad(launches=0)
+        run()
+        _spin_pad()
+        prof.step()
+    pads: list = []
+    by_name, spans = device_records(prof, pads=pads)
+    busy = union_ns(spans) / 1e9
+    launches = sum(n for k, (n, _) in by_name.items() if not k.startswith(("Memcpy", "Memset")))
+    share = busy / min(walls)
+    print(f"{label} profile: wall {min(walls):.4f} s unprofiled (runs {walls[0]:.4f}, "
+          f"{walls[1]:.4f}), device busy {busy:.4f} s = {100 * share:.1f} %, {launches} "
+          f"launches; {pads_kept(pads, spans)} [{card}]", flush=True)
+    return share
+
+
+def chunk_against_steps(tts, embeds, mask, codes, card: str, label: str) -> dict:
+    """`gpt2_chunk_step` over SPEC_GAMMA + 1 tokens (the prefill's token 0
+    and the next SPEC_GAMMA of ``codes``) against single steps on copies of
+    one cache, at two layouts: the decode's (the verify at step 1, pos0 =
+    P + 2; the engines never write slot P + 1, the prefill filling [0, P])
+    and a contiguous one (pos0 = P + 1). The single steps: the plain step
+    (`gpt2_decode_step`, the chunk's own arithmetic at one row) and, for
+    quantized weights, the decode route's K1 at group=1. Each position's
+    hidden after ln_f is compared, and each layer on the chunk's own layer
+    inputs and cache (the plain step's `cached_layer`, or K1's layer as its
+    chain of kernels, `decode_layer(KERNELS)`, bit-identical to K1): every
+    layer within SPEC_CHUNK_REL_L2 against the plain step at the decode's
+    layout and against K1 at the contiguous one. K1 recovers a row's
+    window start from kv_valid's popcount (as the JAX fused kernel does),
+    so across the decode's unwritten slot it attends [1, pos) with that
+    zero slot and without slot 0: the mask-exact chunk differs from it by
+    more than rounding there, which this prints. Then how many of five
+    calls on identical inputs repeat the first bit for bit (the single
+    step, its first qkv product, its first attention), and a verify's and a
+    single step's times (eager, CUDA events over the calls, host work
+    included; and by graph replay) and their ratio beside the JAX gate's
+    `spec_commit_ratio`."""
+    import torch
+
+    from indextts_tpu_torch import nn
+    from indextts_tpu_torch.engine.decode import _prefill_state, decode_step
+    from indextts_tpu_torch.engine.speculative import spec_commit_ratio
+    from indextts_tpu_torch.models.gpt.gpt2 import (_cached_blocks, cached_layer, chunk_mask,
+                                                    gpt2_chunk_step)
+    from indextts_tpu_torch.ops.decode_step import KERNELS, decode_layer
+
+    params, dims, dt = tts.gpt_params, tts.gpt_dims, tts.dtype
+    gpt = params["gpt"]
+    greedy = tts._sampling(dict(num_beams=1, do_sample=False))
+    st = _prefill_state(params, tts.cfg.gpt, dims, embeds, mask, tts.generator,
+                        DECODE_STEPS + 1, DECODE_STEPS + 1, greedy, dt)
+    G1, P = SPEC_GAMMA + 1, embeds.shape[1]
+    ids = torch.cat([st.tokens[0, :1], codes[0, 1:G1].to(st.tokens.device)])
+    x = params["mel_embedding"]["weight"].to(dt)[ids] \
+        + params["mel_pos_embedding"]["weight"][2:2 + G1].to(dt)
+    routes = ["plain"] + (["fused"] if st.route == "fused" else [])
+
+    def check(pos0):
+        kv_c = {k: t.clone() for k, t in st.kv.items()}
+        inputs: list = []
+        h = _cached_blocks(gpt, x[None], dims, pos0, kv_c, chunk_mask(st.kv_valid, pos0, G1),
+                           inputs)[0]
+        out = {}
+        for route in routes:
+            kv, valid, errs = {k: t.clone() for k, t in st.kv.items()}, st.kv_valid.clone(), []
+            for j in range(G1):
+                valid[:, pos0 + j] = True
+                errs.append(rel_l2(h[j:j + 1], decode_step(route, params, x[j:j + 1], dims,
+                                                           pos0 + j, kv, valid)))
+            layer = 0.0
+            for j in range(G1):        # the chunk's layer inputs and cache below pos0 + j
+                cache = {k: t.clone() for k, t in kv_c.items()}
+                valid = st.kv_valid.clone()
+                valid[:, pos0:pos0 + j + 1] = True
+                for li, lp in enumerate(gpt["h"]):
+                    xin = inputs[li][0, j:j + 1]
+                    if route == "fused":
+                        kvs = cache.get("kvs")
+                        y = decode_layer(KERNELS, lp, xin, dims.heads, pos0 + j, cache["k"][li],
+                                         cache["v"][li], valid,
+                                         kvs=None if kvs is None else kvs[li])
+                    else:
+                        y = cached_layer(lp, xin[None], dims, pos0 + j, cache, li,
+                                         valid[:, None, None, :])[0]
+                    if li + 1 < len(inputs):
+                        layer = max(layer, rel_l2(y, inputs[li + 1][0, j:j + 1]))
+                    else:
+                        layer = max(layer, rel_l2(nn.layer_norm(gpt["ln_f"], y), h[j:j + 1]))
+            out[route] = (errs, layer)
+        return out
+
+    res = {"decode": check(P + 2), "contiguous": check(P + 1)}
+
+    # the same call five times on identical inputs: how many of the last
+    # four equal the first bit for bit (the step; its first qkv product; its
+    # first attention, SDPA with the mask)
+    def repeats(fn, n=5):
+        outs = [fn() for _ in range(n)]
+        return sum(torch.equal(outs[0], o) for o in outs[1:])
+
+    from indextts_tpu_torch.models.gpt.gpt2 import _cache_layer, _heads
+
+    v1 = st.kv_valid.clone()
+    v1[:, P + 2] = True
+    lp, xin = gpt["h"][0], x[:1, None]
+    q = torch.chunk(nn.dense(lp["attn"]["c_attn"], nn.layer_norm(lp["ln_1"], xin)), 3, -1)[0]
+    kc, vc = _cache_layer(st.kv, 0, dims.heads, dt)
+    same = {"step": repeats(lambda: decode_step(st.route, params, x[:1], dims, P + 2,
+                                                {k: t.clone() for k, t in st.kv.items()}, v1)),
+            "qkv": repeats(lambda: nn.dense(lp["attn"]["c_attn"], nn.layer_norm(lp["ln_1"], xin))),
+            "attention": repeats(lambda: nn.mha(_heads(q, dims), _heads(kc, dims),
+                                                _heads(vc, dims), mask=v1[:, None, None, :]))}
+    print(f"{label} repeats on identical inputs, of 4 bit-identical to the first: the "
+          f"{st.route} single step {same['step']}, its first qkv product {same['qkv']}, its "
+          f"first attention (SDPA, masked) {same['attention']} [{card}]", flush=True)
+    for layout, by_route in res.items():
+        for route, (errs, layer) in by_route.items():
+            print(f"{label} gpt2_chunk_step over {G1} tokens, {layout} layout, against {G1} "
+                  f"{'K1' if route == 'fused' else 'plain'} single steps: hidden after ln_f "
+                  f"rel_l2 a position {', '.join(f'{e:.2e}' for e in errs)}; layer by layer "
+                  f"on the chunk's inputs <= {layer:.3e} [{card}]", flush=True)
+            assert all(np.isfinite(errs)), errs
+    assert res["decode"]["plain"][1] <= SPEC_CHUNK_REL_L2, res
+    assert res["contiguous"][routes[-1]][1] <= SPEC_CHUNK_REL_L2, res
+
+    kv_c = {k: t.clone() for k, t in st.kv.items()}
+    valid = st.kv_valid.clone()
+    valid[:, P + 2] = True
+    pos0 = P + 2
+
+    def single():
+        decode_step(st.route, params, x[:1], dims, pos0, kv_c, valid)
+
+    def chunk():
+        gpt2_chunk_step(gpt, x[None], dims, pos0, kv_c, st.kv_valid)
+
+    out = {"single_ms": time_ms(single, iters=20), "chunk_ms": time_ms(chunk, iters=20),
+           "single_graph_ms": graph_ms(single, iters=5, replays=3),
+           "chunk_graph_ms": graph_ms(chunk, iters=5, replays=3), "checks": res,
+           "repeats": same}
+    out.update(ratio=out["chunk_ms"] / out["single_ms"],
+               graph_ratio=out["chunk_graph_ms"] / out["single_graph_ms"])
+    print(f"{label} a verify of {G1} tokens {out['chunk_ms']:.4f} ms eager "
+          f"({out['chunk_graph_ms']:.4f} by graph replay), a single step on the {st.route} "
+          f"route {out['single_ms']:.4f} ({out['single_graph_ms']:.4f}): verify / single = "
+          f"{out['ratio']:.3f} eager, {out['graph_ratio']:.3f} device, beside the JAX gate "
+          f"spec_commit_ratio({SPEC_GAMMA}) = {spec_commit_ratio(SPEC_GAMMA):.2f} (a TPU fit) "
+          f"[{card}]", flush=True)
+    return out
+
+
+def spec_phase(card: str, prompt: str, model_dir: str, quantization=None) -> tuple:
+    """The speculative decoder at full width (bf16, or int8 weights): one
+    num_beams=1 request pinned to 400 codes with speculation on (the
+    default) and one with INDEXTTS_SPEC_DECODE=0, each from the generator
+    seeded 0: `last_spec_stats`, gpt stage seconds, K1 / chunk / plain step
+    counts (exact), and the tokens the two share before their first
+    difference; a forced oracle decode (greedy, drafts = the sequential
+    greedy decode's own codes, so chunks commit at full width) beside that
+    sequential decode; `chunk_against_steps`; the speculative decode's
+    device busy share. Returns (the counts of the spec-on request, the
+    model)."""
+    import torch
+
+    from indextts_tpu_torch.engine import decode
+    from indextts_tpu_torch.engine.speculative import generate_spec_adaptive
+    from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
+
+    label = quantization or "bf16"
+    tts = IndexTTS2(cfg_path=None, model_dir=model_dir, device="cuda", seed=0,
+                    quantization=quantization)
+    # a short warm-up request: the prompt cache and the first calls' set-up
+    # stay out of the two measured ones
+    tts.infer(spk_audio_prompt=prompt, text=SENTENCE, output_path=None, num_beams=1,
+              max_mel_tokens=20, min_new_tokens=19)
+    seen = record_decodes(tts)
+    saved = os.environ.get("INDEXTTS_SPEC_DECODE")
+    runs = {}
+    try:
+        for mode, env in (("spec", None), ("plain", "0")):
+            if env is None:
+                os.environ.pop("INDEXTTS_SPEC_DECODE", None)
+            else:
+                os.environ["INDEXTTS_SPEC_DECODE"] = env
+            tts.generator.manual_seed(0)
+            reset_counts()
+            st = run_requests(tts, prompt, 1, card, f"{label} num_beams=1, speculation "
+                              f"{'on' if env is None else 'off'}", num_beams=1)[0]
+            runs[mode] = (st, read_counts(), seen[-1][0][0].numpy(), seen[-1][2])
+    finally:
+        if saved is None:
+            os.environ.pop("INDEXTTS_SPEC_DECODE", None)
+        else:
+            os.environ["INDEXTTS_SPEC_DECODE"] = saved
+    del tts.decode
+    (st_s, c_s, codes_s, stats), (st_p, c_p, codes_p, stats_p) = runs["spec"], runs["plain"]
+    step_key = "fused_decode_step" if quantization else "gpt2_decode_step"
+    n = agree(codes_s[:400], codes_p[:400])
+    print(f"{label} speculative pass, num_beams=1 at 400 codes: on: last_spec_stats {stats} "
+          f"(gamma, verifies, tokens they committed, single steps), gpt {st_s['gpt']:.4f} s, "
+          f"K1 launches {c_s['fused_decode_step']}, plain steps {c_s['gpt2_decode_step']}, chunk "
+          f"steps {c_s['gpt2_chunk_step']}; off: gpt {st_p['gpt']:.4f} s, K1 launches "
+          f"{c_p['fused_decode_step']}, plain steps {c_p['gpt2_decode_step']}; {n} of 400 "
+          f"tokens agree before the first difference [{card}]", flush=True)
+    assert stats[0] == SPEC_GAMMA and stats_p is None, (stats, stats_p)
+    assert c_s[step_key] == DECODE_STEPS - stats[2], (stats, c_s)
+    assert c_s["gpt2_chunk_step"] == stats[1] and c_p["gpt2_chunk_step"] == 0, (c_s, c_p)
+    assert c_p[step_key] == DECODE_STEPS and c_s["span_growths"] == 1, c_p
+
+    embeds, mask = request_prefix(tts, prompt)
+    n_orc = SPEC_ORACLE_CODES
+    greedy = tts._sampling(dict(num_beams=1, do_sample=False, min_new_tokens=n_orc - 1))
+    args = (tts.gpt_params, tts.cfg.gpt, tts.gpt_dims, embeds, mask, tts.generator, n_orc,
+            greedy, tts.dtype)
+    reset_counts()
+    t0 = time.perf_counter()
+    seq, _ = decode.generate_adaptive(*args)
+    seq = seq.cpu()
+    t_seq, c_seq = time.perf_counter() - t0, read_counts()
+    reset_counts()
+    t0 = time.perf_counter()
+    orc, _, o_stats = generate_spec_adaptive(*args, gamma=SPEC_GAMMA, forced=True,
+                                             draft_source=seq[0])
+    orc = orc.cpu()
+    t_orc, c_orc = time.perf_counter() - t0, read_counts()
+    n = agree(orc[0].numpy(), seq[0].numpy())
+    print(f"{label} forced oracle at {n_orc} codes (greedy; drafts = the sequential greedy "
+          f"decode's own codes): stats {tuple(int(v) for v in o_stats)} (verifies, committed, "
+          f"single steps; {o_stats[1] / max(o_stats[0], 1):.2f} a verify), {n} of {n_orc} "
+          f"tokens agree with the "
+          f"sequential decode before the first difference; decode wall {t_orc:.4f} s (K1 "
+          f"{c_orc['fused_decode_step']}, plain {c_orc['gpt2_decode_step']}, chunk "
+          f"{c_orc['gpt2_chunk_step']}) against the sequential {t_seq:.4f} s (K1 "
+          f"{c_seq['fused_decode_step']}, plain {c_seq['gpt2_decode_step']}) [{card}]",
+          flush=True)
+    assert o_stats[0] > 0, o_stats
+    assert c_orc["gpt2_chunk_step"] == o_stats[0], c_orc
+    assert c_orc[step_key] == n_orc - 1 - o_stats[1], c_orc
+
+    ratio = chunk_against_steps(tts, embeds, mask, seq, card, label)
+    busy = None
+    if quantization:        # bf16: the plain step's share, profiled in the bf16 pass
+        sampling = tts._sampling(dict(num_beams=1, min_new_tokens=DECODE_STEPS))
+
+        def run():
+            with torch.inference_mode():
+                generate_spec_adaptive(tts.gpt_params, tts.cfg.gpt, tts.gpt_dims, embeds,
+                                       mask, tts.generator, DECODE_STEPS + 1, sampling,
+                                       tts.dtype, gamma=SPEC_GAMMA)
+
+        busy = profile_busy(run, card, f"{label} speculative decode (sampling, 400 codes)")
+    return {"spec": c_s, "ratio": ratio, "busy": busy}, tts
+
+
+def aux_phase(tts, card: str, prompt: str) -> dict:
+    """The aux decode modes on the int8 model, one request each, pinned to
+    400 codes: diverse beam search (K1 at group=2 with the ancestry map,
+    once a decode step), contrastive search and DoLa (the plain step on the
+    int8 weights: once a step, the contrastive one over top_k rows). Stage
+    seconds and exact launch counts. Returns the counts by request."""
+    from indextts_tpu_torch.engine import beam
+
+    counts = {}
+    for label, kw in AUX_REQUESTS.items():
+        reset_counts()
+        beam.last_use_anc = None
+        run_requests(tts, prompt, 1, card, f"int8 {label}", **kw)
+        counts[label] = read_counts()
+        want = want_counts(tts, "int8", 1)
+        if label == "diverse beam":
+            assert beam.last_use_anc is True
+        else:
+            # contrastive search steps once more: its last step's logits go unused
+            want.update(fused_decode_step=0, gpt2_decode_step=DECODE_STEPS
+                        + (label == "contrastive"))
+        print(f"launches of the int8 {label} request: {counts[label]} (expect {want}) [{card}]",
+              flush=True)
+        assert counts[label] == want, (label, counts[label], want)
     return counts
 
 
@@ -2779,7 +3211,9 @@ def longform_phase(card: str, prompt: str, model_dir: str) -> tuple:
     text = longform_text(tts)
 
     firsts, counts = [], {}
+    seen = record_decodes(tts)
     for i in range(STREAM_REQUESTS):
+        del seen[:]
         reset_counts()
         t0 = time.perf_counter()
         gen = tts.infer(spk_audio_prompt=prompt, text=text, output_path=None, stream_return=True,
@@ -2800,14 +3234,19 @@ def longform_phase(card: str, prompt: str, model_dir: str) -> tuple:
               f"{len(chunks)} chunks ({len(seg)} segments of {seg} codes, each then its "
               f"silence) in {wall:.4f} s; {stages} [{card}]", flush=True)
     counts["streaming"] = read_counts()
+    del tts.decode
+    stats = [st for _, _, st in seen]
     steps = STREAM_KWARGS["max_mel_tokens"] - 1
-    want = {k: v * len(seg) for k, v in want_counts(tts, "int8", 1).items()}
-    want["fused_decode_step"] = len(seg) * steps
+    want = spec_want({k: v * len(seg) for k, v in want_counts(tts, "int8", 1).items()}, stats,
+                     steps)
+    # one span of 60 codes: no demotion, every step is a verify's or a single one
+    assert len(stats) == len(seg) and all(st[2] + st[3] == steps for st in stats), stats
     print(f"streaming first audio: median of requests 2-{STREAM_REQUESTS} "
           f"{1e3 * statistics.median(firsts[1:]):.1f} ms (all: "
           f"{', '.join(f'{1e3 * f:.1f}' for f in firsts)} ms); launches of the last request: "
-          f"{counts['streaming']} (expect {want}); decode route {decode.last_route} [{card}]",
-          flush=True)
+          f"{counts['streaming']} (expect {want}); decode route {decode.last_route}; the "
+          f"segments' speculative decodes (gamma, verifies, committed, single steps): {stats} "
+          f"[{card}]", flush=True)
     assert counts["streaming"] == want, (counts["streaming"], want)
     assert decode.last_route == "fused"
 
@@ -3026,6 +3465,7 @@ def main() -> int:
     kres.update(attention_kernel_phase(card))
     kres.update(antialias_entries_phase(card))
     kres.update(int8_kernel_phase(card))
+    kres.update(k1_group2_phase(card))
     kres.update(decode_attention_phase(card))
     kres.update(quant_kernel_phase(card, kres["fused_decode_step"]))
     n_k1 = k1_phase(card)
@@ -3056,6 +3496,23 @@ def main() -> int:
             mark(f"{quantization} pass done")
         counts.update(tp_pipeline_phase(card, prompt, d, int8_reports[-1]["gpt"]))
         mark("tp pass done")
+        spec_int8, tts = spec_phase(card, prompt, d, "int8")
+        mark("int8 speculative pass done")
+        aux = aux_phase(tts, card, prompt)
+        counts["aux_beam"] = aux["diverse beam"]
+        del tts
+        torch.cuda.empty_cache()
+        mark("aux pass done")
+        spec_bf16, tts = spec_phase(card, prompt, d)
+        del tts
+        torch.cuda.empty_cache()
+        mark("bf16 speculative pass done")
+        print("speculative decode, verify / single-step cost (eager, device): " + "; ".join(
+            f"{label} {r['ratio']['ratio']:.3f}, {r['ratio']['graph_ratio']:.3f}"
+            for label, r in (("int8", spec_int8), ("bf16", spec_bf16)))
+            + f"; int8 decode busy {100 * spec_int8['busy']:.1f} %; the JAX gate "
+            f"spec_commit_ratio({SPEC_GAMMA}) = {1.62 + 0.045 * SPEC_GAMMA:.2f} [{card}]",
+            flush=True)
         lf_counts, lf_rows, lf_int8 = longform_phase(card, prompt, d)
         counts.update(lf_counts)
         kres.update(lf_rows)
@@ -3098,6 +3555,8 @@ def main() -> int:
              ("int4_mlp", None, ("int8_gemv.cu", "gemv_core.cuh"), f"{k1} (W4)", None),
              ("fused_decode_step_g1", "fused_decode_step", k1_src, f"{k1} (group=1)",
               "sampling"),
+             ("fused_decode_step_g2", "fused_decode_step", k1_src,
+              f"{k1} (group=2: diverse beam, 2 groups of 2)", "aux_beam"),
              ("single_block_attention", "single_block_attention",
               ("attention_block.cu", "attention_tma.cuh"), "attn.py:253", "flash"),
              ("packed_pair_attention", None, k2_src, "attn.py:76", None),
@@ -3153,7 +3612,10 @@ def main() -> int:
           f"rows of different lengths (the CFM's first DiT call of 16 rows, the vocoder's first "
           f"call of each stage shape over 8 rows), with the request's launches; "
           f"antialias_snake_v1_fp16 is K3 at fp16 at the v1 request's first call of each of "
-          f"its four stage shapes, with that request's launches; every other "
+          f"its four stage shapes, with that request's launches; fused_decode_step_g2 is K1 "
+          f"at group=2 in the kernel phase, with the int8 diverse beam request's launches; "
+          f"fused_decode_step_g1's launches are the sampling request's single steps of its "
+          f"speculative decode; every other "
           f"row as timed in its phase", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,7 @@
 """Beam search / beam sampling (PyTorch counterpart of
 `indextts_tpu/engine/beam.py::generate_beam`), the decode of `IndexTTS2.infer`
-with its default ``num_beams=3``.
+with its default ``num_beams=3``, and diverse group beam search
+(`generate_group_beam`, ``num_beam_groups`` > 1).
 
 HF `BeamSearchScorer` semantics (transformers 4.52, early_stopping=False),
 per row of a left-padded (B, P, D) prefix batch:
@@ -45,7 +46,7 @@ reorders "kvs" with the values; under tp it reorders both shards' caches).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,8 +54,8 @@ import torch
 from indextts_tpu_torch.config import GPTConfig
 from indextts_tpu_torch.engine.decode import (_DONE_POLL, SamplingConfig, StepCheck,
                                               _cache_len, _embed_mel_token, decode_route,
-                                              decode_step)
-from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims, gpt2_prefill, init_kv_cache, map_cache
+                                              decode_step, prefill_rows)
+from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims, map_cache
 from indextts_tpu_torch.models.gpt.unified_voice import mel_logits_from_hidden
 from indextts_tpu_torch.nn import Params
 from indextts_tpu_torch.ops.sampling import (apply_repetition_penalty, apply_temperature,
@@ -81,10 +82,15 @@ def _length_norm(lp: float):
 
 def beam_step_scores(logits: torch.Tensor, counts: torch.Tensor,
                      beam_scores: torch.Tensor, step: int, stop: int,
-                     sampling: SamplingConfig) -> torch.Tensor:
+                     sampling: SamplingConfig,
+                     diversity: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, K, V) logits -> the combined, warped scores the candidates are
-    drawn from (HF processor then warper order)."""
+    drawn from (HF processor then warper order). ``diversity`` (B, V), the
+    Hamming penalty of a beam group, is subtracted first, as HF's diversity
+    processor precedes the repetition penalty."""
     lf = torch.log_softmax(logits.float(), dim=-1)
+    if diversity is not None:
+        lf = lf - diversity[:, None, :]
     lf = apply_repetition_penalty(lf, counts, sampling.repetition_penalty)
     if step < sampling.min_new_tokens:
         lf = lf.clone()
@@ -177,42 +183,69 @@ def generate_beam(params: Params, cfg: GPTConfig, dims: GPT2Dims,
     (`engine/decode.py::decode_step`). ``cache_gather`` reorders the cache
     by the per-step gather on the fused route too (the JAX engine's
     INDEXTTS_BEAM_ANC=0), for checks that the two routes agree."""
+    return _beam_search(params, cfg, dims, prefix_embeds, prefix_mask, generator,
+                        max_new_tokens, sampling, dtype, step_check, cache_gather, groups=1)
+
+
+@torch.no_grad()
+def generate_group_beam(params: Params, cfg: GPTConfig, dims: GPT2Dims,
+                        prefix_embeds: torch.Tensor, prefix_mask: torch.Tensor,
+                        generator: torch.Generator, max_new_tokens: int,
+                        sampling: SamplingConfig = SamplingConfig(num_beam_groups=3),
+                        dtype=torch.bfloat16, step_check: StepCheck = None,
+                        cache_gather: bool = False) -> Tuple[torch.Tensor, np.ndarray]:
+    """Diverse (group) beam search, HF `_group_beam_search` (the JAX
+    package's `engine/beam.py::generate_group_beam`), `generate_beam`'s
+    arguments and results: K = num_beams beams in G = num_beam_groups groups
+    of Kg = K // G, greedy only. One decode step runs all B*K beams; the
+    scorer then takes the groups one after another: group g's log-softmax
+    scores lose ``diversity_penalty`` times the count of each token the
+    groups before it chose this step, then a Kg-beam scorer step. A done
+    group keeps adding its stop token to the later groups' counts, as in
+    HF. The best hypothesis is pooled over every group of a row. Reorders
+    never cross a group, so on the fused route K1 runs with the ancestry map
+    at ``group=Kg``, and the gather route gathers within groups."""
+    if sampling.num_beams % sampling.num_beam_groups or sampling.do_sample:
+        raise ValueError("diverse beam search needs num_beams divisible by num_beam_groups "
+                         "and do_sample=False")
+    return _beam_search(params, cfg, dims, prefix_embeds, prefix_mask, generator,
+                        max_new_tokens, sampling, dtype, step_check, cache_gather,
+                        groups=sampling.num_beam_groups)
+
+
+def _beam_search(params: Params, cfg: GPTConfig, dims: GPT2Dims, prefix_embeds: torch.Tensor,
+                 prefix_mask: torch.Tensor, generator: torch.Generator, max_new_tokens: int,
+                 sampling: SamplingConfig, dtype, step_check: StepCheck, cache_gather: bool,
+                 groups: int) -> Tuple[torch.Tensor, np.ndarray]:
+    """The beam engine over R = B * groups scorer rows of Kg = K // groups
+    beams each (a prefix row's groups adjacent): `generate_beam` at one
+    group, `generate_group_beam` at more."""
     global last_use_anc, kv_gathers
-    K = sampling.num_beams
+    K, G = sampling.num_beams, groups
+    Kg = K // G
     B, P, _ = prefix_embeds.shape
-    V = cfg.number_mel_codes
-    dev = prefix_embeds.device
+    R, V, dev = B * G, cfg.number_mel_codes, prefix_embeds.device
     stop, L = cfg.stop_mel_token, max_new_tokens
     S = _cache_len(P, max_new_tokens)
     norm = _length_norm(sampling.length_penalty)
     route = decode_route(params, B * K, sampling.kv_quant)
-    use_anc = route in ("fused", "tp") and K > 1 and not cache_gather
+    use_anc = route in ("fused", "tp") and Kg > 1 and not cache_gather
     last_use_anc = use_anc
 
-    pe = prefix_embeds.to(dtype).repeat_interleave(K, dim=0)
-    pm = prefix_mask.bool().repeat_interleave(K, dim=0)
-    start = torch.full((B * K,), cfg.start_mel_token, device=dev)
-    seq = torch.cat([pe, _embed_mel_token(params, start, 0, dtype)[:, None]], dim=1)
-    seq_mask = torch.cat([pm, torch.ones((B * K, 1), dtype=torch.bool, device=dev)], dim=1)
-    kv = init_kv_cache(dims, B * K, S, dtype=dtype, device=dev, quantized=sampling.kv_quant,
-                       mesh=params["gpt"].get("mesh"))
-    hidden = gpt2_prefill(params["gpt"], seq, dims, seq_mask, kv)
-    logits = mel_logits_from_hidden(params, hidden[:, -1]).reshape(B, K, V)
-    kv_valid = torch.zeros((B * K, S), dtype=torch.bool, device=dev)
-    kv_valid[:, :P + 1] = seq_mask
-    counts = torch.zeros((B, K, V), dtype=torch.int32, device=dev)
-    counts[:, :, 1] += P
-    counts[:, :, cfg.start_mel_token] += 1
-    beam_scores = torch.full((B, K), NEG, device=dev)
+    kv, kv_valid, hidden, counts = prefill_rows(params, cfg, dims, prefix_embeds, prefix_mask,
+                                                S, sampling.kv_quant, dtype, repeat=K)
+    logits = mel_logits_from_hidden(params, hidden[:, -1])
+    counts = counts.reshape(R, Kg, V)
+    beam_scores = torch.full((R, Kg), NEG, device=dev)     # slot 0 of every group starts
     beam_scores[:, 0] = 0.0
-    tokens = torch.full((B, K, L), stop, dtype=torch.long, device=dev)
-    hyp_scores = torch.full((B, K), float("-inf"), device=dev)
-    hyp_tokens = torch.full((B, K, L), stop, dtype=torch.long, device=dev)
-    hyp_lens = torch.zeros((B, K), dtype=torch.long, device=dev)
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    row_base = torch.arange(B, device=dev)[:, None] * K
-    ones = torch.ones((B, K, 1), dtype=torch.int32, device=dev)
-    own_idx = torch.arange(B * K, dtype=torch.int32, device=dev) % K
+    tokens = torch.full((R, Kg, L), stop, dtype=torch.long, device=dev)
+    hyp_scores = torch.full((R, Kg), float("-inf"), device=dev)
+    hyp_tokens = torch.full((R, Kg, L), stop, dtype=torch.long, device=dev)
+    hyp_lens = torch.zeros((R, Kg), dtype=torch.long, device=dev)
+    done = torch.zeros((R,), dtype=torch.bool, device=dev)
+    row_base = torch.arange(R, device=dev)[:, None] * Kg
+    ones = torch.ones((R, Kg, 1), dtype=torch.int32, device=dev)
+    own_idx = torch.arange(B * K, dtype=torch.int32, device=dev) % Kg
     anc = own_idx[:, None].repeat(1, S) if use_anc else None
     if route == "tp":
         mesh = params["gpt"]["mesh"]
@@ -221,23 +254,36 @@ def generate_beam(params: Params, cfg: GPTConfig, dims: GPT2Dims,
 
     step = 0
     while True:
-        combined = beam_step_scores(logits, counts, beam_scores, step, stop, sampling)
-        cb, ct, cs = _select_candidates(combined, K, sampling, generator)
-        nb, nt, beam_scores, hyp_scores, hyp_tokens, hyp_lens = _scorer_process(
-            cb, ct, cs, step, beam_scores, hyp_scores, hyp_tokens, hyp_lens, tokens, done,
-            stop=stop, norm=norm)
+        # the groups one after another, each penalized by the tokens the
+        # groups before it chose this step
+        state = [t.reshape(B, G, *t.shape[1:]) for t in
+                 (logits.reshape(R, Kg, V), counts, beam_scores, hyp_scores, hyp_tokens,
+                  hyp_lens, tokens, done)]
+        freq = torch.zeros((B, V), device=dev) if G > 1 else None
+        outs = []
+        for g in range(G):
+            lg, cn, bs, hs, ht, hl, tk, gd = (t[:, g] for t in state)
+            combined = beam_step_scores(lg, cn, bs, step, stop, sampling,
+                                        sampling.diversity_penalty * freq if g else None)
+            cb, ct, cs = _select_candidates(combined, Kg, sampling, generator)
+            nb, nt, ns, hs, ht, hl = _scorer_process(cb, ct, cs, step, bs, hs, ht, hl, tk, gd,
+                                                     stop=stop, norm=norm)
+            outs.append((nb, nt, ns, hs, ht, hl, gd | _hyps_done(cs[:, 0], hs, step, norm=norm)))
+            if freq is not None:
+                freq.scatter_add_(1, nt, torch.ones_like(nt, dtype=freq.dtype))
+        nb, nt, beam_scores, hyp_scores, hyp_tokens, hyp_lens, done = (
+            torch.stack(t, 1).reshape(R, *t[0].shape[1:]) for t in zip(*outs))
         gidx = (row_base + nb).reshape(-1)
-        tokens = tokens.reshape(B * K, L)[gidx].reshape(B, K, L)
+        tokens = tokens.reshape(B * K, L)[gidx].reshape(R, Kg, L)
         tokens[:, :, step] = nt
-        counts = counts.reshape(B * K, V)[gidx].reshape(B, K, V)
+        counts = counts.reshape(B * K, V)[gidx].reshape(R, Kg, V)
         counts.scatter_add_(2, nt[:, :, None], ones)
         if use_anc:
             anc = anc[gidx]
-        elif K > 1:
+        elif Kg > 1:
             kv = map_cache(kv, lambda buf: buf[:, gidx.to(buf.device)])
             kv_valid = kv_valid[gidx]
             kv_gathers += 1
-        done = done | _hyps_done(cs[:, 0], hyp_scores, step, norm=norm)
         step += 1
         if step >= max_new_tokens or (step % _DONE_POLL == 0 and bool(done.all())):
             break
@@ -247,18 +293,29 @@ def generate_beam(params: Params, cfg: GPTConfig, dims: GPT2Dims,
         kv_valid[:, pos] = True
         if use_anc:
             anc[:, pos] = own_idx
-        h = decode_step(route, params, x, dims, pos, kv, kv_valid, anc, K if use_anc else 1,
+        h = decode_step(route, params, x, dims, pos, kv, kv_valid, anc, Kg if use_anc else 1,
                         step_check)
-        logits = mel_logits_from_hidden(params, h).reshape(B, K, V)
+        logits = mel_logits_from_hidden(params, h)
 
-    # HF finalize: close the live beams of rows not done; the best hypothesis
+    return _finalize(beam_scores, tokens, hyp_scores, hyp_tokens, hyp_lens, done, step, norm,
+                     B, stop)
+
+
+def _finalize(beam_scores, tokens, hyp_scores, hyp_tokens, hyp_lens, done, step: int, norm,
+              B: int, stop: int) -> Tuple[torch.Tensor, np.ndarray]:
+    """HF finalize over (R, k) beams in R scorer rows (a row, or a beam
+    group): close the live beams of the rows not done, then the best
+    hypothesis of each of the B prefix rows, pooled over its R / B scorer
+    rows. Returns (codes (B, L), lengths (B,) numpy)."""
+    L = tokens.shape[-1]
     final = norm(beam_scores, step - 1)
-    for k in range(K):
+    for k in range(beam_scores.shape[1]):
         hyp_scores, hyp_tokens, hyp_lens = _add_hyps(hyp_scores, hyp_tokens, hyp_lens, ~done,
                                                      final[:, k], tokens[:, k], step)
+    hyp_scores, hyp_lens = hyp_scores.reshape(B, -1), hyp_lens.reshape(B, -1)
     best = hyp_scores.argmax(1, keepdim=True)
     lens = hyp_lens.gather(1, best)
-    best_tokens = hyp_tokens.gather(1, best[:, :, None].expand(B, 1, L))[:, 0]
-    codes = torch.where(torch.arange(L, device=dev)[None, :] < lens, best_tokens,
+    best_tokens = hyp_tokens.reshape(B, -1, L).gather(1, best[:, :, None].expand(B, 1, L))[:, 0]
+    codes = torch.where(torch.arange(L, device=tokens.device)[None, :] < lens, best_tokens,
                         torch.full_like(best_tokens, stop))
     return codes, lens[:, 0].cpu().numpy()

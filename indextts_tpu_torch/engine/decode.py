@@ -52,7 +52,8 @@ last_route = None
 class SamplingConfig:
     """The generation kwargs of `IndexTTS2.infer` that the port's engines
     honour (HF semantics; the beam engine ignores the typical warper, as
-    the JAX one does)."""
+    the JAX one does). The aux modes' fields select `engine/beam.py::
+    generate_group_beam` and `engine/modes.py`."""
 
     do_sample: bool = True
     temperature: float = 0.8
@@ -64,6 +65,15 @@ class SamplingConfig:
     num_beams: int = 3
     length_penalty: float = 0.0
     min_new_tokens: int = 0
+    # diverse (group) beam search, HF `_group_beam_search` (greedy only)
+    num_beam_groups: int = 1
+    diversity_penalty: float = 0.0
+    # contrastive search (HF `_contrastive_search`) when > 0 with top_k > 1
+    # and greedy
+    penalty_alpha: float = 0.0
+    # DoLa (HF `_dola_decoding`): "low" / "high" / a tuple of hidden-state
+    # indices (0 = the embeddings); None disables
+    dola_layers: object = None
     # the flat int8 KV cache with packed scale rows (`quantization="int8kv"`
     # / `"int4kv"`); prefill attention stays exact, decode runs K1's KVQ
     kv_quant: bool = False
@@ -86,13 +96,13 @@ def decode_route(params: Params, batch: int, kv_quant: bool = False) -> str:
     int4 GPT-2 weights and B*K <= 24, with the bf16 or (``kv_quant``) the
     int8 cache; "tp" (kernel K6, tp=2) for the tensor-parallel int8 tree of
     `parallel/mesh.py::shard_gpt2_tp` with the bf16 cache and B*K <= 24;
-    "plain" (`gpt2_decode_step`) for float weights and the bf16 cache. The
-    rest raises: the port has no plain quantized decode, and neither the
-    JAX package's XLA path for the int8 cache at float weights (its 5D ks/vs
-    cache) nor its GSPMD decode of a tp-sharded tree (float, int4, the int8
-    cache, larger batches) is ported. The JAX package's D % 640, D % 1280,
-    S % 128 and B*K <= 12 gates come from TPU memory tiling and VMEM; the
-    port's kernels mask ragged tiles."""
+    "plain" (`gpt2_decode_step`, the JAX package's XLA step) wherever the
+    JAX gate says no on one device: float weights (with either cache), and
+    quantized weights past 24 rows. A tensor-parallel tree the kernel does
+    not take raises: the JAX package's GSPMD decode (float, int4, the int8
+    cache, larger batches) is not ported. The JAX package's D % 640 and
+    S % 128 gates come from TPU memory tiling; the port's kernels mask
+    ragged tiles."""
     if is_tp(params["gpt"]):
         what = None
         if "q" not in params["gpt"]["shards"][0][0]["attn"]["c_attn"]:
@@ -106,19 +116,9 @@ def decode_route(params: Params, batch: int, kv_quant: bool = False) -> str:
                 f"tensor-parallel decode with {what}: the JAX package's GSPMD decode is not "
                 "ported; see ROADMAP.md, queue 1")
         return "tp"
-    if not is_quantized(params["gpt"]):
-        if kv_quant:
-            raise NotImplementedError(
-                "the int8 KV cache with float weights (the JAX package's XLA 5D ks/vs "
-                "cache) is not ported; see ROADMAP.md, queue 1")
-        return "plain"
-    if batch > MAX_ROWS:
-        raise NotImplementedError(
-            f"quantized decode of {batch} rows: kernel K1 takes at most {MAX_ROWS}; the "
-            "pipeline's row chunks stay within it up to num_beams=24 (the JAX package's plain "
-            "quantized decode step for larger batches is not ported; see ROADMAP.md, queue 1 "
-            "item 3)")
-    return "fused"
+    if is_quantized(params["gpt"]) and batch <= MAX_ROWS:
+        return "fused"
+    return "plain"
 
 
 # called as check(args, hidden) after each fused step when set by the caller
@@ -189,6 +189,33 @@ class DecodeState:
     route: str
 
 
+def prefill_rows(params: Params, cfg: GPTConfig, dims: GPT2Dims, prefix_embeds: torch.Tensor,
+                 prefix_mask: torch.Tensor, S: int, kv_quant: bool, dtype, repeat: int = 1,
+                 collect_hiddens: bool = False):
+    """Prefill [prefix][start_mel] of every row, ``repeat`` times each (a
+    row's beams adjacent), into a cache of S slots. Returns (the cache,
+    kv_valid (B * repeat, S), the hidden after ln_f (B * repeat, P + 1, D),
+    the repetition counts (B * repeat, V) of HF's fake prefix ids: P ones
+    and start_mel), with ``collect_hiddens`` then every block's input at the
+    last position (L, B * repeat, D)."""
+    B, P, _ = prefix_embeds.shape
+    dev, R = prefix_embeds.device, B * repeat
+    start = torch.full((R,), cfg.start_mel_token, device=dev)
+    seq = torch.cat([prefix_embeds.to(dtype).repeat_interleave(repeat, dim=0),
+                     _embed_mel_token(params, start, 0, dtype)[:, None]], dim=1)
+    seq_mask = torch.cat([prefix_mask.bool().repeat_interleave(repeat, dim=0),
+                          torch.ones((R, 1), dtype=torch.bool, device=dev)], dim=1)
+    kv = init_kv_cache(dims, R, S, dtype=dtype, device=dev, quantized=kv_quant,
+                       mesh=params["gpt"].get("mesh"))
+    out = gpt2_prefill(params["gpt"], seq, dims, seq_mask, kv, collect_hiddens=collect_hiddens)
+    kv_valid = torch.zeros((R, S), dtype=torch.bool, device=dev)
+    kv_valid[:, :P + 1] = seq_mask
+    counts = torch.zeros((R, cfg.number_mel_codes), dtype=torch.int32, device=dev)
+    counts[:, 1] += P
+    counts[:, cfg.start_mel_token] += 1
+    return (kv, kv_valid, *out, counts) if collect_hiddens else (kv, kv_valid, out, counts)
+
+
 def _prefill_state(params: Params, cfg: GPTConfig, dims: GPT2Dims,
                    prefix_embeds: torch.Tensor, prefix_mask: torch.Tensor,
                    generator: torch.Generator, max_new_tokens: int, span_end: int,
@@ -198,24 +225,13 @@ def _prefill_state(params: Params, cfg: GPTConfig, dims: GPT2Dims,
     B, P, _ = prefix_embeds.shape
     dev, stop = prefix_embeds.device, cfg.stop_mel_token
     route = decode_route(params, B, sampling.kv_quant)
-    start = torch.full((B,), cfg.start_mel_token, device=dev)
-    seq = torch.cat([prefix_embeds.to(dtype),
-                     _embed_mel_token(params, start, 0, dtype)[:, None]], dim=1)
-    seq_mask = torch.cat([prefix_mask.bool(), torch.ones((B, 1), dtype=torch.bool, device=dev)],
-                         dim=1)
-    S = _cache_len(P, span_end)
-    kv = init_kv_cache(dims, B, S, dtype=dtype, device=dev, quantized=sampling.kv_quant,
-                       mesh=params["gpt"].get("mesh"))
-    hidden = gpt2_prefill(params["gpt"], seq, dims, seq_mask, kv)
+    kv, kv_valid, hidden, counts = prefill_rows(params, cfg, dims, prefix_embeds, prefix_mask,
+                                                _cache_len(P, span_end), sampling.kv_quant,
+                                                dtype)
     logits = _min_len_mask(mel_logits_from_hidden(params, hidden[:, -1]), stop, 0,
                            sampling.min_new_tokens)
-    kv_valid = torch.zeros((B, S), dtype=torch.bool, device=dev)
-    kv_valid[:, :P + 1] = seq_mask
     if route == "tp":
         kv_valid = Replicated.of(kv_valid, params["gpt"]["mesh"])
-    counts = torch.zeros((B, cfg.number_mel_codes), dtype=torch.int32, device=dev)
-    counts[:, 1] += P
-    counts[:, cfg.start_mel_token] += 1
     tok = _sample(generator, logits, counts, sampling)
     tokens = torch.full((B, max_new_tokens), stop, dtype=torch.long, device=dev)
     tokens[:, 0] = tok

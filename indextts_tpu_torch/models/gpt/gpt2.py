@@ -2,10 +2,15 @@
 
 - `gpt2_forward`: full-sequence causal pass (teacher forcing / latents);
 - `gpt2_prefill`: the same pass writing K/V into the cache at [0, T);
-- `gpt2_decode_step`: one token against the flat (L, B, S, D) cache;
+- `gpt2_decode_step`: one token against the flat (L, B, S, D) cache, on
+  every weight format (float, int8 "q", int4 "q4") and both caches (bf16,
+  or the flat int8 one with its "kvs" scale rows), optionally with every
+  layer's input (DoLa); the plain step, which the JAX package runs on XLA;
+- `gpt2_chunk_step`: G consecutive tokens in one pass, the verify step of
+  speculative decoding, on the same formats and caches;
 - the weight-only int8 / int4 trees and the flat int8 cache
   (`kv_quantize_flat`) of the memory-knob configurations, whose decode
-  steps run kernel K1 (`ops/decode_step.py`);
+  steps run kernel K1 (`ops/decode_step.py`) up to 24 rows;
 - the tensor-parallel int8 tree (`parallel/mesh.py::shard_gpt2_tp`):
   `gpt2_forward` and `gpt2_prefill` run it shard by shard (what GSPMD makes
   of the JAX package's passes on the tp-sharded tree), and
@@ -243,13 +248,20 @@ def _layer_tp(layers: List[Params], x: torch.Tensor, dims: GPT2Dims, mask,
 
 
 def _blocks(params: Params, x: torch.Tensor, dims: GPT2Dims, mask,
-            kv_cache: Optional[Dict] = None) -> torch.Tensor:
+            kv_cache: Optional[Dict] = None, hiddens: Optional[list] = None) -> torch.Tensor:
+    """The blocks, then ln_f; ``hiddens`` collects each block's input at the
+    last position."""
     if is_tp(params):
+        if hiddens is not None:
+            raise NotImplementedError("collect_hiddens on the tensor-parallel tree is not "
+                                      "ported (ROADMAP.md, queue 1 item 10)")
         caches = None if kv_cache is None else kv_cache["shards"]
         for li, layers in enumerate(zip(*params["shards"])):
             x = _layer_tp(list(layers), x, dims, mask, caches, li)
     else:
         for li, lp in enumerate(params["h"]):
+            if hiddens is not None:
+                hiddens.append(x[:, -1])
             x = _layer(lp, x, dims, mask, kv_cache, li)
     return nn.layer_norm(params["ln_f"], x)
 
@@ -266,40 +278,116 @@ def gpt2_forward(params: Params, x: torch.Tensor, dims: GPT2Dims,
 
 
 def gpt2_prefill(params: Params, x: torch.Tensor, dims: GPT2Dims,
-                 attn_mask: torch.Tensor, kv_cache: Dict) -> torch.Tensor:
+                 attn_mask: torch.Tensor, kv_cache: Dict, collect_hiddens: bool = False):
     """`gpt2_forward` that also writes every layer's K/V at cache slots
     [0, T) (in place; an int8 cache gets `kv_quantize_flat` rows, while the
     prefill's own attention uses the unquantized k and v, as in the JAX
     package; a tensor-parallel tree writes each shard's heads into its own
-    cache). Returns hidden states after ln_f."""
-    return _blocks(params, x, dims, _causal_mask(attn_mask, x.shape[1]), kv_cache)
+    cache). Returns hidden states after ln_f; with ``collect_hiddens`` also
+    (L, B, D), each block's input at the last position (HF
+    ``hidden_states[i]`` for i < L, what DoLa's early exits read)."""
+    hiddens = [] if collect_hiddens else None
+    h = _blocks(params, x, dims, _causal_mask(attn_mask, x.shape[1]), kv_cache, hiddens)
+    return (h, torch.stack(hiddens)) if collect_hiddens else h
+
+
+def _cache_write(kv_cache: Dict, li: int, pos0: int, k: torch.Tensor, v: torch.Tensor,
+                 heads: int) -> None:
+    """Layer ``li``'s k and v rows (B, G, D) at slots [pos0, pos0 + G), in
+    place; the int8 cache gets `kv_quantize_flat` rows and their scales."""
+    end = pos0 + k.shape[1]
+    if "kvs" in kv_cache:
+        kv_cache["k"][li, :, pos0:end], kv_cache["v"][li, :, pos0:end], \
+            kv_cache["kvs"][li, :, pos0:end] = kv_quantize_flat(k, v, heads)
+    else:
+        kv_cache["k"][li, :, pos0:end] = k.to(kv_cache["k"].dtype)
+        kv_cache["v"][li, :, pos0:end] = v.to(kv_cache["v"].dtype)
+
+
+def _cache_layer(kv_cache: Dict, li: int, heads: int, dtype):
+    """Layer ``li``'s (k, v) (B, S, D) as attention reads them: the bf16
+    cache as it is, the int8 cache dequantized to ``dtype`` against its
+    scale rows (the JAX package's XLA path for that cache)."""
+    if "kvs" in kv_cache:
+        kvs = kv_cache["kvs"][li]
+        return (_kv_dequant_flat(kv_cache["k"][li], kvs, heads, 0, dtype),
+                _kv_dequant_flat(kv_cache["v"][li], kvs, heads, SCALE_LANES // 2, dtype))
+    return kv_cache["k"][li], kv_cache["v"][li]
+
+
+def _cached_blocks(params: Params, x: torch.Tensor, dims: GPT2Dims, pos0: int,
+                   kv_cache: Dict, mask: torch.Tensor,
+                   hiddens: Optional[list] = None) -> torch.Tensor:
+    """x (B, G, D) through every block against the cache: each layer writes
+    its k / v at [pos0, pos0 + G), then attends the cache under ``mask``
+    (B, 1, G, S). Returns (B, G, D) after ln_f; ``hiddens`` collects each
+    block's input."""
+    if is_tp(params):
+        raise NotImplementedError("the plain decode step on the tensor-parallel tree (the JAX "
+                                  "package's GSPMD decode) is not ported; see ROADMAP.md, "
+                                  "queue 1 item 10")
+    for li, lp in enumerate(params["h"]):
+        if hiddens is not None:
+            hiddens.append(x)
+        x = cached_layer(lp, x, dims, pos0, kv_cache, li, mask)
+    return nn.layer_norm(params["ln_f"], x)
+
+
+def cached_layer(lp: Params, x: torch.Tensor, dims: GPT2Dims, pos0: int, kv_cache: Dict,
+                 li: int, mask: torch.Tensor) -> torch.Tensor:
+    """One block of `_cached_blocks` (layer ``li`` of the cache) on x (B, G,
+    D); the checks hold a chunk's layers against single steps' with it."""
+    B, G, D = x.shape
+    q, k, v = torch.chunk(nn.dense(lp["attn"]["c_attn"], nn.layer_norm(lp["ln_1"], x)), 3, -1)
+    _cache_write(kv_cache, li, pos0, k, v, dims.heads)
+    kc, vc = _cache_layer(kv_cache, li, dims.heads, x.dtype)
+    out = nn.mha(_heads(q, dims), _heads(kc, dims), _heads(vc, dims), mask=mask)
+    return _mlp(lp, x + nn.dense(lp["attn"]["c_proj"], out.transpose(1, 2).reshape(B, G, D)))
 
 
 def gpt2_decode_step(params: Params, x: torch.Tensor, dims: GPT2Dims, pos: int,
-                     kv_cache: Dict[str, torch.Tensor],
-                     kv_valid: torch.Tensor) -> torch.Tensor:
-    """One token x (B, D): writes its K/V at slot ``pos`` (in place) and
-    attends every slot ``kv_valid`` (B, S) marks. Returns (B, D) after ln_f.
-    ``gpt2_decode_step.calls`` counts the calls (int8 decode must not come
-    here: it runs the fused kernel K1, as does every step on the int8
-    cache)."""
-    if "kvs" in kv_cache:
-        raise NotImplementedError("gpt2_decode_step takes the bf16 cache; the int8 cache is "
-                                  "decoded by kernel K1 (the JAX package's 5D ks/vs cache "
-                                  "path is not ported, ROADMAP.md queue 1)")
+                     kv_cache: Dict[str, torch.Tensor], kv_valid: torch.Tensor,
+                     collect_hiddens: bool = False):
+    """The plain decode step: one token x (B, D) writes its K/V at slot
+    ``pos`` (in place) and attends every slot ``kv_valid`` (B, S) marks.
+    Float, int8 and int4 weights (`nn.dense` dequantizes), the bf16 cache or
+    the int8 one (the new rows quantized, the layer dequantized to x's
+    dtype). Returns (B, D) after ln_f; with ``collect_hiddens`` also (L, B,
+    D), each block's input (HF ``hidden_states[i]`` for i < L, DoLa's
+    premature exits). ``gpt2_decode_step.calls`` counts the calls."""
     gpt2_decode_step.calls += 1
-    B, D = x.shape
-    mask = kv_valid[:, None, None, :]
-    xc = x[:, None, :]
-    for li, lp in enumerate(params["h"]):
-        q, k, v = torch.chunk(nn.dense(lp["attn"]["c_attn"], nn.layer_norm(lp["ln_1"], xc)), 3, -1)
-        kc, vc = kv_cache["k"][li], kv_cache["v"][li]
-        kc[:, pos] = k[:, 0].to(kc.dtype)
-        vc[:, pos] = v[:, 0].to(vc.dtype)
-        out = nn.mha(_heads(q, dims), _heads(kc, dims), _heads(vc, dims), mask=mask)
-        xc = xc + nn.dense(lp["attn"]["c_proj"], out.transpose(1, 2).reshape(B, 1, D))
-        xc = _mlp(lp, xc)
-    return nn.layer_norm(params["ln_f"], xc[:, 0])
+    hiddens = [] if collect_hiddens else None
+    h = _cached_blocks(params, x[:, None], dims, pos, kv_cache, kv_valid[:, None, None, :],
+                       hiddens)[:, 0]
+    return (h, torch.stack([t[:, 0] for t in hiddens])) if collect_hiddens else h
 
 
 gpt2_decode_step.calls = 0
+
+
+def gpt2_chunk_step(params: Params, x: torch.Tensor, dims: GPT2Dims, pos0: int,
+                    kv_cache: Dict[str, torch.Tensor], kv_valid: torch.Tensor) -> torch.Tensor:
+    """G consecutive tokens x (B, G, D) in one pass, the verify step of
+    speculative decoding (`indextts_tpu/models/gpt/gpt2.py::gpt2_chunk_step`):
+    their K/V are written at slots [pos0, pos0 + G) (in place), and query g
+    attends every ``kv_valid`` slot plus the chunk's slots pos0 .. pos0 + g
+    (the caller passes ``kv_valid`` without the chunk's slots and marks the
+    committed ones afterwards). The weight formats and caches of
+    `gpt2_decode_step`. Returns (B, G, D) after ln_f.
+    ``gpt2_chunk_step.calls`` counts the calls."""
+    gpt2_chunk_step.calls += 1
+    return _cached_blocks(params, x, dims, pos0, kv_cache, chunk_mask(kv_valid, pos0, x.shape[1]))
+
+
+def chunk_mask(kv_valid: torch.Tensor, pos0: int, G: int) -> torch.Tensor:
+    """The (B, 1, G, S) mask of a chunk of G tokens at [pos0, pos0 + G):
+    query g attends the ``kv_valid`` slots and the chunk's slots up to its
+    own."""
+    S = kv_valid.shape[1]
+    s = torch.arange(S, device=kv_valid.device)
+    g = torch.arange(G, device=kv_valid.device)
+    chunk_ok = (s[None, :] >= pos0) & (s[None, :] <= pos0 + g[:, None])          # (G, S)
+    return kv_valid[:, None, None, :] | chunk_ok[None, None]
+
+
+gpt2_chunk_step.calls = 0

@@ -19,11 +19,14 @@ One request runs, on ``device``:
       ``emo_vector`` the emotion-matrix mix of `IndexTTS2.emotion_mix` is
       merged in), then left-padded prefix embeddings
   [G] GPT-2 prefill + decode: beam search / sampling for num_beams > 1
-      (`engine/beam.py`, K = num_beams), the sampling decode for
-      num_beams=1 (`engine/decode.py::generate_adaptive`); with a
-      ``quantization`` every decode step runs kernel K1 (with the in-kernel
-      beam ancestry map under beams, at group=1 when sampling), under a
-      tp mesh kernel K6
+      (`engine/beam.py`, K = num_beams; diverse group beam with
+      ``num_beam_groups``), at num_beams=1 the self-gating speculative
+      decoder for a segment decoded alone (`engine/speculative.py`), the
+      sampling decode for a batch (`engine/decode.py::generate_adaptive`),
+      contrastive search or DoLa with their kwargs (`engine/modes.py`);
+      with a ``quantization`` every single-token step up to 24 rows runs
+      kernel K1 (with the in-kernel beam ancestry map under beams, at
+      group=1 when sampling), under a tp mesh kernel K6
   [S1] teacher-forced GPT latents -> gpt_layer + vq2emb
   [S2] length regulator -> 25-step CFM Euler solve under CFG (DiT: kernel
       K2, or K4 on its flash tier)
@@ -59,14 +62,14 @@ shard; conditioning, s2mel and BigVGAN run on rank 0's device (the DiT's tp
 sharding is not ported). Every other mesh combination raises
 NotImplementedError: the JAX package's GSPMD decode for float, int4 and
 int8kv weights and for tp batches of more than 24 rows, the dp axis, the
-DiT's tp and sp. At num_beams=1 the JAX pipeline's default for a segment
-run on its own is its self-gating speculative decoder, which its own
-comment documents as token-identical to `generate()`; the port runs the
-plain adaptive sampling decode there (the speculative engine is ROADMAP
-queue 1; under a mesh the JAX pipeline turns speculation off too). Paths of
-the JAX pipeline that are not ported yet raise NotImplementedError naming
-their ROADMAP item: emotion from text (Qwen), and the aux modes (diverse
-beam, contrastive, DoLa).
+DiT's tp and sp. At num_beams=1 a segment decoded alone takes the JAX
+pipeline's default, the self-gating speculative decoder (gamma 8;
+INDEXTTS_SPEC_DECODE=0 turns it off, as in the JAX pipeline; off under a
+mesh and for the aux modes); the aux generation kwargs (``num_beam_groups``
+/ ``diversity_penalty``, ``penalty_alpha``, ``dola_layers``) select their
+engines as in the JAX pipeline, with its ValueErrors. Paths of the JAX
+pipeline that are not ported yet raise NotImplementedError naming their
+ROADMAP item: emotion from text (Qwen).
 
 Weights: the constructor reads the released IndexTTS2 model directory as
 the JAX pipeline does (`IndexTTS2._load_models`; the files in
@@ -102,8 +105,10 @@ import torch
 
 from indextts_tpu_torch import nn
 from indextts_tpu_torch.config import BigVGANConfig, IndexTTS2Config, load_config
-from indextts_tpu_torch.engine.beam import generate_beam
+from indextts_tpu_torch.engine.beam import generate_beam, generate_group_beam
 from indextts_tpu_torch.engine.decode import SamplingConfig, generate_adaptive
+from indextts_tpu_torch.engine.modes import generate_contrastive, generate_dola
+from indextts_tpu_torch.engine.speculative import generate_spec_adaptive, spec_commit_ratio
 from indextts_tpu_torch.models.codec.repcodec import (init_repcodec, repcodec_quantize,
                                                       repcodec_vq2emb)
 from indextts_tpu_torch.models.codec.w2vbert import init_w2vbert, w2vbert_forward
@@ -134,6 +139,36 @@ QUANTIZATIONS = {"int8": (quantize_gpt2_int8, False), "int8kv": (quantize_gpt2_i
 
 def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported to the PyTorch pipeline yet ({_ROADMAP})")
+
+
+def _spec_decode_gamma() -> int:
+    """gamma of the one-row speculative decoder, read from the JAX
+    pipeline's switch as it reads it: INDEXTTS_SPEC_DECODE unset (or on /
+    true / default) gives 8, 0 / off / false / no turns it off, another
+    integer sets gamma (an unreadable value gives 8)."""
+    raw = os.environ.get("INDEXTTS_SPEC_DECODE", "").strip().lower()
+    if raw in ("", "on", "true", "default"):
+        return 8
+    if raw in ("0", "off", "false", "no"):
+        return 0
+    try:
+        return max(0, int(raw))
+    except ValueError:
+        return 8
+
+
+def _aux_decode_fn(sampling: SamplingConfig):
+    """HF's generation-mode rule for the aux modes at num_beams=1, as the
+    JAX pipeline applies it: DoLa when ``dola_layers`` is set, contrastive
+    search when penalty_alpha > 0 with top_k > 1 and greedy (sampling
+    falls through to the sampling decode, as in HF); else None."""
+    if sampling.num_beams > 1:
+        return None
+    if sampling.dola_layers is not None:
+        return generate_dola
+    if sampling.penalty_alpha > 0 and sampling.top_k > 1 and not sampling.do_sample:
+        return generate_contrastive
+    return None
 
 
 def normalize_emo_vec(emo_vector, apply_bias: bool = True):
@@ -308,6 +343,9 @@ class IndexTTS2:
         self.cache_spk_audio_prompt = self.cache_spk = None
         self.cache_emo_audio_prompt = self.cache_emo_cond = None
         self.last_stage_times: Dict[str, float] = {}
+        # (gamma, chunk verifies, tokens committed by chunks, single steps)
+        # of the last speculative decode
+        self.last_spec_stats = None
         # optional check(args, hidden) after every fused decode step
         # (`engine/decode.py::decode_step`)
         self.decode_check = None
@@ -584,21 +622,44 @@ class IndexTTS2:
         return (weights[:, None] * emo_mat).sum(0)[None, :], float(weights.sum())
 
     def decode(self, embeds: torch.Tensor, mask: torch.Tensor, sampling: SamplingConfig,
-               max_mel_tokens: int):
+               max_mel_tokens: int, batched: bool = False, verbose: bool = False):
         """[G] codes (B, max_mel_tokens) on the device, stop-padded, and
-        lengths (B,) numpy, of B prefix rows. Off a mesh the rows decode in
-        chunks of at most MAX_ROWS decode rows, so that a quantized chunk
-        stays on K1: beams ``max(1, MAX_ROWS // num_beams)`` prefix rows (K
-        decode rows each), sampling MAX_ROWS (both engines return
-        max_mel_tokens columns, so the parts need no padding to one width).
-        The pipeline's generator serves the chunks in order."""
+        lengths (B,) numpy, of B prefix rows, routed as the JAX pipeline
+        routes them. A segment decoded alone (``batched`` False: the single
+        segment, the sequential loop, streaming) at num_beams=1 without an
+        aux mode or a mesh takes the self-gating speculative decoder
+        (`generate_spec_adaptive`, gamma from INDEXTTS_SPEC_DECODE, the
+        n-gram from INDEXTTS_SPEC_NGRAM; its stats in `last_spec_stats`).
+        Otherwise: beams (diverse with ``num_beam_groups`` > 1) in chunks of
+        ``max(1, MAX_ROWS // num_beams)`` prefix rows, the aux modes over all
+        rows at once, the sampling decode in chunks of MAX_ROWS rows, so that
+        a quantized chunk stays on K1 (under a mesh, one chunk). The
+        pipeline's generator serves the chunks in order."""
         B = embeds.shape[0]
+        aux = _aux_decode_fn(sampling)
+        gamma = 0 if (batched or sampling.num_beams > 1 or aux is not None
+                      or self.mesh is not None) else _spec_decode_gamma()
+        if gamma > 0:
+            codes, lens, stats = generate_spec_adaptive(
+                self.gpt_params, self.cfg.gpt, self.gpt_dims, embeds, mask, self.generator,
+                max_mel_tokens, sampling, self.dtype, gamma=gamma,
+                ngram=int(os.environ.get("INDEXTTS_SPEC_NGRAM", "2")),
+                step_check=self.decode_check)
+            self.last_spec_stats = (gamma, *(int(v) for v in stats))
+            if verbose:
+                _, ch, com, sg = self.last_spec_stats
+                acc = (com - ch) / (ch * gamma) if ch else 0.0
+                print(f">> spec decode: {ch} chunk verifies committed {com} tokens, {sg} single "
+                      f"steps (per-draft acceptance {acc:.2f}; gate "
+                      f"{spec_commit_ratio(gamma):.2f} commits/chunk, a TPU fit)")
+            return codes, lens
         if sampling.num_beams > 1:
-            fn = generate_beam
+            fn = generate_group_beam if sampling.num_beam_groups > 1 else generate_beam
             chunk = max(1, MAX_ROWS // sampling.num_beams)
+        elif aux is not None:
+            fn, chunk = aux, B
         else:
-            fn = generate_adaptive
-            chunk = MAX_ROWS
+            fn, chunk = generate_adaptive, MAX_ROWS
         if self.mesh is not None:
             chunk = B
         parts = [fn(self.gpt_params, self.cfg.gpt, self.gpt_dims, embeds[i:i + chunk],
@@ -788,7 +849,7 @@ class IndexTTS2:
             tlens = [len(ids) for ids in seg_ids]
             text_ids = self._text_rows(seg_ids)
             embeds, mask = self.prefix_embeds(cond_latents, emovec, text_ids, tlens)
-            codes, code_lens = self.decode(embeds, mask, sampling, max_mel_tokens)
+            codes, code_lens = self.decode(embeds, mask, sampling, max_mel_tokens, batched=True)
             times["gpt"] += time.perf_counter() - t0
             clens = [max(int(n), 1) for n in code_lens]
             batch_wav = self.codes_to_wav(spk, cond_latents, emovec, text_ids, tlens, codes,
@@ -806,7 +867,8 @@ class IndexTTS2:
                 t0 = time.perf_counter()
                 text_ids = self._text_rows([ids])
                 embeds, mask = self.prefix_embeds(cond_latents, emovec, text_ids, [len(ids)])
-                codes, code_lens = self.decode(embeds, mask, sampling, max_mel_tokens)
+                codes, code_lens = self.decode(embeds, mask, sampling, max_mel_tokens,
+                                               verbose=verbose)
                 times["gpt"] += time.perf_counter() - t0
                 warned = warned or self._warn_max_mel(int(code_lens[0]), max_mel_tokens,
                                                       max_text_tokens_per_segment)
@@ -868,15 +930,24 @@ class IndexTTS2:
 
     def _sampling(self, kw: dict) -> SamplingConfig:
         """The generation kwargs of the reference's `infer` (same defaults),
-        with the KV-cache format of the quantization; the kwargs whose paths
-        are not ported (the aux modes) raise."""
+        the aux modes' included, with the KV-cache format of the
+        quantization; the JAX pipeline's ValueErrors for the combinations it
+        refuses."""
         num_beams = int(kw.get("num_beams", 3))
-        if int(kw.get("num_beam_groups", 1)) > 1 or float(kw.get("penalty_alpha", 0.0)) > 0 \
-                or kw.get("dola_layers") is not None:
-            _not_ported(f"the aux decode modes (diverse beam / contrastive / DoLa; "
-                        f"num_beams={num_beams})")
+        do_sample = bool(kw.get("do_sample", True))
+        num_beam_groups = int(kw.get("num_beam_groups", 1))
+        dola_layers = kw.get("dola_layers")
+        if isinstance(dola_layers, list):
+            dola_layers = tuple(dola_layers)
+        if num_beam_groups > 1:
+            if num_beams % num_beam_groups:
+                raise ValueError("num_beams must be divisible by num_beam_groups")
+            if do_sample:
+                raise ValueError("diverse beam search requires do_sample=False")
+        if dola_layers is not None and num_beams > 1:
+            raise ValueError("dola_layers requires num_beams=1")
         return SamplingConfig(
-            do_sample=bool(kw.get("do_sample", True)),
+            do_sample=do_sample,
             temperature=float(kw.get("temperature", 0.8)),
             top_k=int(kw.get("top_k", 30)), top_p=float(kw.get("top_p", 0.8)),
             repetition_penalty=float(kw.get("repetition_penalty", 10.0)),
@@ -885,4 +956,7 @@ class IndexTTS2:
             num_beams=num_beams,
             length_penalty=float(kw.get("length_penalty", 0.0)),
             min_new_tokens=int(kw.get("min_new_tokens", 0)),
+            num_beam_groups=num_beam_groups,
+            diversity_penalty=float(kw.get("diversity_penalty", 0.0)),
+            penalty_alpha=float(kw.get("penalty_alpha", 0.0)), dola_layers=dola_layers,
             kv_quant=bool(self.quantization and QUANTIZATIONS[self.quantization][1]))

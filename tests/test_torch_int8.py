@@ -312,12 +312,14 @@ def test_int8_pipeline_refuses_other_dtypes_and_quantizations(tmp_path):
                       quantization=quantization, dtype=torch.float32)
 
 
-def test_int8_decode_route_refuses_batches_past_k1(k1_case):
+def test_int8_decode_route_takes_the_plain_step_past_k1(k1_case):
+    """Up to 24 rows K1; past them the plain step on the int8 weights, as
+    the JAX gate routes them (`tests/test_torch_modes.py` holds a 27-row
+    decode there against JAX)."""
     from indextts_tpu_torch.engine.decode import decode_route
 
     params = {"gpt": to_torch(k1_case["params"], "cpu", torch.bfloat16)}
     assert decode_route(params, 24) == "fused"
-    with pytest.raises(NotImplementedError, match="K1"):
-        decode_route(params, 25)
+    assert decode_route(params, 25) == decode_route(params, 25, kv_quant=True) == "plain"
     assert decode_route({"gpt": to_torch(_gpt2_bf16(jgpt2.GPT2Dims(1, 64, 4)), "cpu")},
                         99) == "plain"

@@ -41,7 +41,9 @@ variant at group=3 and group=1 and pos 0, 1 and 150 (the hidden state, the
 whole cache after the step, every layer's input, a second launch), with
 `step_barriers` grid barriers and no standalone kernel launched. The
 num_beams=1 sampling decode with int8
-weights launches K1 once a step (at group=1) and never the bf16 step. K6's
+weights launches K1 once a step (at group=1) and never the bf16 step; the
+speculative decoder K1 once a single step and the chunk step once a
+verify; diverse beam K1 at group=2 once a step. K6's
 all-reduce (tp_allreduce) is bit-identical to its twin, for either rank; K6
 (fused_decode_step_tp) with both shards co-located on one card is one
 launch a step of the persistent kernel's TP variant, bit-identical to the
@@ -833,6 +835,65 @@ def test_sampling_decode_takes_k1_at_group_1(cuda_device):
     assert decode_step.fused_decode_step.launches == k1 + 11
     assert gpt2_decode_step.calls == calls
     assert list(lens) == [12, 12] and bool(((toks >= 0) & (toks < 50)).all())
+
+
+def _k1_decode_case(device):
+    """The 2 x 640 int8 GPT of `test_sampling_decode_takes_k1_at_group_1`
+    on the card, and one 9-token prefix."""
+    from indextts_tpu_torch.config import GPTConfig
+    from indextts_tpu_torch.models.gpt.unified_voice import init_unified_voice
+
+    cfg = GPTConfig(layers=2, model_dim=640, heads=10, max_text_tokens=30, max_mel_tokens=60,
+                    number_text_tokens=40, number_mel_codes=50, start_mel_token=48,
+                    stop_mel_token=49)
+    params = to_torch(init_unified_voice(InitRng(0, device), cfg), device, torch.bfloat16)
+    params["gpt"] = quantize_gpt2_int8(params["gpt"])
+    g = torch.Generator(device=device).manual_seed(0)
+    prefix = torch.randn((1, 9, 640), generator=g, device=device).to(torch.bfloat16)
+    return cfg, params, prefix, torch.ones((1, 9), dtype=torch.bool, device=device), g
+
+
+@pytest.mark.cuda
+def test_speculative_decode_takes_k1_for_single_steps(cuda_device):
+    """The one-row speculative decoder with int8 weights on the card: K1 at
+    group=1 once a single step, the chunk step once a verify, never the
+    plain step, with drafts from the sequential decode's codes (K1's rounding
+    chain may part the two early, so commits are not counted)."""
+    from indextts_tpu_torch.engine import decode, speculative
+    from indextts_tpu_torch.models.gpt.gpt2 import gpt2_chunk_step, gpt2_decode_step
+
+    cfg, params, prefix, mask, g = _k1_decode_case(cuda_device)
+    samp = decode.SamplingConfig(num_beams=1, do_sample=False, min_new_tokens=23)
+    seq, _ = decode.generate_adaptive(params, cfg, GPT2Dims(2, 640, 10), prefix, mask, g, 24,
+                                      samp)
+    k1, calls, chunks = (decode_step.fused_decode_step.launches, gpt2_decode_step.calls,
+                         gpt2_chunk_step.calls)
+    toks, lens, stats = speculative.generate_spec(params, cfg, GPT2Dims(2, 640, 10), prefix,
+                                                  mask, g, 24, samp, gamma=4, forced=True,
+                                                  draft_source=seq[0])
+    torch.cuda.synchronize()
+    assert decode.last_route == "fused" and stats[0] > 0 and stats[1] >= stats[0]
+    assert decode_step.fused_decode_step.launches == k1 + stats[2]
+    assert gpt2_chunk_step.calls == chunks + stats[0] and gpt2_decode_step.calls == calls
+    assert list(lens) == [24] and bool(((toks >= 0) & (toks < 50)).all())
+
+
+@pytest.mark.cuda
+def test_diverse_beam_takes_k1_at_group_2(cuda_device):
+    """Diverse beam search at num_beams=4, two groups, int8 weights: K1 with
+    the ancestry map at group=2 once a decode step, no cache gather."""
+    from indextts_tpu_torch.engine import beam, decode
+
+    cfg, params, prefix, mask, g = _k1_decode_case(cuda_device)
+    samp = decode.SamplingConfig(num_beams=4, num_beam_groups=2, diversity_penalty=1.0,
+                                 do_sample=False, min_new_tokens=11)
+    k1, gathers = decode_step.fused_decode_step.launches, beam.kv_gathers
+    toks, lens = beam.generate_group_beam(params, cfg, GPT2Dims(2, 640, 10), prefix, mask, g,
+                                          12, samp)
+    torch.cuda.synchronize()
+    assert beam.last_use_anc is True and beam.kv_gathers == gathers
+    assert decode_step.fused_decode_step.launches == k1 + 11
+    assert list(lens) == [12] and bool(((toks >= 0) & (toks < 50)).all())
 
 
 def _tp_case(device, group=1):

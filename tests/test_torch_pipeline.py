@@ -6,10 +6,13 @@ across by the weight bridge and one prompt wav.
 - from those codes, latents -> CFM -> BigVGAN give the same wav (rel-L2 <=
   1e-3) when the port is handed the CFM noise the JAX side draws from its key;
 - the port's `infer` runs end to end, caches the prompt, writes the wav;
-- paths outside the port raise NotImplementedError (emotion from text, the
-  aux decode modes: diverse beam, contrastive search, DoLa); the port
-  imports no jax. Long-form, streaming and emo_vector requests are held
-  against the JAX pipeline in `tests/test_torch_longform.py`.
+- the aux generation kwargs reach their engines (diverse beam, DoLa; the
+  speculative decoder for sampling with penalty_alpha); emotion from text
+  raises NotImplementedError; the port imports no jax. The aux engines
+  are held against the JAX package in `tests/test_torch_modes.py`, the
+  speculative decoder in `tests/test_torch_speculative.py`. Long-form,
+  streaming and emo_vector requests are held against the JAX pipeline in
+  `tests/test_torch_longform.py`.
 """
 
 import os
@@ -155,17 +158,33 @@ def test_port_infer_end_to_end(torch_tts, model_dir, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,what", [
-    ({"num_beams": 1, "penalty_alpha": 0.6}, "num_beams=1"),
+    # sampling with penalty_alpha is not contrastive search (HF's mode rule):
+    # the one-row speculative decoder
+    ({"num_beams": 1, "penalty_alpha": 0.6}, "generate_spec_adaptive"),
     ({"use_emo_text": True}, "Qwen"),
-    ({"num_beams": 4, "num_beam_groups": 2, "do_sample": False}, "diverse beam"),
-    ({"num_beams": 1, "dola_layers": "low"}, "DoLa"),
+    ({"num_beams": 4, "num_beam_groups": 2, "do_sample": False}, "generate_group_beam"),
+    ({"num_beams": 1, "dola_layers": "low"}, "generate_dola"),
 ])
-def test_unported_paths_raise(torch_tts, model_dir, kwargs, what):
+def test_aux_kwargs_take_their_engines_and_emotion_text_raises(torch_tts, model_dir,
+                                                               monkeypatch, kwargs, what):
+    """The aux generation kwargs run the engine the JAX pipeline picks for
+    them; emotion from text (Qwen) is not ported and raises."""
+    from indextts_tpu_torch.pipeline import infer_v2
+
     kw = dict(spk_audio_prompt=os.path.join(model_dir, "prompt.wav"), text=TEXT,
               output_path=None, max_mel_tokens=4)
     kw.update(kwargs)
-    with pytest.raises(NotImplementedError, match=what):
-        torch_tts.infer(**kw)
+    if what == "Qwen":
+        with pytest.raises(NotImplementedError, match=what):
+            torch_tts.infer(**kw)
+        return
+    ran = []
+    real = getattr(infer_v2, what)
+    monkeypatch.setattr(infer_v2, what, lambda *a, **k: ran.append(1) or real(*a, **k))
+    sr, data = torch_tts.infer(**kw)
+    clen = torch_tts.last_stage_times["codes"]
+    assert ran == [1] and sr == 22050
+    assert data.shape == (int(np.float32(clen) * np.float32(1.72)) * 256, 1)
 
 
 @pytest.mark.parametrize("kwargs,what", [({"quantization": "int3"}, "K1"),
