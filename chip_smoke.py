@@ -111,7 +111,24 @@
    reseeded alike: codes token-equal, the int16 wav within rel-L2 1e-3, the
    loaded request's launches exactly one int8 request's (K1 399), and its
    stage seconds beside the random-weight model's. The directory is
-   deleted afterwards.
+   deleted after the emotion-text pass.
+4a. Emotion-text pass (`emo_text_phase`), on that directory: a Qwen3-0.6B
+   classifier at the published widths (28 x 1024, 16 / 8 heads of 128,
+   vocab 151936, tied; random weights from seed 0, ~1.19 GB of bf16
+   model.safetensors) and a synthetic tokenizer.json covering its ids (the
+   Qwen3 added tokens at their published ids) written at
+   ``<dir>/qwen0.6bemo4-merge``; a bf16 `IndexTTS2` read from the
+   directory. Printed: the classifier's load seconds (every leaf as
+   written), the prompt's token count, the prefill ms, the greedy decode's
+   steps and ms a step, its device busy share (`profile_busy`), the emotion
+   dict. Held: the f32 prefill logits on the card against the host CPU
+   (TF32 off), rel-L2 <= 1e-3, and the first 8 f32 greedy tokens equal (the
+   bf16 logits against f32 printed). Then one `use_emo_text=True` request
+   with an ``emo_text``, pinned to 400 codes (stage seconds, RTF; K2 / K3
+   as one bf16 request), and the CLI: ``python -m indextts_tpu_torch.cli_v2
+   synth --emotion-text ... --model-dir <dir>`` in a subprocess at its
+   defaults (num_beams=3, up to 1500 codes): exit code 0 and the wav
+   written.
 5. Sampling pass (num_beams=1: the JAX pipeline's default for a segment
    decoded alone, the self-gating speculative decoder
    `engine/speculative.py::generate_spec_adaptive`, gamma 8), int8
@@ -322,6 +339,16 @@ AUX_REQUESTS = {"diverse beam": dict(num_beams=4, num_beam_groups=2, diversity_p
                                      do_sample=False),
                 "contrastive": dict(num_beams=1, penalty_alpha=0.6, top_k=4, do_sample=False),
                 "dola": dict(num_beams=1, dola_layers="high", do_sample=False)}
+# the emotion-text pass: the classifier's input, its f32 card-vs-host
+# logits gate and how many f32 greedy tokens must agree, the corpus the
+# synthetic tokenizer learns its first merges from, and about the bytes of
+# the Qwen3 directory it writes into the checkpoint pass's directory
+EMO_TEXT = "今天终于见到了多年未见的老朋友，我高兴得说不出话来！"
+QWEN_F32_REL_L2 = 1e-3
+QWEN_CHECK_TOKENS = 8
+QWEN_CORPUS = ('{"高兴": 0.9, "愤怒": 0.0, "悲伤": 0.1, "恐惧": 0.0, "反感": 0.0, "低落": 0.0, '
+               '"惊讶": 0.3, "自然": 0.2}\n文本情感分类 ' + EMO_TEXT + " " + SENTENCE) * 8
+QWEN_BYTES = 1.3e9
 # H100 SXM datasheet peaks: HBM bytes/s, bf16 tensor-core
 # and f32 FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -2403,9 +2430,10 @@ def compare_loaded(loaded, ref) -> int:
     return len(a)
 
 
-def checkpoint_phase(card: str, prompt: str, model_dir: str, int8_st=None) -> dict:
+def checkpoint_phase(card: str, prompt: str, model_dir: str, d: str, int8_st=None) -> dict:
     """The checkpoint pass: the int8 pass's random-weight model (seed 0)
-    written as a released model directory, read back, and served. The
+    written as a released model directory ``d``, read back, and served
+    (the emotion-text pass then serves ``d`` too). The
     weight-norm pairs are written as g = ||v||, v = w with the few elements
     nudged whose fold would round to another bf16 value
     (`tools/torch_reference_ckpt.py::match_fold`), so every loaded leaf is
@@ -2421,48 +2449,47 @@ def checkpoint_phase(card: str, prompt: str, model_dir: str, int8_st=None) -> di
 
     from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
 
-    root = tempfile.gettempdir()
-    usage = shutil.disk_usage(root)
-    print(f"checkpoint pass: {root} has {usage.free} bytes free of {usage.total} (the model "
-          f"directory needs about {CKPT_BYTES:.0f})", flush=True)
-    assert usage.free >= 1.2 * CKPT_BYTES, f"too little room under {root} for the model directory"
+    usage = shutil.disk_usage(d)
+    need = CKPT_BYTES + QWEN_BYTES
+    print(f"checkpoint pass: {d} has {usage.free} bytes free of {usage.total} (the model "
+          f"directory and the emotion-text pass's Qwen3 need about {need:.0f})", flush=True)
+    assert usage.free >= 1.2 * need, f"too little room under {d} for the model directory"
     t_pass = time.perf_counter()
     ref = IndexTTS2(cfg_path=None, model_dir=model_dir, device="cuda", seed=0,
                     quantization="int8")
-    with tempfile.TemporaryDirectory(prefix="indextts_ckpt_") as d:
-        t0 = time.perf_counter()
-        trees = ref.random_params(0)
-        H = ref.cfg.w2v_bert.hidden_size
-        trees["w2v_mean"], trees["w2v_std"] = np.zeros(H, np.float32), np.ones(H, np.float32)
-        written = refckpt.write_model_dir(
-            d, trees, ref.cfg, wrapped=True, match_dtype=ref.dtype,
-            log=lambda p, n, s: print(f"  wrote {p}: {n} bytes in {s:.2f} s", flush=True))
-        del trees
-        torch.cuda.empty_cache()
-        build_fake_assets(d)
-        nudged = written.pop("nudged")
-        total = sum(written.values())
-        print(f"checkpoint pass: model directory written in the released layout, {total} bytes "
-              f"in {len(written)} files, {time.perf_counter() - t0:.2f} s; {nudged} weight_v "
-              f"elements nudged by an f32 ulp so that the fold's bf16 cast is the model's",
-              flush=True)
-        t0 = time.perf_counter()
-        tts = IndexTTS2(cfg_path=os.path.join(d, "config.yaml"), model_dir=d, device="cuda",
-                        quantization="int8", allow_random_init=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        for r in tts.load_report:
-            print(f"  loaded {r['family']} from {os.path.relpath(r['path'], d)}: {r['bytes']} "
-                  f"bytes, read {r['read_s']:.3f} s, convert {r['convert_s']:.3f} s, place "
-                  f"{r['place_s']:.3f} s [{card}]", flush=True)
-        print(f"checkpoint pass: IndexTTS2(cfg_path=<dir>/config.yaml, model_dir=<dir>, "
-              f"quantization='int8', allow_random_init=False) built in {wall:.2f} s "
-              f"[{card}]", flush=True)
-        assert [r["family"] for r in tts.load_report] == [
-            "gpt", "s2mel", "codec", "campplus", "bigvgan", "w2v", "w2v_stat", "matrices"]
-        assert tts.cfg == ref.cfg, "config.yaml did not give the config back"
-        print(f"checkpoint pass: all {compare_loaded(tts, ref)} loaded leaves bit-identical "
-              f"to the random-weight int8 model's", flush=True)
+    t0 = time.perf_counter()
+    trees = ref.random_params(0)
+    H = ref.cfg.w2v_bert.hidden_size
+    trees["w2v_mean"], trees["w2v_std"] = np.zeros(H, np.float32), np.ones(H, np.float32)
+    written = refckpt.write_model_dir(
+        d, trees, ref.cfg, wrapped=True, match_dtype=ref.dtype,
+        log=lambda p, n, s: print(f"  wrote {p}: {n} bytes in {s:.2f} s", flush=True))
+    del trees
+    torch.cuda.empty_cache()
+    build_fake_assets(d)
+    nudged = written.pop("nudged")
+    total = sum(written.values())
+    print(f"checkpoint pass: model directory written in the released layout, {total} bytes "
+          f"in {len(written)} files, {time.perf_counter() - t0:.2f} s; {nudged} weight_v "
+          f"elements nudged by an f32 ulp so that the fold's bf16 cast is the model's",
+          flush=True)
+    t0 = time.perf_counter()
+    tts = IndexTTS2(cfg_path=os.path.join(d, "config.yaml"), model_dir=d, device="cuda",
+                    quantization="int8", allow_random_init=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in tts.load_report:
+        print(f"  loaded {r['family']} from {os.path.relpath(r['path'], d)}: {r['bytes']} "
+              f"bytes, read {r['read_s']:.3f} s, convert {r['convert_s']:.3f} s, place "
+              f"{r['place_s']:.3f} s [{card}]", flush=True)
+    print(f"checkpoint pass: IndexTTS2(cfg_path=<dir>/config.yaml, model_dir=<dir>, "
+          f"quantization='int8', allow_random_init=False) built in {wall:.2f} s "
+          f"[{card}]", flush=True)
+    assert [r["family"] for r in tts.load_report] == [
+        "gpt", "s2mel", "codec", "campplus", "bigvgan", "w2v", "w2v_stat", "matrices"]
+    assert tts.cfg == ref.cfg, "config.yaml did not give the config back"
+    print(f"checkpoint pass: all {compare_loaded(tts, ref)} loaded leaves bit-identical "
+          f"to the random-weight int8 model's", flush=True)
 
     def request(model):
         kept = {}
@@ -2506,6 +2533,209 @@ def checkpoint_phase(card: str, prompt: str, model_dir: str, int8_st=None) -> di
     del tts, ref
     torch.cuda.empty_cache()
     print(f"checkpoint pass: {time.perf_counter() - t_pass:.1f} s in all [{card}]", flush=True)
+    return counts
+
+
+def qwen_state_dict(tree: dict, c) -> dict:
+    """The HF Qwen3ForCausalLM state dict of a `models/qwen.py` tree (the
+    inverse of `convert_qwen`: per-layer keys, (out, in) kernels)."""
+    names = {"input_ln": "input_layernorm", "post_ln": "post_attention_layernorm",
+             "q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
+             "v_proj": "self_attn.v_proj", "o_proj": "self_attn.o_proj",
+             "q_norm": "self_attn.q_norm", "k_norm": "self_attn.k_norm",
+             "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj",
+             "down_proj": "mlp.down_proj"}
+    sd = {"model.embed_tokens.weight": tree["embed"], "model.norm.weight": tree["final_ln"]}
+    for key, hf in names.items():
+        for i in range(c.num_hidden_layers):
+            w = tree["layers"][key][i]
+            sd[f"model.layers.{i}.{hf}.weight"] = w.t() if w.ndim == 2 else w
+    if "lm_head" in tree:
+        sd["lm_head.weight"] = tree["lm_head"]
+    return sd
+
+
+def write_qwen_dir(d: str, card: str):
+    """A Qwen3-0.6B classifier directory at the published widths (the
+    `QwenConfig` defaults): config.json, model.safetensors (random weights
+    from seed 0, drawn on the card, stored in bf16) and a synthetic
+    tokenizer.json whose ids cover the whole vocab (the Qwen3 added tokens
+    at their published ids) with its tokenizer_config.json. Returns (the
+    config, the bf16 tree as written)."""
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import torch_reference_ckpt as refckpt
+
+    from indextts_tpu_torch.models.qwen import QwenConfig, init_qwen
+    from indextts_tpu_torch.nn import InitRng
+    from indextts_tpu_torch.text.qwen_tokenizer import build_tokenizer_json
+
+    t0 = time.perf_counter()
+    os.makedirs(d)
+    c = QwenConfig()
+    tree = init_qwen(InitRng(0, "cuda"), c)
+    tree = {k: ({kk: vv.to(torch.bfloat16) for kk, vv in v.items()} if isinstance(v, dict)
+                else v.to(torch.bfloat16)) for k, v in tree.items()}
+    hf = dict(dataclasses.asdict(c), architectures=["Qwen3ForCausalLM"], model_type="qwen3",
+              hidden_act="silu", bos_token_id=151643, max_position_embeddings=40960,
+              torch_dtype="bfloat16")
+    with open(os.path.join(d, "config.json"), "w", encoding="utf-8") as f:
+        json.dump(hf, f, indent=2)
+    n_weights = refckpt.save_safetensors(qwen_state_dict(tree, c),
+                                         os.path.join(d, "model.safetensors"))
+    tj = build_tokenizer_json(QWEN_CORPUS, c.vocab_size)
+    with open(os.path.join(d, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(tj, f, ensure_ascii=False)
+    with open(os.path.join(d, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump({"tokenizer_class": "Qwen2Tokenizer", "clean_up_tokenization_spaces": False,
+                   "eos_token": "<|im_end|>", "pad_token": "<|endoftext|>"}, f)
+    n_params = sum(v.numel() for v in tree["layers"].values()) + tree["embed"].numel() \
+        + tree["final_ln"].numel()
+    print(f"emotion-text pass: Qwen3-0.6B directory written ({n_params} parameters, "
+          f"model.safetensors {n_weights} bytes in bf16; tokenizer.json "
+          f"{len(tj['model']['vocab'])} ids, {len(tj['model']['merges'])} merges) in "
+          f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+    return c, tree
+
+
+def emo_text_phase(card: str, prompt: str, d: str) -> dict:
+    """The emotion-text pass on the checkpoint pass's released directory
+    ``d``: the Qwen3-0.6B classifier written at ``d/<qwen_emo_path>``, then
+    a bf16 `IndexTTS2` read from ``d``:
+    - the classifier's load seconds (every loaded leaf bit-identical to the
+      tree written), the prompt's token count, the bf16 prefill ms (CUDA
+      events) and the greedy decode's steps and ms a step, its device busy
+      share (`profile_busy`), the emotion dict;
+    - the f32 prefill logits (the written bf16 weights in f32, TF32 off) on
+      the card against the host CPU: rel-L2 <= QWEN_F32_REL_L2, held; the
+      first QWEN_CHECK_TOKENS f32 greedy tokens equal, held; the bf16
+      logits against the f32 ones, printed;
+    - one request with ``use_emo_text=True`` and ``emo_text``, pinned to 400
+      codes: its stage seconds and RTF, the classifier inside its prompt
+      stage, K2 / K3 as one bf16 request launches them;
+    - the CLI, ``python -m indextts_tpu_torch.cli_v2 synth --emotion-text
+      ... --model-dir d`` in a subprocess at its defaults (num_beams=3, up
+      to 1500 codes): exit code 0 and the wav written.
+    Returns the request's launches."""
+    import torch
+
+    from indextts_tpu_torch import cli_v2
+    from indextts_tpu_torch.models import qwen as qm
+    from indextts_tpu_torch.models.vocoder.bigvgan import activation1d_calls
+    from indextts_tpu_torch.pipeline import emotion as te
+    from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
+
+    t_pass = time.perf_counter()
+    t0 = time.perf_counter()
+    tts = IndexTTS2(cfg_path=os.path.join(d, "config.yaml"), model_dir=d, device="cuda")
+    torch.cuda.synchronize()
+    print(f"emotion-text pass: bf16 IndexTTS2 read from the model directory in "
+          f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+    qe = tts.qwen_emo
+    c, tree = write_qwen_dir(qe.model_dir, card)
+    t0 = time.perf_counter()
+    qe._load()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    assert qe.qwen_cfg == c and qe.dtype == torch.bfloat16
+    assert torch.equal(qe.model["embed"], tree["embed"])
+    assert all(torch.equal(qe.model["layers"][k], v) for k, v in tree["layers"].items())
+    del tree
+    ids = qe.prompt_ids(EMO_TEXT)
+    mask = torch.ones_like(ids)
+    P, N = ids.shape[1], te.MAX_NEW_TOKENS
+    prefill_ms = time_ms(lambda: qm.qwen_prefill(qe.model, c, ids, mask, P + N), iters=5)
+    steps = []
+    step = qm.qwen_decode_step
+
+    def counted(*a, **k):
+        steps.append(1)
+        return step(*a, **k)
+
+    qm.qwen_decode_step = counted
+    try:                    # two unprofiled decodes, then a profiled one
+        busy, wall = profile_busy(lambda: qm.qwen_generate_greedy(qe.model, c, ids, mask, N),
+                                  card, "emotion-text pass: Qwen3 greedy decode (bf16)")
+    finally:
+        qm.qwen_decode_step = step
+    assert len(steps) % 3 == 0, len(steps)
+    n_steps = len(steps) // 3
+    print(f"emotion-text pass: Qwen3-0.6B (bf16) loaded in {load_s:.3f} s; prompt {P} tokens; "
+          f"prefill {prefill_ms:.3f} ms; greedy decode {n_steps} steps (of {N - 1}), "
+          f"{1e3 * wall:.1f} ms of wall, {(1e3 * wall - prefill_ms) / max(n_steps, 1):.3f} ms a "
+          f"step, busy {100 * busy:.1f} % [{card}]", flush=True)
+
+    t0 = time.perf_counter()
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+
+    def f32(tree, device):
+        return {k: ({kk: vv.to(device).float() for kk, vv in v.items()} if isinstance(v, dict)
+                    else v.to(device).float()) for k, v in tree.items()}
+
+    w32, w32_cpu = f32(qe.model, "cuda"), f32(qe.model, "cpu")
+    with torch.inference_mode():
+        l_card = qm.qwen_prefill(w32, c, ids, mask, P + 1, torch.float32)[0]
+        l_cpu = qm.qwen_prefill(w32_cpu, c, ids.cpu(), mask.cpu(), P + 1, torch.float32)[0]
+        l_bf16 = qm.qwen_prefill(qe.model, c, ids, mask, P + 1)[0]
+    rel = rel_l2(l_card.cpu(), l_cpu)
+    rel_bf16 = rel_l2(l_bf16.cpu(), l_card.cpu())
+    t_card = qm.qwen_generate_greedy(w32, c, ids, mask, QWEN_CHECK_TOKENS, torch.float32)[0]
+    t_cpu = qm.qwen_generate_greedy(w32_cpu, c, ids.cpu(), mask.cpu(), QWEN_CHECK_TOKENS,
+                                    torch.float32)[0]
+    print(f"emotion-text pass: f32 prefill logits, card vs host CPU (TF32 off): rel_l2 "
+          f"{rel:.3e} (<= {QWEN_F32_REL_L2:g}); first {QWEN_CHECK_TOKENS} f32 greedy tokens "
+          f"card {t_card[0].tolist()} host {t_cpu[0].tolist()}; bf16 logits vs f32: rel_l2 "
+          f"{rel_bf16:.3e} (printed, not held); {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    assert rel <= QWEN_F32_REL_L2, rel
+    assert torch.equal(t_card.cpu(), t_cpu), (t_card, t_cpu)
+    del w32, w32_cpu
+
+    dicts = []
+    infer_emo = qe.inference
+    qe.inference = lambda text: dicts.append(infer_emo(text)) or dicts[-1]
+    reset_counts()
+    run_requests(tts, prompt, 1, card, "emotion-text (bf16, use_emo_text)", use_emo_text=True,
+                 emo_text=EMO_TEXT)
+    counts = read_counts()
+    del qe.inference
+    assert len(dicts) == 1 and list(dicts[0]) == te.EMOTION_KEYS, dicts
+    print(f"emotion-text pass: the request's emotion dict of {EMO_TEXT!r}: {dicts[0]}",
+          flush=True)
+    want_k2, want_k3 = tts.cfg.s2mel.DiT.depth * 25, activation1d_calls(tts.cfg.bigvgan)
+    print(f"launches of the emotion-text request: {counts} (expect attention_rope and rope_qk "
+          f"{want_k2}, antialias_snake {want_k3}, no K1)", flush=True)
+    assert counts["attention_rope"] == counts["rope_qk"] == want_k2, counts
+    assert counts["antialias_snake"] == want_k3 and counts["fused_decode_step"] == 0, counts
+    del tts, qe
+    torch.cuda.empty_cache()
+
+    from pathlib import Path
+    missing = cli_v2._missing_model_files(Path(d))
+    assert missing == [], missing
+    out = os.path.join(d, "cli.wav")
+    env = dict(os.environ, XDG_CONFIG_HOME=os.path.join(d, "xdg_config"),
+               XDG_DATA_HOME=os.path.join(d, "xdg_data"))
+    cmd = [sys.executable, "-m", "indextts_tpu_torch.cli_v2", "synth", "--text", SENTENCE,
+           "--voice", prompt, "--emotion-text", EMO_TEXT, "--output", out, "--model-dir", d,
+           "--verbose"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)), env=env)
+    cli_s = time.perf_counter() - t0
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith((">> ", "detected", "Gen"))]
+    print("emotion-text pass: cli_v2 synth --emotion-text (bf16, its default num_beams=3, up to "
+          f"1500 codes): exit {res.returncode} in {cli_s:.1f} s of wall [{card}]\n  "
+          + "\n  ".join(lines[-4:]), flush=True)
+    assert res.returncode == 0, res.stderr[-4000:]
+    with wave.open(out, "rb") as w:
+        n, sr = w.getnframes(), w.getframerate()
+    assert sr == 22050 and n > 0, (sr, n)
+    print(f"emotion-text pass: the CLI wrote {n} samples ({n / sr:.2f} s); the pass took "
+          f"{time.perf_counter() - t_pass:.1f} s [{card}]", flush=True)
     return counts
 
 
@@ -2712,10 +2942,10 @@ def request_prefix(tts, prompt: str):
     return embeds, mask
 
 
-def profile_busy(run, card: str, label: str) -> float:
+def profile_busy(run, card: str, label: str) -> tuple:
     """``run``'s unprofiled wall (best of two) and its device busy share
     under `torch.profiler` (device records only, spin pads inside the
-    window as in `profile_decode`). Returns the share."""
+    window as in `profile_decode`). Returns (the share, the wall)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -2741,7 +2971,7 @@ def profile_busy(run, card: str, label: str) -> float:
     print(f"{label} profile: wall {min(walls):.4f} s unprofiled (runs {walls[0]:.4f}, "
           f"{walls[1]:.4f}), device busy {busy:.4f} s = {100 * share:.1f} %, {launches} "
           f"launches; {pads_kept(pads, spans)} [{card}]", flush=True)
-    return share
+    return share, min(walls)
 
 
 def chunk_against_steps(tts, embeds, mask, codes, card: str, label: str) -> dict:
@@ -2979,7 +3209,7 @@ def spec_phase(card: str, prompt: str, model_dir: str, quantization=None) -> tup
                                        mask, tts.generator, DECODE_STEPS + 1, sampling,
                                        tts.dtype, gamma=SPEC_GAMMA)
 
-        busy = profile_busy(run, card, f"{label} speculative decode (sampling, 400 codes)")
+        busy, _ = profile_busy(run, card, f"{label} speculative decode (sampling, 400 codes)")
     return {"spec": c_s, "ratio": ratio, "busy": busy}, tts
 
 
@@ -3486,8 +3716,11 @@ def main() -> int:
         counts["int8"], int8_reports = quant_pipeline_phase(card, prompt, d, "int8",
                                                             INT8_REQUESTS, True)
         mark("int8 pass done")
-        counts["checkpoint"] = checkpoint_phase(card, prompt, d, int8_reports[-1])
-        mark("checkpoint pass done")
+        with tempfile.TemporaryDirectory(prefix="indextts_ckpt_") as ckpt:
+            counts["checkpoint"] = checkpoint_phase(card, prompt, d, ckpt, int8_reports[-1])
+            mark("checkpoint pass done")
+            counts["emo_text"] = emo_text_phase(card, prompt, ckpt)
+            mark("emotion-text pass done")
         counts.update(sampling_pipeline_phase(card, prompt, d))
         mark("sampling pass done")
         for quantization, (n, profiled) in QUANT_PASSES.items():

@@ -16,8 +16,9 @@ One request runs, on ``device``:
       ``max_text_tokens_per_segment`` tokens (the JAX segmenter's quirks kept)
   [E] conformer + perceiver speaker latents and the merged emotion vector
       (the emotion prompt defaults to the speaker prompt, alpha 1; with
-      ``emo_vector`` the emotion-matrix mix of `IndexTTS2.emotion_mix` is
-      merged in), then left-padded prefix embeddings
+      ``emo_vector``, or ``use_emo_text`` through the Qwen3 classifier, the
+      emotion-matrix mix of `IndexTTS2.emotion_mix` is merged in), then
+      left-padded prefix embeddings
   [G] GPT-2 prefill + decode: beam search / sampling for num_beams > 1
       (`engine/beam.py`, K = num_beams; diverse group beam with
       ``num_beam_groups``), at num_beams=1 the self-gating speculative
@@ -67,9 +68,12 @@ pipeline's default, the self-gating speculative decoder (gamma 8;
 INDEXTTS_SPEC_DECODE=0 turns it off, as in the JAX pipeline; off under a
 mesh and for the aux modes); the aux generation kwargs (``num_beam_groups``
 / ``diversity_penalty``, ``penalty_alpha``, ``dola_layers``) select their
-engines as in the JAX pipeline, with its ValueErrors. Paths of the JAX
-pipeline that are not ported yet raise NotImplementedError naming their
-ROADMAP item: emotion from text (Qwen).
+engines as in the JAX pipeline, with its ValueErrors. With
+``use_emo_text`` the emotion vector comes from the text (``emo_text``, by
+default ``text``) through `pipeline/emotion.py::QwenEmotion`: the Qwen3
+classifier of ``model_dir/<cfg.qwen_emo_path>`` on the device in bf16,
+loaded at the first such request, or the JAX package's keyword lexicon when
+that directory is absent; the vector then takes the ``emo_vector`` route.
 
 Weights: the constructor reads the released IndexTTS2 model directory as
 the JAX pipeline does (`IndexTTS2._load_models`; the files in
@@ -124,6 +128,7 @@ from indextts_tpu_torch.ops.int8 import MAX_ROWS
 from indextts_tpu_torch.ops.mel import kaldi_fbank, mel_spectrogram, seamless_m4t_features
 from indextts_tpu_torch.parallel.mesh import Mesh, shard_gpt2_tp
 from indextts_tpu_torch.pipeline.buckets import pad_to, pick_bucket
+from indextts_tpu_torch.pipeline.emotion import QwenEmotion
 from indextts_tpu_torch.text import TextNormalizer, TextTokenizer
 from indextts_tpu_torch.utils import convert
 from indextts_tpu_torch.utils.jax_params import to_torch
@@ -340,6 +345,8 @@ class IndexTTS2:
         self.gpt_dims = GPT2Dims(self.cfg.gpt.layers, self.cfg.gpt.model_dim, self.cfg.gpt.heads)
         self._load_models(aux_paths, allow_random_init, seed)
         self._load_frontend()
+        # the emotion-text classifier, loaded at its first request
+        self.qwen_emo = QwenEmotion(os.path.join(model_dir, self.cfg.qwen_emo_path), self.device)
         self.cache_spk_audio_prompt = self.cache_spk = None
         self.cache_emo_audio_prompt = self.cache_emo_cond = None
         self.last_stage_times: Dict[str, float] = {}
@@ -806,12 +813,16 @@ class IndexTTS2:
         ``stream_return`` it yields each segment's clipped float wav (1, n)
         and then the silence after it, and nothing at the end; otherwise it
         yields the result once."""
-        del emo_text
-        if use_emo_text:
-            _not_ported("emotion from text (Qwen; ROADMAP.md queue 1 item 4)")
         start = time.perf_counter()
-        if emo_vector is not None:
+        if use_emo_text or emo_vector is not None:
             emo_audio_prompt = None
+        if use_emo_text:
+            if emo_text is None:
+                emo_text = text
+            emo_dict = self.qwen_emo.inference(emo_text)
+            print(f"detected emotion vectors from text: {emo_dict}")
+            emo_vector = list(emo_dict.values())
+        if emo_vector is not None:
             scale = max(0.0, min(1.0, emo_alpha))
             if scale != 1.0:
                 emo_vector = [int(x * scale * 10000) / 10000 for x in emo_vector]

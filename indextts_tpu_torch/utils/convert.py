@@ -24,8 +24,9 @@ released files use (``model``, ``state_dict``, ``generator``, and ``net``'s
 per-module dicts) and casts every tensor to f32 numpy, as the JAX loader does.
 
 The v1 family's converters (attention blocks, the v1 UnifiedVoice, ECAPA,
-BigVGAN v1) are copies of the JAX package's too; the DVAE and Qwen
-converters are not ported yet (ROADMAP queue 1).
+BigVGAN v1) are copies of the JAX package's too; the Qwen converter
+(`convert_qwen`) lives beside its model in `models/qwen.py`, as in the JAX
+package's; the DVAE converter is not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ across by the weight bridge and one prompt wav.
 - the port's `infer` runs end to end, caches the prompt, writes the wav;
 - the aux generation kwargs reach their engines (diverse beam, DoLa; the
   speculative decoder for sampling with penalty_alpha); emotion from text
-  raises NotImplementedError; the port imports no jax. The aux engines
+  reaches the Qwen classifier (`tests/test_torch_emotion.py` holds it
+  against the JAX pipeline); the port imports no jax. The aux engines
   are held against the JAX package in `tests/test_torch_modes.py`, the
   speculative decoder in `tests/test_torch_speculative.py`. Long-form,
   streaming and emo_vector requests are held against the JAX pipeline in
@@ -168,19 +169,21 @@ def test_port_infer_end_to_end(torch_tts, model_dir, tmp_path):
 def test_aux_kwargs_take_their_engines_and_emotion_text_raises(torch_tts, model_dir,
                                                                monkeypatch, kwargs, what):
     """The aux generation kwargs run the engine the JAX pipeline picks for
-    them; emotion from text (Qwen) is not ported and raises."""
+    them; emotion from text runs the Qwen classifier (`QwenEmotion.
+    inference`, once a request; here on the keyword fallback: the model
+    directory has no Qwen folder). It raised NotImplementedError until the
+    classifier was ported; `tests/test_torch_emotion.py` holds it against
+    the JAX pipeline."""
     from indextts_tpu_torch.pipeline import infer_v2
 
     kw = dict(spk_audio_prompt=os.path.join(model_dir, "prompt.wav"), text=TEXT,
               output_path=None, max_mel_tokens=4)
     kw.update(kwargs)
-    if what == "Qwen":
-        with pytest.raises(NotImplementedError, match=what):
-            torch_tts.infer(**kw)
-        return
     ran = []
-    real = getattr(infer_v2, what)
-    monkeypatch.setattr(infer_v2, what, lambda *a, **k: ran.append(1) or real(*a, **k))
+    target = torch_tts.qwen_emo if what == "Qwen" else infer_v2
+    name = "inference" if what == "Qwen" else what
+    real = getattr(target, name)
+    monkeypatch.setattr(target, name, lambda *a, **k: ran.append(1) or real(*a, **k))
     sr, data = torch_tts.infer(**kw)
     clen = torch_tts.last_stage_times["codes"]
     assert ran == [1] and sr == 22050

@@ -1,13 +1,21 @@
 """The port stands alone.
 
 - Importing every module of `indextts_tpu_torch` (the tensor-parallel
-  `parallel/mesh.py` and `ops/decode_step_tp.py`, and the IndexTTS-1
+  `parallel/mesh.py` and `ops/decode_step_tp.py`, the IndexTTS-1
   family's `pipeline/infer_v1.py`, `cli.py`, `unified_voice_v1.py`,
-  `bigvgan_v1.py` and `ecapa.py` among them),
+  `bigvgan_v1.py` and `ecapa.py`, and the emotion-text path's
+  `models/qwen.py`, `text/qwen_tokenizer.py`, `pipeline/emotion.py`,
+  `cli_v2.py` and `utils/download.py` among them),
   `chip_smoke.py` and `tools/torch_reference_ckpt.py` as modules, loads
-  neither jax nor any module of the JAX package (`indextts_tpu`): the port
-  keeps its own copies of the host modules it needs (config, text front
-  end, buckets, resampling, wav I/O, the checkpoint converters).
+  neither jax nor any module of the JAX package (`indextts_tpu`), nor
+  transformers, tokenizers, regex, jinja2, yaml or safetensors (none of
+  which the card's machine has): the port keeps its own copies of the host
+  modules it needs (config, text front end, buckets, resampling, wav I/O,
+  the checkpoint converters, the CLI, the Qwen tokenizer).
+- With those packages blocked, the port's `QwenEmotion` loads a tiny Qwen
+  directory (config.json, model.safetensors, tokenizer.json) and gives its
+  dict (`tests/test_torch_emotion.py` holds that dict against the JAX
+  package's).
 - With ``yaml`` and ``safetensors`` blocked (as on the card's machine, which
   has neither), the port builds `IndexTTS2` from a tiny model directory in
   the reference's layout: its config.yaml, its safetensors files and its
@@ -47,14 +55,18 @@ def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
         "sys.path.insert(0, 'tools')\n"
         "import torch_reference_ckpt\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'indextts_tpu'))\n"
+        "             ('jax', 'jaxlib', 'indextts_tpu', 'transformers', 'tokenizers',\n"
+        "              'regex', 'jinja2', 'yaml', 'safetensors'))\n"
         "assert not bad, bad\n"
         "assert len(names) > 30, names\n"
         "assert {'indextts_tpu_torch.parallel.mesh', 'indextts_tpu_torch.ops.decode_step_tp',\n"
         "        'indextts_tpu_torch.cli', 'indextts_tpu_torch.pipeline.infer_v1',\n"
         "        'indextts_tpu_torch.models.gpt.unified_voice_v1',\n"
         "        'indextts_tpu_torch.models.vocoder.bigvgan_v1',\n"
-        "        'indextts_tpu_torch.models.vocoder.ecapa'} <= set(names), names\n")
+        "        'indextts_tpu_torch.models.vocoder.ecapa', 'indextts_tpu_torch.models.qwen',\n"
+        "        'indextts_tpu_torch.text.qwen_tokenizer', 'indextts_tpu_torch.pipeline.emotion',\n"
+        "        'indextts_tpu_torch.cli_v2', 'indextts_tpu_torch.utils.download'} <= set(names), \\\n"
+        "    names\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO)
     assert res.returncode == 0, res.stderr
 
@@ -78,6 +90,30 @@ assert float(tts.w2v_mean[0]) == 0.5 and float(tts.w2v_std[0]) == 3.0
 assert not [k for k in sys.modules if sys.modules[k] is not None
             and k.split(".")[0] in ("yaml", "safetensors", "jax", "indextts_tpu")]
 """
+
+
+BLOCKED_QWEN = """
+import sys
+for name in ("transformers", "tokenizers", "regex", "jinja2", "yaml", "safetensors", "jax",
+             "indextts_tpu"):
+    sys.modules[name] = None
+import torch
+from indextts_tpu_torch.pipeline.emotion import QwenEmotion
+qe = QwenEmotion(sys.argv[1], "cpu", torch.float32)
+out = qe.inference("今天我很开心")
+assert qe.model is not None and list(out) == ["happy", "angry", "sad", "afraid", "disgusted",
+                                              "melancholic", "surprised", "calm"], out
+"""
+
+
+def test_qwen_emotion_loads_without_the_hub_packages(tmp_path):
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from test_torch_emotion import _tiny_qwen_dir
+
+    _tiny_qwen_dir(tmp_path)
+    res = subprocess.run([sys.executable, "-c", BLOCKED_QWEN, str(tmp_path)],
+                         capture_output=True, text=True, cwd=REPO)
+    assert res.returncode == 0, res.stderr
 
 
 def _leaves(tree, path=""):
