@@ -249,6 +249,21 @@
    CLI's default) and one `infer_fast` request over SENTENCE repeated into
    two buckets of segments, 120 codes a segment: a finite wav of the
    right length.
+13. fp16 pass (`fp16_phase`): `IndexTTS2(use_fp16=True)`, what the port's
+   webui builds for ``--fp16``: one num_beams=3 request at 400 codes with
+   the generation kwargs of the webui's emotion-vector mode
+   (`webui.build_infer_kwargs`), its stage times and RTF, exact launches
+   (the plain step once a decode step) and K2 and K3 launched at fp16; one
+   `codes_to_wav` on the DiT's flash tier (K4 at fp16, 325 launches); the
+   request's codes and one noise through the fp16, bf16 and f32 models
+   (seed 0): the mel and the wav of fp16 and of bf16 against f32, both
+   finite, fp16's distance no larger than bf16's. The kernel phase holds
+   K2, K2' and K4 at fp16 against their twins beside SDPA at fp16 (the
+   `*_fp16` rows). K1 and K6 (`k1_phase`, `k6_phase`) are also held
+   bit-identical with a 64-slot chunk that kv_valid does not mark inserted
+   inside the valid run (they attend exactly the marked slots), and the
+   speculative passes assert that speculation on and off share all 400
+   tokens at int8 and at bf16.
 
 `tools/torch_tp_two_cards.py` runs K6 with its shards on two cards, on a
 machine that has two.
@@ -293,6 +308,7 @@ EDGE_ROWS = 4                              # the halo a K3 output row reads: 3
 K3_OPS_PER_ELEMENT = 56                    # 2x6-tap up, 2 snakes, 12-tap down
 # the GPT decoder of the shipped config, and the K1 kernel-phase shape
 K1_L, K1_D, K1_H, K1_ROWS, K1_S, K1_POS = 24, 1280, 20, 3, 512, 300
+CHUNK_SLOTS = 64                           # K1's attention chunk: the rounding unit
 # K1's attention alone (`decode_attention`): label -> (rows, group, int8
 # cache, S, pos, layers); "long" is max_mel_tokens' reach; "k1 24 layers"
 # times the K1 case over 24 layers' caches in turn, as a decode step reads
@@ -557,9 +573,16 @@ def kernel_phase(card: str) -> dict:
         fc = torch.as_tensor(precompute_freqs_cis(T, D), device=dev)
         k2.append(k2_case(q, k, v, lens, fc, H, card, ""))
     k3 = k3_sum([k3_inputs(g, C, MEL_FRAMES * up, 700 * up) for C, up in K3_SHAPES], card, "")
+    # the fp16 instantiation (IndexTTS2(use_fp16=True)) at the first shape
+    T = K2_TS[0]
+    q, k, v = (torch.randn((2, T, H * D), generator=g, device=dev).to(torch.float16)
+               for _ in range(3))
+    lens = torch.tensor([T - 37, T // 2 + 5], device=dev, dtype=torch.int32)
+    fc = torch.as_tensor(precompute_freqs_cis(T, D), device=dev)
+    k2_fp16 = k2_case(q, k, v, lens, fc, H, card, " fp16")
     return {"attention_rope": {**k2[0], "err": max(r["err"] for r in k2),
                                "abs": max(r["abs"] for r in k2)},
-            "antialias_snake": k3}
+            "attention_rope_fp16": k2_fp16, "antialias_snake": k3}
 
 
 def k2_case(q, k, v, lens, fc, H: int, card: str, where: str) -> dict:
@@ -578,6 +601,7 @@ def k2_case(q, k, v, lens, fc, H: int, card: str, where: str) -> dict:
     D = HD // H
     out, ref = attention_rope(q, k, v, lens, fc, H), attention_rope_plain(q, k, v, lens, fc, H)
     torch.cuda.synchronize()
+    assert out.dtype == q.dtype, (out.dtype, q.dtype)
     L = lens.tolist()
     err = max(rel_l2(out[b, :n], ref[b, :n]) for b, n in enumerate(L))
     mab = max((out[b, :n].float() - ref[b, :n].float()).abs().max().item()
@@ -720,9 +744,12 @@ def attention_kernel_phase(card: str) -> dict:
     D=64, the q, k, v the DiT hands over: transposed (B, T, H, D) views) and
     at H=16 / D=32 and H=4 / D=128, and K2' `packed_pair_attention` at K2's
     shapes, each against its twin (rel-L2 <= 2e-2 over valid query rows);
-    library: SDPA with the boolean key mask. K4's wrapper must refuse a head
-    width of 40. K2' has no pipeline caller (the JAX package calls it from
-    tests and tools only): its launches are this phase's."""
+    library: SDPA with the boolean key mask. Then both at fp16 (the
+    `IndexTTS2(use_fp16=True)` instantiations) at their first shapes, the
+    same checks and timings (the fp16 dense peak equals the bf16 one). K4's
+    wrapper must refuse a head width of 40. K2' has no pipeline caller (the
+    JAX package calls it from tests and tools only): its launches are this
+    phase's."""
     import torch
     import torch.nn.functional as F
 
@@ -732,13 +759,15 @@ def attention_kernel_phase(card: str) -> dict:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4)
-    res = {"single_block_attention": {"err": 0.0, "abs": 0.0},
-           "packed_pair_attention": {"err": 0.0, "abs": 0.0}}
-    T = K2_TS[0]
-    lens = torch.tensor([T - 37, T // 2 + 5], device=dev, dtype=torch.int32)
-    key_ok = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-    for H, D in K4_HEADS:
-        q, k, v = (torch.randn((2, T, H, D), generator=g, device=dev).to(torch.bfloat16)
+    res = {name: {"err": 0.0, "abs": 0.0} for name in
+           ("single_block_attention", "packed_pair_attention", "single_block_attention_fp16",
+            "packed_pair_attention_fp16")}
+
+    def k4(H, D, dt, row):
+        T = K2_TS[0]
+        lens = torch.tensor([T - 37, T // 2 + 5], device=dev, dtype=torch.int32)
+        key_ok = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        q, k, v = (torch.randn((2, T, H, D), generator=g, device=dev).to(dt)
                    .transpose(1, 2) for _ in range(3))
         out = single_block_attention(q, k, v, lens)
         ref = single_block_attention_plain(q, k, v, lens)
@@ -751,27 +780,20 @@ def attention_kernel_phase(card: str) -> dict:
                                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_ok))
         b = bound(4 * 2 * T * H * D * 2 + 2 * 4,
                   sum(4 * H * D * T * L for L in lens.tolist()), BF16_FLOPS)
-        print(f"K4 single_block_attention B=2 H={H} D={D} T={T}: rel_l2 {err:.3e} max_abs "
-              f"{mab:.3e} kernel {spread_text(kt)}, plain {pms:.4f} ms, SDPA {spread_text(lt)};"
-              f" medians and [min-max] of {ATTN_REPS}; bound {b['bound_ms']:.4f} ms "
-              f"({b['bound_by']}) [{card}]", flush=True)
-        assert err <= K2_REL_L2 and np.isfinite(err), f"K4 rel-L2 {err} at D={D}"
-        r = res["single_block_attention"]
+        print(f"K4 single_block_attention {str(dt)[6:]} B=2 H={H} D={D} T={T}: rel_l2 {err:.3e} "
+              f"max_abs {mab:.3e} kernel {spread_text(kt)}, plain {pms:.4f} ms, SDPA "
+              f"{spread_text(lt)}; medians and [min-max] of {ATTN_REPS}; bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
+        assert out.dtype == dt and err <= K2_REL_L2 and np.isfinite(err), \
+            f"K4 {dt} rel-L2 {err} at D={D}"
+        r = res[row]
         r["err"], r["abs"] = max(r["err"], err), max(r["abs"], mab)
         if (H, D) == K4_HEADS[0]:
             r.update(plain_ms=pms, **spread_row(kt, lt), **b)
-    try:
-        x40 = torch.zeros((1, 8, 64, 40), device=dev, dtype=torch.bfloat16)
-        single_block_attention(x40, x40, x40, lens[:1])
-    except ValueError as e:
-        print(f"K4 refuses head width 40: {e}", flush=True)
-    else:
-        raise AssertionError("K4 took a head width of 40")
 
-    packed_pair_attention.launches = 0
-    H, D = 8, 64
-    for T in K2_TS:
-        q, k, v = (torch.randn((2, T, H * D), generator=g, device=dev).to(torch.bfloat16)
+    def k2p(T, dt, row):
+        H, D = 8, 64
+        q, k, v = (torch.randn((2, T, H * D), generator=g, device=dev).to(dt)
                    for _ in range(3))
         lens = torch.tensor([T - 37, T // 2 + 5], device=dev, dtype=torch.int32)
         out = packed_pair_attention(q, k, v, lens, H)
@@ -788,16 +810,42 @@ def attention_kernel_phase(card: str) -> dict:
                                                                       attn_mask=key_ok))
         b = bound(4 * 2 * T * H * D * 2 + 2 * 4,
                   sum(4 * H * D * T * L for L in lens.tolist()), BF16_FLOPS)
-        print(f"K2' packed_pair_attention B=2 H={H} D={D} T={T}: rel_l2 {err:.3e} max_abs "
-              f"{mab:.3e} kernel {spread_text(kt)}, plain {pms:.4f} ms, SDPA {spread_text(lt)};"
-              f" medians and [min-max] of {ATTN_REPS}; bound {b['bound_ms']:.4f} ms "
-              f"({b['bound_by']}) [{card}]", flush=True)
-        assert err <= K2_REL_L2 and np.isfinite(err), f"K2' rel-L2 {err} at T={T}"
-        r = res["packed_pair_attention"]
+        print(f"K2' packed_pair_attention {str(dt)[6:]} B=2 H={H} D={D} T={T}: rel_l2 {err:.3e} "
+              f"max_abs {mab:.3e} kernel {spread_text(kt)}, plain {pms:.4f} ms, SDPA "
+              f"{spread_text(lt)}; medians and [min-max] of {ATTN_REPS}; bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
+        assert out.dtype == dt and err <= K2_REL_L2 and np.isfinite(err), \
+            f"K2' {dt} rel-L2 {err} at T={T}"
+        r = res[row]
         r["err"], r["abs"] = max(r["err"], err), max(r["abs"], mab)
         if T == K2_TS[0]:
             r.update(plain_ms=pms, **spread_row(kt, lt), **b)
+
+    for H, D in K4_HEADS:
+        k4(H, D, torch.bfloat16, "single_block_attention")
+    try:
+        x40 = torch.zeros((1, 8, 64, 40), device=dev, dtype=torch.bfloat16)
+        single_block_attention(x40, x40, x40, torch.tensor([5], device=dev))
+    except ValueError as e:
+        print(f"K4 refuses head width 40: {e}", flush=True)
+    else:
+        raise AssertionError("K4 took a head width of 40")
+    try:
+        x32 = torch.zeros((1, 8, 64, 64), device=dev, dtype=torch.float32)
+        single_block_attention(x32, x32, x32, torch.tensor([5], device=dev))
+    except ValueError as e:
+        print(f"K4 refuses f32: {e}", flush=True)
+    else:
+        raise AssertionError("K4 took f32 operands")
+
+    packed_pair_attention.launches = 0
+    for T in K2_TS:
+        k2p(T, torch.bfloat16, "packed_pair_attention")
     res["packed_pair_attention"]["launches"] = packed_pair_attention.launches
+    k4(*K4_HEADS[0], torch.float16, "single_block_attention_fp16")
+    k2p(K2_TS[0], torch.float16, "packed_pair_attention_fp16")
+    res["packed_pair_attention_fp16"]["launches"] = (packed_pair_attention.launches
+                                                     - res["packed_pair_attention"]["launches"])
     return res
 
 
@@ -1060,11 +1108,48 @@ def k1_edge_inputs(g, rows: int, S: int, pos: int):
     return kv, valid, x, anc
 
 
+def insert_invalid_chunk(cache: dict, valid, anc, g, at: int = 64, n: int = CHUNK_SLOTS):
+    """A decode step's inputs with ``n`` slots inserted at slot ``at`` that
+    kv_valid does not mark (random content, and a random ancestry map
+    there), every later slot moved up by n (the last n slots, zero, are
+    dropped); the caller moves pos up by n. ``cache`` is {name: (L, M, S,
+    X)}, or a tp cache {"shards": [...]}. K1 and K6 attend exactly the
+    marked slots, and the inserted chunk of a whole 64 positions keeps every
+    other chunk's contents: the step's output must not change, bit for bit."""
+    import torch
+
+    S = valid.shape[1]
+
+    def ins(t, axis, fill):
+        return torch.cat([t.narrow(axis, 0, at), fill, t.narrow(axis, at, S - at - n)],
+                         axis).contiguous()
+
+    def fill(t):
+        shape = t.shape[:2] + (n,) + t.shape[3:]
+        if t.dtype == torch.int8:
+            return torch.randint(-127, 128, shape, generator=g, device=t.device,
+                                 dtype=torch.int8)
+        return (30 * torch.randn(shape, generator=g, device=t.device)).to(t.dtype)
+
+    if "shards" in cache:
+        out = {"shards": [{k: ins(t, 2, fill(t)) for k, t in c.items()} for c in cache["shards"]]}
+    else:
+        out = {k: ins(t, 2, fill(t)) for k, t in cache.items()}
+    M = valid.shape[0]
+    v = ins(valid, 1, torch.zeros((M, n), dtype=torch.bool, device=valid.device))
+    a = None if anc is None else ins(anc, 1, torch.randint(0, K1_ROWS, (M, n), generator=g,
+                                                           device=anc.device,
+                                                           dtype=torch.int32))
+    return out, v, a
+
+
 def k1_phase(card: str) -> dict:
     """The persistent K1 for each variant (int8, KVQ, W4, int4kv) at
     group=3 and group=1: at the K1 case layer by layer against the twin
-    (`twin_by_layer`) and bit-identical to the chain (`k1_against_chain`),
-    then bit-identical to the chain at `K1_EDGE_CASES` (pos=0, pos=1, S=2048
+    (`twin_by_layer`), bit-identical to the chain (`k1_against_chain`), and
+    bit-identical with an invalid chunk inserted inside the valid run
+    (`insert_invalid_chunk`: K1 attends exactly the kv_valid slots), then
+    bit-identical to the chain at `K1_EDGE_CASES` (pos=0, pos=1, S=2048
     pos=1500, 24 rows). Returns the case count."""
     import torch
 
@@ -1099,11 +1184,16 @@ def k1_phase(card: str) -> dict:
             torch.cuda.synchronize()
             tw = twin_by_layer(args, h)
             vs = k1_against_chain(params, x[rows], dims, K1_POS, b, v, a, group)
+            ci, vi, ai = insert_invalid_chunk(b, v, a, g)
+            inserted = torch.equal(h, fused_decode_step(params, x[rows], dims,
+                                                        K1_POS + CHUNK_SLOTS, ci, vi, ai, group))
+            del ci
             print(f"K1 {name} group={group} K1 case: twin layer by layer rel_l2 <= "
                   f"{tw['layer']:.3e}, hidden {tw['hidden']:.3e}, rows {tw['rows_exact']}; "
-                  f"against the chain {vs} [{card}]", flush=True)
+                  f"against the chain {vs}; an invalid chunk inserted inside the valid run "
+                  f"changes nothing: {inserted} [{card}]", flush=True)
             assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2, (name, group, tw)
-            assert tw["rows_exact"] and vs["ok"], (name, group, tw, vs)
+            assert tw["rows_exact"] and vs["ok"] and inserted, (name, group, tw, vs, inserted)
             n += 1
         for label, (rows, S, pos) in K1_EDGE_CASES.items():
             kv_e, valid_e, x_e, anc_e = k1_edge_inputs(g, rows, S, pos)
@@ -1223,8 +1313,8 @@ def decode_attention_phase(card: str) -> dict:
         def cache():
             return {k: t.clone() for k, t in base.items()}
 
-        def run(c, q=qkv, heads=H, a=anc, grp=group, plan=None):
-            return decode_attention(q, c["k"], c["v"], valid, pos, heads, a, grp, c.get("kvs"),
+        def run(c, q=qkv, heads=H, a=anc, grp=group, plan=None, vm=valid):
+            return decode_attention(q, c["k"], c["v"], vm, pos, heads, a, grp, c.get("kvs"),
                                     plan)
 
         c0, c1, c2 = cache(), cache(), cache()
@@ -1235,7 +1325,9 @@ def decode_attention_phase(card: str) -> dict:
         rows = all(torch.equal(c0[k][:, pos], c2[k][:, pos]) for k in c0)
         gat_exact = True
         if anc is not None:
-            out_gat = run(da_gathered(base, anc, group), a=None, grp=1)
+            # a gather route gathers kv_valid with the cache
+            out_gat = run(da_gathered(base, anc, group), a=None, grp=1,
+                          vm=da_gathered({"k": valid}, anc, group)["k"])
             gat_exact = torch.equal(out, out_gat)
         D, Dh = 64 * H, 64 * (H // 2)
         sub_qkv = torch.cat([qkv[:, j * D:j * D + Dh] for j in range(3)], 1).contiguous()
@@ -1343,7 +1435,8 @@ def int8_kernel_phase(card: str) -> dict:
     rows = (torch.arange(M, device=x.device)[:, None] // M) * M + anc.long()
     slot = torch.arange(K1_S, device=x.device)[None, :]
     gathered = {k: t[:, rows, slot].contiguous() for k, t in zip("kv", kv)}
-    h_gat = fused_decode_step(params, x, dims, K1_POS, gathered, valid)
+    # a gather route gathers kv_valid with the cache
+    h_gat = fused_decode_step(params, x, dims, K1_POS, gathered, valid[rows, slot].contiguous())
     torch.cuda.synchronize()
     err, mab = rel_l2(h, ref), (h.float() - ref.float()).abs().max().item()
     row_ulps = max(ulp_err(caches[0][k][0, :, K1_POS], caches[1][k][0, :, K1_POS]) for k in "kv")
@@ -1556,7 +1649,8 @@ def quant_kernel_phase(card: str, int8_k1: dict) -> dict:
         h = fused_decode_step(**args)
         ref = fused_decode_step_plain(params, x, dims, K1_POS, cache(), valid, anc, M)
         gathered = {k: t[:, rows, slot].contiguous() for k, t in base.items()}
-        h_gat = fused_decode_step(params, x, dims, K1_POS, gathered, valid)
+        h_gat = fused_decode_step(params, x, dims, K1_POS, gathered,
+                                  valid[rows, slot].contiguous())
         torch.cuda.synchronize()
         tw = twin_by_layer(args, h)
         chain, mab = rel_l2(h, ref), (h.float() - ref.float()).abs().max().item()
@@ -1749,8 +1843,9 @@ def k6_timing(tp, x, dims, pos: int, cache: dict, valid, anc, group: int) -> dic
 def k6_phase(card: str) -> int:
     """K6 co-located (the persistent kernel's TP variant) at group=3 and
     group=1: at the K1 case layer by layer against the twin
-    (`tp_twin_by_layer`) and bit-identical to the chain it replaced
-    (`k6_against_chain`), then bit-identical to the chain at
+    (`tp_twin_by_layer`), bit-identical to the chain it replaced
+    (`k6_against_chain`) and with an invalid chunk inserted inside the valid
+    run (`insert_invalid_chunk`), then bit-identical to the chain at
     `K1_EDGE_CASES` (pos=0, pos=1, S=2048 pos=1500, 24 rows). Returns the
     case count."""
     import torch
@@ -1775,11 +1870,17 @@ def k6_phase(card: str) -> int:
         torch.cuda.synchronize()
         tw = tp_twin_by_layer(args, h, full)
         vs = k6_against_chain(tp, x[rows], dims, K1_POS, base, v, a, group)
+        ci, vi, ai = insert_invalid_chunk(base, v, a, g)
+        inserted = torch.equal(h, nn.layer_norm(tp["ln_f"], fused_decode_step_tp(
+            tp, x[rows], dims, K1_POS + CHUNK_SLOTS, ci, vi, ai, group)))
+        del ci
         print(f"K6 group={group} K1 case: twin layer by layer rel_l2 <= {tw['layer']:.3e}, "
               f"hidden {tw['hidden']:.3e}, residual streams {tw['streams_equal']}, rows "
-              f"{tw['rows_exact']}; against the chain {vs} [{card}]", flush=True)
+              f"{tw['rows_exact']}; against the chain {vs}; an invalid chunk inserted inside "
+              f"the valid run changes nothing: {inserted} [{card}]", flush=True)
         assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2, (group, tw)
-        assert tw["streams_equal"] and tw["rows_exact"] and vs["ok"], (group, tw, vs)
+        assert tw["streams_equal"] and tw["rows_exact"] and vs["ok"] and inserted, \
+            (group, tw, vs, inserted)
         n += 1
     for label, (rows, S, pos) in K1_EDGE_CASES.items():
         kv_e, valid_e, x_e, anc_e = k1_edge_inputs(g, rows, S, pos)
@@ -2047,6 +2148,9 @@ PROFILE_PAD_CYCLES = 10_000_000
 # the warm-up step's pad: its records are discarded, but take room in the
 # profiler's record buffers until the window closes
 PROFILE_WARMUP_LAUNCHES = 100
+# unprofiled runs before a profiled one (their best is the wall a busy share
+# is taken over); one keeps the smoke inside its time limit
+PROFILE_UNPROFILED_RUNS = 1
 
 
 def _spin_pad(devices=("cuda:0",), launches: int = PROFILE_PAD_LAUNCHES,
@@ -2163,9 +2267,10 @@ def profile_s2mel(tts, prompt: str, card: str, label: str, **kwargs) -> None:
 
 def profile_decode(tts, prompt: str, card: str, label: str) -> None:
     """The decode of one request (`generate_beam`, 399 steps after the
-    prefill) with the request's own prefix: unprofiled wall (best of two),
-    then under `torch.profiler` (device activity only: recording every host
-    op of the bf16 decode costs minutes): device time, kernels and copies,
+    prefill) with the request's own prefix: unprofiled wall (the best of
+    `PROFILE_UNPROFILED_RUNS`), then under `torch.profiler` (device activity
+    only: recording every host op of the bf16 decode costs minutes): device
+    time, kernels and copies,
     over that wall (the busy share), kernels launched per step, and the
     largest consumers. The profiler's window opens after a discarded warm-up
     step, and a pad of spin kernels (`_spin_pad`, left out of every figure)
@@ -2192,7 +2297,7 @@ def profile_decode(tts, prompt: str, card: str, label: str) -> None:
         torch.cuda.synchronize()
 
     walls = []
-    for _ in range(2):
+    for _ in range(PROFILE_UNPROFILED_RUNS):
         t0 = time.perf_counter()
         run()
         walls.append(time.perf_counter() - t0)
@@ -2233,7 +2338,7 @@ def profile_decode(tts, prompt: str, card: str, label: str) -> None:
             "attention": counts["decode_attention"] + counts["decode_attention_kvq"],
             "allreduce": counts["tp_allreduce"], "topk": 2 * (DECODE_STEPS + 1)}
     print(f"{label} decode profile ({DECODE_STEPS} steps): wall {min(walls):.4f} s unprofiled "
-          f"(runs {walls[0]:.4f}, {walls[1]:.4f}), device time {device_s:.4f} s (sum over "
+          f"(runs {', '.join(f'{w:.4f}' for w in walls)}), device time {device_s:.4f} s (sum over "
           f"records), busy {busy_ns / 1e9:.4f} s = {100 * busy_ns / 1e9 / min(walls):.1f} % "
           f"(union over streams), {launches} launches "
           f"({launches / DECODE_STEPS:.0f} per step); recorded launches {got}, counters "
@@ -2943,14 +3048,14 @@ def request_prefix(tts, prompt: str):
 
 
 def profile_busy(run, card: str, label: str) -> tuple:
-    """``run``'s unprofiled wall (best of two) and its device busy share
-    under `torch.profiler` (device records only, spin pads inside the
+    """``run``'s unprofiled wall (the best of `PROFILE_UNPROFILED_RUNS`) and
+    its device busy share under `torch.profiler` (device records only, spin pads inside the
     window as in `profile_decode`). Returns (the share, the wall)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     walls = []
-    for _ in range(2):
+    for _ in range(PROFILE_UNPROFILED_RUNS):
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -2968,8 +3073,9 @@ def profile_busy(run, card: str, label: str) -> tuple:
     busy = union_ns(spans) / 1e9
     launches = sum(n for k, (n, _) in by_name.items() if not k.startswith(("Memcpy", "Memset")))
     share = busy / min(walls)
-    print(f"{label} profile: wall {min(walls):.4f} s unprofiled (runs {walls[0]:.4f}, "
-          f"{walls[1]:.4f}), device busy {busy:.4f} s = {100 * share:.1f} %, {launches} "
+    print(f"{label} profile: wall {min(walls):.4f} s unprofiled (runs "
+          f"{', '.join(f'{w:.4f}' for w in walls)}), device busy {busy:.4f} s = "
+          f"{100 * share:.1f} %, {launches} "
           f"launches; {pads_kept(pads, spans)} [{card}]", flush=True)
     return share, min(walls)
 
@@ -2985,14 +3091,14 @@ def chunk_against_steps(tts, embeds, mask, codes, card: str, label: str) -> dict
     hidden after ln_f is compared, and each layer on the chunk's own layer
     inputs and cache (the plain step's `cached_layer`, or K1's layer as its
     chain of kernels, `decode_layer(KERNELS)`, bit-identical to K1): every
-    layer within SPEC_CHUNK_REL_L2 against the plain step at the decode's
-    layout and against K1 at the contiguous one. K1 recovers a row's
-    window start from kv_valid's popcount (as the JAX fused kernel does),
-    so across the decode's unwritten slot it attends [1, pos) with that
-    zero slot and without slot 0: the mask-exact chunk differs from it by
-    more than rounding there, which this prints. Then how many of five
-    calls on identical inputs repeat the first bit for bit (the single
-    step, its first qkv product, its first attention), and a verify's and a
+    layer within SPEC_CHUNK_REL_L2 against the plain step and against K1 at
+    both layouts (K1 attends exactly the kv_valid slots, as the chunk does,
+    across the decode's unwritten slot too). Then how many of five calls on
+    identical inputs repeat the first bit for bit (the single step, its
+    first qkv product, its first attention, `cached_attention`), and of 200
+    calls of that attention and of the library's fused attention on the
+    same inputs (`nn.mha`: SDPA, which PyTorch hands to cuDNN for a masked
+    attention; the decode no longer uses it), and a verify's and a
     single step's times (eager, CUDA events over the calls, host work
     included; and by graph replay) and their ratio beside the JAX gate's
     `spec_commit_ratio`."""
@@ -3059,21 +3165,26 @@ def chunk_against_steps(tts, embeds, mask, codes, card: str, label: str) -> dict
         outs = [fn() for _ in range(n)]
         return sum(torch.equal(outs[0], o) for o in outs[1:])
 
-    from indextts_tpu_torch.models.gpt.gpt2 import _cache_layer, _heads
+    from indextts_tpu_torch.models.gpt.gpt2 import _cache_layer, _heads, cached_attention
 
     v1 = st.kv_valid.clone()
     v1[:, P + 2] = True
     lp, xin = gpt["h"][0], x[:1, None]
     q = torch.chunk(nn.dense(lp["attn"]["c_attn"], nn.layer_norm(lp["ln_1"], xin)), 3, -1)[0]
     kc, vc = _cache_layer(st.kv, 0, dims.heads, dt)
+    qh, kh, vh, m1 = _heads(q, dims), _heads(kc, dims), _heads(vc, dims), v1[:, None, None, :]
     same = {"step": repeats(lambda: decode_step(st.route, params, x[:1], dims, P + 2,
                                                 {k: t.clone() for k, t in st.kv.items()}, v1)),
             "qkv": repeats(lambda: nn.dense(lp["attn"]["c_attn"], nn.layer_norm(lp["ln_1"], xin))),
-            "attention": repeats(lambda: nn.mha(_heads(q, dims), _heads(kc, dims),
-                                                _heads(vc, dims), mask=v1[:, None, None, :]))}
-    print(f"{label} repeats on identical inputs, of 4 bit-identical to the first: the "
-          f"{st.route} single step {same['step']}, its first qkv product {same['qkv']}, its "
-          f"first attention (SDPA, masked) {same['attention']} [{card}]", flush=True)
+            "attention": repeats(lambda: cached_attention(qh, kh, vh, m1)),
+            "attention x200": repeats(lambda: cached_attention(qh, kh, vh, m1), 200),
+            "library x200": repeats(lambda: nn.mha(qh, kh, vh, mask=m1), 200)}
+    print(f"{label} repeats on identical inputs, bit-identical to the first: the {st.route} "
+          f"single step {same['step']} of 4, its first qkv product {same['qkv']} of 4, its "
+          f"first attention (cached_attention) {same['attention']} of 4 and "
+          f"{same['attention x200']} of 199; the library's fused attention (SDPA, masked) on "
+          f"the same inputs {same['library x200']} of 199 [{card}]", flush=True)
+    assert same["attention x200"] == 199 and same["step"] == 4, same
     for layout, by_route in res.items():
         for route, (errs, layer) in by_route.items():
             print(f"{label} gpt2_chunk_step over {G1} tokens, {layout} layout, against {G1} "
@@ -3081,8 +3192,8 @@ def chunk_against_steps(tts, embeds, mask, codes, card: str, label: str) -> dict
                   f"rel_l2 a position {', '.join(f'{e:.2e}' for e in errs)}; layer by layer "
                   f"on the chunk's inputs <= {layer:.3e} [{card}]", flush=True)
             assert all(np.isfinite(errs)), errs
-    assert res["decode"]["plain"][1] <= SPEC_CHUNK_REL_L2, res
-    assert res["contiguous"][routes[-1]][1] <= SPEC_CHUNK_REL_L2, res
+    assert all(layer <= SPEC_CHUNK_REL_L2 for by_route in res.values()
+               for _, layer in by_route.values()), res
 
     kv_c = {k: t.clone() for k, t in st.kv.items()}
     valid = st.kv_valid.clone()
@@ -3164,6 +3275,8 @@ def spec_phase(card: str, prompt: str, model_dir: str, quantization=None) -> tup
           f"{c_p['fused_decode_step']}, plain steps {c_p['gpt2_decode_step']}; {n} of 400 "
           f"tokens agree before the first difference [{card}]", flush=True)
     assert stats[0] == SPEC_GAMMA and stats_p is None, (stats, stats_p)
+    # the speculative decoder keeps the sequential loop's stream: every token
+    assert n == 400, f"{label}: speculation on and off share {n} of 400 tokens"
     assert c_s[step_key] == DECODE_STEPS - stats[2], (stats, c_s)
     assert c_s["gpt2_chunk_step"] == stats[1] and c_p["gpt2_chunk_step"] == 0, (c_s, c_p)
     assert c_p[step_key] == DECODE_STEPS and c_s["span_growths"] == 1, c_p
@@ -3238,6 +3351,164 @@ def aux_phase(tts, card: str, prompt: str) -> dict:
               flush=True)
         assert counts[label] == want, (label, counts[label], want)
     return counts
+
+
+def record_dtypes(targets) -> tuple:
+    """Wrap each (module, name) of ``targets`` so that every call adds its
+    first argument's dtype to a set; returns (the sets by name, the function
+    that restores them)."""
+    seen, origs = {}, []
+    for module, name in targets:
+        orig = getattr(module, name)
+        seen[name] = set()
+
+        def run(*args, _orig=orig, _name=name, **kw):
+            seen[_name].add(args[0].dtype)
+            return _orig(*args, **kw)
+
+        origs.append((module, name, orig))
+        setattr(module, name, run)
+
+    def restore():
+        for module, name, orig in origs:
+            setattr(module, name, orig)
+    return seen, restore
+
+
+def fp16_phase(card: str, prompt: str, model_dir: str) -> tuple:
+    """The float16 pipeline (`IndexTTS2(use_fp16=True)`, what the webui's
+    ``--fp16`` builds): one request at 400 codes with the generation kwargs
+    the port's webui builds for its emotion-vector mode
+    (`webui.build_infer_kwargs`), its stage times and RTF, with K2 and K3
+    asserted to launch at fp16 (exact launch counts, the plain step once a
+    decode step); one CFM call on the DiT's flash tier (INDEXTTS_PACKED_ATTN
+    =0), K4 at fp16 325 times; then from the request's codes and one fixed
+    noise, the s2mel mel and the wav of the fp16, bf16 and f32 models (the
+    same seeded weights; the kernels take 16-bit operands, so the f32 model
+    runs K2's and K3's plain twins, f32 throughout): fp16's and bf16's
+    rel-L2 to f32, both finite, and fp16's no larger (it has more mantissa
+    than bf16, so a larger distance means an overflow). Returns (the
+    request's launches, the flash call's, the request's stage times)."""
+    import torch
+
+    from indextts_tpu_torch import nn as tnn
+    from indextts_tpu_torch import webui
+    from indextts_tpu_torch.models.s2mel import dit
+    from indextts_tpu_torch.models.vocoder import bigvgan
+    from indextts_tpu_torch.ops.attn import attention_rope_plain
+    from indextts_tpu_torch.ops.snake import antialias_snake_plain
+    from indextts_tpu_torch.pipeline import infer_v2
+    from indextts_tpu_torch.pipeline.buckets import pick_bucket
+    from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
+
+    t0 = time.perf_counter()
+    tts = IndexTTS2(cfg_path=None, model_dir=model_dir, device="cuda", seed=0, use_fp16=True)
+    torch.cuda.synchronize()
+    assert tts.dtype == torch.float16
+    print(f"fp16 model build (use_fp16=True, random weights, shipped widths): "
+          f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+    adv = dict(do_sample=True, top_p=0.8, top_k=30, temperature=0.8, length_penalty=0.0,
+               num_beams=3, repetition_penalty=10.0, max_mel_tokens=400)
+    kw = webui.build_infer_kwargs(2, None, 0.8, [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.6], "",
+                                  False, 200, 120, adv, normalize_emo_vec=tts.normalize_emo_vec)
+    tts.infer(spk_audio_prompt=prompt, text=SENTENCE, output_path=None, max_mel_tokens=20,
+              min_new_tokens=19)                   # warm-up
+    seen_codes = record_decodes(tts)
+    dtypes, restore = record_dtypes([(dit, "attention_rope"), (bigvgan, "antialias_snake"),
+                                     (tnn, "single_block_attention")])
+    try:
+        reset_counts()
+        kw.pop("max_mel_tokens")
+        st = run_requests(tts, prompt, 1, card, "fp16 (webui kwargs, emotion vectors)",
+                          **kw)[0]
+        counts = read_counts()
+        want = want_counts(tts, "bf16", 1)
+        want.update(fused_decode_step=0, gpt2_decode_step=DECODE_STEPS,
+                    kv_gathers=counts["kv_gathers"])
+        print(f"launches of the fp16 request: {counts} (expect {want}); kernels' input types "
+              f"{ {k: sorted(str(t) for t in v) for k, v in dtypes.items()} } [{card}]",
+              flush=True)
+        assert counts == want, (counts, want)
+        assert dtypes["attention_rope"] == {torch.float16} == dtypes["antialias_snake"], dtypes
+
+        # the flash tier: one CFM call (one codes_to_wav) with K4 at fp16
+        codes = seen_codes[-1][0][:, :400].to(tts.device)
+        spk, emo = tts._prepare_spk_prompt(prompt), tts._prepare_emo_cond(prompt)
+        ids = tts.tokenizer.convert_tokens_to_ids(tts.tokenizer.tokenize(SENTENCE))
+        text_ids = tts._text_rows([ids])
+        saved = os.environ.get("INDEXTTS_PACKED_ATTN")
+        os.environ["INDEXTTS_PACKED_ATTN"] = "0"
+        try:
+            reset_counts()
+            dtypes["single_block_attention"].clear()
+            cond, emovec, _, _ = tts.prefix(spk, emo, 1.0, text_ids, len(ids))
+            t1 = time.perf_counter()
+            wav = tts.codes_to_wav(spk, cond, emovec, text_ids, len(ids), codes, 400)
+            flash_s = time.perf_counter() - t1
+            flash = read_counts()
+        finally:
+            if saved is None:
+                os.environ.pop("INDEXTTS_PACKED_ATTN")
+            else:
+                os.environ["INDEXTTS_PACKED_ATTN"] = saved
+        n_k4 = tts.cfg.s2mel.DiT.depth * 25
+        print(f"fp16 flash tier (INDEXTTS_PACKED_ATTN=0): one codes_to_wav of 400 codes "
+              f"{flash_s:.4f} s, K4 launches {flash['single_block_attention']} (expect {n_k4}) "
+              f"at {sorted(str(t) for t in dtypes['single_block_attention'])}, K2 "
+              f"{flash['attention_rope']}; wav finite {bool(np.isfinite(wav).all())} [{card}]",
+              flush=True)
+        assert flash["single_block_attention"] == n_k4 and flash["attention_rope"] == 0, flash
+        assert dtypes["single_block_attention"] == {torch.float16}, dtypes
+        assert np.isfinite(wav).all()
+    finally:
+        restore()
+
+    # the same codes and noise through the fp16, bf16 and f32 models
+    g = torch.Generator(device=tts.device).manual_seed(3)
+    mels, wavs = {}, {}
+    models = {"fp16": tts}
+    for label, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        models[label] = IndexTTS2(cfg_path=None, model_dir=model_dir, device="cuda", seed=0,
+                                  dtype=dt)
+    vocode = infer_v2.bigvgan_forward
+    kernels = (dit.attention_rope, bigvgan.antialias_snake)
+    z = None
+    for label, m in models.items():
+        spk, emo = m._prepare_spk_prompt(prompt), m._prepare_emo_cond(prompt)
+        cond, emovec, _, _ = m.prefix(spk, emo, 1.0, text_ids, len(ids))
+        if z is None:        # the CFM's (1, prompt bucket + mel bucket, 80) noise
+            T = spk["prompt_cond"].shape[1] + pick_bucket(
+                int(400 * m.MEL_PER_CODE) + 1, m.cfg.engine.mel_len_buckets)
+            z = torch.randn((1, T, 80), generator=g, device=tts.device)
+
+        def keep(params, cfg, mel, lengths, _label=label):
+            mels[_label] = mel[:, :int(400 * m.MEL_PER_CODE)].float().cpu()
+            return vocode(params, cfg, mel, lengths)
+
+        infer_v2.bigvgan_forward = keep
+        if label == "f32":
+            dit.attention_rope, bigvgan.antialias_snake = attention_rope_plain, \
+                antialias_snake_plain
+        try:
+            wavs[label] = m.codes_to_wav(spk, cond, emovec, text_ids, len(ids), codes, 400,
+                                         z=z.clone())
+        finally:
+            infer_v2.bigvgan_forward = vocode
+            dit.attention_rope, bigvgan.antialias_snake = kernels
+    dist = {label: (rel_l2(mels[label], mels["f32"]),
+                    rel_l2(torch.as_tensor(wavs[label]), torch.as_tensor(wavs["f32"])))
+            for label in ("fp16", "bf16")}
+    finite = all(np.isfinite(w).all() for w in wavs.values()) and all(
+        bool(torch.isfinite(v).all()) for v in mels.values())
+    print(f"fixed codes (400) and noise through the fp16, bf16 and f32 models: mel rel_l2 to "
+          f"f32 fp16 {dist['fp16'][0]:.3e}, bf16 {dist['bf16'][0]:.3e}; wav rel_l2 to f32 fp16 "
+          f"{dist['fp16'][1]:.3e}, bf16 {dist['bf16'][1]:.3e}; all finite {finite} [{card}]",
+          flush=True)
+    assert finite, "a non-finite mel or wav"
+    assert dist["fp16"][0] <= dist["bf16"][0] and dist["fp16"][1] <= dist["bf16"][1], dist
+    del models, tts
+    torch.cuda.empty_cache()
+    return counts, flash, st
 
 
 def longform_text(tts) -> str:
@@ -3754,6 +4025,8 @@ def main() -> int:
         mark("long-form bf16 pass done")
         counts["v1"], kres["antialias_snake_v1_fp16"] = v1_phase(card, prompt, d)
         mark("v1 passes done")
+        counts["fp16"], counts["fp16_flash"], _ = fp16_phase(card, prompt, d)
+        mark("fp16 pass done")
         print("long-form stages (one request, 8 segments x 400 codes): " + "; ".join(
             f"{label} " + " ".join(f"{k}={st[k]:.4f}s" for k in
                                    ("gpt", "gpt_forward", "s2mel", "bigvgan", "total"))
@@ -3810,7 +4083,13 @@ def main() -> int:
              ("antialias_snake_longform", "antialias_snake", "antialias_snake.cu",
               "antialias.py:269 (8 segment rows)", "longform"),
              ("antialias_snake_v1_fp16", "antialias_snake", "antialias_snake.cu",
-              "antialias.py:269 (fp16: BigVGAN v1's four stage shapes)", "v1"))
+              "antialias.py:269 (fp16: BigVGAN v1's four stage shapes)", "v1"),
+             ("attention_rope_fp16", "attention_rope", k2_src,
+              "attn.py:188 (fp16: IndexTTS2(use_fp16=True))", "fp16"),
+             ("single_block_attention_fp16", "single_block_attention",
+              ("attention_block.cu", "attention_tma.cuh"),
+              "attn.py:253 (fp16: the flash tier of IndexTTS2(use_fp16=True))", "fp16_flash"),
+             ("packed_pair_attention_fp16", None, k2_src, "attn.py:76 (fp16)", None))
     # where a row's launches come from when no pipeline pass launches it
     launched_in = {"tp_allreduce": "kernel phase (the chain's exchange; folded into K6's kernel "
                                    "on the co-located route, launched on two cards)"}
@@ -3848,7 +4127,9 @@ def main() -> int:
           f"its four stage shapes, with that request's launches; fused_decode_step_g2 is K1 "
           f"at group=2 in the kernel phase, with the int8 diverse beam request's launches; "
           f"fused_decode_step_g1's launches are the sampling request's single steps of its "
-          f"speculative decode; every other "
+          f"speculative decode; the *_fp16 attention rows are the kernels' fp16 "
+          f"instantiations in the kernel phase at the bf16 rows' first shapes, with the fp16 "
+          f"request's K2 launches and the fp16 flash-tier CFM call's K4 launches; every other "
           f"row as timed in its phase", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

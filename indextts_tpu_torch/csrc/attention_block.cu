@@ -9,8 +9,9 @@
 //   keys >= lengths[b] get -1e9 (a row of length 0 then averages every key,
 //   as on the TPU);
 //   p = exp(s - max) / sum, in f32 (the divide as a product with the f32
-//   reciprocal of the sum), THEN rounded to bf16;
-//   out = p . v with f32 sums, rounded to bf16.
+//   reciprocal of the sum), THEN rounded to v's type (bf16, or fp16 for a
+//   float16 pipeline: the TPU kernel takes q's dtype);
+//   out = p . v with f32 sums, rounded to that type.
 // The rounding order is what separates it from K2, which rounds the
 // unnormalized p and divides after PV: an online softmax in one pass can
 // only give K2's order. So the kernel makes two passes over the 64-key
@@ -39,29 +40,45 @@
 
 #include "attention_tma.cuh"
 
-// q, k, v, out: (B, H, T, D) bf16 read and written through the element
-// strides *_sb, *_sh, *_st (D contiguous; bases and strides of q, k, v
-// multiples of 16 bytes); lengths: (B,) int32. D is a multiple of 16 up to
-// 128. Returns a cudaError_t.
+namespace {
+
+template <typename E>
+int launch_d(const void* q, const void* k, const void* v, const void* lengths, void* out,
+             int B, int H, int T, int D, attn_tma::Strides qs, attn_tma::Strides ks,
+             attn_tma::Strides vs, attn_tma::Strides os, float scale, cudaStream_t st) {
+  using attn_tma::launch;
+  switch (D) {
+    case 16: return launch<16, true, E>(q, k, v, lengths, out, B, H, T, qs, ks, vs, os, scale, st);
+    case 32: return launch<32, true, E>(q, k, v, lengths, out, B, H, T, qs, ks, vs, os, scale, st);
+    case 48: return launch<48, true, E>(q, k, v, lengths, out, B, H, T, qs, ks, vs, os, scale, st);
+    case 64: return launch<64, true, E>(q, k, v, lengths, out, B, H, T, qs, ks, vs, os, scale, st);
+    case 80: return launch<80, true, E>(q, k, v, lengths, out, B, H, T, qs, ks, vs, os, scale, st);
+    case 96: return launch<96, true, E>(q, k, v, lengths, out, B, H, T, qs, ks, vs, os, scale, st);
+    case 112:
+      return launch<112, true, E>(q, k, v, lengths, out, B, H, T, qs, ks, vs, os, scale, st);
+    case 128:
+      return launch<128, true, E>(q, k, v, lengths, out, B, H, T, qs, ks, vs, os, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// q, k, v, out: (B, H, T, D) bf16 (fp16 if ``half``) read and written
+// through the element strides *_sb, *_sh, *_st (D contiguous; bases and
+// strides of q, k, v multiples of 16 bytes); lengths: (B,) int32. D is a
+// multiple of 16 up to 128. Returns a cudaError_t.
 extern "C" int attention_block_launch(
     const void* q, const void* k, const void* v, const void* lengths,
     void* out, int B, int H, int T, int D, long long q_sb, long long q_sh,
     long long q_st, long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st, long long o_sb,
-    long long o_sh, long long o_st, float scale, void* stream) {
-  using attn_tma::launch;
+    long long o_sh, long long o_st, float scale, int half, void* stream) {
   const attn_tma::Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st}, vs{v_sb, v_sh, v_st},
       os{o_sb, o_sh, o_st};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16, true>(q, k, v, lengths, out, B, H, T, qs, ks, vs, os, scale, st);
-    case 32: return launch<32, true>(q, k, v, lengths, out, B, H, T, qs, ks, vs, os, scale, st);
-    case 48: return launch<48, true>(q, k, v, lengths, out, B, H, T, qs, ks, vs, os, scale, st);
-    case 64: return launch<64, true>(q, k, v, lengths, out, B, H, T, qs, ks, vs, os, scale, st);
-    case 80: return launch<80, true>(q, k, v, lengths, out, B, H, T, qs, ks, vs, os, scale, st);
-    case 96: return launch<96, true>(q, k, v, lengths, out, B, H, T, qs, ks, vs, os, scale, st);
-    case 112: return launch<112, true>(q, k, v, lengths, out, B, H, T, qs, ks, vs, os, scale, st);
-    case 128: return launch<128, true>(q, k, v, lengths, out, B, H, T, qs, ks, vs, os, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return half ? launch_d<attn_tma::f16>(q, k, v, lengths, out, B, H, T, D, qs, ks, vs, os,
+                                        scale, st)
+              : launch_d<attn_tma::bf16>(q, k, v, lengths, out, B, H, T, D, qs, ks, vs, os,
+                                         scale, st);
 }

@@ -1,8 +1,13 @@
 // The Hopper attention core shared by attention_rope.cu (K2, K2') and
 // attention_block.cu (K4): non-causal, length-masked attention over one
 // (64 query rows, head, batch row) per block, for a head width D that is a
-// multiple of 16 up to 128, q, k and v read as (B, H, T, D) bf16 through
-// their strides.
+// multiple of 16 up to 128, q, k and v read as (B, H, T, D) through their
+// strides. The kernel is a template on its 16-bit element type E: bf16 (the
+// DiT's default) or fp16 (`IndexTTS2(use_fp16=True)`; the TPU kernels take
+// q's dtype). E sets the tensor maps' element type, the wgmma form (f32 sums
+// of E.E products), the rounding of P before P.V (to v's dtype, as the TPU
+// kernels round it) and of the output; the rest is f32 and the same in
+// both, so the bf16 instantiation computes what the bf16-only core did.
 //
 // Shape of the kernel (the usual Hopper attention layout):
 //   - one producer warp: one thread loads the Q tile once, then keeps K and V
@@ -15,7 +20,7 @@
 //   - one consumer warpgroup (4 warps, 16 query rows each): S = Q.K^T as
 //     wgmma m64n64k16 with both operands in shared memory (D / 16 steps), f32
 //     accumulators in registers; masking, the row max and sum (quad shuffles
-//     over the accumulator layout) and the bf16 rounding of P work on those
+//     over the accumulator layout) and the rounding of P to E work on those
 //     registers; P.V as wgmma with P in registers (the register-A form) and V
 //     in shared memory as it was loaded (the transpose bit); O stays in
 //     registers until the epilogue writes it.
@@ -24,11 +29,11 @@
 //
 // Two softmax forms, by template flag:
 //   NORMALIZED = false (K2, K2'): one pass, online: p = exp(s - running max)
-//     rounded to bf16 unnormalized, O rescaled by the max's change, and the
+//     rounded to E unnormalized, O rescaled by the max's change, and the
 //     f32 row sum divides at the end. The length is clamped to [1, T].
 //   NORMALIZED = true (K4): two passes over the key tiles, the TPU kernel's
 //     rounding order: pass 1 (K tiles only) gets each row's max m and sum l,
-//     pass 2 forms p = exp(s - m) * (1 / l) in f32 and rounds it to bf16
+//     pass 2 forms p = exp(s - m) * (1 / l) in f32 and rounds it to E
 //     before P.V. Keys past T score -inf; a length of 0 masks every key to
 //     -1e9, so the row averages every key < T.
 //
@@ -39,20 +44,27 @@
 
 #include <cuda.h>          // CUtensorMap and its enums (types only; no -lcuda)
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace attn_tma {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+
+template <typename E>
+constexpr bool is_f16 = std::is_same<E, f16>::value;
 
 constexpr int BQ = 64;                   // query rows per block: one warpgroup
 constexpr int BK = 64;                   // keys per tile
 constexpr int STAGES = 2;                // depth of the K / V ring
 constexpr int CONSUMERS = 128;           // the warpgroup's threads
 constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
-constexpr int BOX = 64 * 64 * 2;         // one TMA box: 64 rows x 64 lanes bf16
+constexpr int BOX = 64 * 64 * 2;         // one TMA box: 64 rows x 64 lanes of 16 bits
 constexpr uint32_t ROWS8 = 8 * 128;      // 8 swizzled 128-byte rows: the SBO
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float MASKED = -1e9f * LOG2E;  // the TPU kernels' -1e9, log2 units
@@ -175,62 +187,88 @@ __device__ __forceinline__ void pin(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// D (64 x 64, f32) (+)= A (64 x 16 bf16, shared, K-major) . B (64 x 16 bf16,
+// The accumulator operands and registers of the wgmma forms below; ``TY``
+// is the PTX name of the operands' type, "bf16" or "f16".
+#define ATTN_ACC32                                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),       \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),            \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),         \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),         \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define ATTN_ACC64                                                                          \
+  ATTN_ACC32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), \
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),         \
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),         \
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),         \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),         \
+      "+f"(d[62]), "+f"(d[63])
+#define ATTN_REGS32                                                          \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31"
+#define ATTN_REGS64                                                              \
+  ATTN_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+              "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
+              "%57, %58, %59, %60, %61, %62, %63"
+#define ATTN_MMA_SS_N64(TY)                                                               \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                               \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" ATTN_REGS32  \
+               "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                         \
+               : ATTN_ACC32                                                               \
+               : "l"(a), "l"(b), "r"(accumulate))
+#define ATTN_MMA_RS_N64(TY)                                                               \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                               \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" ATTN_REGS32  \
+               "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                            \
+               : ATTN_ACC32                                                               \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+#define ATTN_MMA_RS_N128(TY)                                                              \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                               \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" ATTN_REGS64 \
+               "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                            \
+               : ATTN_ACC64                                                               \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+// D (64 x 64, f32) (+)= A (64 x 16 E, shared, K-major) . B (64 x 16 E,
 // shared, K-major)^T; ``accumulate`` = 0 overwrites D.
+template <typename E>
 __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a, uint64_t b,
                                            int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
+  if constexpr (is_f16<E>)
+    ATTN_MMA_SS_N64("f16");
+  else
+    ATTN_MMA_SS_N64("bf16");
 }
 
-// D (64 x 64, f32) += A (64 x 16 bf16, registers) . B (16 x 64 bf16, shared,
+// D (64 x 64, f32) += A (64 x 16 E, registers) . B (16 x 64 E, shared,
 // N-major: the transpose bit)
+template <typename E>
 __device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
                                            uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (is_f16<E>)
+    ATTN_MMA_RS_N64("f16");
+  else
+    ATTN_MMA_RS_N64("bf16");
 }
 
-// D (64 x 128, f32) += A (64 x 16 bf16, registers) . B (16 x 128 bf16, shared,
+// D (64 x 128, f32) += A (64 x 16 E, registers) . B (16 x 128 E, shared,
 // N-major: the transpose bit)
+template <typename E>
 __device__ __forceinline__ void mma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                           uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+                                            uint64_t b) {
+  if constexpr (is_f16<E>)
+    ATTN_MMA_RS_N128("f16");
+  else
+    ATTN_MMA_RS_N128("bf16");
 }
+
+#undef ATTN_MMA_SS_N64
+#undef ATTN_MMA_RS_N64
+#undef ATTN_MMA_RS_N128
+#undef ATTN_REGS64
+#undef ATTN_REGS32
+#undef ATTN_ACC64
+#undef ATTN_ACC32
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -241,15 +279,22 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// two f32 values rounded to E, packed as one 32-bit word (lo in the low half)
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (is_f16<E>) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 
 // P.V for one tile: the four k16 steps over its 64 keys, P from registers.
 // V's rows are 16 keys (2048 bytes) a step; a second 64-lane box (D > 64)
 // lies one box further (the LBO).
-template <int DP>
+template <typename E, int DP>
 __device__ __forceinline__ void pv_product(float (&o)[DP / 2], const uint32_t (&p)[4][4],
                                            uint32_t sV) {
   pin(o);
@@ -257,8 +302,8 @@ __device__ __forceinline__ void pv_product(float (&o)[DP / 2], const uint32_t (&
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t dv = sw128_desc(sV + kk * 2 * ROWS8, BOX, ROWS8);
-    if constexpr (DP == 64) mma_rs_n64(o, p[kk], dv);
-    else mma_rs_n128(o, p[kk], dv);
+    if constexpr (DP == 64) mma_rs_n64<E>(o, p[kk], dv);
+    else mma_rs_n128<E>(o, p[kk], dv);
   }
   wg_commit();
   wg_wait_all();
@@ -266,12 +311,12 @@ __device__ __forceinline__ void pv_product(float (&o)[DP / 2], const uint32_t (&
 }
 
 // ---------------------------------------------------------------- kernel
-template <int D, bool NORMALIZED>
+template <int D, bool NORMALIZED, typename E>
 __global__ void __launch_bounds__(THREADS, Shape<D>::MIN_BLOCKS)
 attention_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, const int* __restrict__ lengths,
-                 bf16* __restrict__ out, long long o_sb, long long o_sh, long long o_st,
+                 E* __restrict__ out, long long o_sb, long long o_sh, long long o_st,
                  int T, float scale) {
   using S = Shape<D>;
   extern __shared__ unsigned char smem[];
@@ -350,7 +395,8 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk / 4) * BOX + (kk % 4) * 32;
-      mma_ss_n64(acc, sw128_desc(sQ + off, 16, ROWS8), sw128_desc(sK + off, 16, ROWS8), kk > 0);
+      mma_ss_n64<E>(acc, sw128_desc(sQ + off, 16, ROWS8), sw128_desc(sK + off, 16, ROWS8),
+                    kk > 0);
     }
     wg_commit();
     wg_wait_all();
@@ -403,7 +449,7 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
     }
-    // p in f32 (K2: unnormalized, summed; K4: times 1 / l), rounded to bf16
+    // p in f32 (K2: unnormalized, summed; K4: times 1 / l), rounded to E
     // into the A fragments of the four k16 steps
     uint32_t p[4][4];
 #pragma unroll
@@ -417,9 +463,9 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
         } else {
           l[r] += x0 + x1;
         }
-        p[j / 2][(j % 2) * 2 + r] = pack_bf16(x0, x1);
+        p[j / 2][(j % 2) * 2 + r] = pack2<E>(x0, x1);
       }
-    pv_product<S::DP>(o, p, sK + S::TILE);
+    pv_product<E, S::DP>(o, p, sK + S::TILE);
     mbar_arrive(bars + 8 * (1 + STAGES + s));
   }
 
@@ -431,7 +477,7 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
   for (int r = 0; r < 2; ++r) {
     const int t = q0 + warp * 16 + g + 8 * r;
     if (t >= T) continue;
-    bf16* row = out + b * o_sb + h * o_sh + t * o_st;
+    E* row = out + b * o_sb + h * o_sh + t * o_st;
 #pragma unroll
     for (int j = 0; j < S::DP / 8; ++j) {
       const int col = 8 * j + 2 * c4;
@@ -441,7 +487,7 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
         x0 /= l[r];
         x1 /= l[r];
       }
-      *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(x0, x1);
+      *reinterpret_cast<uint32_t*>(row + col) = pack2<E>(x0, x1);
     }
   }
 }
@@ -474,13 +520,14 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a (B, H, T, D) bf16 operand with element strides sb, sh,
+// The tensor map of a (B, H, T, D) 16-bit operand (fp16 if ``f16``, else
+// bf16) with element strides sb, sh,
 // st (D contiguous), over dims (D, T, H, B) in 64 x 64 boxes, 128-byte
 // swizzle, zero fill out of bounds. A dim of extent 1 takes a packed stride
 // (its own is never stepped). False if TMA cannot take the layout: a base or
 // stride that is not a multiple of 16 bytes.
 inline bool encode_operand(CUtensorMap* map, const void* ptr, int B, int H, int T, int D,
-                           long long sb, long long sh, long long st) {
+                           long long sb, long long sh, long long st, bool f16) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16) return false;
   const long long s_t = T > 1 ? st : D, s_h = H > 1 ? sh : s_t * T, s_b = B > 1 ? sb : s_h * H;
@@ -489,7 +536,8 @@ inline bool encode_operand(CUtensorMap* map, const void* ptr, int B, int H, int 
   for (int i = 0; i < 3; ++i)
     if (strides[i] == 0 || strides[i] % 16 || strides[i] >= (1ull << 40)) return false;
   const cuuint32_t box[4] = {64, 64, 1, 1}, unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+  return fn(map, f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(ptr), dims, strides,
             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
@@ -499,26 +547,26 @@ struct Strides {  // elements between neighbours along b, h, t
   long long b, h, t;
 };
 
-// Launches attention_kernel<D, NORMALIZED> on (B, H, T, D) q, k, v and out
-// (q, k, v, out strides); returns a cudaError_t.
-template <int D, bool NORMALIZED>
+// Launches attention_kernel<D, NORMALIZED, E> on (B, H, T, D) q, k, v and out
+// of element type E (q, k, v, out strides); returns a cudaError_t.
+template <int D, bool NORMALIZED, typename E>
 int launch(const void* q, const void* k, const void* v, const void* lengths, void* out, int B,
            int H, int T, Strides qs, Strides ks, Strides vs, Strides os, float scale,
            cudaStream_t stream) {
   if (B < 1 || H < 1 || T < 1) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  if (!encode_operand(&tq, q, B, H, T, D, qs.b, qs.h, qs.t) ||
-      !encode_operand(&tk, k, B, H, T, D, ks.b, ks.h, ks.t) ||
-      !encode_operand(&tv, v, B, H, T, D, vs.b, vs.h, vs.t))
+  if (!encode_operand(&tq, q, B, H, T, D, qs.b, qs.h, qs.t, is_f16<E>) ||
+      !encode_operand(&tk, k, B, H, T, D, ks.b, ks.h, ks.t, is_f16<E>) ||
+      !encode_operand(&tv, v, B, H, T, D, vs.b, vs.h, vs.t, is_f16<E>))
     return (int)cudaErrorInvalidValue;
-  auto kernel = attention_kernel<D, NORMALIZED>;
+  auto kernel = attention_kernel<D, NORMALIZED, E>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Shape<D>::SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
   kernel<<<grid, THREADS, Shape<D>::SMEM, stream>>>(
-      tq, tk, tv, static_cast<const int*>(lengths), static_cast<bf16*>(out), os.b, os.h, os.t,
-      T, scale);
+      tq, tk, tv, static_cast<const int*>(lengths), static_cast<E*>(out), os.b, os.h, os.t, T,
+      scale);
   return (int)cudaGetLastError();
 }
 

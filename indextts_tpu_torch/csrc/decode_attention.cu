@@ -23,12 +23,17 @@
 //   - the current token's own k and v enter unquantized as a final term
 //     (its p rounded to bf16, times v in f32), and the output o / l is
 //     rounded to bf16.
-// Valid cached keys of row r are [start_r, pos), start_r = pos + 1 -
-// popcount(kv_valid[r]) (the decode mask is left padding plus everything
-// generated so far). With the ancestry map (group = K > 1) the key, value and
-// scale row of row r at position g come from physical row (r / K) * K +
-// anc[r, g]: the raw values are selected before any arithmetic, so the
-// result is bit-identical to a physically gathered cache. The kernel also
+// Row r attends exactly the slots g < pos that kv_valid marks, and the
+// current token if kv_valid marks pos: the mask-based decode step's rule
+// (indextts_tpu/models/gpt/gpt2.py::gpt2_decode_step), whatever the slots'
+// layout (left padding, the engines' unwritten slot P + 1, a speculative
+// chunk's writes). The TPU kernel instead takes the window [pos + 1 -
+// popcount(kv_valid[r]), pos), which assumes one contiguous run; the port
+// departs from it on purpose. With the ancestry map (group = K > 1) the
+// key, value, scale row and kv_valid byte of row r at position g come from
+// physical row (r / K) * K + anc[r, g] (pos too): the raw values are
+// selected before any arithmetic, so the result is bit-identical to a
+// physically gathered cache and kv_valid. The kernel also
 // writes the current token's k and v into the cache at pos of the row's own
 // physical row; KVQ quantizes them as gpt2.py::kv_quantize_flat does: per
 // head, scale = bf16(max|x| / 127), q = clip(rint(x / max(scale, 1e-8)),
@@ -42,7 +47,7 @@
 // scale bytes in int8, and does ~4 flops a byte. But one layer call is a
 // few microseconds of work spread over a few hundred (row, head, chunk)
 // units: it is bound by latency, the launch and the chain of dependent
-// loads (kv_valid and the ancestry map, then the cache rows they select),
+// loads (the ancestry map and kv_valid, then the cache rows they select),
 // not by bytes. The design, with the launch plan (`ops/decode_step.py::
 // attention_plan`: heads a block, chunks a block, cluster size, ring
 // stages, shared-memory bytes) passed in:
@@ -56,10 +61,9 @@
 //      second launch); rank 0 adds the current token, merges the chunks in
 //      ascending order and writes the output and the cache row.
 //   2. Per-position work done once a block, for all its heads: a block
-//      counts its row's valid positions with one pass of 16-byte loads of
-//      kv_valid and __popc (no block-wide scan of bytes), and resolves each
-//      of its positions' physical row from the ancestry map once, into
-//      shared memory.
+//      resolves each of its positions' physical row from the ancestry map
+//      and that row's kv_valid byte once, into shared memory (-1 for a slot
+//      not attended: it is neither copied nor scored).
 //   3. Bytes in flight: every thread issues 16-byte cp.async copies of the
 //      valid positions' k and v rows of the block's head span (one row is a
 //      contiguous 128 * heads bytes in bf16) into a ring of chunk stages in

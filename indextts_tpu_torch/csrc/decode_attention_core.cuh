@@ -38,9 +38,9 @@ constexpr int MAX_CLUSTER = 8;  // the portable cluster size
 constexpr int MAX_STAGES = 4;
 constexpr int SLOT = 68;        // floats of a (chunk, head) partial: m, l, 2 pad, o[64]
 constexpr int MISC = 1024;      // reductions, the current scores, the mbarrier
-// MISC: red_max and red_sum [warp][head] f32, red_cnt [warp] int, s_cur
-// [head] f32, then the mbarrier
-constexpr int BAR_OFFSET = (2 * WARPS * MAX_HEADS + WARPS + MAX_HEADS) * 4;
+// MISC: red_max and red_sum [warp][head] f32, s_cur [head] f32, then the
+// mbarrier
+constexpr int BAR_OFFSET = (2 * WARPS * MAX_HEADS + MAX_HEADS) * 4;
 static_assert(BAR_OFFSET % 8 == 0 && BAR_OFFSET + 8 <= MISC, "MISC holds the mbarrier");
 constexpr int SMEM_MAX = 227 * 1024;
 constexpr float NEG = -1e9f;    // the TPU kernel's mask value
@@ -112,11 +112,6 @@ __device__ __forceinline__ void cp_async_wait(int n) {
     case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
     default: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
   }
-}
-
-// the number of nonzero bytes of a word
-__device__ __forceinline__ int nonzero_bytes(uint32_t w) {
-  return __popc((((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w) & 0x80808080u);
 }
 
 // sum_d f32(bf16(k_d * q_d)) over 16 dims in ascending order
@@ -217,31 +212,21 @@ __device__ __forceinline__ void attend(const Args& a, unsigned char* smem,
   bf16* sp = svc + span;  // [head][position] of the chunk
   float* red_max = reinterpret_cast<float*>(smem + lay.misc);  // [warp][head]
   float* red_sum = red_max + WARPS * MAX_HEADS;
-  int* red_cnt = reinterpret_cast<int*>(red_sum + WARPS * MAX_HEADS);
-  float* s_cur = reinterpret_cast<float*>(red_cnt + WARPS);
+  float* s_cur = red_sum + WARPS * MAX_HEADS;
   const uint32_t bar = smem_addr(bar_ptr);
   const bool clustered = p.cluster > 1;
 
-  // 1. kv_valid's popcount, the physical rows of the block's positions, and
-  // q (scaled, rounded), k and v of the current token over the head span
+  // 1. the physical row of each of the block's positions, or -1 where that
+  // row's kv_valid does not mark the position (the block attends exactly
+  // the marked slots, whatever their layout); q (scaled, rounded), k and v
+  // of the current token over the head span
   const int gb = c_lo * CHUNK;
   const int npos = max(0, min(cnt * CHUNK, pos - gb));
-  const uint8_t* vrow = a.kv_valid + (size_t)r * S;
-  int n_valid = 0;
-  if (S % 16 == 0) {
 #pragma unroll 1
-    for (int i = t; i < S / 16; i += THREADS) {
-      const uint4 v = reinterpret_cast<const uint4*>(vrow)[i];
-      n_valid += nonzero_bytes(v.x) + nonzero_bytes(v.y) + nonzero_bytes(v.z) +
-                 nonzero_bytes(v.w);
-    }
-  } else {
-#pragma unroll 1
-    for (int i = t; i < S; i += THREADS) n_valid += vrow[i] != 0;
+  for (int i = t; i < npos; i += THREADS) {
+    const int ph = a.anc ? (r / a.group) * a.group + a.anc[(size_t)r * S + gb + i] : r;
+    sphys[i] = a.kv_valid[(size_t)ph * S + gb + i] ? ph : -1;
   }
-#pragma unroll 1
-  for (int i = t; i < npos; i += THREADS)
-    sphys[i] = a.anc ? (r / a.group) * a.group + a.anc[(size_t)r * S + gb + i] : r;
   const int vecs = span / 8;  // 16-byte pieces of q (or k, v) over the span
 #pragma unroll 1
   for (int i = t; i < 3 * vecs; i += THREADS) {
@@ -255,14 +240,9 @@ __device__ __forceinline__ void attend(const Args& a, unsigned char* smem,
     }
     *reinterpret_cast<uint4*>((which == 0 ? sq : which == 1 ? skc : svc) + k8) = v;
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) n_valid += __shfl_xor_sync(FULL, n_valid, o);
-  if (lane == 0) red_cnt[warp] = n_valid;
+  const int ph_cur = a.anc ? (r / a.group) * a.group + a.anc[(size_t)r * S + pos] : r;
+  const bool cur_valid = a.kv_valid[(size_t)ph_cur * S + pos] != 0;
   __syncthreads();
-  n_valid = 0;
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) n_valid += red_cnt[w];
-  const int start = pos + 1 - n_valid;
 
   // 2. the block's k / v rows into the ring, all stages at once: chunk i of
   // the block into stage i % stages, its valid positions only, 16-byte
@@ -270,21 +250,21 @@ __device__ __forceinline__ void attend(const Args& a, unsigned char* smem,
   const int pieces = span * (int)sizeof(T) / 16;  // of a k (or v) row
   const int stage_elems = lay.stage / (int)sizeof(T) / 2;
   auto stage_k = [&](int s) { return reinterpret_cast<T*>(smem + lay.stage * s); };
-  auto valid_range = [&](int i, int& lo, int& hi) {  // chunk i's valid positions, local
+  auto chunk_end = [&](int i) {  // chunk i's positions below pos, local
     const int g0 = (c_lo + i) * CHUNK;
-    lo = max(start, g0) - g0;
-    hi = min(pos, g0 + CHUNK) - g0;
+    return min(pos, g0 + CHUNK) - g0;
   };
   auto issue = [&](int i) {
-    int lo, hi;
-    valid_range(i, lo, hi);
+    const int hi = chunk_end(i);
     T* sk = stage_k(i % p.stages);
-    const int per_kv = max(0, hi - lo) * pieces;
+    const int per_kv = hi * pieces;
     for (int u = t; u < 2 * per_kv; u += THREADS) {
       const int kv = u >= per_kv, rest = u - kv * per_kv;
-      const int pp = lo + rest / pieces, w = rest % pieces;
+      const int pp = rest / pieces, w = rest % pieces;
+      const int ph = sphys[i * CHUNK + pp];
+      if (ph < 0) continue;
       const int g = (c_lo + i) * CHUNK + pp;
-      const size_t src = ((size_t)sphys[i * CHUNK + pp] * S + g) * D + h0 * DH;
+      const size_t src = ((size_t)ph * S + g) * D + h0 * DH;
       const int off = pp * span + w * (16 / (int)sizeof(T));
       cp_async16(sk + kv * stage_elems + off, (kv ? cv : ck) + src + w * (16 / sizeof(T)));
     }
@@ -301,7 +281,7 @@ __device__ __forceinline__ void attend(const Args& a, unsigned char* smem,
 #pragma unroll 1
     for (int u = t; u < npos * hb; u += THREADS) {
       const int i = u / hb, j = u - i * hb, g = gb + i;
-      if (g < start) continue;
+      if (sphys[i] < 0) continue;
       const bf16* srow = a.kvs + ((size_t)sphys[i] * S + g) * SCALE_LANES;
       scales[2 * u] = srow[h0 + j];
       scales[2 * u + 1] = srow[SCALE_HALF + h0 + j];
@@ -312,18 +292,16 @@ __device__ __forceinline__ void attend(const Args& a, unsigned char* smem,
   for (int i = 0; i < cnt; ++i) {
     cp_async_wait(p.stages - 1);
     __syncthreads();
-    int lo, hi;
-    valid_range(i, lo, hi);
+    const int hi = chunk_end(i);
+    const int* cphys = sphys + i * CHUNK;  // -1: not attended
     float* slot = slots + (size_t)(c_lo + i) * hb * SLOT;
     const T* sk = stage_k(i % p.stages);
     const T* sv = sk + stage_elems;
-    if (lo >= hi) {  // no valid position: m = NEG, l = 0, o = 0
-#pragma unroll 1
-      for (int u = t; u < hb * SLOT; u += THREADS) slot[u] = u % SLOT == 0 ? NEG : 0.f;
-    } else {
-      // scores: thread t is position t / 4, quarter t % 4 of the 64 dims
+    {
+      // scores: thread t is position t / 4, quarter t % 4 of the 64 dims (a
+      // chunk without a valid position ends with m = NEG, l = 0, o = 0)
       const int pp = t / 4, qq = t % 4;
-      const bool valid = pp >= lo && pp < hi;
+      const bool valid = pp < hi && cphys[pp] >= 0;
       float sc[MAX_HEADS];
 #pragma unroll
       for (int j = 0; j < MAX_HEADS; ++j) {
@@ -364,8 +342,8 @@ __device__ __forceinline__ void attend(const Args& a, unsigned char* smem,
         const int j = warp, dg = lane % 8, pq = lane / 8;
         float o[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
         const int q1 = min(hi, 16 * pq + 16);
-        for (int q = max(lo, 16 * pq); q < q1; ++q)
-          pv8(o, sv + q * span + j * DH + 8 * dg, sp[j * CHUNK + q]);
+        for (int q = 16 * pq; q < q1; ++q)
+          if (cphys[q] >= 0) pv8(o, sv + q * span + j * DH + 8 * dg, sp[j * CHUNK + q]);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           o[e] += __shfl_xor_sync(FULL, o[e], 8);
@@ -412,7 +390,7 @@ __device__ __forceinline__ void attend(const Args& a, unsigned char* smem,
     float s = j < hb ? dot16(skc + j * DH + 16 * qq, sq + j * DH + 16 * qq) : 0.f;
     s += __shfl_xor_sync(FULL, s, 1);
     s += __shfl_xor_sync(FULL, s, 2);
-    if (qq == 0 && j < hb) s_cur[j] = start <= pos ? s : NEG;
+    if (qq == 0 && j < hb) s_cur[j] = cur_valid ? s : NEG;
   }
   // the cache row at pos of the row's own physical row (KVQ: quantized per head)
   const size_t row = (size_t)r * S + pos;
@@ -459,7 +437,6 @@ __device__ __forceinline__ void attend(const Args& a, unsigned char* smem,
 
   // 6. the merge: thread (head, dim); chunks in ascending order, then the
   // current token
-  const bool cur_valid = start <= pos;
 #pragma unroll 1
   for (int u = t; u < span; u += THREADS) {
     const int j = u / DH, d = u % DH;

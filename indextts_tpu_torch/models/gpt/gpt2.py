@@ -333,6 +333,31 @@ def _cached_blocks(params: Params, x: torch.Tensor, dims: GPT2Dims, pos0: int,
     return nn.layer_norm(params["ln_f"], x)
 
 
+def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """The decode's attention: (B, H, G, Dh) queries against the (B, H, S,
+    Dh) cache under the keep-mask ``mask`` (B, 1, G, S). The JAX package's
+    `nn.mha` written out: f32 scores of the input-dtype products, -1e9
+    where the mask is False, an f32 softmax, the probabilities rounded to
+    v's dtype, f32 sums of p.v, the output in q's dtype. Both products are
+    f32 GEMMs, whose bits depend on the shapes alone. The library's fused
+    attention (`nn.mha`, which PyTorch hands to cuDNN for a masked bf16
+    attention on the H100) is not used here: with it, two sampled decodes of
+    one request on the card (the speculative decoder's single steps and the
+    plain loop, the same computation from the same generator) parted at
+    token 20 of 400; written out, they share every token."""
+    B, H, G, Dh = q.shape
+    S = k.shape[2]
+
+    def f32(t, rows):            # one copy: f32 and contiguous, (B * H, rows, Dh)
+        return t.new_empty((B, H, rows, Dh), dtype=torch.float32).copy_(t).view(B * H, rows, Dh)
+
+    s = torch.baddbmm(q.new_empty((), dtype=torch.float32), f32(q, G), f32(k, S).transpose(1, 2),
+                      beta=0.0, alpha=1.0 / math.sqrt(Dh)).view(B, H, G, S)
+    p = torch.softmax(torch.where(mask, s, -1e9), dim=-1).to(v.dtype).float()
+    return torch.bmm(p.view(B * H, G, S), f32(v, S)).view(B, H, G, Dh).to(q.dtype)
+
+
 def cached_layer(lp: Params, x: torch.Tensor, dims: GPT2Dims, pos0: int, kv_cache: Dict,
                  li: int, mask: torch.Tensor) -> torch.Tensor:
     """One block of `_cached_blocks` (layer ``li`` of the cache) on x (B, G,
@@ -341,7 +366,7 @@ def cached_layer(lp: Params, x: torch.Tensor, dims: GPT2Dims, pos0: int, kv_cach
     q, k, v = torch.chunk(nn.dense(lp["attn"]["c_attn"], nn.layer_norm(lp["ln_1"], x)), 3, -1)
     _cache_write(kv_cache, li, pos0, k, v, dims.heads)
     kc, vc = _cache_layer(kv_cache, li, dims.heads, x.dtype)
-    out = nn.mha(_heads(q, dims), _heads(kc, dims), _heads(vc, dims), mask=mask)
+    out = cached_attention(_heads(q, dims), _heads(kc, dims), _heads(vc, dims), mask)
     return _mlp(lp, x + nn.dense(lp["attn"]["c_proj"], out.transpose(1, 2).reshape(B, G, D)))
 
 

@@ -13,6 +13,9 @@
   v's dtype, the DiT's flash tier through `nn.mha_flash`. It runs
   `csrc/attention_block.cu` (the same core, two passes).
 
+The kernels take bf16 or fp16 operands (the JAX kernels take q's dtype; a
+float16 pipeline hands them fp16): one instantiation of the core each.
+
 On a CUDA tensor each entry launches its hand-written Hopper kernels (or
 raises); on a CPU tensor it runs its ``*_plain`` twin, the same math in
 plain PyTorch, which the CPU tests hold against the JAX kernel and
@@ -97,22 +100,32 @@ def _check_aligned(name: str, t: torch.Tensor) -> None:
                          f"strides {t.stride()}, base offset {t.data_ptr() % 16} mod 16")
 
 
+# the operand types the kernels are instantiated for
+KERNEL_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def _check_dtype(name: str, q: torch.Tensor) -> None:
+    if q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name}: q must be bf16 or fp16, got {q.dtype}")
+
+
 def _check_packed(name: str, heads: int, *tensors) -> tuple:
-    """(B, T, D) of the (B, T, H*64) bf16 operands of K2, K2' or the rope
-    pass (q first) on one CUDA device. They are contiguous, so their strides
-    are multiples of 64 elements and only the base needs 16-byte alignment
-    for TMA."""
+    """(B, T, D) of the (B, T, H*64) bf16 or fp16 operands of K2, K2' or
+    the rope pass (q first, the others of its dtype) on one CUDA device.
+    They are contiguous, so their strides are multiples of 64 elements and
+    only the base needs 16-byte alignment for TMA."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
+    _check_dtype(name, q)
     B, T, HD = q.shape
     D = HD // heads
     if D != 64 or heads * D != HD:
         raise ValueError(f"{name}: kernel takes head dim 64, got {HD}/{heads}")
     for label, t in zip("qkv", tensors):
-        if t.shape != q.shape or t.dtype != torch.bfloat16 or t.device != q.device \
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
                 or not t.is_contiguous():
-            raise ValueError(f"{name}: {label} must be contiguous bf16 "
+            raise ValueError(f"{name}: {label} must be contiguous {q.dtype} "
                              f"{tuple(q.shape)} on {q.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
         if t.data_ptr() % 16:
@@ -139,9 +152,9 @@ def rope_qk(q: torch.Tensor, k: torch.Tensor, freqs_cis: torch.Tensor,
             heads: int) -> tuple:
     """K2's rope pass. q, k: (B, T, H*D) with D = 64; freqs_cis: (>= T, D/2,
     2) cos/sin. CPU tensors run the plain version; CUDA tensors (q, k bf16
-    and contiguous, freqs_cis f32 and contiguous) launch the kernel, which
-    writes the rotated q and k to new (B, T, H*D) tensors; anything else
-    raises."""
+    or fp16 and contiguous, freqs_cis f32 and contiguous) launch the kernel,
+    which writes the rotated q and k to new (B, T, H*D) tensors; anything
+    else raises."""
     if q.device.type == "cpu":
         return rope_qk_plain(q, k, freqs_cis, heads)
     B, T, D = _check_packed("rope_qk", heads, q, k)
@@ -150,7 +163,7 @@ def rope_qk(q: torch.Tensor, k: torch.Tensor, freqs_cis: torch.Tensor,
     with torch.cuda.device(q.device):
         code = cuda.library().rope_qk_launch(q.data_ptr(), k.data_ptr(), freqs_cis.data_ptr(),
                                              qr.data_ptr(), kr.data_ptr(), B, T, heads, D,
-                                             cuda.stream_ptr(q))
+                                             int(q.dtype == torch.float16), cuda.stream_ptr(q))
     cuda.check(code, "rope_qk")
     rope_qk.launches += 1
     return qr, kr
@@ -164,9 +177,10 @@ def attention_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    heads: int) -> torch.Tensor:
     """K2. q, k, v: (B, T, H*D) with D = 64; lengths: (B,) int; freqs_cis:
     (>= T, D/2, 2) f32 cos/sin. CPU tensors run the plain version; CUDA
-    tensors (bf16, contiguous; freqs_cis f32, contiguous) launch the rope
-    pass into scratch q and k, then K2''s attention kernel on them (one host
-    call; both counted: ``rope_qk.launches`` too); anything else raises."""
+    tensors (bf16 or fp16, contiguous; freqs_cis f32, contiguous) launch the
+    rope pass into scratch q and k, then K2''s attention kernel on them (one
+    host call; both counted: ``rope_qk.launches`` too); anything else
+    raises."""
     if q.device.type == "cpu":
         return attention_rope_plain(q, k, v, lengths, freqs_cis, heads)
     B, T, D = _check_packed("attention_rope", heads, q, k, v)
@@ -179,7 +193,7 @@ def attention_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         code = cuda.library().attention_rope_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), freqs_cis.data_ptr(),
             qr.data_ptr(), kr.data_ptr(), out.data_ptr(), B, T, heads, D, 1.0 / math.sqrt(D),
-            cuda.stream_ptr(q))
+            int(q.dtype == torch.float16), cuda.stream_ptr(q))
     cuda.check(code, "attention_rope")
     rope_qk.launches += 1
     attention_rope.launches += 1
@@ -193,8 +207,8 @@ def packed_pair_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           lengths: torch.Tensor, heads: int) -> torch.Tensor:
     """K2'. q, k, v: (B, T, H*D) with D = 64 (the TPU kernel's pairing of
     heads on 128 lanes is a TPU layout and is not carried over: any H);
-    lengths: (B,) int. CPU tensors run the plain version; CUDA tensors (bf16,
-    contiguous) launch the kernel; anything else raises."""
+    lengths: (B,) int. CPU tensors run the plain version; CUDA tensors (bf16
+    or fp16, contiguous) launch the kernel; anything else raises."""
     if q.device.type == "cpu":
         return packed_pair_attention_plain(q, k, v, lengths, heads)
     B, T, D = _check_packed("packed_pair_attention", heads, q, k, v)
@@ -203,7 +217,8 @@ def packed_pair_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         code = cuda.library().packed_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            B, T, heads, D, 1.0 / math.sqrt(D), cuda.stream_ptr(q))
+            B, T, heads, D, 1.0 / math.sqrt(D), int(q.dtype == torch.float16),
+            cuda.stream_ptr(q))
     cuda.check(code, "packed_pair_attention")
     packed_pair_attention.launches += 1
     return out
@@ -236,9 +251,9 @@ def single_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and the base multiples of 16 bytes (a transposed (B, T, H, D) view is
     read in place, through a TMA tensor map), D a multiple of 16 up to 128;
     lengths: (B,) int. CPU tensors run the plain version; CUDA tensors (q
-    bf16; k and v taken in q's dtype) launch the kernel, whose output is the
-    (B, H, T, D) view of a (B, T, H, D) buffer; anything else (a layout TMA
-    cannot read included: no copy is made) raises."""
+    bf16 or fp16; k and v taken in q's dtype) launch the kernel, whose
+    output is the (B, H, T, D) view of a (B, T, H, D) buffer; anything else
+    (a layout TMA cannot read included: no copy is made) raises."""
     if q.device.type == "cpu":
         return single_block_attention_plain(q, k, v, lengths)
     if q.device.type != "cuda":
@@ -247,8 +262,7 @@ def single_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if D % 16 or not 16 <= D <= 128:
         raise ValueError(f"single_block_attention: kernel takes a head dim that is a "
                          f"multiple of 16 up to 128, got {D}")
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"single_block_attention: q must be bf16, got {q.dtype}")
+    _check_dtype("single_block_attention", q)
     k, v = k.to(q.dtype), v.to(q.dtype)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.shape != q.shape or t.device != q.device or t.stride(-1) != 1:
@@ -262,7 +276,8 @@ def single_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         code = cuda.library().attention_block_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            B, H, T, D, *strides, 1.0 / math.sqrt(D), cuda.stream_ptr(q))
+            B, H, T, D, *strides, 1.0 / math.sqrt(D), int(q.dtype == torch.float16),
+            cuda.stream_ptr(q))
     cuda.check(code, "single_block_attention")
     single_block_attention.launches += 1
     return out

@@ -32,16 +32,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    # q, k, freqs_cis, q out, k out, B, T, H, D, stream
-    "rope_qk_launch": [_P] * 5 + [_I] * 4 + [_P],
+    # q, k, freqs_cis, q out, k out, B, T, H, D, half (fp16 q, k), stream
+    "rope_qk_launch": [_P] * 5 + [_I] * 5 + [_P],
     # q, k, v, lengths, freqs_cis, q scratch, k scratch, out, B, T, H, D,
-    # scale, stream
-    "attention_rope_launch": [_P] * 8 + [_I] * 4 + [_F, _P],
-    # q, k, v, lengths, out, B, T, H, D, scale, stream
-    "packed_attention_launch": [_P] * 5 + [_I] * 4 + [_F, _P],
+    # scale, half (fp16 operands), stream
+    "attention_rope_launch": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+    # q, k, v, lengths, out, B, T, H, D, scale, half, stream
+    "packed_attention_launch": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
     # q, k, v, lengths, out, B, H, T, D, the (b, h, t) strides of q, k, v and
-    # out, scale, stream
-    "attention_block_launch": [_P] * 5 + [_I] * 4 + [_L] * 12 + [_F, _P],
+    # out, scale, half, stream
+    "attention_block_launch": [_P] * 5 + [_I] * 4 + [_L] * 12 + [_F, _I, _P],
     # x, alpha, beta, lengths, taps, out, B, T, C, logscale, half (fp16 x), stream
     "antialias_snake_launch": [_P] * 6 + [_I] * 5 + [_P],
     # x, q, ln_w, ln_b, scale, bias, res, out, M, N, K, half_span, epilogue,

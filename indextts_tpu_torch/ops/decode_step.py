@@ -143,16 +143,17 @@ def decode_attention_plain(qkv: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor
     bf16 = torch.bfloat16
     q = (qkv[:, :D].float() * (1.0 / math.sqrt(Dh))).to(bf16)
     kc, vc = qkv[:, D:2 * D], qkv[:, 2 * D:]
-    start = pos + 1 - kv_valid.sum(1)
     n_chunks = -(-pos // CHUNK)
     G = n_chunks * CHUNK
     g = torch.arange(G, device=dev)
     gi = g.clamp(max=S - 1)
     rows = torch.arange(M, device=dev)[:, None]
     phys = rows.expand(M, G) if anc is None else (rows // group) * group + anc[:, gi].long()
+    cur_phys = rows[:, 0] if anc is None else (rows[:, 0] // group) * group + anc[:, pos].long()
     # (M, G, D) values of each row's hypothesis (int8 -> bf16 is exact)
     ks, vs = ck[phys, gi[None, :]].to(bf16), cv[phys, gi[None, :]].to(bf16)
-    valid = (g[None, :] >= start[:, None]) & (g[None, :] < pos)            # (M, G)
+    # the slots kv_valid marks (of each position's physical row), below pos
+    valid = kv_valid[phys, gi[None, :]] & (g[None, :] < pos)              # (M, G)
     s = (ks * q[:, None, :]).float().reshape(M, G, heads, Dh).sum(-1)     # bf16 products
     if kvs is not None:                      # the int8 cache: scores times k-scales
         scales = kvs[phys, gi[None, :]].float()                             # (M, G, 256)
@@ -167,7 +168,7 @@ def decode_attention_plain(qkv: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor
     o_c = (p.to(bf16)[..., None] * vs.reshape(M, n_chunks, CHUNK, heads, Dh)).float().sum(2)
 
     s_cur = (q * kc).float().reshape(M, heads, Dh).sum(-1)
-    cur_valid = (start <= pos)[:, None]
+    cur_valid = kv_valid[cur_phys, pos][:, None]
     s_cur = torch.where(cur_valid, s_cur, NEG)
     m = torch.full((M, heads), NEG, device=dev)
     if n_chunks:
@@ -810,11 +811,15 @@ def fused_decode_step(params, x: torch.Tensor, dims, pos: int,
     GPT-2 tree ``params`` against the flat cache (L, B, S, D), B <= 24:
     {"k", "v"} bf16, or {"k", "v"} int8 with "kvs" (L, B, S, 256) bf16 scale
     rows. Writes each layer's k and v at slot ``pos`` in place (quantized
-    for the int8 cache) and attends [start_b, pos) plus the token itself,
-    start_b = pos + 1 - popcount(kv_valid[b]). With ``group=K`` > 1 the
+    for the int8 cache) and attends exactly the slots kv_valid (B, S) marks
+    (those below ``pos``, and the token itself where it marks ``pos``), as
+    the mask-based `gpt2_decode_step` does; the JAX kernel takes the window
+    [pos + 1 - popcount(kv_valid[b]), pos) instead, which differs across
+    the engines' unwritten slot P + 1. With ``group=K`` > 1 the
     cache is unordered and ``anc`` (B, S) int32 names, for each row and
-    position, the row of its beam group that holds the entry. Returns (B, D)
-    after ``ln_f``; a ``layer_inputs`` list receives each layer's input and
+    position, the row of its beam group that holds the entry and whose
+    kv_valid byte counts (as a gather route would gather both). Returns
+    (B, D) after ``ln_f``; a ``layer_inputs`` list receives each layer's input and
     the last layer's output. CPU tensors run the plain twin; CUDA tensors
     launch the persistent kernel, one launch a step
     (``fused_decode_step.launches``); anything else raises, as does what it

@@ -301,16 +301,19 @@ class IndexTTS2:
                  cfg: Optional[IndexTTS2Config] = None, mesh=None):
         """Takes the JAX pipeline's keyword set. The CUDA-era knobs
         (use_cuda_kernel, use_deepspeed, use_accel, use_torch_compile) are
-        accepted and ignored, as there. ``use_fp16=True`` raises: the port's
-        kernels take bf16 only. The weights are read from ``model_dir`` (and
-        ``aux_paths``) as the JAX pipeline reads them (`_load_models`); a
+        accepted and ignored, as there. ``use_fp16=True`` runs the pipeline at
+        float16 in place of ``dtype``, as the JAX pipeline does: every tree but
+        CAMPPlus's is cast to it, and the DiT's attention (K2, K4) and BigVGAN's
+        activation (K3) run their fp16 instantiations; with a ``quantization``
+        it raises ValueError (K1 takes bf16 activations). The weights are read
+        from ``model_dir`` (and ``aux_paths``) as the JAX pipeline reads them
+        (`_load_models`); a
         family without a file is drawn at random from ``seed``; with
         ``allow_random_init=False`` a missing GPT checkpoint raises
         FileNotFoundError, as in the JAX pipeline, and a file that exists but
         cannot be read raises."""
         del use_cuda_kernel, use_deepspeed, use_accel, use_torch_compile
-        if use_fp16:
-            _not_ported("use_fp16=True (the float16 pipeline; the port's kernels take bf16)")
+        dtype = torch.float16 if use_fp16 else dtype
         if quantization is not None and quantization not in QUANTIZATIONS:
             raise ValueError(f"quantization={quantization!r}: takes None or one of "
                              f"{sorted(QUANTIZATIONS)} (the weight and cache formats of "

@@ -3,9 +3,9 @@
 K2's attention.
 
 - the JAX constructor's keyword set is accepted (the CUDA-era knobs are
-  ignored); ``use_fp16=True`` raises NotImplementedError (the port's
-  kernels take bf16); ``allow_random_init=False`` without a GPT checkpoint
-  raises FileNotFoundError, as the JAX pipeline does;
+  ignored; ``use_fp16=True`` is held against the JAX fp16 pipeline in
+  `tests/test_torch_fp16.py`); ``allow_random_init=False`` without a GPT
+  checkpoint raises FileNotFoundError, as the JAX pipeline does;
 - each of the 13 files the JAX pipeline's loader reads, present with valid
   content (written in the reference's layout by
   `tools/torch_reference_ckpt.py`), changes exactly the part of the state
@@ -84,11 +84,6 @@ def _tts(model_dir, **kwargs):
 def test_reference_constructor_kwargs_are_accepted(model_dir):
     tts = _tts(model_dir, **REFERENCE_KWARGS)
     assert tts.dtype == torch.float32 and tts.device == torch.device("cpu")
-
-
-def test_use_fp16_raises(model_dir):
-    with pytest.raises(NotImplementedError, match="use_fp16"):
-        _tts(model_dir, use_fp16=True)
 
 
 def test_no_random_init_without_checkpoint_raises(model_dir):

@@ -14,14 +14,17 @@ f32 inside, one bf16 rounding at the output); rel-L2 <= 1e-3 for K7a / K7b
 bit-identical, and the order of the sums independent of N, so a qkv shard
 equals the unsharded qkv) and <= 1e-2 on the hidden state
 for K1 (fused_decode_step), whose ancestry route is bit-identical to the
-physically gathered cache. The same holds for the int4 GEMVs (int4_matvec,
+physically gathered cache and kv_valid (K1 attends exactly the slots
+kv_valid marks, of each position's physical row). The same holds for the
+int4 GEMVs (int4_matvec,
 int4_mlp) and K1's KVQ (int8 cache) and W4 (int4 weights) variants, whose
 layer-0 written rows are within 1 int8 count and their scale rows within 1
 bf16 ulp of the twin's (the same inputs; the bf16 k/v quantized differ by at
 most an ulp from the f32 summation order). K4 (single_block_attention) and
 K2' (packed_pair_attention) take K2's rel-L2 <= 2e-2, at T off the 64-row
 tile, lengths of 0 (K4: every key), 1, T and past T, B=1 and every K4 head
-width; K2's rope pass (rope_qk) is bit-identical to its twin, and a layout
+width, each in bf16 and in fp16 (the kernels' two instantiations; K2 too);
+K2's rope pass (rope_qk) is bit-identical to its twin, and a layout
 the kernels' TMA loads cannot read raises before any launch; K5
 (fused_antialias_activation) and K3' (antialias_activation_prefolded), which
 launch K3's kernel, take K3's 1e-2; at the edges (T under the kernel's
@@ -111,12 +114,12 @@ def _launches():
     return _counters() + (attn.rope_qk.launches,)
 
 
-def _block_args(T, lengths, device, H, D, transposed=True):
+def _block_args(T, lengths, device, H, D, transposed=True, dtype=torch.bfloat16):
     """(B, H, T, D) q, k, v: transposed views of (B, T, H, D) tensors, as the
     DiT hands them over, or contiguous."""
     g = torch.Generator().manual_seed(T + D)
     shape = (len(lengths), T, H, D) if transposed else (len(lengths), H, T, D)
-    q, k, v = (torch.randn(shape, generator=g).to(device, torch.bfloat16) for _ in range(3))
+    q, k, v = (torch.randn(shape, generator=g).to(device, dtype) for _ in range(3))
     if transposed:
         q, k, v = (a.transpose(1, 2) for a in (q, k, v))
     return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=device)
@@ -146,20 +149,25 @@ def test_cpu_tensors_run_the_plain_twins_without_counting():
 # T off the 64-row tile (1000, 1279), lengths of 1, of T and past T, B=1
 ATTN_EDGES = [(256, [256, 141]), (1000, [1000, 1]), (1280, [1201, 630]), (1279, [1279, 1500]),
               (1279, [64, 65]), (1000, [700])]
+# the attention kernels' two instantiations: bf16, and fp16 (use_fp16=True)
+ATTN_DTYPES = pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                                      ids=["bf16", "fp16"])
 
 
 @pytest.mark.cuda
+@ATTN_DTYPES
 @pytest.mark.parametrize("T,lengths", ATTN_EDGES)
-def test_attention_rope_kernel_matches_plain(cuda_device, T, lengths):
+def test_attention_rope_kernel_matches_plain(cuda_device, T, lengths, dtype):
     """K2: the rope pass then K2''s attention kernel; a call counts one K2
     and one rope pass, and no K2'."""
-    a = _attn_args(T, lengths, cuda_device)
+    a = _attn_args(T, lengths, cuda_device, dtype)
     before = _launches()
     out = attn.attention_rope(*a)
     after = _launches()
     assert [x - y for x, y in zip(after, before)] == [1, 0, 0, 0, 0, 0, 1]
     ref = attn.attention_rope_plain(*a)
     torch.cuda.synchronize()
+    assert out.dtype == dtype
     for b, L in enumerate(lengths):
         L = min(L, T)
         assert rel_l2(out[b, :L], ref[b, :L]) <= 2e-2
@@ -167,9 +175,10 @@ def test_attention_rope_kernel_matches_plain(cuda_device, T, lengths):
 
 
 @pytest.mark.cuda
+@ATTN_DTYPES
 @pytest.mark.parametrize("T", [1000, 1280])
-def test_rope_pass_bit_identical_to_plain(cuda_device, T):
-    q, k, _, _, fc, H = _attn_args(T, [T, T // 2], cuda_device)
+def test_rope_pass_bit_identical_to_plain(cuda_device, T, dtype):
+    q, k, _, _, fc, H = _attn_args(T, [T, T // 2], cuda_device, dtype)
     before = attn.rope_qk.launches
     qr, kr = attn.rope_qk(q, k, fc, H)
     assert attn.rope_qk.launches == before + 1
@@ -321,7 +330,9 @@ def test_fused_decode_step_kernel_matches_plain_and_ancestry_is_exact(cuda_devic
     rows = (torch.arange(3, device=cuda_device)[:, None] // 3) * 3 + anc.long()
     pos_ix = torch.arange(kv.shape[3], device=cuda_device)[None, :]
     gathered = {"k": kv[0][:, rows, pos_ix].contiguous(), "v": kv[1][:, rows, pos_ix].contiguous()}
-    h_gat = decode_step.fused_decode_step(params, x, dims, pos, gathered, valid)
+    # a gather route gathers kv_valid with the cache
+    h_gat = decode_step.fused_decode_step(params, x, dims, pos, gathered,
+                                          valid[rows, pos_ix].contiguous())
     assert torch.equal(h, h_gat)
     for key in ("k", "v"):
         assert torch.equal(caches[0][key][:, :, pos], gathered[key][:, :, pos])
@@ -506,7 +517,8 @@ def test_fused_decode_step_variants_match_plain_and_ancestry_is_exact(cuda_devic
     rows = (torch.arange(3, device=cuda_device)[:, None] // 3) * 3 + anc.long()
     pos_ix = torch.arange(kv.shape[3], device=cuda_device)[None, :]
     gathered = {key: t[:, rows, pos_ix].contiguous() for key, t in make(kv).items()}
-    h_gat = decode_step.fused_decode_step(params, x, dims, pos, gathered, valid)
+    h_gat = decode_step.fused_decode_step(params, x, dims, pos, gathered,
+                                          valid[rows, pos_ix].contiguous())
     assert torch.equal(h, h_gat)
     for key in caches[0]:
         assert torch.equal(caches[0][key][:, :, pos], gathered[key][:, :, pos])
@@ -562,7 +574,8 @@ def test_decode_attention_kernel_matches_plain(cuda_device, pos, S, group, kvq):
                                              anc, group, caches[2].get("kvs"))
     torch.cuda.synchronize()
     assert rel_l2(out, ref) <= 1e-2
-    assert torch.equal(out[-1], torch.zeros_like(out[-1]))      # the fully padded row
+    if anc is None:     # the fully padded row (under ancestry its slots are its group's rows')
+        assert torch.equal(out[-1], torch.zeros_like(out[-1]))
     assert torch.equal(out, again)
     for key in base:
         assert torch.equal(caches[0][key], caches[1][key])
@@ -571,7 +584,8 @@ def test_decode_attention_kernel_matches_plain(cuda_device, pos, S, group, kvq):
         rows = (torch.arange(3, device=cuda_device)[:, None] // group) * group + anc.long()
         slot = torch.arange(S, device=cuda_device)[None, :]
         gat = {key: t[rows, slot].contiguous() for key, t in base.items()}
-        out_gat = decode_step.decode_attention(qkv, gat["k"], gat["v"], valid, pos, 20,
+        out_gat = decode_step.decode_attention(qkv, gat["k"], gat["v"],
+                                               valid[rows, slot].contiguous(), pos, 20,
                                                kvs=gat.get("kvs"))
         assert torch.equal(out, out_gat)
 
@@ -703,30 +717,32 @@ def test_antialias_kernel_takes_a_width_off_8_and_refuses_one_off_4(cuda_device)
 
 
 @pytest.mark.cuda
+@ATTN_DTYPES
 @pytest.mark.parametrize("H,D,transposed", [(8, 64, True), (16, 32, True), (4, 128, True),
                                             (2, 16, False)])
-def test_single_block_attention_kernel_matches_plain(cuda_device, H, D, transposed):
+def test_single_block_attention_kernel_matches_plain(cuda_device, H, D, transposed, dtype):
     lengths = [1280, 645]
-    q, k, v, lens = _block_args(1280, lengths, cuda_device, H, D, transposed)
+    q, k, v, lens = _block_args(1280, lengths, cuda_device, H, D, transposed, dtype)
     before = attn.single_block_attention.launches
     out = attn.single_block_attention(q, k, v, lens)
     assert attn.single_block_attention.launches == before + 1
     ref = attn.single_block_attention_plain(q, k, v, lens)
     torch.cuda.synchronize()
-    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert out.shape == q.shape and out.dtype == dtype
     for b, L in enumerate(lengths):
         assert rel_l2(out[b, :, :L], ref[b, :, :L]) <= 2e-2
     assert torch.isfinite(out).all()
 
 
 @pytest.mark.cuda
+@ATTN_DTYPES
 @pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 112, 128])
 @pytest.mark.parametrize("T,lengths,transposed", [(1000, [0, 1000], True), (1279, [1, 2000], False),
                                                   (1279, [1279], True)])
-def test_single_block_attention_kernel_edges(cuda_device, D, T, lengths, transposed):
+def test_single_block_attention_kernel_edges(cuda_device, D, T, lengths, transposed, dtype):
     """K4 at each head width: T off the tile, a length of 0 (every key), 1,
     T and past T, B=1, transposed and contiguous views."""
-    q, k, v, lens = _block_args(T, lengths, cuda_device, 2, D, transposed)
+    q, k, v, lens = _block_args(T, lengths, cuda_device, 2, D, transposed, dtype)
     out = attn.single_block_attention(q, k, v, lens)
     ref = attn.single_block_attention_plain(q, k, v, lens)
     torch.cuda.synchronize()
@@ -766,9 +782,10 @@ def test_single_block_attention_kernel_raises_on_what_it_does_not_take(cuda_devi
 
 
 @pytest.mark.cuda
+@ATTN_DTYPES
 @pytest.mark.parametrize("T,lengths", [(256, [256, 141]), (1280, [1243, 645])] + ATTN_EDGES[1:])
-def test_packed_pair_attention_kernel_matches_plain(cuda_device, T, lengths):
-    q, k, v, lens, _, H = _attn_args(T, lengths, cuda_device)
+def test_packed_pair_attention_kernel_matches_plain(cuda_device, T, lengths, dtype):
+    q, k, v, lens, _, H = _attn_args(T, lengths, cuda_device, dtype)
     before = _launches()
     out = attn.packed_pair_attention(q, k, v, lens, H)
     after = _launches()

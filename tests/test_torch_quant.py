@@ -24,7 +24,9 @@ Tolerances, each with its reason:
   layer's rows, dequantized, within the hidden-state tolerance;
 - int4 against int8 on the unpacked values, and the int8 cache under
   ancestry against the gathered cache: bit-identical;
-- greedy beams: token-equal with the JAX engine, and the ancestry route's
+- greedy beams: token-equal with the JAX engine on its mask-based XLA step
+  (see `tests/test_torch_window.py` for the fused kernel's window), and the
+  ancestry route's
   hidden states bit-identical to the gather route's at every step.
 """
 
@@ -241,11 +243,11 @@ def _port_cache(c, kvq: bool, rows=None) -> dict:
     return out
 
 
-def _port_step(c, w4: bool, cache: dict, anc=None, group: int = 1):
+def _port_step(c, w4: bool, cache: dict, anc=None, group: int = 1, mask=None):
     from indextts_tpu_torch.ops.decode_step import fused_decode_step
 
     return fused_decode_step(to_torch(c["params"][w4], "cpu", torch.bfloat16), _t(c["x"]),
-                             TDIMS, POS, cache, torch.tensor(c["mask"]),
+                             TDIMS, POS, cache, torch.tensor(c["mask"] if mask is None else mask),
                              None if anc is None else torch.tensor(anc), group)
 
 
@@ -316,11 +318,13 @@ def test_int4_twin_bit_identical_to_int8_twin_on_unpacked_values(quant_case, kvq
 
 @pytest.mark.parametrize("w4", [False, True], ids=["int8", "int4"])
 def test_kvq_twin_with_ancestry_bit_identical_to_gathered_cache(quant_case, w4):
+    """The gather route gathers kv_valid with the cache (`engine/beam.py`):
+    the ancestry map reads both from the physical row."""
     c = quant_case
     rows = (np.arange(B)[:, None] // B) * B + c["anc"]
     cache_anc, cache_gat = _port_cache(c, True), _port_cache(c, True, rows)
     h_anc = _port_step(c, w4, cache_anc, c["anc"], B)
-    h_gat = _port_step(c, w4, cache_gat)
+    h_gat = _port_step(c, w4, cache_gat, mask=c["mask"][rows, np.arange(S)])
     assert torch.equal(h_anc, h_gat)
     for key in ("k", "v", "kvs"):
         assert torch.equal(cache_anc[key][:, :, POS], cache_gat[key][:, :, POS])
@@ -366,15 +370,16 @@ def test_generate_beam_greedy_token_equal_jax_and_anc_equals_gather(monkeypatch,
     prefix = _bf16(rng.normal(0, 0.3, (nb, P, cfg.model_dim)))
     mask = np.ones((nb, P), bool)
     mask[0, 0] = False
-    monkeypatch.setenv("INDEXTTS_FUSED_DECODE", "interp")
-    monkeypatch.setenv("INDEXTTS_BEAM_ANC", "1")
+    # the reference is JAX's mask-based XLA step on the quantized tree (its
+    # fused kernel's window differs across the decode's unwritten slot P + 1)
+    monkeypatch.setenv("INDEXTTS_FUSED_DECODE", "0")
     jbeam.generate_beam.clear_cache()
     ref_toks, ref_lens = jbeam.generate_beam(
         params, cfg, dims, jnp.asarray(prefix), jnp.asarray(mask), jax.random.PRNGKey(5),
         max_new_tokens=steps, sampling=JSampling(do_sample=False, num_beams=3,
                                                  kv_quant=kv_quant))
     jbeam.generate_beam.clear_cache()
-    assert jbeam.last_use_anc is True
+    assert jbeam.last_use_anc is False
 
     tp = to_torch(params, "cpu", torch.bfloat16)
     tdims = tgpt2.GPT2Dims(cfg.layers, cfg.model_dim, cfg.heads)

@@ -11,7 +11,8 @@ its verify step `gpt2_chunk_step`, against the JAX package on the CPU.
   stats (so the gate decides the same);
 - sampling: `generate_spec_adaptive` token-equal to the port's own
   `generate_adaptive` for one generator seed, across oracle, adversarial and
-  lookup drafts, a demotion, span ends, min_new_tokens, max_new_tokens=1,
+  lookup drafts, no verify at all (f32 and bf16), a demotion, span ends,
+  min_new_tokens, max_new_tokens=1,
   the int8 cache, and int8 weights through K1's twin at group=1 (bf16;
   `torch.Generator` cannot draw `jax.random`'s numbers, so sampled tokens
   are not compared across frameworks);
@@ -304,6 +305,26 @@ def test_adaptive_lookup_matches_across_span_ends(case, seed):
     c3, l3, _ = _port(case, tspec.generate_spec, 24, seed, gamma=4)
     np.testing.assert_array_equal(c2, c3)
     np.testing.assert_array_equal(l2, l3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_no_verify_keeps_the_sequential_stream(case, dtype, seed):
+    """Sampling with the repetition penalty of the shipped config (10), under
+    which no 2-gram repeats and so no verify fires: every step is a single
+    step of the decode route, and the tokens equal `generate_adaptive`'s
+    for the same generator seed, across span ends, at f32 and at bf16 (the
+    promise the smoke holds at full width on the card)."""
+    tree = case["tp"] if dtype == torch.float32 else to_torch(case["params"], "cpu", dtype)
+    sampling = tdec.SamplingConfig(num_beams=1, repetition_penalty=10.0, min_new_tokens=40)
+    args = (tree, TINY, _tdims(), case["temb"].to(dtype), case["tmask"])
+    ref, ref_l = tdec.generate_adaptive(*args, torch.Generator().manual_seed(seed), 48,
+                                        sampling, dtype, spans=(16, 32))
+    got, got_l, stats = tspec.generate_spec_adaptive(*args, torch.Generator().manual_seed(seed),
+                                                     48, sampling, dtype, spans=(16, 32))
+    assert stats[0] == 0 and stats[2] == 15             # no verify; single steps to the gate
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    np.testing.assert_array_equal(got_l, ref_l)
 
 
 def test_min_new_tokens_respected(case):
