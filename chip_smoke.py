@@ -265,6 +265,28 @@
    speculative passes assert that speculation on and off share all 400
    tokens at int8 and at bf16.
 
+14. training pass (`train_phase`), `python -m indextts_tpu_torch.train`'s
+   `run` on the card: the shipped GPTConfig() and S2MelConfig() (956.8 M
+   trainable parameters, seed 0, drawn on the card), 5 steps of B = 4 read
+   from `.npz` batches (`--data-dir`; conditioning and emotion features
+   250 x 1024, 64 text ids, 400 mel codes, a 688-frame DiT target with a
+   172-frame prompt, cfm_cond 688 x 512, style 192), f32 with TF32 off:
+   each step's losses, the median synchronized step time of steps 2-5 and
+   the peak allocated memory beside the card; every loss finite and no
+   kernel launched (the counters unchanged: the DiT trains on its dense
+   tier). Then, at a reduced depth (GPT 2 layers, DiT depth 2, one
+   conformer block each, the shipped widths, 444.3 M parameters, B = 1):
+   one step on the card and the same step on the host CPU (loss within rel
+   1e-4, every gradient leaf within rel-L2 1e-3, a leaf's gradient zero on
+   one side only if on the other), and 3 steps, a save, a resume and 2
+   more steps against 5 steps straight (atol 1e-6, rtol 1e-5; the
+   bit-identical leaves counted), with the seconds to save and resume.
+15. DVAE pass (`dvae_phase`): `init_dvae` at its published defaults (8192
+   tokens, codebook 512, hidden 512, 2 layers, 3 res-blocks), drawn on the
+   card, and a 5 s synthetic wav through mel, codes and reconstruction on
+   the card and on the host CPU: the share of codes that agree (>= 0.99),
+   the reconstruction's rel-L2 from the same codes, and the card's ms.
+
 `tools/torch_tp_two_cards.py` runs K6 with its shards on two cards, on a
 machine that has two.
 
@@ -279,6 +301,7 @@ package cannot be imported (e.g. run outside the repository).
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -3932,6 +3955,259 @@ def v1_phase(card: str, prompt: str, model_dir: str) -> tuple:
     return counts, k3
 
 
+TRAIN_STEPS, TRAIN_BATCH = 5, 4
+# conditioning frames (5 s of w2v-bert features), text ids, mel codes (8 s at
+# 50 a second), DiT frames (8 s at 22050 / 256) and the prompt's quarter of them
+TRAIN_LENGTHS = dict(cond=250, text=64, mel=400, frames=688, prompt=172)
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_LOSS_RTOL = 1e-4
+# leaves whose gradient is exactly zero in exact arithmetic, so rounding noise
+# alone on either device: the conformers' key bias (adding b to every key adds
+# q.b to each score of a query, which the softmax ignores); held below this
+# share of the whole gradient's norm instead of a relative distance
+ZERO_GRAD = re.compile(r"attn/linear_k/bias$")
+ZERO_GRAD_FLOOR = 1e-6
+RESUME_ATOL, RESUME_RTOL = 1e-6, 1e-5
+DVAE_SECONDS = 5.0
+DVAE_AGREE = 0.99
+
+
+def train_configs(reduced: bool):
+    """The shipped GPT and s2mel configs; ``reduced`` cuts the depth (GPT 2
+    layers, DiT depth 2, one conformer block each) and keeps the widths."""
+    import dataclasses
+
+    from indextts_tpu_torch.config import GPTConfig, S2MelConfig
+
+    gpt, s2 = GPTConfig(), S2MelConfig()
+    if reduced:
+        gpt = dataclasses.replace(
+            gpt, layers=2,
+            condition_module=dataclasses.replace(gpt.condition_module, num_blocks=1),
+            emo_condition_module=dataclasses.replace(gpt.emo_condition_module, num_blocks=1))
+        s2 = dataclasses.replace(s2, DiT=dataclasses.replace(s2.DiT, depth=2))
+    return gpt, s2
+
+
+def write_train_batches(d: str, gpt, s2, B: int, n: int) -> str:
+    """``n`` seeded batches of B rows at TRAIN_LENGTHS as ``.npz`` files in
+    ``d`` (the trainer's --data-dir)."""
+    L = TRAIN_LENGTHS
+    os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        r = np.random.default_rng(100 + i)
+        f32, i32 = np.float32, np.int32
+        np.savez(os.path.join(d, f"batch-{i:03d}.npz"),
+                 cond_emb=r.standard_normal((B, L["cond"], gpt.cond_input_dim)).astype(f32),
+                 cond_lens=np.full((B,), L["cond"], i32),
+                 emo_emb=r.standard_normal((B, L["cond"], gpt.cond_input_dim)).astype(f32),
+                 emo_lens=np.full((B,), L["cond"], i32),
+                 text_ids=r.integers(2, gpt.number_text_tokens, (B, L["text"])).astype(i32),
+                 text_lens=np.full((B,), L["text"], i32),
+                 mel_codes=r.integers(0, gpt.start_mel_token, (B, L["mel"])).astype(i32),
+                 mel_lens=np.full((B,), L["mel"], i32),
+                 mel_target=r.standard_normal((B, L["frames"], s2.DiT.in_channels)).astype(f32),
+                 mel_frames=np.full((B,), L["frames"], i32),
+                 prompt_frames=np.full((B,), L["prompt"], i32),
+                 cfm_cond=r.standard_normal(
+                     (B, L["frames"], s2.length_regulator.channels)).astype(f32),
+                 style=r.standard_normal((B, s2.style_encoder.dim)).astype(f32))
+    return d
+
+
+def train_args(**kw):
+    import argparse
+
+    args = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, dp=1, tp=1, seed=0, ckpt_dir=None,
+                save_every=3, log_every=1, data_dir=None, resume=False, device="cuda")
+    args.update(kw)
+    return argparse.Namespace(**args)
+
+
+def card_against_host(gpt, s2, data_dir: str, card: str) -> None:
+    """One step's loss and every gradient leaf on the card against the same
+    step on the host CPU (the same weights, batch and draws)."""
+    import torch
+
+    from indextts_tpu_torch.models.s2mel.cfm import cfm_noise
+    from indextts_tpu_torch.parallel import train as pt
+    from indextts_tpu_torch.train import (init_trainable, npz_batch, step_generator,
+                                          to_device)
+
+    pt.make_train_step(gpt, s2)                       # TF32 off, as the step runs
+    batch_np = npz_batch(os.path.join(data_dir, "batch-000.npz"))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tr = init_trainable(gpt, s2, 0, "cuda")
+        if dev == "cpu":
+            tr = pt.tree_map(lambda p: p.cpu(), tr)
+        pt.make_train_state(tr)
+        batch = to_device(batch_np, dev)
+        t, z = cfm_noise(batch["mel_target"].cpu(), step_generator(0, 0))
+        t0 = time.perf_counter()
+        loss, parts = pt.train_loss(tr, gpt, s2, batch, t.to(dev), z.to(dev))
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        grads = [p.grad.cpu() if p.grad is not None else torch.zeros_like(p, device="cpu")
+                 for p in pt.leaves(tr)]
+        out[dev] = (float(loss.detach()), {k: float(v.detach()) for k, v in parts.items()},
+                    grads, sec)
+        names = leaf_names(tr)
+        del tr
+        torch.cuda.empty_cache()
+    (lc, pc, gc, sc), (lh, ph, gh, sh) = out["cuda"], out["cpu"]
+    total = min(torch.linalg.norm(torch.stack([torch.linalg.norm(g) for g in gs])).item()
+                for gs in (gc, gh))
+    worst, zeros, noise = 0.0, [], {}
+    for name, a, b in zip(names, gc, gh):
+        na, nb = torch.linalg.norm(a).item(), torch.linalg.norm(b).item()
+        if ZERO_GRAD.search(name):
+            noise[name] = (na, nb)
+            assert max(na, nb) <= ZERO_GRAD_FLOOR * total, (name, na, nb, total)
+        elif na == 0 or nb == 0:
+            assert na == nb == 0, (name, na, nb)
+            zeros.append(name)
+        else:
+            worst = max(worst, torch.linalg.norm(a - b).item() / nb)
+    loss_rel = abs(lc - lh) / abs(lh)
+    print(f"training, card against host (reduced depth, B=1): loss {lc:.6f} vs {lh:.6f} (rel "
+          f"{loss_rel:.3e}), gpt {pc['gpt']:.6f} vs {ph['gpt']:.6f}, cfm {pc['cfm']:.6f} vs "
+          f"{ph['cfm']:.6f}; {len(gc)} gradient leaves (whole gradient's norm {total:.4e}), "
+          f"worst rel-L2 {worst:.3e}; zero on both sides: {', '.join(zeros)}; rounding noise "
+          f"only (exactly zero: the softmax over keys ignores a bias added to every key), "
+          f"norms card / host: " + "; ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in
+                                             noise.items())
+          + f"; forward + backward {sc:.3f} s on the card, {sh:.3f} s on the host [{card}]",
+          flush=True)
+    assert loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_RTOL, (loss_rel, worst)
+
+
+def leaf_names(tree, path: str = "") -> list:
+    """The "/"-joined paths of a tree's leaves, in `parallel.train.leaves`'s
+    order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in leaf_names(v, f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{path}/{i}")]
+    return [path]
+
+
+def save_and_resume(gpt, s2, data_dir: str, card: str) -> None:
+    """3 steps, a save, a resume and 2 more steps against 5 steps straight,
+    on the card at the reduced depth."""
+    import shutil
+
+    import torch
+
+    from indextts_tpu_torch.parallel.train import leaves
+    from indextts_tpu_torch.train import run
+
+    def done(result):
+        trainable = result[0]
+        host = [p.detach().cpu() for p in leaves(trainable)]
+        del result, trainable
+        torch.cuda.empty_cache()
+        return host
+
+    straight = done(run(train_args(batch=1, data_dir=data_dir), gpt, s2))
+    with tempfile.TemporaryDirectory(prefix="indextts_train_") as ck:
+        usage = shutil.disk_usage(ck)
+        print(f"save and resume: {ck} has {usage.free} bytes free of {usage.total}", flush=True)
+        t0 = time.perf_counter()
+        first = run(train_args(batch=1, data_dir=data_dir, steps=3, ckpt_dir=ck), gpt, s2)
+        t_first = time.perf_counter() - t0
+        done(first)
+        t0 = time.perf_counter()
+        resumed = done(run(train_args(batch=1, data_dir=data_dir, ckpt_dir=ck, resume=True),
+                           gpt, s2))
+        t_resumed = time.perf_counter() - t0
+        state_bytes = sum(os.path.getsize(os.path.join(ck, "state-3", f))
+                          for f in os.listdir(os.path.join(ck, "state-3")))
+    same = sum(torch.equal(a, b) for a, b in zip(straight, resumed))
+    worst = max((a - b).abs().max().item() for a, b in zip(straight, resumed))
+    print(f"save and resume (reduced depth, B=1): {same} of {len(straight)} leaves bit-identical "
+          f"to 5 steps straight, max |diff| {worst:.3e}; a state {state_bytes} bytes; 3 steps "
+          f"and a save {t_first:.2f} s, a resume and 2 steps and a save {t_resumed:.2f} s "
+          f"[{card}]", flush=True)
+    for a, b in zip(straight, resumed):
+        torch.testing.assert_close(b, a, atol=RESUME_ATOL, rtol=RESUME_RTOL)
+
+
+def train_phase(card: str) -> None:
+    """The training pass (docstring item 14)."""
+    import torch
+
+    from indextts_tpu_torch.parallel.train import leaves
+    from indextts_tpu_torch.train import run
+
+    gpt, s2 = train_configs(reduced=False)
+    with tempfile.TemporaryDirectory(prefix="indextts_batches_") as d:
+        full = write_train_batches(os.path.join(d, "b4"), gpt, s2, TRAIN_BATCH, TRAIN_STEPS)
+        one = write_train_batches(os.path.join(d, "b1"), gpt, s2, 1, TRAIN_STEPS)
+        before = read_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainable, optimizer, losses, seconds = run(train_args(data_dir=full), gpt, s2)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(p.numel() for p in leaves(trainable))
+        del trainable, optimizer
+        torch.cuda.empty_cache()
+        after = read_counts()
+        print(f"training (full width, B={TRAIN_BATCH}, {TRAIN_LENGTHS}): {n_params} trainable "
+              f"parameters; losses (total, gpt, cfm) " + "; ".join(
+                  f"step {i + 1} {a:.4f} {b:.4f} {c:.4f}" for i, (a, b, c) in enumerate(losses))
+              + f"; step seconds " + ", ".join(f"{s:.3f}" for s in seconds)
+              + f"; median of steps 2-{TRAIN_STEPS} {float(np.median(seconds[1:])):.3f} s; "
+              f"peak allocated {peak} bytes [{card}]", flush=True)
+        assert len(losses) == TRAIN_STEPS and np.isfinite(losses).all(), losses
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        assert not launched, f"a training step launched kernels: {launched}"
+        reduced = train_configs(reduced=True)
+        card_against_host(*reduced, one, card)
+        save_and_resume(*reduced, one, card)
+
+
+def dvae_phase(card: str) -> None:
+    """The DVAE pass (docstring item 15)."""
+    import torch
+
+    from indextts_tpu_torch.models.codec import dvae
+    from indextts_tpu_torch.nn import InitRng
+    from indextts_tpu_torch.parallel.train import tree_map
+    from indextts_tpu_torch.utils.jax_params import to_torch
+
+    params = {"cuda": to_torch(dvae.init_dvae(InitRng(0, "cuda")))}
+    params["cpu"] = tree_map(lambda p: p.cpu(), params["cuda"])
+    r = np.random.default_rng(0)
+    t = np.arange(int(22050 * DVAE_SECONDS)) / 22050
+    wav = (0.3 * np.sin(2 * np.pi * 220 * t) + 0.05 * r.standard_normal(t.size))
+    wav = torch.tensor(wav[None].astype(np.float32))
+    out = {}
+
+    def tokens(dev):
+        mel = dvae.dvae_wav_to_mel(wav.to(dev)).transpose(1, 2).contiguous()
+        return mel, dvae.dvae_codebook_indices(params[dev], mel)
+
+    with torch.no_grad():
+        for dev in ("cuda", "cpu"):
+            out[dev] = tokens(dev)
+        codes = out["cpu"][1]
+        recon = {dev: dvae.dvae_decode(params[dev], codes.to(dev)).cpu()
+                 for dev in ("cuda", "cpu")}
+        ms = time_ms(lambda: dvae.dvae_decode(params["cuda"], tokens("cuda")[1]), iters=5)
+    agree = (out["cuda"][1].cpu() == codes).float().mean().item()
+    mel_rel = rel_l2(out["cuda"][0].cpu(), out["cpu"][0])
+    recon_rel = rel_l2(recon["cuda"], recon["cpu"])
+    print(f"DVAE (published defaults, a {DVAE_SECONDS:.0f} s wav): {tuple(codes.shape)} codes, "
+          f"{100 * agree:.2f} % equal card vs host; mel rel-L2 {mel_rel:.3e}; reconstruction "
+          f"{tuple(recon['cpu'].shape)} from the same codes rel-L2 {recon_rel:.3e}; mel, codes "
+          f"and reconstruction {ms:.3f} ms on the card [{card}]", flush=True)
+    assert agree >= DVAE_AGREE and torch.isfinite(recon["cuda"]).all(), agree
+
+
 def main() -> int:
     try:
         import torch
@@ -4032,6 +4308,10 @@ def main() -> int:
                                    ("gpt", "gpt_forward", "s2mel", "bigvgan", "total"))
             + f" audio={st['audio_s']:.4f}s RTF={st['rtf']:.4f}"
             for label, st in (("int8", lf_int8), ("bf16", lf_bf16))) + f" [{card}]", flush=True)
+    train_phase(card)
+    mark("training pass done")
+    dvae_phase(card)
+    mark("DVAE pass done")
     assert "jax" not in sys.modules, "the port imported jax"
     assert not any(m == "indextts_tpu" or m.startswith("indextts_tpu.") for m in sys.modules)
 

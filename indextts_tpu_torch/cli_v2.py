@@ -18,8 +18,8 @@ torch/numpy/indextts_tpu_torch; the device check reports cuda/cpu (from
 (`utils/download.py`); the engine is the port's `IndexTTS2`, on the card
 unless ``--device`` says otherwise. The runtime flags are accepted (and
 persisted) as in the JAX CLI: deepspeed and cuda-kernel are ignored by the
-engine, ``--fp16`` reaches it as ``use_fp16=True`` (which the port's
-`IndexTTS2` refuses: an inference error, exit 4), and ``batch --mesh N``
+engine, ``--fp16`` reaches it as ``use_fp16=True`` (the port's float16
+pipeline, as the JAX engine takes it), and ``batch --mesh N``
 reaches it as ``mesh=N`` (the dp mesh is not ported: exit 4 too). The
 persisted ``config.toml`` (path, keys and precedence), the messages and
 the exit codes are the JAX CLI's.

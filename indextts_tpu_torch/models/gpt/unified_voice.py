@@ -9,7 +9,7 @@ emo_layer, merged as base + alpha * (emo - base).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -157,11 +157,21 @@ def forward_latents(params: Params, cfg: GPTConfig, cond_latents: torch.Tensor,
 def teacher_forced(params: Params, cfg: GPTConfig, conds: torch.Tensor,
                    text_ids: torch.Tensor, text_lens: torch.Tensor, mel_codes: torch.Tensor,
                    mel_lens: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """The hidden states over the mel span of `_framed_pass` minus its last
+    two positions, (B, T_mel, dim). v2 passes its conditioning prefix, v1
+    its latents."""
+    enc, text_in, _ = _framed_pass(params, cfg, conds, text_ids, text_lens, mel_codes,
+                                   mel_lens, dtype)
+    return enc[:, text_in.shape[1]:][:, :-2]
+
+
+def _framed_pass(params: Params, cfg: GPTConfig, conds: torch.Tensor,
+                 text_ids: torch.Tensor, text_lens: torch.Tensor, mel_codes: torch.Tensor,
+                 mel_lens: torch.Tensor, dtype=torch.float32):
     """[conds][start_text][text][stop_text][start_mel][mel][stop_mel]
-    through GPT-2 and the final norm; the hidden states over the mel span
-    minus its last two positions, (B, T_mel, dim). Ids past each row's
-    length become the stop token. v2 passes its conditioning prefix, v1 its
-    latents."""
+    through GPT-2 and the final norm. Ids past each row's length become the
+    stop token. Returns (the final-norm hidden states after the conds, (B,
+    Lt + 2 + Lm + 2, dim); the framed text ids; the framed mel ids)."""
     B = text_ids.shape[0]
     dev = text_ids.device
 
@@ -182,8 +192,30 @@ def teacher_forced(params: Params, cfg: GPTConfig, conds: torch.Tensor,
     emb = torch.cat([conds, text_emb, mel_emb], dim=1)
     hidden = gpt2_forward(params["gpt"], emb,
                           GPT2Dims(cfg.layers, cfg.model_dim, cfg.heads))
-    enc = nn.layer_norm(params["final_norm"], hidden[:, conds.shape[1]:])
-    return enc[:, text_in.shape[1]:][:, :-2]
+    return nn.layer_norm(params["final_norm"], hidden[:, conds.shape[1]:]), text_in, mel_in
+
+
+def forward_logits(params: Params, cfg: GPTConfig, cond_latents: torch.Tensor,
+                   emo_vec: torch.Tensor, text_ids: torch.Tensor, text_lens: torch.Tensor,
+                   mel_codes: torch.Tensor, mel_lens: torch.Tensor, dtype=torch.float32
+                   ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training forward: (text_logits (B, Lt + 2, text vocab),
+    mel_logits (B, Lm + 2, mel codes), {"text_targets", "mel_targets"}),
+    the inputs shifted by one with a stop token appended
+    ([text][stop][stop], [mel][stop][stop])."""
+    enc, text_in, mel_in = _framed_pass(params, cfg,
+                                        build_conds_latent(params, cond_latents, emo_vec),
+                                        text_ids, text_lens, mel_codes, mel_lens, dtype)
+    lt = text_in.shape[1]
+    text_logits = nn.dense(params["text_head"], enc[:, :lt])
+    mel_logits = nn.dense(params["mel_head"], enc[:, lt:])
+
+    def shifted(ids, stop):
+        return torch.cat([ids[:, 1:], torch.full_like(ids[:, :1], stop)], dim=1)
+
+    return text_logits, mel_logits, {
+        "text_targets": shifted(text_in, cfg.stop_text_token),
+        "mel_targets": shifted(mel_in, cfg.stop_mel_token)}
 
 
 def mel_logits_from_hidden(params: Params, hidden: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Conditional flow matching inference (PyTorch counterpart of
-`indextts_tpu/models/s2mel/cfm.py::cfm_inference`): an Euler ODE solve with
-the CFG pair (conditional + null) stacked into one DiT batch per step."""
+"""Conditional flow matching (PyTorch counterpart of
+`indextts_tpu/models/s2mel/cfm.py`): inference, an Euler ODE solve with the
+CFG pair (conditional + null) stacked into one DiT batch per step; and the
+OT-CFM training loss."""
 
 from __future__ import annotations
 
@@ -60,3 +61,40 @@ def cfm_inference(params: Params, s2: S2MelConfig, mu: torch.Tensor,
                             torch.full((B,), t0, device=dev), style, mu, freqs)
         x = torch.where(prompt_region, torch.zeros_like(x), x + float(dt) * v)
     return x
+
+
+def cfm_noise(x1: torch.Tensor, generator: torch.Generator):
+    """The loss's draws for a target x1 (B, T, C): t ~ U(0, 1) of shape (B,
+    1, 1) and z ~ N(0, 1) of x1's shape, f32 from ``generator`` on its
+    device, moved to x1's (host draws make a step the same on every
+    device)."""
+    t = torch.rand((x1.shape[0], 1, 1), generator=generator, device=generator.device)
+    z = torch.randn(tuple(x1.shape), generator=generator, device=generator.device)
+    return t.to(x1.device), z.to(x1.device)
+
+
+def cfm_loss(params: Params, s2: S2MelConfig, x1: torch.Tensor, x_lens: torch.Tensor,
+             prompt_lens: torch.Tensor, mu: torch.Tensor, style: torch.Tensor,
+             t: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """OT-CFM training loss at the draws (t, z) of `cfm_noise`: x1 (B, T, 80)
+    target mel, x_lens (B,) valid frames, prompt_lens (B,) the prompt region
+    (its target goes in as the prompt, its y is zeroed, and it is left out of
+    the loss), mu (B, T, content_dim), style (B, 192). The L1 (or, for
+    ``reg_loss_type == "l2"``, squared) error over [prompt_len, x_len),
+    averaged. The DiT runs its dense attention tier, the one with a
+    backward."""
+    B, T, C = x1.shape
+    sigma_min = 1e-6
+    y = (1 - (1 - sigma_min) * t) * z + t * x1
+    u = x1 - (1 - sigma_min) * z
+    prompt_region = nn.sequence_mask(prompt_lens, T)[:, :, None]
+    prompt = torch.where(prompt_region, x1, torch.zeros_like(x1))
+    y = torch.where(prompt_region, torch.zeros_like(y), y)
+    freqs = torch.as_tensor(precompute_freqs_cis(T, s2.DiT.head_dim, s2.DiT.rope_base),
+                            device=x1.device)
+    v = dit_forward(params, s2, y, prompt, x_lens, t[:, 0, 0], style, mu, freqs, tier="dense")
+    valid = nn.sequence_mask(x_lens, T)[:, :, None] & ~prompt_region
+    err = (v - u).square() if s2.reg_loss_type == "l2" else (v - u).abs()
+    err = torch.where(valid, err, torch.zeros_like(err))
+    denom = torch.clamp(valid.sum().float() * C, min=1.0)
+    return err.float().sum() / denom

@@ -123,15 +123,18 @@ def _attention(cfg: DiTConfig, tier: str, q, k, v, freqs_cis, lengths,
 
 def dit_backbone_forward(p: Params, cfg: DiTConfig, x: torch.Tensor, c: torch.Tensor,
                          freqs_cis: torch.Tensor, lengths: Optional[torch.Tensor],
-                         attn_dtype: torch.dtype) -> torch.Tensor:
+                         attn_dtype: torch.dtype, tier: Optional[str] = None) -> torch.Tensor:
     """x (B, T, D), c (B, 1, D) f32 time conditioning, lengths (B,) valid
     frames (keys past them are masked; None: no mask, the dense tier). The
     kernels' attention runs in ``attn_dtype``; the dense tier in the
-    stream's dtype, as in the JAX package. Query rows past a length are
-    garbage the caller masks."""
+    stream's dtype, as in the JAX package. ``tier`` names the attention tier
+    ("packed", "flash" or "dense"; default `attention_tier`'s): training
+    asks for "dense", the one differentiable tier (the kernels have no
+    backward). Query rows past a length are garbage the caller masks."""
     if cfg.is_causal:
         raise NotImplementedError("causal DiT is not ported (the shipped DiT is non-causal)")
-    tier = attention_tier(cfg, lengths)
+    if tier is None:
+        tier = attention_tier(cfg, lengths)
     for lp in p["layers"]:
         h = _ada_ln(lp["attention_norm"], x, c, cfg.norm_eps)
         q, k, v = torch.chunk(nn.dense(lp["attn"]["wqkv"], h), 3, dim=-1)
@@ -204,10 +207,12 @@ def init_dit(rng: InitRng, s2: S2MelConfig) -> Params:
 
 def dit_forward(p: Params, s2: S2MelConfig, x: torch.Tensor, prompt_x: torch.Tensor,
                 x_lens: torch.Tensor, t: torch.Tensor, style: torch.Tensor,
-                cond: torch.Tensor, freqs_cis: torch.Tensor) -> torch.Tensor:
+                cond: torch.Tensor, freqs_cis: torch.Tensor,
+                tier: Optional[str] = None) -> torch.Tensor:
     """Velocity (B, T, 80) f32 for noisy mel x and prompt mel prompt_x (B, T,
     80), valid lengths x_lens (B,), times t (B,), style (B, 192) and cond
-    (B, T, content_dim); freqs_cis (>= T, head_dim/2, 2)."""
+    (B, T, content_dim); freqs_cis (>= T, head_dim/2, 2); ``tier`` the
+    backbone's attention tier (`dit_backbone_forward`)."""
     cfg, w = s2.DiT, s2.wavenet
     B, T, _ = x.shape
     t1 = timestep_embed(p["t_embedder"], t)                         # (B, D) f32
@@ -218,7 +223,7 @@ def dit_forward(p: Params, s2: S2MelConfig, x: torch.Tensor, prompt_x: torch.Ten
     x_in = nn.dense(p["cond_x_merge_linear"], x_in)
     mask = nn.sequence_mask(x_lens, T)
     x_res = dit_backbone_forward(p["transformer"], cfg, x_in, t1[:, None, :],
-                                 freqs_cis, x_lens, cond.dtype)
+                                 freqs_cis, x_lens, cond.dtype, tier)
     x_res = nn.dense(p["skip_linear"], torch.cat([x_res, x.to(dt)], dim=-1))
     h = nn.dense(p["conv1"], x_res)
     t2 = timestep_embed(p["t_embedder2"], t)

@@ -155,6 +155,7 @@ def rope_qk(q: torch.Tensor, k: torch.Tensor, freqs_cis: torch.Tensor,
     or fp16 and contiguous, freqs_cis f32 and contiguous) launch the kernel,
     which writes the rotated q and k to new (B, T, H*D) tensors; anything
     else raises."""
+    cuda.refuse_grad("rope_qk", q, k, freqs_cis)
     if q.device.type == "cpu":
         return rope_qk_plain(q, k, freqs_cis, heads)
     B, T, D = _check_packed("rope_qk", heads, q, k)
@@ -181,6 +182,7 @@ def attention_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rope pass into scratch q and k, then K2''s attention kernel on them (one
     host call; both counted: ``rope_qk.launches`` too); anything else
     raises."""
+    cuda.refuse_grad("attention_rope", q, k, v, freqs_cis)
     if q.device.type == "cpu":
         return attention_rope_plain(q, k, v, lengths, freqs_cis, heads)
     B, T, D = _check_packed("attention_rope", heads, q, k, v)
@@ -209,6 +211,7 @@ def packed_pair_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     heads on 128 lanes is a TPU layout and is not carried over: any H);
     lengths: (B,) int. CPU tensors run the plain version; CUDA tensors (bf16
     or fp16, contiguous) launch the kernel; anything else raises."""
+    cuda.refuse_grad("packed_pair_attention", q, k, v)
     if q.device.type == "cpu":
         return packed_pair_attention_plain(q, k, v, lengths, heads)
     B, T, D = _check_packed("packed_pair_attention", heads, q, k, v)
@@ -254,6 +257,7 @@ def single_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bf16 or fp16; k and v taken in q's dtype) launch the kernel, whose
     output is the (B, H, T, D) view of a (B, T, H, D) buffer; anything else
     (a layout TMA cannot read included: no copy is made) raises."""
+    cuda.refuse_grad("single_block_attention", q, k, v)
     if q.device.type == "cpu":
         return single_block_attention_plain(q, k, v, lengths)
     if q.device.type != "cuda":

@@ -150,6 +150,31 @@ def check(code: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
 
 
+def refuse_grad(name: str, *inputs) -> None:
+    """Raise while autograd records (`torch.is_grad_enabled()`) and one of
+    ``inputs`` (tensors, or dict / list / tuple trees of them) requires a
+    gradient. The kernels have no backward: each writes a fresh buffer
+    through ctypes, so its output has no ``grad_fn``, and a loss through it
+    would give everything before the kernel no gradient without a word. Each
+    wrapper calls this before it picks its CPU or CUDA route, so the plain
+    twins refuse too; the training step takes the differentiable plain
+    paths by choice (the DiT's dense tier)."""
+    if not torch.is_grad_enabled():
+        return
+    todo = list(inputs)
+    while todo:
+        t = todo.pop()
+        if isinstance(t, torch.Tensor):
+            if t.requires_grad:
+                raise RuntimeError(f"{name}: a hand-written kernel has no backward, and an "
+                                   "input requires a gradient; call it under "
+                                   "torch.no_grad() or detach the input")
+        elif isinstance(t, dict):
+            todo.extend(t.values())
+        elif isinstance(t, (list, tuple)):
+            todo.extend(t)
+
+
 def stream_ptr(t) -> int:
     """The raw cudaStream_t of the current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream

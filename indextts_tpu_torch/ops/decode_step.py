@@ -202,6 +202,7 @@ def decode_attention(qkv: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     the kernel (``decode_attention.launches`` counts the bf16-cache launches,
     ``decode_attention.kvq_launches`` the int8-cache ones); anything else
     raises."""
+    cuda.refuse_grad("decode_attention", qkv, ck, cv, kvs)
     if qkv.device.type == "cpu":
         return decode_attention_plain(qkv, ck, cv, kv_valid, pos, heads, anc, group, kvs)
     if qkv.device.type != "cuda":
@@ -824,6 +825,7 @@ def fused_decode_step(params, x: torch.Tensor, dims, pos: int,
     launch the persistent kernel, one launch a step
     (``fused_decode_step.launches``); anything else raises, as does what it
     does not take: float weights, another cache layout, B > 24."""
+    cuda.refuse_grad("fused_decode_step", params, x, kv_cache)
     _check_step(params, x, kv_cache, group, anc)
     if x.device.type == "cpu":
         return _step(TWINS, params, x, dims.heads, pos, kv_cache, kv_valid, anc, group,

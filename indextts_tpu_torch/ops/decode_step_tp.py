@@ -97,6 +97,7 @@ def tp_allreduce(own: torch.Tensor, peer: torch.Tensor, scale: torch.Tensor,
     residual (M, N) bf16 on own's device. Returns (M, N) bf16. CPU tensors
     run the plain twin; CUDA tensors launch `csrc/tp_allreduce.cu` on the
     current stream; anything else raises."""
+    cuda.refuse_grad("tp_allreduce", own, peer, scale, bias, residual)
     if own.device.type == "cpu":
         return tp_allreduce_plain(own, peer, scale, bias, residual, rank)
     if own.device.type != "cuda" or peer.device.type != "cuda":
@@ -375,6 +376,7 @@ def fused_decode_step_tp(params, x: torch.Tensor, dims, pos: int, kv_cache: Dict
     shards on one card, ONE launch of the persistent kernel
     (``fused_decode_step_tp.launches``); on two cards the chain
     (`fused_decode_step_tp_chain`). The module docstring says why."""
+    cuda.refuse_grad("fused_decode_step_tp", params, x, kv_cache)
     if x.device.type == "cpu" or not co_located(params["mesh"]):
         return fused_decode_step_tp_chain(params, x, dims, pos, kv_cache, kv_valid, anc, group,
                                           layer_inputs)

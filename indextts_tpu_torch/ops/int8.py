@@ -193,6 +193,7 @@ def int8_matvec(x: torch.Tensor, q: torch.Tensor, *, ln: LN = None, scale=None,
     """K7a: (M, K) bf16 @ (N, K)^T int8 -> (M, N) f32, or bf16 with the
     scale / bias (/ residual) epilogue; ``ln`` LayerNorms x first. CPU tensors
     run the plain twin; CUDA tensors launch the kernel; anything else raises."""
+    cuda.refuse_grad("int8_matvec", x, ln, scale, bias, residual)
     epi = _epilogue(scale, bias, residual)
     if x.device.type == "cpu":
         return _gemv_plain(x, q, ln, scale, bias, epi, residual)
@@ -218,6 +219,7 @@ def int8_mlp(x: torch.Tensor, w1q: torch.Tensor, s1: torch.Tensor, b1: torch.Ten
     after the bias and again after gelu_new. ``scale2, bias2`` (and
     ``residual``) apply the second layer's epilogue, ``ln`` LayerNorms x
     first. Two launches of the GEMV kernel; CPU tensors run the plain twin."""
+    cuda.refuse_grad("int8_mlp", x, ln, s1, b1, scale2, bias2, residual)
     epi2 = _epilogue(scale2, bias2, residual)
     if x.device.type == "cpu":
         return int8_mlp_plain(x, w1q, s1, b1, w2q, ln=ln, scale2=scale2, bias2=bias2,
@@ -240,6 +242,7 @@ def int4_matvec(x: torch.Tensor, q4: torch.Tensor, *, ln: LN = None, scale=None,
     """`int8_matvec` on int4 weights q4 (N, K/2) (`nn.quantize_dense_int4`),
     the nibbles unpacked in the kernel. CPU tensors run the plain twin; CUDA
     tensors launch the kernel; anything else raises."""
+    cuda.refuse_grad("int4_matvec", x, ln, scale, bias, residual)
     epi = _epilogue(scale, bias, residual)
     if x.device.type == "cpu":
         return int4_matvec_plain(x, q4, ln=ln, scale=scale, bias=bias, residual=residual)
@@ -261,6 +264,7 @@ def int4_mlp(x: torch.Tensor, w1q4: torch.Tensor, s1: torch.Tensor, b1: torch.Te
              residual=None) -> torch.Tensor:
     """`int8_mlp` on int4 weights w1q4 (F, K/2) and w2q4 (K, F/2): two
     launches of the GEMV kernel; CPU tensors run the plain twin."""
+    cuda.refuse_grad("int4_mlp", x, ln, s1, b1, scale2, bias2, residual)
     epi2 = _epilogue(scale2, bias2, residual)
     if x.device.type == "cpu":
         return int4_mlp_plain(x, w1q4, s1, b1, w2q4, ln=ln, scale2=scale2, bias2=bias2,

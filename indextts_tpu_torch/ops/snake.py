@@ -195,6 +195,7 @@ def antialias_snake(x: torch.Tensor, alpha: torch.Tensor,
     = Snake); lengths: (B,) valid frames. CPU tensors run the plain version;
     CUDA tensors (x contiguous bf16 or fp16) launch the kernel; anything
     else raises."""
+    cuda.refuse_grad("antialias_snake", x, alpha, beta)
     if x.device.type == "cpu":
         return antialias_snake_plain(x, alpha, beta, lengths, logscale)
     out = _launch("antialias_snake", x, alpha, beta, lengths, logscale)
@@ -213,6 +214,7 @@ def fused_antialias_activation(x: torch.Tensor, alpha: torch.Tensor, beta: torch
     kernel's tiling (T % t_tile, C % c_tile) is its own; any T and C run
     here. CPU tensors run the plain version; CUDA tensors (x contiguous
     bf16 or fp16) launch the kernel; anything else raises."""
+    cuda.refuse_grad("fused_antialias_activation", x, alpha, beta)
     if x.device.type == "cpu":
         return antialias_snake_plain(x, alpha, beta, lengths, logscale)
     out = _launch("fused_antialias_activation", x, alpha, beta, lengths, logscale)
@@ -234,6 +236,7 @@ def antialias_activation_prefolded(xf: torch.Tensor, alpha: torch.Tensor,
     it is then, row-major, the (B, R*f, C) tensor, which the kernel takes
     as a view (no copy). CPU tensors run the plain version; CUDA tensors
     (bf16 or fp16) launch the kernel; anything else raises."""
+    cuda.refuse_grad("antialias_activation_prefolded", xf, alpha, beta)
     B, R, fC = xf.shape
     if fC != f * C:
         raise ValueError(f"antialias_activation_prefolded: last axis {fC} != f*C = {f}*{C}")

@@ -26,7 +26,7 @@ per-module dicts) and casts every tensor to f32 numpy, as the JAX loader does.
 The v1 family's converters (attention blocks, the v1 UnifiedVoice, ECAPA,
 BigVGAN v1) are copies of the JAX package's too; the Qwen converter
 (`convert_qwen`) lives beside its model in `models/qwen.py`, as in the JAX
-package's; the DVAE converter is not ported yet (ROADMAP queue 1).
+package's; `convert_dvae` is the DVAE's (`models/codec/dvae.py`).
 """
 
 from __future__ import annotations
@@ -694,6 +694,31 @@ def convert_bigvgan_v1(sd: SD, h) -> dict:
     p["speaker_encoder"] = convert_ecapa(sd, "speaker_encoder.")
     p["cond_layer"] = conv1d(sd, "cond_layer")
     return p
+
+
+# -- DVAE -------------------------------------------------------------------------
+
+def convert_dvae(sd: SD, num_layers: int = 2, num_resnet_blocks: int = 3) -> dict:
+    """DiscreteVAE (reference `vqvae/xtts_dvae.py`), 1-D variant. Encoder
+    Sequential: [Sequential(conv, act)] * num_layers, [ResBlock] * n_res, a
+    final 1x1 conv; decoder: a 1x1 conv (codebook -> inner), [ResBlock] *
+    n_res, [Sequential(convT, act)] * num_layers, a final 1x1 conv."""
+    def res(prefix, i):
+        return {"c1": conv1d(sd, f"{prefix}.{i}.net.0"), "c2": conv1d(sd, f"{prefix}.{i}.net.2"),
+                "c3": conv1d(sd, f"{prefix}.{i}.net.4")}
+
+    n_res = num_resnet_blocks
+    return {
+        "enc_convs": [conv1d(sd, f"encoder.{i}.0") for i in range(num_layers)],
+        "enc_res": [res("encoder", num_layers + i) for i in range(n_res)],
+        "enc_out": conv1d(sd, f"encoder.{num_layers + n_res}"),
+        "dec_in": conv1d(sd, "decoder.0"),
+        "dec_res": [res("decoder", 1 + i) for i in range(n_res)],
+        "dec_convs": [conv_transpose1d(sd, f"decoder.{1 + n_res + i}.0")
+                      for i in range(num_layers)],
+        "dec_out": conv1d(sd, f"decoder.{1 + n_res + num_layers}"),
+        "codebook": {"embed": sd["codebook.embed"]},
+    }
 
 
 # -- repcodec -------------------------------------------------------------------

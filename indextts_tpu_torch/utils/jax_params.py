@@ -26,6 +26,14 @@ Everything else (norm scales, biases, embeddings, codebooks, snake alphas)
 is copied unchanged. In particular the DiT's ``wqkv`` columns are already
 pair-deinterleaved for the half-split rope in both packages and are not
 permuted.
+
+`to_jax` is the inverse on float trees (the trainer's checkpoints, and the
+tests' gradient comparisons): numpy arrays in the JAX layouts. A torch
+weight is a JAX kernel and a list a JAX stack only where `to_torch` made
+them (an embedding's ``weight`` is 2-D too, and the WaveNet's ``layers`` is
+a list in both packages), so `to_torch` returns those two as the marked
+types `Kernel` and `LayerStack`, which behave as the dict and the list they
+are.
 """
 
 from __future__ import annotations
@@ -36,8 +44,16 @@ import numpy as np
 import torch
 
 # keys whose value is a conv-transpose param dict / a scanned layer stack
-_CONV_TRANSPOSE = ("ups",)
+_CONV_TRANSPOSE = ("ups", "dec_convs")
 _STACKED = ("h", "layers")
+
+
+class Kernel(dict):
+    """A layer whose JAX ``kernel`` `to_torch` turned into a torch ``weight``."""
+
+
+class LayerStack(list):
+    """The per-layer list `to_torch` made of a scanned stack (leading L axis)."""
 
 
 def _tensor(x, device, dtype) -> torch.Tensor:
@@ -102,7 +118,7 @@ def to_torch(tree: Any, device=None, dtype: Optional[torch.dtype] = None,
         return [to_torch(v, device, dtype, _transpose_conv) for v in tree]
     if not isinstance(tree, dict):
         return _tensor(tree, device, dtype)
-    out = {}
+    out = Kernel() if "kernel" in tree else {}
     for qkey in ("q", "q4"):
         if qkey in tree:
             q = _tensor(tree[qkey], device, None)
@@ -117,7 +133,59 @@ def to_torch(tree: Any, device=None, dtype: Optional[torch.dtype] = None,
             out["weight"] = _kernel(_tensor(val, device, dtype),
                                     _transpose_conv).contiguous()
         elif key in _STACKED and _is_stack(val):
-            out[key] = [to_torch(lp, device, dtype) for lp in _unstack(val)]
+            out[key] = LayerStack(to_torch(lp, device, dtype) for lp in _unstack(val))
         else:
             out[key] = to_torch(val, device, dtype, key in _CONV_TRANSPOSE)
+    return out
+
+
+def _unkernel(w: torch.Tensor, transpose_conv: bool) -> torch.Tensor:
+    """The inverse of `_kernel`."""
+    if w.ndim == 2:
+        return w.t()
+    if w.ndim == 3:
+        if transpose_conv:
+            return torch.flip(w, dims=(-1,)).permute(2, 0, 1)
+        return w.permute(2, 1, 0)
+    if w.ndim == 4:
+        return w.permute(2, 3, 1, 0)
+    raise ValueError(f"unsupported weight rank {w.ndim}")
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return np.ascontiguousarray(t.cpu().numpy())
+
+
+def _stack(layers: list) -> Any:
+    if isinstance(layers[0], dict):
+        return {k: _stack([lp[k] for lp in layers]) for k in layers[0]}
+    if isinstance(layers[0], list):
+        return [_stack([lp[i] for lp in layers]) for i in range(len(layers[0]))]
+    return np.stack(layers)
+
+
+def to_jax(tree: Any, _transpose_conv: bool = False) -> Any:
+    """The inverse of `to_torch` on a float tree: numpy arrays in the JAX
+    package's layouts (weights of `Kernel` layers back to kernels,
+    `LayerStack` lists stacked on a leading axis; bf16 and fp16 leaves
+    widened to f32). ``to_jax(to_torch(t))`` returns every leaf of a JAX
+    float tree exactly. Weight-only quantized layers raise: their scale's
+    JAX shape is not kept."""
+    if isinstance(tree, LayerStack):
+        return _stack([to_jax(lp) for lp in tree])
+    if isinstance(tree, (list, tuple)):
+        return [to_jax(v, _transpose_conv) for v in tree]
+    if not isinstance(tree, dict):
+        return _numpy(tree)
+    if "q" in tree or "q4" in tree:
+        raise ValueError("to_jax takes float trees, not weight-only quantized layers")
+    out = {}
+    for key, val in tree.items():
+        if key == "weight" and isinstance(tree, Kernel):
+            out["kernel"] = _numpy(_unkernel(val, _transpose_conv))
+        else:
+            out[key] = to_jax(val, key in _CONV_TRANSPOSE)
     return out

@@ -68,7 +68,9 @@ def test_port_and_smoke_import_nothing_of_jax_or_the_jax_package():
         "        'indextts_tpu_torch.cli_v2', 'indextts_tpu_torch.utils.download',\n"
         "        'indextts_tpu_torch.webui', 'indextts_tpu_torch.utils.presets',\n"
         "        'indextts_tpu_torch.utils.i18n',\n"
-        "        'indextts_tpu_torch.utils.examples_downloader'} <= set(names), \\\n"
+        "        'indextts_tpu_torch.utils.examples_downloader',\n"
+        "        'indextts_tpu_torch.parallel.train', 'indextts_tpu_torch.train',\n"
+        "        'indextts_tpu_torch.models.codec.dvae'} <= set(names), \\\n"
         "    names\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO)
     assert res.returncode == 0, res.stderr
