@@ -2411,15 +2411,17 @@ def want_counts(tts, quantization: str, n: int) -> dict:
     decode step (under the tp mesh, both shards on this card, K6 once a
     decode step), and none of the standalone GEMV, attention or
     `tp_allreduce` kernels; K2 / K3
-    (and K2's rope pass) as in the bf16 pass; no bf16 step, no cache gather, no cache growth
+    (and K2's rope pass) as in the bf16 pass, K2 once a DiT shard under the
+    tp mesh; no bf16 step, no cache gather, no cache growth
     (the beam engine sizes its cache once), and none of the kernels without
     a caller on this path."""
     from indextts_tpu_torch.models.vocoder.bigvgan import activation1d_calls
 
     steps = n * DECODE_STEPS
     tp = tts.mesh is not None
-    return {"attention_rope": n * tts.cfg.s2mel.DiT.depth * 25,
-            "rope_qk": n * tts.cfg.s2mel.DiT.depth * 25,      # K2's rope pass
+    k2 = n * tts.cfg.s2mel.DiT.depth * 25 * (tts.mesh.tp if tp else 1)   # once a DiT shard
+    return {"attention_rope": k2,
+            "rope_qk": k2,                                     # K2's rope pass
             "antialias_snake": n * activation1d_calls(tts.cfg.bigvgan),
             "fused_decode_step": 0 if tp else steps, "fused_decode_step_tp": steps if tp else 0,
             "tp_allreduce": 0, "int8_matvec": 0, "int8_mlp": 0, "int4_matvec": 0,
@@ -3534,20 +3536,20 @@ def fp16_phase(card: str, prompt: str, model_dir: str) -> tuple:
     return counts, flash, st
 
 
-def longform_text(tts) -> str:
+def longform_text(tts, count: int = LONGFORM_SEGMENTS) -> str:
     """The long-form text: SENTENCE repeated until the tokenizer splits it
-    into LONGFORM_SEGMENTS segments at 120 tokens (the last one shorter, so
-    its rows are left-padded more than the others)."""
+    into ``count`` segments at 120 tokens (the last one shorter, so its rows
+    are left-padded more than the others)."""
     def segments(n):
         return tts.tokenizer.split_segments(tts.tokenizer.tokenize(SENTENCE * n), 120)
 
     n = 1
-    while len(segments(n)) < LONGFORM_SEGMENTS:
+    while len(segments(n)) < count:
         n += 1
     segs = segments(n)
     print(f"long-form text: SENTENCE x {n} -> {len(segs)} segments of "
           f"{[len(s) for s in segs]} tokens at max_text_tokens_per_segment=120", flush=True)
-    assert len(segs) == LONGFORM_SEGMENTS, len(segs)
+    assert len(segs) == count, len(segs)
     return SENTENCE * n
 
 
@@ -3823,6 +3825,380 @@ def longform_bf16_phase(card: str, prompt: str, model_dir: str) -> tuple:
     del tts
     torch.cuda.empty_cache()
     return counts, st
+
+
+# the mesh pass: the GSPMD decode's quantizations, its requests' codes, the
+# checked steps (K6's gate), the DiT's tp and sp gates
+MESH_TP_QUANT = (None, "int4", "int8kv", "int8")
+MESH_TP_CODES = 48
+MESH_ROWS_SEGMENTS = 9                     # 27 rows at num_beams=3
+MESH_ROWS_CODES = 40
+DIT_TP_REL_L2 = 2e-2                       # the attention gate
+DIT_SP_REL_L2 = 1e-3
+MESH_CFM_FRAMES = (172, 688)               # prompt and mel frames of a 400-code request
+
+
+def join_gpt(tp) -> dict:
+    """The unsharded GPT-2 tree of a tensor-parallel one (`shard_gpt2_tp`'s
+    inverse, on rank 0's device): the same bytes as the tree it split."""
+    import torch
+
+    from indextts_tpu_torch import nn
+
+    dev = tp["mesh"].devices[0]
+
+    def rows(parts, groups):
+        return {k: torch.cat([p[k].to(dev).reshape(groups, -1, *p[k].shape[1:])
+                              for p in parts], 1).reshape(-1, *parts[0][k].shape[1:])
+                for k in parts[0]}
+
+    def cols(parts):
+        out = {k: v for k, v in parts[0].items() if k not in ("q", "q4", "weight")}
+        w = next(k for k in ("q", "q4", "weight") if k in parts[0])
+        if w == "q4":
+            out[w] = nn.pack_int4(torch.cat([nn.unpack_int4(p[w].to(dev)) for p in parts], 1))
+        else:
+            out[w] = torch.cat([p[w].to(dev) for p in parts], 1)
+        return out
+
+    h = [{"ln_1": lps[0]["ln_1"], "ln_2": lps[0]["ln_2"],
+          "attn": {"c_attn": rows([lp["attn"]["c_attn"] for lp in lps], 3),
+                   "c_proj": cols([lp["attn"]["c_proj"] for lp in lps])},
+          "mlp": {"c_fc": rows([lp["mlp"]["c_fc"] for lp in lps], 1),
+                  "c_proj": cols([lp["mlp"]["c_proj"] for lp in lps])}}
+         for lps in zip(*tp["shards"])]
+    return {"h": h, "ln_f": tp["ln_f"]}
+
+
+def join_cache(kv, heads: int) -> dict:
+    """A tensor-parallel cache's shards as one cache (each shard's int8
+    scale lanes moved to its heads' lanes)."""
+    import torch
+
+    from indextts_tpu_torch.models.gpt.gpt2 import SCALE_LANES
+
+    shards = kv["shards"]
+    out = {k: torch.cat([c[k] for c in shards], -1) for k in ("k", "v")}
+    if "kvs" in shards[0]:
+        hl, half = heads // len(shards), SCALE_LANES // 2
+        kvs = torch.zeros_like(shards[0]["kvs"])
+        for t, c in enumerate(shards):
+            kvs[..., t * hl:(t + 1) * hl] = c["kvs"][..., :hl]
+            kvs[..., half + t * hl:half + (t + 1) * hl] = c["kvs"][..., half:half + hl]
+        out["kvs"] = kvs
+    return out
+
+
+def gspmd_step_check(n: int = TWIN_CHECKED_STEPS):
+    """Wrap the plain decode step of `engine/decode.py`: its first ``n``
+    calls on a tensor-parallel tree run with every layer's input kept, and
+    each layer is held against the unsharded tree's layer (`join_gpt`,
+    `cached_layer`) on the same input, against a joined copy of the cache
+    (`join_cache`): layer by layer, as K6's check holds its layers. Returns
+    (the record, a function that unwraps)."""
+    from indextts_tpu_torch import nn
+    from indextts_tpu_torch.engine import decode
+    from indextts_tpu_torch.models.gpt.gpt2 import cached_layer
+    from indextts_tpu_torch.parallel.mesh import is_tp
+
+    orig = decode.gpt2_decode_step
+    site = {"n": 0, "layer": 0.0, "hidden": 0.0, "rows": set(), "joined": None}
+
+    def checked(params, x, dims, pos, kv, kv_valid, collect_hiddens=False):
+        if site["n"] >= n or not is_tp(params) or collect_hiddens:
+            return orig(params, x, dims, pos, kv, kv_valid, collect_hiddens)
+        if site["joined"] is None or site["joined"][0] is not params:
+            site["joined"] = (params, join_gpt(params))
+        joined = site["joined"][1]
+        h, hs = orig(params, x, dims, pos, kv, kv_valid, True)
+        ref_kv, mask = join_cache(kv, dims.heads), kv_valid[:, None, None, :]
+        for li, lp in enumerate(joined["h"]):
+            out = cached_layer(lp, hs[li][:, None], dims, pos, ref_kv, li, mask)[:, 0]
+            if li + 1 < len(hs):
+                site["layer"] = max(site["layer"], rel_l2(hs[li + 1], out))
+            else:
+                site["hidden"] = max(site["hidden"],
+                                     rel_l2(h, nn.layer_norm(joined["ln_f"], out)))
+        site["rows"].add(x.shape[0])
+        site["n"] += 1
+        return h
+
+    decode.gpt2_decode_step = checked
+
+    def undo():
+        decode.gpt2_decode_step = orig
+    return site, undo
+
+
+def recorded_codes(tts) -> list:
+    """Wrap ``tts.codes_to_wav``: each call appends (codes on the host,
+    lengths) to the returned list; ``del tts.codes_to_wav`` unwraps."""
+    seen = []
+    orig = tts.codes_to_wav
+
+    def record(*args, **kwargs):
+        seen.append((args[5].cpu(), np.atleast_1d(np.asarray(args[6]))))
+        return orig(*args, **kwargs)
+
+    tts.codes_to_wav = record
+    return seen
+
+
+def mesh_dp_pass(card: str, prompt: str, model_dir: str) -> dict:
+    """dp=2 x tp=1 with both ranks on this card: the long-form 8-segment
+    int8 request at num_beams=3, do_sample=False, 400 codes a segment, on
+    `IndexTTS2(mesh=make_mesh(["cuda:0", "cuda:0"], tp=1))`, against the
+    single-device int8 pipeline on the same seed's weights decoding the
+    same rows a chunk (MAX_ROWS = 12: chunks of 4 segments, the dp ranks'
+    rows): codes equal, the long-form pass's wav gate, K1 launches per rank
+    (one 12-row chunk each). The share of codes equal to the default
+    single-device run (one 24-row chunk) is printed: K1's bits depend on the
+    rows a launch holds. Returns the dp request's counts."""
+    import torch
+
+    from indextts_tpu_torch.ops.decode_step import fused_decode_step
+    from indextts_tpu_torch.parallel.mesh import make_mesh
+    from indextts_tpu_torch.pipeline import infer_v2 as iv2
+
+    one = iv2.IndexTTS2(cfg_path=None, model_dir=model_dir, device="cuda", seed=0,
+                        quantization="int8")
+    text = longform_text(one)
+    seen = recorded_codes(one)
+    rows = iv2.MAX_ROWS
+    for max_rows in (rows, LONGFORM_SEGMENTS // 2 * 3):
+        iv2.MAX_ROWS = max_rows
+        try:
+            one.generator.manual_seed(0)
+            longform_request(one, prompt, text, card, f"single-device int8 num_beams=3, "
+                             f"{max_rows}-row chunks (mesh pass)", num_beams=3, do_sample=False)
+        finally:
+            iv2.MAX_ROWS = rows
+    (codes24, lens24), (ref_codes, ref_lens) = seen
+    del one, seen
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tts = iv2.IndexTTS2(cfg_path=None, model_dir=model_dir, seed=0, quantization="int8",
+                        mesh=make_mesh(["cuda:0", "cuda:0"], tp=1))
+    torch.cuda.synchronize()
+    print(f"dp model build ({tts.mesh}): {time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+    per_rank = []
+    orig = tts._decode_rows
+
+    def counted(*args, **kwargs):
+        before = fused_decode_step.launches
+        out = orig(*args, **kwargs)
+        per_rank.append((args[1].shape[0], fused_decode_step.launches - before))
+        return out
+
+    tts._decode_rows = counted
+    seen = recorded_codes(tts)
+    reset_counts()
+    tts.generator.manual_seed(0)
+    longform_request(tts, prompt, text, card, "dp=2 int8 num_beams=3 (ranks co-located)",
+                     num_beams=3, do_sample=False)
+    counts = read_counts()
+    codes, lens = seen[-1]
+
+    def share(a, la, b, lb):
+        return float(np.mean([(a[i, :n] == b[i, :n]).float().mean().item()
+                              for i, n in enumerate(np.minimum(la, lb))]))
+
+    equal = bool(np.array_equal(lens, ref_lens)) and all(
+        torch.equal(codes[b, :n], ref_codes[b, :n]) for b, n in enumerate(ref_lens))
+    print(f"dp=2 long-form request: ranks' (prefix rows, K1 launches) {per_rank}; codes equal "
+          f"to the single-device run in 12-row chunks: {equal} "
+          f"({100 * share(codes, lens, ref_codes, ref_lens):.2f} %), to the default one (one "
+          f"24-row chunk): {100 * share(codes, lens, codes24, lens24):.2f} %; the two "
+          f"single-device runs: {100 * share(ref_codes, ref_lens, codes24, lens24):.2f} %; "
+          f"launches {counts} [{card}]", flush=True)
+    assert per_rank == [(LONGFORM_SEGMENTS // 2, DECODE_STEPS)] * 2, per_rank
+    assert counts["fused_decode_step"] == 2 * DECODE_STEPS, counts
+    assert counts["attention_rope"] == 2 * tts.cfg.s2mel.DiT.depth * 25, counts
+    assert equal
+    del tts, seen
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mesh_tp_pass(card: str, prompt: str, model_dir: str) -> dict:
+    """tp=2 with both ranks on this card and no INDEXTTS_TP_DECODE: the
+    GSPMD route (the plain step on the shards) for bf16, int4, int8kv and
+    int8. One single-segment num_beams=3 request each, MESH_TP_CODES codes,
+    its first TWIN_CHECKED_STEPS steps held layer by layer against the
+    unsharded plain step (`gspmd_step_check`, rel-L2 <= K1_REL_L2); the
+    share of its codes equal to the same request on the unsharded tree
+    (printed, not gated). Then, on the int8 model, 9 segments at
+    num_beams=3 (27 rows) held the same way. Returns the counts."""
+    import torch
+
+    from indextts_tpu_torch.engine import decode
+    from indextts_tpu_torch.parallel.mesh import make_mesh
+    from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
+
+    saved = os.environ.pop("INDEXTTS_TP_DECODE", None)
+    counts = {}
+    try:
+        for q in MESH_TP_QUANT:
+            label = q or "bf16"
+            t0 = time.perf_counter()
+            tts = IndexTTS2(cfg_path=None, model_dir=model_dir, seed=0, quantization=q,
+                            mesh=make_mesh(["cuda:0", "cuda:0"]))
+            torch.cuda.synchronize()
+            build = time.perf_counter() - t0
+            site, undo = gspmd_step_check()
+            reset_counts()
+            kw = dict(max_mel_tokens=MESH_TP_CODES, min_new_tokens=MESH_TP_CODES - 1,
+                      num_beams=3, do_sample=False)
+            seen = recorded_codes(tts)
+            try:
+                tts.generator.manual_seed(0)
+                sr, wav = tts.infer(spk_audio_prompt=prompt, text=SENTENCE, output_path=None,
+                                    **kw)
+            finally:
+                undo()
+            counts[f"mesh_tp_{label}"] = c = read_counts()
+            st = tts.last_stage_times
+            assert decode.decode_route(tts.gpt_params, 3, tts._sampling({}).kv_quant) == "plain"
+            assert c["fused_decode_step"] == c["fused_decode_step_tp"] == 0, c
+            assert np.all(np.isfinite(wav)) and np.abs(wav).max() > 0
+            sharded = tts.gpt_params["gpt"]
+            tts.gpt_params["gpt"] = join_gpt(sharded)
+            tts.generator.manual_seed(0)
+            tts.infer(spk_audio_prompt=prompt, text=SENTENCE, output_path=None, **kw)
+            tts.gpt_params["gpt"] = sharded
+            (a, la), (b, lb) = seen
+            n = int(min(la[0], lb[0]))
+            share = (a[0, :n] == b[0, :n]).float().mean().item()
+            print(f"tp=2 GSPMD {label} request (model build {build:.2f} s): codes={st['codes']} "
+                  f"gpt={st['gpt']:.4f}s gpt_forward={st['gpt_forward']:.4f}s "
+                  f"s2mel={st['s2mel']:.4f}s bigvgan={st['bigvgan']:.4f}s "
+                  f"total={st['total']:.4f}s RTF={st['rtf']:.4f}; first {site['n']} steps vs "
+                  f"the unsharded plain step: layer outputs rel_l2 <= {site['layer']:.3e}, "
+                  f"hidden after ln_f {site['hidden']:.3e}; codes equal to the unsharded "
+                  f"tree's request: {100 * share:.2f} % [{card}]", flush=True)
+            assert site["n"] == TWIN_CHECKED_STEPS and site["rows"] == {3}, site
+            assert site["layer"] <= K1_REL_L2 and site["hidden"] <= K1_REL_L2, site
+            if q == "int8":
+                text = longform_text(tts, MESH_ROWS_SEGMENTS)
+                site, undo = gspmd_step_check()
+                try:
+                    tts.generator.manual_seed(0)
+                    sr, wav = tts.infer(spk_audio_prompt=prompt, text=text, output_path=None,
+                                        max_mel_tokens=MESH_ROWS_CODES,
+                                        min_new_tokens=MESH_ROWS_CODES - 1, num_beams=3,
+                                        do_sample=False)
+                finally:
+                    undo()
+                st = tts.last_stage_times
+                print(f"tp=2 int8 {len(st['segment_codes'])} segments x 3 beams (one batch of "
+                      f"{3 * len(st['segment_codes'])} rows on the GSPMD route): "
+                      f"gpt={st['gpt']:.4f}s s2mel={st['s2mel']:.4f}s total={st['total']:.4f}s "
+                      f"RTF={st['rtf']:.4f}; first {site['n']} steps layer outputs rel_l2 <= "
+                      f"{site['layer']:.3e}, hidden {site['hidden']:.3e} [{card}]", flush=True)
+                assert len(st["segment_codes"]) == MESH_ROWS_SEGMENTS, st["segment_codes"]
+                assert site["rows"] == {3 * MESH_ROWS_SEGMENTS} and site["n"] == \
+                    TWIN_CHECKED_STEPS, site
+                assert site["layer"] <= K1_REL_L2 and site["hidden"] <= K1_REL_L2, site
+                assert np.all(np.isfinite(wav)) and np.abs(wav).max() > 0
+            del tts, seen
+            torch.cuda.empty_cache()
+    finally:
+        if saved is not None:
+            os.environ["INDEXTTS_TP_DECODE"] = saved
+    return counts
+
+
+def mesh_dit_pass(card: str) -> dict:
+    """The DiT over the mesh at the shipped widths on this card: one CFM
+    (25 steps, CFG, a 400-code request's MESH_CFM_FRAMES) on the tp=2 DiT
+    (K2 once a shard: twice the single-device launches; then on the flash
+    tier, K4 likewise) against the single-device CFM on the same tier
+    (rel-L2 <= DIT_TP_REL_L2), and at sp=2 and sp=2 x tp=2 against the
+    single-device dense tier (<= DIT_SP_REL_L2). Returns the K2 launches of
+    the single-device and tp=2 calls and K4's of the tp=2 flash call."""
+    import torch
+
+    from indextts_tpu_torch.config import IndexTTS2Config
+    from indextts_tpu_torch.models.s2mel.cfm import cfm_inference
+    from indextts_tpu_torch.ops.attn import attention_rope, single_block_attention
+    from indextts_tpu_torch.parallel.mesh import make_mesh, shard_dit
+    from indextts_tpu_torch.pipeline.infer_v2 import random_trees
+    from indextts_tpu_torch.utils.jax_params import to_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = IndexTTS2Config()
+    s2 = cfg.s2mel
+    dev, bf16 = torch.device("cuda:0"), torch.bfloat16
+    cfm = to_torch(random_trees(cfg, 0, dev, ("s2mel",))["s2mel"], dev, bf16)["cfm"]
+    g = torch.Generator(device=dev).manual_seed(3)
+    P, M = MESH_CFM_FRAMES
+    T = P + M
+    mu = torch.randn((1, T, s2.DiT.content_dim), generator=g, device=dev).to(bf16)
+    prompt = torch.randn((1, T, s2.DiT.in_channels), generator=g, device=dev).to(bf16)
+    style = torch.randn((1, 192), generator=g, device=dev).to(bf16)
+    z = torch.randn((1, T, s2.DiT.in_channels), generator=g, device=dev)
+    x_lens, p_lens = torch.tensor([T - 37], device=dev), torch.tensor([P - 20], device=dev)
+
+    def run(tree):
+        attention_rope.launches = single_block_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cfm_inference(tree, s2, mu, x_lens, prompt, style, prompt_len=p_lens, z=z)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (out[:, :int(x_lens[0])], attention_rope.launches + single_block_attention.launches,
+                wall)
+
+    tp_dit = shard_dit(cfm, make_mesh(["cuda:0"] * 2, tp=2))
+    ref, k2_one, w_one = run(cfm)
+    tp_out, k2_tp, w_tp = run(tp_dit)
+    saved = {k: os.environ.get(k) for k in ("INDEXTTS_PACKED_ATTN", "INDEXTTS_FLASH_DIT")}
+    os.environ["INDEXTTS_PACKED_ATTN"] = "0"
+    try:
+        flash, k4_one, w_flash = run(cfm)
+        tp_flash, k4_tp, w_tp_flash = run(tp_dit)
+        assert attention_rope.launches == 0
+        os.environ["INDEXTTS_FLASH_DIT"] = "0"
+        dense, k2_dense, w_dense = run(cfm)
+        sp_out, k2_sp, w_sp = run(shard_dit(cfm, make_mesh(["cuda:0"] * 2, tp=1, sp=2)))
+        sptp, k2_sptp, w_sptp = run(shard_dit(cfm, make_mesh(["cuda:0"] * 4, tp=2, sp=2)))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    rel = {"tp": rel_l2(tp_out, ref), "tp_flash": rel_l2(tp_flash, flash),
+           "sp": rel_l2(sp_out, dense), "sptp": rel_l2(sptp, dense)}
+    print(f"DiT over the mesh (one CFM, 25 steps, CFG, T={T}, shipped widths, ranks on this "
+          f"card): single device {w_one:.4f} s ({k2_one} K2 launches), tp=2 {w_tp:.4f} s "
+          f"({k2_tp} K2 launches: one a shard at 4 heads) mel rel_l2 {rel['tp']:.3e}; flash "
+          f"tier single {w_flash:.4f} s ({k4_one} K4 launches), tp=2 {w_tp_flash:.4f} s "
+          f"({k4_tp} K4) rel_l2 {rel['tp_flash']:.3e}; dense tier {w_dense:.4f} s, sp=2 "
+          f"{w_sp:.4f} s rel_l2 {rel['sp']:.3e}, sp=2 x tp=2 {w_sptp:.4f} s rel_l2 "
+          f"{rel['sptp']:.3e} [{card}]", flush=True)
+    assert k2_one == k4_one == s2.DiT.depth * 25, (k2_one, k4_one)
+    assert k2_tp == k4_tp == 2 * k2_one, (k2_tp, k4_tp)
+    assert k2_dense == k2_sp == k2_sptp == 0
+    assert rel["tp"] <= DIT_TP_REL_L2 and rel["tp_flash"] <= DIT_TP_REL_L2, rel
+    assert rel["sp"] <= DIT_SP_REL_L2 and rel["sptp"] <= DIT_SP_REL_L2, rel
+    assert all(bool(torch.isfinite(t).all()) for t in (tp_out, tp_flash, sp_out, sptp))
+    return {"attention_rope": k2_one, "attention_rope_tp": k2_tp,
+            "single_block_attention_tp": k4_tp}
+
+
+def mesh_phase(card: str, prompt: str, model_dir: str) -> dict:
+    """The mesh pass, every rank on this one card (co-located ranks, each
+    on its own stream): `mesh_dp_pass`, `mesh_tp_pass`, `mesh_dit_pass`.
+    Returns the counts."""
+    t0 = time.perf_counter()
+    counts = {"mesh_dp": mesh_dp_pass(card, prompt, model_dir)}
+    counts.update(mesh_tp_pass(card, prompt, model_dir))
+    counts["mesh_dit"] = mesh_dit_pass(card)
+    print(f"mesh pass: {time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+    return counts
 
 
 def v1_pinned(tts, min_new_tokens: int, synth_rows: list):
@@ -4303,6 +4679,8 @@ def main() -> int:
         mark("v1 passes done")
         counts["fp16"], counts["fp16_flash"], _ = fp16_phase(card, prompt, d)
         mark("fp16 pass done")
+        counts.update(mesh_phase(card, prompt, d))
+        mark("mesh pass done")
         print("long-form stages (one request, 8 segments x 400 codes): " + "; ".join(
             f"{label} " + " ".join(f"{k}={st[k]:.4f}s" for k in
                                    ("gpt", "gpt_forward", "s2mel", "bigvgan", "total"))

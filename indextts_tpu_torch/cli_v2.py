@@ -20,7 +20,8 @@ unless ``--device`` says otherwise. The runtime flags are accepted (and
 persisted) as in the JAX CLI: deepspeed and cuda-kernel are ignored by the
 engine, ``--fp16`` reaches it as ``use_fp16=True`` (the port's float16
 pipeline, as the JAX engine takes it), and ``batch --mesh N``
-reaches it as ``mesh=N`` (the dp mesh is not ported: exit 4 too). The
+reaches it as ``mesh=N``, the dp=N mesh (cuda:0 .. cuda:N-1, or N CPU
+ranks with ``--device cpu``). The
 persisted ``config.toml`` (path, keys and precedence), the messages and
 the exit codes are the JAX CLI's.
 """
@@ -188,7 +189,7 @@ def _build_parser():
                        help="Keep internal batch concat temporary files")
     batch.add_argument("--mesh", type=int, default=None, metavar="N",
                        help="Shard batch segments across N devices "
-                            "(a data-parallel mesh; not ported: the engine refuses it)")
+                            "(a data-parallel mesh)")
     _add_runtime_args(batch)
     batch.add_argument("--voice", help="Default speaker reference audio for every batch task")
     batch.add_argument("--emotion-audio", help="Default emotion reference audio for every batch task")

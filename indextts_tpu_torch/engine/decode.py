@@ -35,7 +35,7 @@ from indextts_tpu_torch.ops.decode_step import fused_decode_step
 from indextts_tpu_torch.ops.decode_step_tp import fused_decode_step_tp
 from indextts_tpu_torch.ops.int8 import MAX_ROWS
 from indextts_tpu_torch.ops.sampling import sample_logits
-from indextts_tpu_torch.parallel.mesh import Replicated, is_tp
+from indextts_tpu_torch.parallel.mesh import TP, Replicated, is_tp
 
 # steps between two reads of the all-rows-done flag (the decode loops' only
 # device->host copy)
@@ -94,29 +94,23 @@ def decode_route(params: Params, batch: int, kv_quant: bool = False) -> str:
     """The decode step a (B*K)-row batch takes (`engine/decode.py::
     _fused_decode_ok` of the JAX package): "fused" (kernel K1) for int8 or
     int4 GPT-2 weights and B*K <= 24, with the bf16 or (``kv_quant``) the
-    int8 cache; "tp" (kernel K6, tp=2) for the tensor-parallel int8 tree of
-    `parallel/mesh.py::shard_gpt2_tp` with the bf16 cache and B*K <= 24;
-    "plain" (`gpt2_decode_step`, the JAX package's XLA step) wherever the
-    JAX gate says no on one device: float weights (with either cache), and
-    quantized weights past 24 rows. A tensor-parallel tree the kernel does
-    not take raises: the JAX package's GSPMD decode (float, int4, the int8
-    cache, larger batches) is not ported. The JAX package's D % 640 and
-    S % 128 gates come from TPU memory tiling; the port's kernels mask
-    ragged tiles."""
-    if is_tp(params["gpt"]):
-        what = None
-        if "q" not in params["gpt"]["shards"][0][0]["attn"]["c_attn"]:
-            what = "float or int4 weights"
-        elif kv_quant:
-            what = "the int8 KV cache"
-        elif batch > MAX_ROWS:
-            what = f"{batch} rows (kernel K6 takes at most {MAX_ROWS})"
-        if what is not None:
-            raise NotImplementedError(
-                f"tensor-parallel decode with {what}: the JAX package's GSPMD decode is not "
-                "ported; see ROADMAP.md, queue 1")
-        return "tp"
-    if is_quantized(params["gpt"]) and batch <= MAX_ROWS:
+    int8 cache; "tp" (kernel K6) for the tensor-parallel tree of
+    `parallel/mesh.py::shard_gpt2_tp` made with ``kernel`` (the pipeline's
+    INDEXTTS_TP_DECODE=kernel) at tp=2 with int8 weights, the bf16 cache
+    and B*K <= 24, the JAX gate's "tp"; "plain" (`gpt2_decode_step`, the
+    JAX package's XLA step, on the shards of a tensor-parallel tree its
+    GSPMD decode) everywhere else: float weights (with either cache),
+    quantized weights past 24 rows, and on a tensor-parallel tree float or
+    int4 weights, the int8 cache, more than 24 rows, tp other than 2, or a
+    tree made without ``kernel``. The JAX package's D % 640 and S % 128
+    gates come from TPU memory tiling; the port's kernels mask ragged
+    tiles."""
+    gpt = params["gpt"]
+    if is_tp(gpt):
+        kernel = (gpt.get("kernel", False) and gpt["mesh"].tp == TP
+                  and "q" in gpt["shards"][0][0]["attn"]["c_attn"])
+        return "tp" if kernel and not kv_quant and batch <= MAX_ROWS else "plain"
+    if is_quantized(gpt) and batch <= MAX_ROWS:
         return "fused"
     return "plain"
 

@@ -20,7 +20,7 @@ import torch
 from indextts_tpu_torch.config import GPTConfig
 from indextts_tpu_torch.engine.decode import (SamplingConfig, _embed_mel_token, _min_len_mask,
                                               prefill_rows)
-from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims, gpt2_decode_step
+from indextts_tpu_torch.models.gpt.gpt2 import GPT2Dims, gpt2_decode_step, map_cache
 from indextts_tpu_torch.models.gpt.unified_voice import mel_logits_from_hidden
 from indextts_tpu_torch.nn import Params
 from indextts_tpu_torch.ops.sampling import (apply_repetition_penalty, apply_temperature,
@@ -55,7 +55,7 @@ def generate_contrastive(params: Params, cfg: GPTConfig, dims: GPT2Dims,
                                              sampling.kv_quant, dtype)
     logits = mel_logits_from_hidden(params, hidden[:, -1])
     # the k-expanded cache (HF's expansion: a row's candidates adjacent)
-    kv = {name: buf.repeat_interleave(k, dim=1) for name, buf in kv.items()}
+    kv = map_cache(kv, lambda buf: buf.repeat_interleave(k, dim=1))
     kv_valid = valid.repeat_interleave(k, dim=0)
     ctx_h = torch.zeros((B, S, D), device=dev)
     ctx_h[:, :P + 1] = hidden.float()
@@ -88,7 +88,7 @@ def generate_contrastive(params: Params, cfg: GPTConfig, dims: GPT2Dims,
         tokens[:, step] = tok
         counts[brange, tok] += 1
         gidx = (brange * k + sel).repeat_interleave(k)
-        kv = {name: buf[:, gidx] for name, buf in kv.items()}
+        kv = map_cache(kv, lambda buf: buf[:, gidx.to(buf.device)])
         ctx_h[:, pos] = hk[brange, sel]
         ctx_v[:, pos] = True
         logits = logits_k[brange, sel]

@@ -11,11 +11,14 @@
 - the weight-only int8 / int4 trees and the flat int8 cache
   (`kv_quantize_flat`) of the memory-knob configurations, whose decode
   steps run kernel K1 (`ops/decode_step.py`) up to 24 rows;
-- the tensor-parallel int8 tree (`parallel/mesh.py::shard_gpt2_tp`):
-  `gpt2_forward` and `gpt2_prefill` run it shard by shard (what GSPMD makes
-  of the JAX package's passes on the tp-sharded tree), and
-  `init_kv_cache(mesh=...)` gives each shard its (L, B, S, D/2) cache; its
-  decode steps run kernel K6 (`ops/decode_step_tp.py`).
+- the tensor-parallel tree (`parallel/mesh.py::shard_gpt2_tp`; float,
+  int8 or int4 weights): every pass here runs it shard by shard (what GSPMD
+  makes of the JAX package's passes on the tp-sharded tree: each shard its
+  heads and its part of the MLP, the row-parallel products as f32 partials
+  summed on rank 0, `nn.dense_partial` / `nn.dense_reduce`), and
+  `init_kv_cache(mesh=...)` gives each shard the cache of its heads, (L, B,
+  S, D/tp), bf16 or int8 with its own scale rows; the int8 / bf16-cache
+  decode steps up to 24 rows at tp=2 run kernel K6 (`ops/decode_step_tp.py`).
 
 Weights run in the pipeline's dtype (bf16 on the card) with LayerNorm and
 softmax in f32. Unlike the JAX package, the cache is updated in place: the
@@ -103,14 +106,13 @@ def init_kv_cache(dims: GPT2Dims, batch: int, max_len: int, dtype=torch.bfloat16
     ``quantized=True`` gives the flat int8 cache of the JAX package's fused
     decode: int8 k and v plus ``"kvs"`` (L, B, S, 256) bf16, one packed
     scale row per (row, position) (see `kv_quantize_flat`). With a tp
-    ``mesh``: ``{"shards": [cache of rank t]}``, each the bf16 cache of the
-    rank's heads, (L, B, S, D/tp) on its device."""
+    ``mesh``: ``{"shards": [cache of rank t]}``, each the cache of the
+    rank's heads, (L, B, S, D/tp) on its device (the int8 one with its own
+    scale rows, the rank's heads on lanes [0, H/tp) and [128, 128 + H/tp))."""
     if mesh is not None:
-        if quantized:
-            raise NotImplementedError("the int8 KV cache under tensor parallelism is not "
-                                      "ported (ROADMAP.md, queue 1)")
-        sub = GPT2Dims(dims.layers, dims.dim // mesh.tp, dims.heads // mesh.tp)
-        return {"shards": [init_kv_cache(sub, batch, max_len, dtype, d) for d in mesh.devices]}
+        sub = _shard_dims(dims, mesh.tp)
+        return {"shards": [init_kv_cache(sub, batch, max_len, dtype, d, quantized)
+                           for d in mesh.devices]}
     shape = (dims.layers, batch, max_len, dims.dim)
     if quantized:
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -197,54 +199,43 @@ def _layer(lp: Params, x: torch.Tensor, dims: GPT2Dims, mask, cache=None,
     return _mlp(lp, x)
 
 
-def _tp_partial(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """A row-parallel int8 layer's f32 partial product on one shard (the
-    scale and bias apply after the reduce)."""
-    if "q" not in p:
-        raise NotImplementedError("the tensor-parallel passes take int8 weights (the JAX "
-                                  "package's GSPMD passes for float and int4 weights are not "
-                                  "ported; ROADMAP.md, queue 1)")
-    return torch.matmul(x.float(), p["q"].t().float())
+def _shard_dims(dims: GPT2Dims, tp: int) -> GPT2Dims:
+    """One tp shard's dims: its D/tp channels and H/tp heads."""
+    if dims.heads % tp:
+        raise ValueError(f"{dims.heads} heads do not split over tp={tp}")
+    return GPT2Dims(dims.layers, dims.dim // tp, dims.heads // tp)
 
 
-def _tp_reduce(p: Params, parts: List[torch.Tensor], dtype) -> torch.Tensor:
-    """Sum the shards' partials lo + hi on rank 0's device, then the full
-    per-channel scale and bias, rounded once (`nn.dense`'s int8 order)."""
-    acc = parts[0]
-    for part in parts[1:]:
-        acc = acc + part.to(acc.device)
-    return (acc * p["scale"] + p["bias"].float()).to(dtype)
+def _mlp_tp(layers: List[Params], x: torch.Tensor) -> torch.Tensor:
+    """The MLP on the tensor-parallel tree: each shard its part of c_fc on a
+    copy of x, the c_proj partials reduced on rank 0's device."""
+    parts = []
+    for lp in layers:
+        h = nn.layer_norm(lp["ln_2"], x.to(lp["ln_2"]["weight"].device))
+        parts.append(nn.dense_partial(lp["mlp"]["c_proj"],
+                                      nn.gelu_new(nn.dense(lp["mlp"]["c_fc"], h))))
+    return x + nn.dense_reduce(layers[0]["mlp"]["c_proj"], parts, x.dtype)
 
 
 def _layer_tp(layers: List[Params], x: torch.Tensor, dims: GPT2Dims, mask,
               caches: Optional[List[Dict]] = None, li: int = 0) -> torch.Tensor:
     """One block on the tensor-parallel tree: each shard (``layers[t]``, on
-    its device) runs its heads and its half of the MLP on a copy of x; the
+    its device) runs its heads and its part of the MLP on a copy of x; the
     row-parallel partials are reduced on rank 0's device, where x lives."""
     B, T, _ = x.shape
-    tp = len(layers)
-    H, Dh = dims.heads // tp, dims.head_dim
-
-    def heads(t):
-        return t.reshape(B, T, H, Dh).transpose(1, 2)
-
+    sub = _shard_dims(dims, len(layers))
     parts = []
     for t, lp in enumerate(layers):
         dev = lp["ln_1"]["weight"].device
         q, k, v = torch.chunk(nn.dense(lp["attn"]["c_attn"],
                                        nn.layer_norm(lp["ln_1"], x.to(dev))), 3, -1)
         if caches is not None:
-            caches[t]["k"][li, :, :T] = k.to(caches[t]["k"].dtype)
-            caches[t]["v"][li, :, :T] = v.to(caches[t]["v"].dtype)
-        out = nn.mha(heads(q), heads(k), heads(v), mask=mask.to(dev))
-        parts.append(_tp_partial(lp["attn"]["c_proj"], out.transpose(1, 2).reshape(B, T, -1)))
-    x = x + _tp_reduce(layers[0]["attn"]["c_proj"], parts, x.dtype)
-    parts = []
-    for lp in layers:
-        h = nn.layer_norm(lp["ln_2"], x.to(lp["ln_2"]["weight"].device))
-        parts.append(_tp_partial(lp["mlp"]["c_proj"],
-                                 nn.gelu_new(nn.dense(lp["mlp"]["c_fc"], h))))
-    return x + _tp_reduce(layers[0]["mlp"]["c_proj"], parts, x.dtype)
+            _cache_write(caches[t], li, 0, k, v, sub.heads)
+        out = nn.mha(_heads(q, sub), _heads(k, sub), _heads(v, sub), mask=mask.to(dev))
+        parts.append(nn.dense_partial(lp["attn"]["c_proj"],
+                                      out.transpose(1, 2).reshape(B, T, -1)))
+    x = x + nn.dense_reduce(layers[0]["attn"]["c_proj"], parts, x.dtype)
+    return _mlp_tp(layers, x)
 
 
 def _blocks(params: Params, x: torch.Tensor, dims: GPT2Dims, mask,
@@ -252,11 +243,10 @@ def _blocks(params: Params, x: torch.Tensor, dims: GPT2Dims, mask,
     """The blocks, then ln_f; ``hiddens`` collects each block's input at the
     last position."""
     if is_tp(params):
-        if hiddens is not None:
-            raise NotImplementedError("collect_hiddens on the tensor-parallel tree is not "
-                                      "ported (ROADMAP.md, queue 1 item 10)")
         caches = None if kv_cache is None else kv_cache["shards"]
         for li, layers in enumerate(zip(*params["shards"])):
+            if hiddens is not None:
+                hiddens.append(x[:, -1])
             x = _layer_tp(list(layers), x, dims, mask, caches, li)
     else:
         for li, lp in enumerate(params["h"]):
@@ -322,14 +312,13 @@ def _cached_blocks(params: Params, x: torch.Tensor, dims: GPT2Dims, pos0: int,
     its k / v at [pos0, pos0 + G), then attends the cache under ``mask``
     (B, 1, G, S). Returns (B, G, D) after ln_f; ``hiddens`` collects each
     block's input."""
-    if is_tp(params):
-        raise NotImplementedError("the plain decode step on the tensor-parallel tree (the JAX "
-                                  "package's GSPMD decode) is not ported; see ROADMAP.md, "
-                                  "queue 1 item 10")
-    for li, lp in enumerate(params["h"]):
+    tp = is_tp(params)
+    layers = zip(*params["shards"]) if tp else params["h"]
+    for li, lp in enumerate(layers):
         if hiddens is not None:
             hiddens.append(x)
-        x = cached_layer(lp, x, dims, pos0, kv_cache, li, mask)
+        x = cached_layer_tp(list(lp), x, dims, pos0, kv_cache["shards"], li, mask) if tp \
+            else cached_layer(lp, x, dims, pos0, kv_cache, li, mask)
     return nn.layer_norm(params["ln_f"], x)
 
 
@@ -368,6 +357,27 @@ def cached_layer(lp: Params, x: torch.Tensor, dims: GPT2Dims, pos0: int, kv_cach
     kc, vc = _cache_layer(kv_cache, li, dims.heads, x.dtype)
     out = cached_attention(_heads(q, dims), _heads(kc, dims), _heads(vc, dims), mask)
     return _mlp(lp, x + nn.dense(lp["attn"]["c_proj"], out.transpose(1, 2).reshape(B, G, D)))
+
+
+def cached_layer_tp(layers: List[Params], x: torch.Tensor, dims: GPT2Dims, pos0: int,
+                    caches: List[Dict], li: int, mask: torch.Tensor) -> torch.Tensor:
+    """`cached_layer` on the tensor-parallel tree (the JAX package's GSPMD
+    step): each shard writes and attends the cache of its heads
+    (``caches[t]``, bf16 or int8) on a copy of x; the out-projection's and
+    the MLP's partials are reduced on rank 0's device."""
+    B, G, _ = x.shape
+    sub = _shard_dims(dims, len(layers))
+    parts = []
+    for t, lp in enumerate(layers):
+        dev = lp["ln_1"]["weight"].device
+        q, k, v = torch.chunk(nn.dense(lp["attn"]["c_attn"],
+                                       nn.layer_norm(lp["ln_1"], x.to(dev))), 3, -1)
+        _cache_write(caches[t], li, pos0, k, v, sub.heads)
+        kc, vc = _cache_layer(caches[t], li, sub.heads, x.dtype)
+        out = cached_attention(_heads(q, sub), _heads(kc, sub), _heads(vc, sub), mask.to(dev))
+        parts.append(nn.dense_partial(lp["attn"]["c_proj"],
+                                      out.transpose(1, 2).reshape(B, G, sub.dim)))
+    return _mlp_tp(layers, x + nn.dense_reduce(layers[0]["attn"]["c_proj"], parts, x.dtype))
 
 
 def gpt2_decode_step(params: Params, x: torch.Tensor, dims: GPT2Dims, pos: int,

@@ -153,6 +153,33 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
                     None if b is None else b.to(x.dtype))
 
 
+def dense_partial(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """One tensor-parallel shard's part of a row-parallel dense layer: x
+    against the shard's contraction columns (float, int8 "q" or int4 "q4"
+    weights), an f32 partial; the scale and bias apply after the shards'
+    partials are summed (`dense_reduce`)."""
+    if "q" in p or "q4" in p:
+        w = p["q"] if "q" in p else unpack_int4(p["q4"])
+    else:
+        w = p["weight"]
+    return torch.matmul(x.float(), w.t().float())
+
+
+def dense_reduce(p: Params, parts: Sequence[torch.Tensor], dtype) -> torch.Tensor:
+    """The shards' f32 partials (`dense_partial`) summed in rank order on
+    the first one's device (XLA's all-reduce on the TPU), then the full
+    per-channel scale (quantized weights) and the bias, rounded to
+    ``dtype`` once (`dense`'s order for int8)."""
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part.to(acc.device)
+    if "scale" in p:
+        acc = acc * p["scale"]
+    if p.get("bias") is not None:
+        acc = acc + p["bias"].float()
+    return acc.to(dtype)
+
+
 def quantize_dense_int8(p: Params) -> Params:
     """Per-output-channel symmetric int8 of a torch-layout dense layer:
     scale = max|w| / 127 over the input axis in f32 (at least 1e-8 / 127),
@@ -191,13 +218,20 @@ def quantize_dense_int4(p: Params) -> Params:
         raise ValueError(f"int4 packing needs an even input width, got {K}")
     scale = torch.clamp(w.abs().amax(dim=-1), min=1e-8) / 7.0
     q = torch.clamp(torch.round(w / scale[:, None]), -7, 7).to(torch.int8)
-    h = int4_halfspan(K // 2)
-    v = q.reshape(N, K // (2 * h), 2, h)
-    packed = (v[:, :, 1] << 4) | (v[:, :, 0] & 0xF)
-    out = {"q4": packed.reshape(N, K // 2).contiguous(), "scale": scale.contiguous()}
+    out = {"q4": pack_int4(q), "scale": scale.contiguous()}
     if "bias" in p:
         out["bias"] = p["bias"]
     return out
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """(N, K) int8 values in [-7, 7] -> (N, K/2) packed int8 on the
+    grouping of `int4_halfspan` (K/2): a group's first h columns in the lo
+    nibbles, its last h in the hi nibbles."""
+    N, K = q.shape
+    h = int4_halfspan(K // 2)
+    v = q.reshape(N, K // (2 * h), 2, h)
+    return ((v[:, :, 1] << 4) | (v[:, :, 0] & 0xF)).reshape(N, K // 2).contiguous()
 
 
 def unpack_int4(q4: torch.Tensor) -> torch.Tensor:

@@ -166,7 +166,7 @@ def rope_qk(q: torch.Tensor, k: torch.Tensor, freqs_cis: torch.Tensor,
                                              qr.data_ptr(), kr.data_ptr(), B, T, heads, D,
                                              int(q.dtype == torch.float16), cuda.stream_ptr(q))
     cuda.check(code, "rope_qk")
-    rope_qk.launches += 1
+    cuda.count(rope_qk)
     return qr, kr
 
 
@@ -197,8 +197,8 @@ def attention_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             qr.data_ptr(), kr.data_ptr(), out.data_ptr(), B, T, heads, D, 1.0 / math.sqrt(D),
             int(q.dtype == torch.float16), cuda.stream_ptr(q))
     cuda.check(code, "attention_rope")
-    rope_qk.launches += 1
-    attention_rope.launches += 1
+    cuda.count(rope_qk)
+    cuda.count(attention_rope)
     return out
 
 
@@ -223,7 +223,7 @@ def packed_pair_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             B, T, heads, D, 1.0 / math.sqrt(D), int(q.dtype == torch.float16),
             cuda.stream_ptr(q))
     cuda.check(code, "packed_pair_attention")
-    packed_pair_attention.launches += 1
+    cuda.count(packed_pair_attention)
     return out
 
 
@@ -283,7 +283,7 @@ def single_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             B, H, T, D, *strides, 1.0 / math.sqrt(D), int(q.dtype == torch.float16),
             cuda.stream_ptr(q))
     cuda.check(code, "single_block_attention")
-    single_block_attention.launches += 1
+    cuda.count(single_block_attention)
     return out
 
 

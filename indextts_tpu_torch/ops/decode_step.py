@@ -247,9 +247,9 @@ def decode_attention(qkv: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
             heads, pos, group, 1.0 / math.sqrt(HEAD_DIM), *plan, cuda.stream_ptr(qkv))
     cuda.check(code, "decode_attention")
     if kvs is None:
-        decode_attention.launches += 1
+        cuda.count(decode_attention)
     else:
-        decode_attention.kvq_launches += 1
+        cuda.count(decode_attention, "kvq_launches")
     return out
 
 
@@ -833,7 +833,7 @@ def fused_decode_step(params, x: torch.Tensor, dims, pos: int,
     if x.device.type != "cuda":
         raise ValueError(f"fused_decode_step: unsupported device {x.device}")
     h = _persistent_step(params, x, dims, pos, kv_cache, kv_valid, anc, group, layer_inputs)
-    fused_decode_step.launches += 1
+    cuda.count(fused_decode_step)
     return h
 
 

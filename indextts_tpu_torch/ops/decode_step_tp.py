@@ -121,7 +121,7 @@ def tp_allreduce(own: torch.Tensor, peer: torch.Tensor, scale: torch.Tensor,
             own.data_ptr(), peer.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             residual.data_ptr(), out.data_ptr(), M, N, rank, cuda.stream_ptr(own))
     cuda.check(code, "tp_allreduce")
-    tp_allreduce.launches += 1
+    cuda.count(tp_allreduce)
     return out
 
 
@@ -382,7 +382,7 @@ def fused_decode_step_tp(params, x: torch.Tensor, dims, pos: int, kv_cache: Dict
                                           layer_inputs)
     _check_step_tp(params, x, dims, kv_cache, group, anc)
     h = _persistent_step_tp(params, x, dims, pos, kv_cache, kv_valid, anc, group, layer_inputs)
-    fused_decode_step_tp.launches += 1
+    cuda.count(fused_decode_step_tp)
     return h
 
 

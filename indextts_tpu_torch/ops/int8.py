@@ -198,7 +198,7 @@ def int8_matvec(x: torch.Tensor, q: torch.Tensor, *, ln: LN = None, scale=None,
     if x.device.type == "cpu":
         return _gemv_plain(x, q, ln, scale, bias, epi, residual)
     out = _gemv_cuda(x, q, ln, scale, bias, epi, residual)
-    int8_matvec.launches += 1
+    cuda.count(int8_matvec)
     return out
 
 
@@ -226,7 +226,7 @@ def int8_mlp(x: torch.Tensor, w1q: torch.Tensor, s1: torch.Tensor, b1: torch.Ten
                               residual=residual)
     h = _gemv_cuda(x, w1q, ln, s1, b1, EPI_GELU, None)
     out = _gemv_cuda(h, w2q, None, scale2, bias2, epi2, residual)
-    int8_mlp.launches += 1
+    cuda.count(int8_mlp)
     return out
 
 
@@ -247,7 +247,7 @@ def int4_matvec(x: torch.Tensor, q4: torch.Tensor, *, ln: LN = None, scale=None,
     if x.device.type == "cpu":
         return int4_matvec_plain(x, q4, ln=ln, scale=scale, bias=bias, residual=residual)
     out = _gemv_cuda(x, q4, ln, scale, bias, epi, residual, w4=True)
-    int4_matvec.launches += 1
+    cuda.count(int4_matvec)
     return out
 
 
@@ -271,7 +271,7 @@ def int4_mlp(x: torch.Tensor, w1q4: torch.Tensor, s1: torch.Tensor, b1: torch.Te
                               residual=residual)
     h = _gemv_cuda(x, w1q4, ln, s1, b1, EPI_GELU, None, w4=True)
     out = _gemv_cuda(h, w2q4, None, scale2, bias2, epi2, residual, w4=True)
-    int4_mlp.launches += 1
+    cuda.count(int4_mlp)
     return out
 
 

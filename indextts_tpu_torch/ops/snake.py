@@ -199,7 +199,7 @@ def antialias_snake(x: torch.Tensor, alpha: torch.Tensor,
     if x.device.type == "cpu":
         return antialias_snake_plain(x, alpha, beta, lengths, logscale)
     out = _launch("antialias_snake", x, alpha, beta, lengths, logscale)
-    antialias_snake.launches += 1
+    cuda.count(antialias_snake)
     return out
 
 
@@ -218,7 +218,7 @@ def fused_antialias_activation(x: torch.Tensor, alpha: torch.Tensor, beta: torch
     if x.device.type == "cpu":
         return antialias_snake_plain(x, alpha, beta, lengths, logscale)
     out = _launch("fused_antialias_activation", x, alpha, beta, lengths, logscale)
-    fused_antialias_activation.launches += 1
+    cuda.count(fused_antialias_activation)
     return out
 
 
@@ -247,7 +247,7 @@ def antialias_activation_prefolded(xf: torch.Tensor, alpha: torch.Tensor,
     if xf.device.type == "cpu":
         return antialias_snake_plain(x, alpha, beta, lengths, logscale).view(B, R, fC)
     out = _launch("antialias_activation_prefolded", x, alpha, beta, lengths, logscale)
-    antialias_activation_prefolded.launches += 1
+    cuda.count(antialias_activation_prefolded)
     return out.view(B, R, fC)
 
 

@@ -3,10 +3,14 @@
     tts = IndexTTS2(cfg_path="checkpoints/config.yaml", model_dir="checkpoints")
     tts.infer(spk_audio_prompt=..., text=..., output_path=...)
 
-    # the tp=2 int8 serving decode (kernel K6), as in the JAX package
-    # INDEXTTS_TP_DECODE=kernel, here with both shards on one card:
+    # a mesh, as in the JAX package: dp=2 over cuda:0 and cuda:1 (the
+    # long-form batch's rows), tp=2 with both shards on one card (the GPT
+    # and the DiT; INDEXTTS_TP_DECODE=kernel puts int8 decode steps on K6),
+    # or sp=2 (the DiT's frames)
+    tts = IndexTTS2(cfg_path=None, mesh=2)
     tts = IndexTTS2(cfg_path=None, quantization="int8",
                     mesh=make_mesh(["cuda:0", "cuda:0"]))
+    tts = IndexTTS2(cfg_path=None, mesh=make_mesh(["cuda:0", "cuda:1"], tp=1, sp=2))
 
 One request runs, on ``device``:
   [P] speaker prompt (cached per prompt path): SeamlessM4T features (host)
@@ -27,7 +31,9 @@ One request runs, on ``device``:
       contrastive search or DoLa with their kwargs (`engine/modes.py`);
       with a ``quantization`` every single-token step up to 24 rows runs
       kernel K1 (with the in-kernel beam ancestry map under beams, at
-      group=1 when sampling), under a tp mesh kernel K6
+      group=1 when sampling), on a tp mesh under INDEXTTS_TP_DECODE=kernel
+      kernel K6 (int8, the bf16 cache, up to 24 rows), else the plain step
+      on the shards
   [S1] teacher-forced GPT latents -> gpt_layer + vq2emb
   [S2] length regulator -> 25-step CFM Euler solve under CFG (DiT: kernel
       K2, or K4 on its flash tier)
@@ -38,10 +44,13 @@ one segment and ``cfg.engine.batch_segments`` (the default), all segments
 run as one batch: one speaker's conditioning broadcast over B left-padded
 text rows at one text bucket, one decode over the B rows in row chunks that
 keep every quantized chunk on K1 (beams: ``max(1, 24 // num_beams)``
-segments; sampling: 24 rows; no chunks under a mesh, where kernel K6 takes
-at most 24 rows), one teacher-forced pass and one CFM over the B
+segments; sampling: 24 rows; no chunks on a tp mesh, as the JAX pipeline
+decodes under a mesh), one teacher-forced pass and one CFM over the B
 rows (a DiT batch of 2B rows) and one BigVGAN call; each segment's wav is
-then sliced out on the host. One segment, ``batch_segments=False`` and
+then sliced out on the host. On a dp mesh the rows, padded to a multiple
+of dp with copies of row 0, are split over the dp ranks (`batch_sharding`):
+each decodes (in the chunks above) and synthesizes its rows on its device
+and stream, and the padded rows are dropped on the host. One segment, ``batch_segments=False`` and
 streaming run the segments one by one. ``stream_return=True`` makes
 `infer` return a generator that yields each segment's wav and then the
 silence after it; the segments are joined with ``interval_silence`` ms of
@@ -54,17 +63,23 @@ or with one of the JAX pipeline's quantizations, all bf16-only:
 layers of every GPT-2 block, quantized after the cast to bf16 as the JAX
 pipeline does), ``"int4"`` (the same layers nibble-packed int4), and the
 memory knobs ``"int8kv"`` / ``"int4kv"`` (those weights with the flat int8
-KV cache). With ``mesh`` (`parallel/mesh.py::make_mesh`, dp=1 x tp=2),
-``quantization="int8"`` and ``INDEXTTS_TP_DECODE=kernel`` (the JAX
-pipeline's own switch), the GPT-2 stack is split over the two ranks
-(`shard_gpt2_tp`) and every decode step runs kernel K6
-(`ops/decode_step_tp.py`), the prefill and the teacher-forced pass shard by
-shard; conditioning, s2mel and BigVGAN run on rank 0's device (the DiT's tp
-sharding is not ported). Every other mesh combination raises
-NotImplementedError: the JAX package's GSPMD decode for float, int4 and
-int8kv weights and for tp batches of more than 24 rows, the dp axis, the
-DiT's tp and sp. At num_beams=1 a segment decoded alone takes the JAX
-pipeline's default, the self-gating speculative decoder (gamma 8;
+KV cache). With ``mesh`` (`parallel/mesh.py::make_mesh`: dp x sp x tp
+ranks over named devices, the same device named twice co-locating two
+ranks; an int N is the JAX pipeline's dp=N mesh, ``make_mesh(N, tp=1)``,
+over cuda:0 .. cuda:N-1, or N CPU ranks with ``device="cpu"``) the trees
+are placed as the JAX pipeline places them (`_place_ranks`): every dp rank
+holds the model on its devices, the GPT-2 stack is split over the tp ranks
+(`shard_gpt2_tp`; prefill, the teacher-forced pass and the plain decode
+step run shard by shard, the JAX package's GSPMD passes) and the DiT over
+the sp x tp ranks (`shard_dit`: each tp rank its heads, K2 or K4 once a
+shard; each sp rank its frames, dense attention against the gathered k and
+v); conditioning runs on rank 0's device, the synthesis's other stages on
+each dp rank's first device. With ``quantization="int8"``, tp=2 and
+``INDEXTTS_TP_DECODE=kernel`` (the JAX pipeline's own switch) decode steps
+of up to 24 rows on the bf16 cache run kernel K6 (`ops/decode_step_tp.py`);
+every other tp decode (float, int4, the int8 cache, more rows, no switch)
+is the plain step on the shards. At num_beams=1 a segment decoded alone
+takes the JAX pipeline's default, the self-gating speculative decoder (gamma 8;
 INDEXTTS_SPEC_DECODE=0 turns it off, as in the JAX pipeline; off under a
 mesh and for the aux modes); the aux generation kwargs (``num_beam_groups``
 / ``diversity_penalty``, ``penalty_alpha``, ``dola_layers``) select their
@@ -102,6 +117,7 @@ import os
 import random
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -126,7 +142,8 @@ from indextts_tpu_torch.models.s2mel.s2mel import gpt_layer_forward, init_s2mel
 from indextts_tpu_torch.models.vocoder.bigvgan import bigvgan_forward, init_bigvgan
 from indextts_tpu_torch.ops.int8 import MAX_ROWS
 from indextts_tpu_torch.ops.mel import kaldi_fbank, mel_spectrogram, seamless_m4t_features
-from indextts_tpu_torch.parallel.mesh import Mesh, shard_gpt2_tp
+from indextts_tpu_torch.parallel.mesh import (TP, Mesh, batch_sharding, is_tp, make_mesh, place,
+                                              shard_dit, shard_gpt2_tp, torch_device)
 from indextts_tpu_torch.pipeline.buckets import pad_to, pick_bucket
 from indextts_tpu_torch.pipeline.emotion import QwenEmotion
 from indextts_tpu_torch.text import TextNormalizer, TextTokenizer
@@ -135,15 +152,9 @@ from indextts_tpu_torch.utils.jax_params import to_torch
 from indextts_tpu_torch.utils.resample import resample_audio
 from indextts_tpu_torch.utils.wav_io import read_wav_mono, write_wav
 
-_ROADMAP = "see ROADMAP.md, queue 1 (modules still to port)"
-
 # quantization -> (GPT-2 weight quantizer, int8 KV cache), as in the JAX pipeline
 QUANTIZATIONS = {"int8": (quantize_gpt2_int8, False), "int8kv": (quantize_gpt2_int8, True),
                  "int4": (quantize_gpt2_int4, False), "int4kv": (quantize_gpt2_int4, True)}
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported to the PyTorch pipeline yet ({_ROADMAP})")
 
 
 def _spec_decode_gamma() -> int:
@@ -270,19 +281,17 @@ def _load_matrix(path: str) -> np.ndarray:
     return np.asarray(t, np.float32)
 
 
-def _check_mesh(mesh, quantization: Optional[str]) -> None:
-    """A mesh runs the tp=2 int8 decode kernel K6 under the JAX pipeline's
-    own switch; every other mesh combination (the JAX package's GSPMD paths)
-    raises."""
-    if quantization != "int8":
-        _not_ported(f"a mesh with quantization={quantization!r} (the GSPMD tensor-parallel "
-                    "decode of float, int4 and int8kv weights; the tp decode kernel K6 takes "
-                    "int8 weights and the bf16 cache)")
-    if os.environ.get("INDEXTTS_TP_DECODE", "") != "kernel":
-        _not_ported("a mesh without INDEXTTS_TP_DECODE=kernel (the GSPMD tensor-parallel "
-                    "decode; set INDEXTTS_TP_DECODE=kernel for the tp decode kernel K6)")
-    if not isinstance(mesh, Mesh):
-        raise TypeError(f"mesh={mesh!r}: takes indextts_tpu_torch.parallel.make_mesh(...)")
+def _resolve_mesh(mesh, device) -> Mesh:
+    """The constructor's ``mesh``: a `Mesh` as it is; an int N the JAX
+    pipeline's dp=N mesh (``make_mesh(N, tp=1)``: cuda:0 .. cuda:N-1, or N
+    CPU ranks under ``device="cpu"``)."""
+    if isinstance(mesh, bool) or not isinstance(mesh, (int, Mesh)):
+        raise TypeError(f"mesh={mesh!r}: takes an int or "
+                        "indextts_tpu_torch.parallel.make_mesh(...)")
+    if isinstance(mesh, int):
+        on_cpu = device is not None and torch.device(device).type == "cpu"
+        mesh = make_mesh(["cpu"] * mesh if on_cpu else mesh, tp=1)
+    return mesh
 
 
 class IndexTTS2:
@@ -324,12 +333,18 @@ class IndexTTS2:
         self.quantization = quantization
         # ``device`` defaults to the card, or under a mesh to rank 0's device
         if mesh is not None:
-            _check_mesh(mesh, quantization)
-            if device is not None and mesh.devices[0] != torch.device(device):
+            mesh = _resolve_mesh(mesh, device)
+            if device is not None and mesh.devices[0] != torch_device(device):
                 raise ValueError(f"device={device!r}: under {mesh} the pipeline runs on rank 0's "
                                  f"device {mesh.devices[0]}")
             device = mesh.devices[0]
         self.mesh = mesh
+        # the tp=2 int8 decode kernel K6, under the JAX pipeline's switches
+        self.tp_kernel = (mesh is not None and mesh.tp == TP and quantization == "int8"
+                          and os.environ.get("INDEXTTS_TP_DECODE", "") == "kernel"
+                          and os.environ.get("INDEXTTS_FUSED_DECODE", "1") != "0")
+        # each dp rank's trees (rank 0's are the attributes), `_place_ranks`
+        self._rank_trees: List[dict] = [{} for _ in range(mesh.dp if mesh else 1)]
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("IndexTTS2(device='cuda'): CUDA is not available")
@@ -346,6 +361,12 @@ class IndexTTS2:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.gpt_dims = GPT2Dims(self.cfg.gpt.layers, self.cfg.gpt.model_dim, self.cfg.gpt.heads)
+        if mesh is not None:
+            for what, heads in (("GPT", self.cfg.gpt.heads),
+                                ("DiT", self.cfg.s2mel.DiT.num_heads)):
+                if heads % mesh.tp:
+                    raise ValueError(f"{mesh}: the {what}'s {heads} heads do not split over "
+                                     f"tp={mesh.tp}")
         self._load_models(aux_paths, allow_random_init, seed)
         self._load_frontend()
         # the emotion-text classifier, loaded at its first request
@@ -489,19 +510,22 @@ class IndexTTS2:
         f32); the others stay as they are.
         CAMPPlus stays f32; everything else is cast to the pipeline dtype.
         Under a ``quantization`` the GPT-2 backbone is then quantized (int8
-        or int4), unless the tree handed over already is; under a mesh it is
-        then split over the tp ranks (`shard_gpt2_tp`)."""
+        or int4), unless the tree handed over already is; under a mesh the
+        trees are then placed on every dp rank (`_place_ranks`)."""
         dev, dt = self.device, self.dtype
+        placed = {}
         if "gpt" in trees:
-            self.gpt_params = to_torch(trees["gpt"], dev, dt)
-            gpt = self.gpt_params["gpt"]
-            if self.quantization and not is_quantized(gpt):
-                gpt = QUANTIZATIONS[self.quantization][0](gpt)
-            if self.mesh is not None:
-                gpt = shard_gpt2_tp(gpt, self.mesh)
-            self.gpt_params["gpt"] = gpt
+            gpt_params = to_torch(trees["gpt"], dev, dt)
+            if self.quantization and not is_quantized(gpt_params["gpt"]):
+                gpt_params["gpt"] = QUANTIZATIONS[self.quantization][0](gpt_params["gpt"])
+            placed["gpt_params"] = gpt_params
         for key, attr, dtype in (("s2mel", "s2mel_params", dt), ("codec", "codec_params", dt),
-                                 ("bigvgan", "bigvgan_params", dt), ("w2v", "w2v_params", dt),
+                                 ("bigvgan", "bigvgan_params", dt)):
+            if key in trees:
+                placed[attr] = to_torch(trees[key], dev, dtype)
+        for attr, tree in self._place_ranks(placed).items():
+            setattr(self, attr, tree)
+        for key, attr, dtype in (("w2v", "w2v_params", dt),
                                  ("campplus", "campplus_params", torch.float32),
                                  ("w2v_mean", "w2v_mean", torch.float32),
                                  ("w2v_std", "w2v_std", torch.float32)):
@@ -512,6 +536,73 @@ class IndexTTS2:
                 rows = to_torch(trees[key], dev, torch.float32)
                 setattr(self, key, list(torch.split(rows, list(self.cfg.emo_num))))
 
+    def _place_ranks(self, trees: dict) -> dict:
+        """The mesh placement of the JAX pipeline (`_load_models`' ``put``),
+        for the trees the dp ranks run (gpt_params, s2mel_params,
+        codec_params, bigvgan_params; on rank 0's device): each dp rank d
+        gets them on its device (`Mesh.device`), the GPT-2 stack split over
+        its tp ranks (`shard_gpt2_tp` on `Mesh.tp_mesh`, with K6 under
+        `tp_kernel`) and the DiT over its sp x tp ranks (`shard_dit` on
+        `Mesh.dp_mesh`); ranks on the same devices share one copy. Returns
+        rank 0's trees; the others go to ``_rank_trees``."""
+        mesh = self.mesh
+        if mesh is None:
+            return trees
+        made: Dict[tuple, dict] = {}
+        for d in range(mesh.dp):
+            for attr, tree in trees.items():
+                key = (attr, mesh.dp_mesh(d).devices)
+                if key not in made:
+                    t = place(tree, mesh.device(d))
+                    if attr == "gpt_params" and mesh.tp > 1:
+                        t = {**t, "gpt": shard_gpt2_tp(t["gpt"], mesh.tp_mesh(d),
+                                                       kernel=self.tp_kernel)}
+                    elif attr == "s2mel_params" and mesh.tp * mesh.sp > 1:
+                        t = {**t, "cfm": shard_dit(t["cfm"], mesh.dp_mesh(d))}
+                    made[key] = t
+                self._rank_trees[d][attr] = made[key]
+        return self._rank_trees[0]
+
+    def _rank(self, d: int) -> dict:
+        """Dp rank ``d``'s trees (rank 0's are the pipeline's attributes)."""
+        if d == 0:
+            return {"gpt_params": self.gpt_params, "s2mel_params": self.s2mel_params,
+                    "codec_params": self.codec_params, "bigvgan_params": self.bigvgan_params}
+        return self._rank_trees[d]
+
+    def _on_ranks(self, fn):
+        """``fn(d)`` for every dp rank d, on the rank's device and its
+        stream (`Mesh.streams`). Returns (the results in rank order, whether
+        the ranks ran at once). Ranks on distinct cards run at once, one host
+        thread each (the decode loops read the device every few steps, so
+        one thread interleaving them would idle each card at every read);
+        co-located ranks, and CPU ranks, run one after another, each on its
+        own stream synchronized before the next starts (the decode kernel
+        K1's grid takes the whole card and its barrier words are the
+        card's, so two K1 launches on one card must not overlap)."""
+        mesh = self.mesh
+        devs = [mesh.device(d) for d in range(mesh.dp)]
+        if devs[0].type != "cuda":
+            return [fn(d) for d in range(mesh.dp)], False
+        streams = [mesh.streams()[d * mesh.sp * mesh.tp] for d in range(mesh.dp)]
+
+        def call(d):
+            with torch.inference_mode(), torch.cuda.device(devs[d]), \
+                    torch.cuda.stream(streams[d]):
+                out = fn(d)
+            streams[d].synchronize()
+            return out
+
+        if len(set(devs)) == len(devs):
+            torch.cuda.synchronize(self.device)
+            with ThreadPoolExecutor(len(devs)) as ex:
+                return list(ex.map(call, range(len(devs)))), True
+        out = []
+        for d, dev in enumerate(devs):
+            streams[d].wait_stream(torch.cuda.current_stream(dev))
+            out.append(call(d))
+        return out, False
+
     def _load_frontend(self):
         bpe_path = os.path.join(self.model_dir, self.cfg.dataset.get("bpe_model", "bpe.model"))
         self.normalizer = TextNormalizer(enable_glossary=True)
@@ -519,9 +610,10 @@ class IndexTTS2:
         self.tokenizer = (TextTokenizer(bpe_path, self.normalizer)
                           if os.path.exists(bpe_path) else None)
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _sync(self, device: Optional[torch.device] = None):
+        device = self.device if device is None else device
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
     # ---------------------------------------------------------------- prompt
     def _cond_emb(self, audio16k: np.ndarray):
@@ -643,15 +735,51 @@ class IndexTTS2:
         Otherwise: beams (diverse with ``num_beam_groups`` > 1) in chunks of
         ``max(1, MAX_ROWS // num_beams)`` prefix rows, the aux modes over all
         rows at once, the sampling decode in chunks of MAX_ROWS rows, so that
-        a quantized chunk stays on K1 (under a mesh, one chunk). The
-        pipeline's generator serves the chunks in order."""
+        a quantized chunk stays on K1 (on a tensor-parallel GPT, one chunk,
+        as the JAX pipeline decodes under a mesh). The pipeline's generator
+        serves the chunks in order. A batch on a dp mesh is padded to a
+        multiple of dp (padded rows repeat row 0 and are dropped), and each
+        dp rank decodes its rows (`batch_sharding`) on its device
+        (`_on_ranks`), in chunks as above, from a generator of its own (seeded
+        from the pipeline's when sampling)."""
+        B = embeds.shape[0]
+        mesh = self.mesh
+        if not (batched and mesh is not None and mesh.dp > 1 and B > 1):
+            return self._decode_rows(self.gpt_params, embeds, mask, sampling, max_mel_tokens,
+                                     self.generator, batched, verbose)
+        cuts = batch_sharding(mesh, B)
+        rows = torch.cat([torch.arange(B), torch.zeros(cuts[-1].stop - B, dtype=torch.long)])
+        # a sampling decode draws the ranks' seeds from the pipeline's
+        # generator; a greedy one leaves it as the single-device run does
+        seeds = [int(torch.randint(0, 2 ** 62, (1,), generator=self.generator,
+                                   device=self.generator.device)) if sampling.do_sample else d
+                 for d in range(len(cuts))]
+
+        def run(d):
+            dev = mesh.device(d)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seeds[d])
+            idx = rows[cuts[d]].to(embeds.device)
+            return self._decode_rows(self._rank(d)["gpt_params"], embeds[idx].to(dev),
+                                     mask[idx].to(dev), sampling, max_mel_tokens, gen, True,
+                                     verbose)
+
+        parts, _ = self._on_ranks(run)
+        return (torch.cat([p[0].to(self.device) for p in parts])[:B],
+                np.concatenate([np.asarray(p[1]) for p in parts])[:B])
+
+    def _decode_rows(self, gpt_params: dict, embeds: torch.Tensor, mask: torch.Tensor,
+                     sampling: SamplingConfig, max_mel_tokens: int, generator: torch.Generator,
+                     batched: bool, verbose: bool):
+        """`decode` of rows on one set of GPT trees (rank 0's, or a dp
+        rank's) with ``generator``."""
         B = embeds.shape[0]
         aux = _aux_decode_fn(sampling)
         gamma = 0 if (batched or sampling.num_beams > 1 or aux is not None
                       or self.mesh is not None) else _spec_decode_gamma()
         if gamma > 0:
             codes, lens, stats = generate_spec_adaptive(
-                self.gpt_params, self.cfg.gpt, self.gpt_dims, embeds, mask, self.generator,
+                gpt_params, self.cfg.gpt, self.gpt_dims, embeds, mask, generator,
                 max_mel_tokens, sampling, self.dtype, gamma=gamma,
                 ngram=int(os.environ.get("INDEXTTS_SPEC_NGRAM", "2")),
                 step_check=self.decode_check)
@@ -670,10 +798,10 @@ class IndexTTS2:
             fn, chunk = aux, B
         else:
             fn, chunk = generate_adaptive, MAX_ROWS
-        if self.mesh is not None:
+        if is_tp(gpt_params["gpt"]):
             chunk = B
-        parts = [fn(self.gpt_params, self.cfg.gpt, self.gpt_dims, embeds[i:i + chunk],
-                    mask[i:i + chunk], self.generator, max_mel_tokens, sampling, self.dtype,
+        parts = [fn(gpt_params, self.cfg.gpt, self.gpt_dims, embeds[i:i + chunk],
+                    mask[i:i + chunk], generator, max_mel_tokens, sampling, self.dtype,
                     step_check=self.decode_check) for i in range(0, B, chunk)]
         return (torch.cat([p[0] for p in parts]),
                 np.concatenate([np.asarray(p[1]) for p in parts]))
@@ -693,64 +821,102 @@ class IndexTTS2:
         teacher-forced pass, one length-regulated CFM (a DiT batch of 2B
         rows) and one BigVGAN call. ``z`` is the CFM's initial noise (B,
         prompt_bucket + mel_bucket, 80); `cfm_noise` draws it when None.
-        ``times`` accumulates per-stage seconds."""
-        cfg, dev, dt = self.cfg, self.device, self.dtype
+        ``times`` accumulates per-stage seconds. On a dp mesh the B > 1 rows
+        follow the decode's split (`decode`): the buckets and the noise are
+        the whole batch's, each dp rank synthesizes its rows (`_synth`), and
+        the padded rows are dropped on the host; a stage's seconds are the
+        ranks' sum when they ran one after another, their maximum when they
+        ran at once."""
+        cfg = self.cfg
         times = {} if times is None else times
-        eng = cfg.engine
-        t0 = time.perf_counter()
         B = codes.shape[0]
         tlens = np.broadcast_to(np.asarray(tlens, np.int64).reshape(-1), (B,)).copy()
         clens = np.broadcast_to(np.asarray(clens, np.int64).reshape(-1), (B,)).copy()
         cmax = int(clens.max())
+        mel_bucket = pick_bucket(int(cmax * self.MEL_PER_CODE) + 1, cfg.engine.mel_len_buckets)
+        total = spk["prompt_cond"].shape[1] + mel_bucket
+        if z is None:
+            z = self.cfm_noise((B, total, cfg.s2mel.DiT.in_channels))
+        mesh = self.mesh
+        args = (spk, cond_latents, emovec, cmax, mel_bucket)
+        if mesh is None or mesh.dp == 1 or B == 1:
+            return self._synth(0, *args, text_ids, tlens, codes, clens, z, times)
+        cuts = batch_sharding(mesh, B)
+        rows = np.concatenate([np.arange(B), np.zeros(cuts[-1].stop - B, np.int64)])
+        rank_times = [{} for _ in cuts]
+
+        def run(d):
+            r = rows[cuts[d]]
+            return self._synth(d, *args, text_ids[r], tlens[r],
+                               codes[torch.as_tensor(r, device=codes.device)], clens[r],
+                               z[torch.as_tensor(r, device=z.device)], rank_times[d])
+
+        wavs, at_once = self._on_ranks(run)
+        for key in rank_times[0]:
+            vals = [t[key] for t in rank_times]
+            times[key] = times.get(key, 0.0) + (max(vals) if at_once else sum(vals))
+        return np.concatenate(wavs)[:B]
+
+    def _synth(self, d: int, spk: dict, cond_latents, emovec, cmax: int, mel_bucket: int,
+               text_ids: np.ndarray, tlens: np.ndarray, codes: torch.Tensor,
+               clens: np.ndarray, z: torch.Tensor, times: dict) -> np.ndarray:
+        """`codes_to_wav` of rows on dp rank ``d``'s trees and device (rank
+        0: the pipeline's), at the batch's ``cmax`` and ``mel_bucket``."""
+        cfg, dt = self.cfg, self.dtype
+        trees = self._rank(d)
+        dev = self.device if d == 0 else self.mesh.device(d)
+        eng = cfg.engine
+        t0 = time.perf_counter()
+        B = codes.shape[0]
         cb = pick_bucket(cmax, eng.mel_len_buckets)
-        codes = codes[:, :cb]
+        codes = codes.to(dev)[:, :cb]
         if codes.shape[1] < cb:
             codes = torch.nn.functional.pad(codes, (0, cb - codes.shape[1]),
                                             value=cfg.gpt.stop_mel_token)
         clen_t = torch.as_tensor(clens, device=dev)
-        latent = uv.forward_latents(self.gpt_params, cfg.gpt, cond_latents.expand(B, -1, -1),
-                                    emovec.expand(B, -1), torch.as_tensor(text_ids, device=dev),
+        gpt_params, s2mel = trees["gpt_params"], trees["s2mel_params"]
+        latent = uv.forward_latents(gpt_params, cfg.gpt, cond_latents.to(dev).expand(B, -1, -1),
+                                    emovec.to(dev).expand(B, -1),
+                                    torch.as_tensor(text_ids, device=dev),
                                     torch.as_tensor(tlens, device=dev), codes, clen_t,
                                     dtype=dt)[:, :cb]
-        s_infer = repcodec_vq2emb(self.codec_params, codes) \
-            + gpt_layer_forward(self.s2mel_params, latent)
-        self._sync()
+        s_infer = repcodec_vq2emb(trees["codec_params"], codes) \
+            + gpt_layer_forward(s2mel, latent)
+        self._sync(dev)
         t1 = time.perf_counter()
         times["gpt_forward"] = times.get("gpt_forward", 0.0) + t1 - t0
 
-        mel_bucket = pick_bucket(int(cmax * self.MEL_PER_CODE) + 1, eng.mel_len_buckets)
-        prompt_bucket = spk["prompt_cond"].shape[1]
+        prompt_cond = spk["prompt_cond"].to(dev)
+        prompt_bucket = prompt_cond.shape[1]
         total = prompt_bucket + mel_bucket
         target_len = (clen_t.float() * self.MEL_PER_CODE).int()
         prompt_len = torch.full((B,), spk["ref_len"], device=dev)
-        cond = length_regulate(self.s2mel_params["length_regulator"],
-                               cfg.s2mel.length_regulator, clen_t, target_len,
-                               out_size=mel_bucket, features=s_infer)
+        cond = length_regulate(s2mel["length_regulator"], cfg.s2mel.length_regulator, clen_t,
+                               target_len, out_size=mel_bucket, features=s_infer)
         pos = torch.arange(total, device=dev)[None, :]
         idx = pos - prompt_len[:, None]
         in_tgt = (idx >= 0) & (idx < mel_bucket)
         gathered = torch.gather(cond, 1, idx.clamp(0, mel_bucket - 1)[:, :, None]
                                 .expand(-1, -1, cond.shape[-1]))
         buf = torch.zeros((B, total, cond.shape[-1]), dtype=cond.dtype, device=dev)
-        buf[:, :prompt_bucket] = spk["prompt_cond"][:, :prompt_bucket].to(cond.dtype)
+        buf[:, :prompt_bucket] = prompt_cond[:, :prompt_bucket].to(cond.dtype)
         cat_cond = torch.where((in_tgt & (pos >= prompt_len[:, None]))[:, :, None],
                                gathered, buf)
         C = cfg.s2mel.DiT.in_channels
         prompt_mel = torch.zeros((B, total, C), device=dev)
-        prompt_mel[:, :prompt_bucket] = spk["ref_mel"][:, :prompt_bucket].float()
-        z = self.cfm_noise((B, total, C)) if z is None else z
-        vc = cfm_inference(self.s2mel_params["cfm"], cfg.s2mel, cat_cond.to(dt),
+        prompt_mel[:, :prompt_bucket] = spk["ref_mel"][:, :prompt_bucket].to(dev).float()
+        vc = cfm_inference(s2mel["cfm"], cfg.s2mel, cat_cond.to(dt),
                            prompt_len + target_len, prompt_mel.to(dt),
-                           spk["style"].expand(B, -1).to(dt), n_timesteps=25,
-                           inference_cfg_rate=0.7, prompt_len=prompt_len, z=z)
+                           spk["style"].to(dev).expand(B, -1).to(dt), n_timesteps=25,
+                           inference_cfg_rate=0.7, prompt_len=prompt_len, z=z.to(dev))
         idx2 = torch.clamp(torch.arange(mel_bucket, device=dev)[None, :]
                            + prompt_len[:, None], max=total - 1)
         vc_tgt = torch.gather(vc, 1, idx2[:, :, None].expand(-1, -1, vc.shape[-1]))
-        self._sync()
+        self._sync(dev)
         t2 = time.perf_counter()
         times["s2mel"] = times.get("s2mel", 0.0) + t2 - t1
 
-        wav = bigvgan_forward(self.bigvgan_params, cfg.bigvgan, vc_tgt.to(dt), target_len)
+        wav = bigvgan_forward(trees["bigvgan_params"], cfg.bigvgan, vc_tgt.to(dt), target_len)
         wav_np = wav[:, :self._n_samples(cmax)].float().cpu().numpy()
         times["bigvgan"] = times.get("bigvgan", 0.0) + time.perf_counter() - t2
         return wav_np

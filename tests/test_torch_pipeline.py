@@ -194,11 +194,16 @@ def test_aux_kwargs_take_their_engines_and_emotion_text_raises(torch_tts, model_
                                          ({"mesh": 2}, "mesh")])
 def test_unported_constructor_options_raise(model_dir, kwargs, what):
     """An unknown quantization name is refused (ValueError: K1 has no such
-    format); an unported option raises NotImplementedError."""
+    format). ``mesh=2``, which raised before the mesh was ported, is the JAX
+    pipeline's dp=2 mesh, here over two CPU ranks."""
     from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
 
-    exc = ValueError if "quantization" in kwargs else NotImplementedError
-    with pytest.raises(exc, match=what):
+    if what == "mesh":
+        tts = IndexTTS2(cfg_path=None, model_dir=model_dir, device="cpu", cfg=tiny_config(),
+                        **kwargs)
+        assert (tts.mesh.dp, tts.mesh.tp, tts.device.type) == (2, 1, "cpu")
+        return
+    with pytest.raises(ValueError, match=what):
         IndexTTS2(cfg_path=None, model_dir=model_dir, device="cpu", cfg=tiny_config(),
                   **kwargs)
 

@@ -25,7 +25,14 @@ a shard); torch runs one intra-op thread. Tolerances, each with its reason:
   within atol = rtol = 2e-2 (the int8 prefill tolerance of
   `tests/test_torch_quant.py`);
 - greedy decodes on the tp route: token-equal with the port's unsharded int8
-  route.
+  route; 27 rows (past K6's 24) on the plain step of the shards, token-equal
+  with the unsharded int8 pipeline's plain step;
+- the mesh combinations the port used to refuse (dp and sp meshes, the
+  pipeline on a tp mesh for int4, int8kv, bf16 and int8 without the switch,
+  tp trees of float and int4 weights, the int8 cache, 25 rows) now build and
+  take the plain step (the JAX package's GSPMD decode); naming a card the
+  machine lacks still raises (tests/test_torch_mesh.py holds these routes
+  against the JAX package).
 """
 
 import sys
@@ -398,7 +405,8 @@ def _recorded_request(tts, monkeypatch, **kw):
 def test_long_form_request_on_a_cpu_mesh_equals_the_unsharded_route(tp_tts, int8_tts,
                                                                      tiny_assets, monkeypatch):
     """A greedy 4-segment request (3, 4, 3 and 3 text tokens) at num_beams=2
-    on the tp mesh: the segments decode as one batch of 8 rows (no row chunks under a mesh), token-equal
+    on the tp mesh: the segments decode as one batch of 8 rows (no row chunks
+    on a tp mesh), token-equal
     with the unsharded int8 port, and the batched synthesis gives its wav's
     shape."""
     from indextts_tpu_torch.engine import beam
@@ -421,31 +429,56 @@ def test_long_form_request_on_a_cpu_mesh_equals_the_unsharded_route(tp_tts, int8
     assert wav_tp.shape == wav_1.shape
 
 
-def test_tp_long_form_of_more_than_24_rows_raises(tp_tts, tiny_assets):
+def test_tp_long_form_of_more_than_24_rows_raises(tp_tts, int8_tts, tiny_assets, monkeypatch):
     """9 segments at num_beams=3 are 27 decode rows: one batch under the
-    mesh, which kernel K6 does not take."""
-    with pytest.raises(NotImplementedError, match="27 rows.*GSPMD decode"):
-        tp_tts.infer(spk_audio_prompt=str(tiny_assets / "prompt.wav"),
-                     text="hello world . " * 9, output_path=None, num_beams=3,
-                     do_sample=False, max_mel_tokens=8, min_new_tokens=3,
-                     max_text_tokens_per_segment=4)
+    mesh, which kernel K6 does not take, so every step is the plain one on
+    the shards (the JAX package's GSPMD decode; it used to raise). Token-equal
+    with the unsharded int8 port decoding the 27 rows at once on its plain
+    step (MAX_ROWS raised to 27, so one chunk)."""
+    from indextts_tpu_torch.engine import decode
+    from indextts_tpu_torch.models.gpt.gpt2 import gpt2_decode_step
+    from indextts_tpu_torch.pipeline import infer_v2 as iv2
+
+    kw = dict(spk_audio_prompt=str(tiny_assets / "prompt.wav"), text="hello world . " * 9,
+              output_path=None, num_beams=3, do_sample=False, max_mel_tokens=8,
+              min_new_tokens=3, max_text_tokens_per_segment=4)
+    assert decode.decode_route(tp_tts.gpt_params, 27) == "plain"
+    calls = gpt2_decode_step.calls
+    tp_run = _recorded_request(tp_tts, monkeypatch, **kw)
+    assert gpt2_decode_step.calls > calls
+    monkeypatch.setattr(iv2, "MAX_ROWS", 27)
+    one_run = _recorded_request(int8_tts, monkeypatch, **kw)
+    ((_, wav_tp), chunks_tp, ((codes_tp, clens_tp),)) = tp_run
+    ((_, wav_1), chunks_1, ((codes_1, clens_1),)) = one_run
+    assert chunks_tp == chunks_1 == [9]
+    np.testing.assert_array_equal(clens_tp, clens_1)
+    for b, n in enumerate(clens_1):
+        assert torch.equal(codes_tp[b, :n], codes_1[b, :n]), b
+    assert wav_tp.shape == wav_1.shape and np.all(np.isfinite(wav_tp))
 
 
 def _raises_mesh_with_more_ranks_than_devices(_):
     n = torch.cuda.device_count()
-    make_mesh([f"cuda:{n}", f"cuda:{n}"])
+    with pytest.raises(ValueError, match="CUDA device"):
+        make_mesh([f"cuda:{n}", f"cuda:{n}"])
 
 
-def _raises_dp(_):
-    make_mesh(["cpu"] * 4, dp=2)
+def _dp(_):
+    mesh = make_mesh(["cpu"] * 4, dp=2)
+    assert (mesh.dp, mesh.sp, mesh.tp) == (2, 1, 2)
+    assert mesh.tp_mesh(1).devices == (torch.device("cpu"),) * 2
 
 
-def _raises_sp(_):
-    make_mesh(["cpu"] * 4, sp=2)
+def _sp(_):
+    mesh = make_mesh(["cpu"] * 4, sp=2)
+    assert (mesh.dp, mesh.sp, mesh.tp) == (1, 2, 2)
 
 
 def _pipeline(quantization, switch=True):
+    """The tiny pipeline on a tp=2 CPU mesh: it builds, and its decode route
+    is K6's only for int8 weights under the switch."""
     def run(tiny_assets):
+        from indextts_tpu_torch.engine.decode import decode_route
         from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
 
         with pytest.MonkeyPatch.context() as mp:
@@ -453,8 +486,13 @@ def _pipeline(quantization, switch=True):
                 mp.setenv("INDEXTTS_TP_DECODE", "kernel")
             else:
                 mp.delenv("INDEXTTS_TP_DECODE", raising=False)
-            IndexTTS2(cfg_path=None, model_dir=str(tiny_assets), cfg=tiny_config(),
-                      quantization=quantization, mesh=make_mesh(["cpu", "cpu"]))
+            tts = IndexTTS2(cfg_path=None, model_dir=str(tiny_assets), cfg=tiny_config(),
+                            quantization=quantization, mesh=make_mesh(["cpu", "cpu"]))
+        assert "shards" in tts.gpt_params["gpt"]
+        kernel = quantization == "int8" and switch
+        assert tts.tp_kernel is kernel
+        kv_quant = tts._sampling({}).kv_quant
+        assert decode_route(tts.gpt_params, 3, kv_quant) == ("tp" if kernel else "plain")
     return run
 
 
@@ -467,27 +505,29 @@ def _route(kind):
         tree = to_torch(tgpt2.init_gpt2(TInitRng(0), tgpt2.GPT2Dims(1, 128, 4)), "cpu",
                         torch.bfloat16)
         if kind == "int4":
-            shard_gpt2_tp(tgpt2.quantize_gpt2_int4(tree), mesh)
-        tp = shard_gpt2_tp(tree if kind == "float" else tgpt2.quantize_gpt2_int8(tree), mesh)
+            tree = tgpt2.quantize_gpt2_int4(tree)
+        elif kind != "float":
+            tree = tgpt2.quantize_gpt2_int8(tree)
+        tp = shard_gpt2_tp(tree, mesh)
         assert kind != "float" or tgpt2.is_quantized(tp) is False
-        decode_route({"gpt": tp}, 25 if kind == "rows" else 3, kv_quant=kind == "int8kv")
+        assert decode_route({"gpt": tp}, 25 if kind == "rows" else 3,
+                            kv_quant=kind == "int8kv") == "plain"
+        assert decode_route({"gpt": tp}, 24, kv_quant=False) == (
+            "tp" if kind in ("int8kv", "rows") else "plain")
     return run
 
 
-@pytest.mark.parametrize("case,exc,what", [
-    (_raises_mesh_with_more_ranks_than_devices, ValueError, "CUDA device"),
-    (_raises_dp, NotImplementedError, "dp"),
-    (_raises_sp, NotImplementedError, "sp"),
-    (_pipeline("int4"), NotImplementedError, "int4"),
-    (_pipeline("int8kv"), NotImplementedError, "int8kv"),
-    (_pipeline(None), NotImplementedError, "float"),
-    (_pipeline("int8", switch=False), NotImplementedError, "INDEXTTS_TP_DECODE"),
-    (_route("int4"), NotImplementedError, "int4"),
-    (_route("float"), NotImplementedError, "float"),
-    (_route("int8kv"), NotImplementedError, "int8 KV cache"),
-    (_route("rows"), NotImplementedError, "25 rows"),
+@pytest.mark.parametrize("case", [
+    _raises_mesh_with_more_ranks_than_devices, _dp, _sp, _pipeline("int4"),
+    _pipeline("int8kv"), _pipeline(None), _pipeline("int8", switch=False), _route("int4"),
+    _route("float"), _route("int8kv"), _route("rows"),
 ], ids=["ranks", "dp", "sp", "int4", "int8kv", "float", "switch", "shard-int4", "route-float",
         "route-int8kv", "route-rows"])
-def test_unported_mesh_combinations_raise(tiny_assets, case, exc, what):
-    with pytest.raises(exc, match=what):
-        case(tiny_assets)
+def test_unported_mesh_combinations_raise(tiny_assets, case):
+    """The mesh combinations this port used to refuse: a rank on a card the
+    machine lacks still raises; dp and sp meshes build; the pipeline builds
+    on a tp mesh for every quantization, taking K6 only for int8 under
+    INDEXTTS_TP_DECODE=kernel (the JAX gate), the plain step on the shards
+    otherwise; a tp tree of int4, float, the int8 cache or 25 rows takes the
+    plain step (the JAX package's GSPMD decode)."""
+    case(tiny_assets)
