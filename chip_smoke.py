@@ -281,6 +281,23 @@
    one side only if on the other), and 3 steps, a save, a resume and 2
    more steps against 5 steps straight (atol 1e-6, rtol 1e-5; the
    bit-identical leaves counted), with the seconds to save and resume.
+14a. training-mesh pass (`train_mesh_phase`), after the training pass on
+   its batches with each row's DiT and prompt frames set unequal across the
+   two dp halves (`TRAIN_MESH_FRAMES`): the trainer at dp=2 x tp=2 with
+   every rank on cuda:0 (`--device cuda:0,cuda:0,cuda:0,cuda:0`), the
+   shipped widths, B = 4. Step 1 against the single-card step on the same
+   weights, batch and draws (loss within rel 1e-5, every gathered gradient
+   leaf within rel-L2 1e-4, the conformers' key bias held at the noise
+   floor as in item 14); 5 steps (the median step seconds of steps 2-5 and
+   the peak allocated bytes printed). Then, at item 14's reduced depth (GPT
+   2 layers, DiT 2, one conformer block; a state of the shipped depth is
+   11.5 GB, which took ~30 s to write and ~40 s to read): 5 steps twice,
+   bit-identical; 3 steps and a save, the state loaded into a new tree at
+   the same mesh (`load_state`, the trainer's resume) and 2 more steps
+   against the 5 straight, bit-identical; the step-3 state loaded on one
+   device: parameters and moments bit-identical to the mesh's gathered
+   ones, its step-4 loss within rel 1e-4 of the mesh's. No kernel
+   launched.
 15. DVAE pass (`dvae_phase`): `init_dvae` at its published defaults (8192
    tokens, codebook 512, hidden 512, 2 layers, 3 res-blocks), drawn on the
    card, and a 5 s synthetic wav through mel, codes and reconstruction on
@@ -4344,6 +4361,15 @@ TRAIN_LOSS_RTOL = 1e-4
 ZERO_GRAD = re.compile(r"attn/linear_k/bias$")
 ZERO_GRAD_FLOOR = 1e-6
 RESUME_ATOL, RESUME_RTOL = 1e-6, 1e-5
+# the training-mesh pass: dp=2 x tp=2, every rank on the card; each row's
+# (DiT frames, prompt frames), the two dp halves holding unequal counts
+TRAIN_MESH_DP, TRAIN_MESH_TP = 2, 2
+TRAIN_MESH_DEVICES = ",".join(["cuda:0"] * (TRAIN_MESH_DP * TRAIN_MESH_TP))
+TRAIN_MESH_FRAMES = ((688, 172), (600, 120), (512, 200), (650, 90))
+TRAIN_MESH_LOSS_RTOL, TRAIN_MESH_GRAD_RTOL = 1e-5, 1e-4
+# a resume at dp=1 sums in another order, and Adam turns rounding-noise
+# gradients into full-size updates: its next loss is held this close
+TRAIN_MESH_RESUME_RTOL = 1e-4
 DVAE_SECONDS = 5.0
 DVAE_AGREE = 0.99
 
@@ -4511,39 +4537,240 @@ def save_and_resume(gpt, s2, data_dir: str, card: str) -> None:
         torch.testing.assert_close(b, a, atol=RESUME_ATOL, rtol=RESUME_RTOL)
 
 
-def train_phase(card: str) -> None:
-    """The training pass (docstring item 14)."""
+def training_phases(card: str) -> None:
+    """The training pass and the training-mesh pass (docstring items 14 and
+    14a) on one set of batch files."""
+    gpt, s2 = train_configs(reduced=False)
+    with tempfile.TemporaryDirectory(prefix="indextts_batches_") as d:
+        full = write_train_batches(os.path.join(d, "b4"), gpt, s2, TRAIN_BATCH, TRAIN_STEPS)
+        one = write_train_batches(os.path.join(d, "b1"), gpt, s2, 1, TRAIN_STEPS)
+        train_phase(card, full, one)
+        train_mesh_phase(card, unequal_batches(full, os.path.join(d, "b4-unequal")))
+
+
+def train_phase(card: str, full: str, one: str) -> None:
+    """The training pass (docstring item 14) on the B = TRAIN_BATCH batches
+    in ``full`` and the B = 1 ones in ``one``."""
     import torch
 
     from indextts_tpu_torch.parallel.train import leaves
     from indextts_tpu_torch.train import run
 
     gpt, s2 = train_configs(reduced=False)
-    with tempfile.TemporaryDirectory(prefix="indextts_batches_") as d:
-        full = write_train_batches(os.path.join(d, "b4"), gpt, s2, TRAIN_BATCH, TRAIN_STEPS)
-        one = write_train_batches(os.path.join(d, "b1"), gpt, s2, 1, TRAIN_STEPS)
-        before = read_counts()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        trainable, optimizer, losses, seconds = run(train_args(data_dir=full), gpt, s2)
+    before = read_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainable, optimizer, losses, seconds = run(train_args(data_dir=full), gpt, s2)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in leaves(trainable))
+    del trainable, optimizer
+    torch.cuda.empty_cache()
+    after = read_counts()
+    print(f"training (full width, B={TRAIN_BATCH}, {TRAIN_LENGTHS}): {n_params} trainable "
+          f"parameters; losses (total, gpt, cfm) " + "; ".join(
+              f"step {i + 1} {a:.4f} {b:.4f} {c:.4f}" for i, (a, b, c) in enumerate(losses))
+          + f"; step seconds " + ", ".join(f"{s:.3f}" for s in seconds)
+          + f"; median of steps 2-{TRAIN_STEPS} {float(np.median(seconds[1:])):.3f} s; "
+          f"peak allocated {peak} bytes [{card}]", flush=True)
+    assert len(losses) == TRAIN_STEPS and np.isfinite(losses).all(), losses
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert not launched, f"a training step launched kernels: {launched}"
+    reduced = train_configs(reduced=True)
+    card_against_host(*reduced, one, card)
+    save_and_resume(*reduced, one, card)
+
+
+def unequal_batches(src: str, dst: str) -> str:
+    """The batch files of ``src`` with each row's DiT and prompt frames set
+    to TRAIN_MESH_FRAMES, written to ``dst``."""
+    import glob
+
+    os.makedirs(dst, exist_ok=True)
+    frames = np.asarray(TRAIN_MESH_FRAMES, np.int32)
+    for f in sorted(glob.glob(os.path.join(src, "*.npz"))):
+        with np.load(f) as z:
+            b = {k: z[k] for k in z.files}
+        b["mel_frames"], b["prompt_frames"] = frames[:, 0].copy(), frames[:, 1].copy()
+        np.savez(os.path.join(dst, os.path.basename(f)), **b)
+    return dst
+
+
+def mesh_step_against_single(gpt, s2, data_dir: str, card: str) -> None:
+    """One step at dp=2 x tp=2 on the card against the single-card step on
+    the same weights, batch and draws: the loss, and every gradient leaf
+    gathered."""
+    import torch
+
+    from indextts_tpu_torch.models.s2mel.cfm import cfm_noise
+    from indextts_tpu_torch.parallel import train as pt
+    from indextts_tpu_torch.parallel.mesh import gather_train, shard_train
+    from indextts_tpu_torch.train import (init_trainable, npz_batch, step_generator,
+                                          to_device, train_mesh)
+
+    dev, mesh = train_mesh(TRAIN_MESH_DEVICES, TRAIN_MESH_DP, TRAIN_MESH_TP)
+    batch = to_device(npz_batch(os.path.join(data_dir, "batch-000.npz")), dev)
+    t, z = cfm_noise(batch["mel_target"], step_generator(0, 0))
+    out = {}
+    for m in (None, mesh):
+        tr = init_trainable(gpt, s2, 0, dev)
+        tr = tr if m is None else shard_train(tr, m)
+        opt = pt.make_train_state(tr, mesh=m)
+        t0 = time.perf_counter()
+        loss, parts = pt.make_train_step(gpt, s2, mesh=m)(tr, opt, batch, t, z)
         torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
-        n_params = sum(p.numel() for p in leaves(trainable))
-        del trainable, optimizer
+        sec = time.perf_counter() - t0
+        names = leaf_names(gather_train(tr))
+        grads = pt.leaves(gather_train(pt.tree_map(lambda p: p.grad, tr)))
+        out["mesh" if m else "single"] = (float(loss), {k: float(v) for k, v in parts.items()},
+                                          grads, sec)
+        del tr, opt
         torch.cuda.empty_cache()
-        after = read_counts()
-        print(f"training (full width, B={TRAIN_BATCH}, {TRAIN_LENGTHS}): {n_params} trainable "
-              f"parameters; losses (total, gpt, cfm) " + "; ".join(
-                  f"step {i + 1} {a:.4f} {b:.4f} {c:.4f}" for i, (a, b, c) in enumerate(losses))
-              + f"; step seconds " + ", ".join(f"{s:.3f}" for s in seconds)
-              + f"; median of steps 2-{TRAIN_STEPS} {float(np.median(seconds[1:])):.3f} s; "
-              f"peak allocated {peak} bytes [{card}]", flush=True)
-        assert len(losses) == TRAIN_STEPS and np.isfinite(losses).all(), losses
-        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-        assert not launched, f"a training step launched kernels: {launched}"
-        reduced = train_configs(reduced=True)
-        card_against_host(*reduced, one, card)
-        save_and_resume(*reduced, one, card)
+    (lm, pm, gm, sm), (ls, ps, gs, ss) = out["mesh"], out["single"]
+    total = torch.linalg.norm(torch.stack([torch.linalg.norm(g) for g in gs])).item()
+    worst, worst_name, noise = 0.0, None, {}
+    for name, a, b in zip(names, gm, gs):
+        na, nb = torch.linalg.norm(a).item(), torch.linalg.norm(b).item()
+        if ZERO_GRAD.search(name):
+            noise[name] = (na, nb)
+            assert max(na, nb) <= ZERO_GRAD_FLOOR * total, (name, na, nb, total)
+        elif na == 0 or nb == 0:
+            assert na == nb == 0, (name, na, nb)
+        else:
+            rel = torch.linalg.norm(a - b).item() / nb
+            if rel > worst:
+                worst, worst_name = rel, name
+    loss_rel = abs(lm - ls) / abs(ls)
+    print(f"training mesh, step 1 at dp={TRAIN_MESH_DP} x tp={TRAIN_MESH_TP} against the "
+          f"single-card step (same weights, batch, draws): loss {lm:.7f} vs {ls:.7f} (rel "
+          f"{loss_rel:.3e}), gpt {pm['gpt']:.7f} vs {ps['gpt']:.7f}, cfm {pm['cfm']:.7f} vs "
+          f"{ps['cfm']:.7f}; {len(gs)} gradient leaves, worst rel-L2 {worst:.3e} ({worst_name}); "
+          f"rounding-noise leaves, norms mesh / single: "
+          + "; ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in noise.items())
+          + f"; the first step {sm:.3f} s at the mesh, {ss:.3f} s single [{card}]", flush=True)
+    assert loss_rel <= TRAIN_MESH_LOSS_RTOL and worst <= TRAIN_MESH_GRAD_RTOL, (loss_rel, worst)
+
+
+def mesh_trained(args, gpt, s2) -> tuple:
+    """The trainer's run at ``args``: (its gathered parameters, kept on the
+    card, its losses, its step seconds); the optimizer state is freed."""
+    import torch
+
+    from indextts_tpu_torch.parallel.mesh import gather_train
+    from indextts_tpu_torch.parallel.train import leaves
+    from indextts_tpu_torch.train import run
+
+    trainable, optimizer, losses, seconds = run(args, gpt, s2)
+    kept = [p.detach() for p in leaves(gather_train(trainable))]
+    del trainable, optimizer
+    torch.cuda.empty_cache()
+    return kept, losses, seconds
+
+
+def mesh_save_and_resume(gpt, s2, data_dir: str, card: str) -> None:
+    """5 steps at the mesh twice (bit-identical); 3 steps, a save, the state
+    loaded into a new tree at the mesh and 2 more steps against the 5
+    straight (bit-identical); the step-3 state loaded on one device
+    (parameters and moments bit-identical to the mesh's, gathered) and its
+    step 4 against the mesh's."""
+    import shutil
+
+    import torch
+
+    from indextts_tpu_torch.models.s2mel.cfm import cfm_noise
+    from indextts_tpu_torch.parallel.mesh import gather_train, shard_train
+    from indextts_tpu_torch.parallel.train import leaves, make_train_state, make_train_step
+    from indextts_tpu_torch.train import (adam_moments, init_trainable, load_state, npz_batch,
+                                          run, step_generator, to_device, train_mesh)
+
+    dev, mesh = train_mesh(TRAIN_MESH_DEVICES, TRAIN_MESH_DP, TRAIN_MESH_TP)
+    args = dict(data_dir=data_dir, dp=TRAIN_MESH_DP, tp=TRAIN_MESH_TP, device=TRAIN_MESH_DEVICES)
+    straight, losses, _ = mesh_trained(train_args(**args), gpt, s2)
+    again = mesh_trained(train_args(**args), gpt, s2)[0]
+    same_runs = sum(torch.equal(a, b) for a, b in zip(straight, again))
+    del again
+
+    def resumed(tr, opt, m, steps):
+        """``steps`` of the trainer's loop on a loaded state; the last loss."""
+        step = make_train_step(gpt, s2, mesh=m)
+        for i in steps:
+            batch = to_device(npz_batch(os.path.join(data_dir, f"batch-{i:03d}.npz")), dev)
+            loss = step(tr, opt, batch, *cfm_noise(batch["mel_target"], step_generator(0, i)))[0]
+        return float(loss)
+
+    with tempfile.TemporaryDirectory(prefix="indextts_train_mesh_") as ck:
+        usage = shutil.disk_usage(ck)
+        t0 = time.perf_counter()
+        trainable, optimizer, _, _ = run(train_args(**args, steps=3, ckpt_dir=ck), gpt, s2)
+        t_three = time.perf_counter() - t0
+        saved = [p.detach() for p in leaves(gather_train(trainable))]
+        _, mu, nu = adam_moments(trainable, optimizer)
+        saved += leaves(mu) + leaves(nu)
+        del trainable, optimizer, mu, nu
+        torch.cuda.empty_cache()
+        state = os.path.join(ck, "state-3")
+        loads = []
+        for m in (mesh, None):
+            tr = init_trainable(gpt, s2, 1, dev)
+            tr = tr if m is None else shard_train(tr, m)
+            opt = make_train_state(tr, mesh=m)
+            t0 = time.perf_counter()
+            assert load_state(state, tr, opt) == 3
+            loads.append(time.perf_counter() - t0)
+            if m is None:           # the mesh's state on one device
+                _, mu, nu = adam_moments(tr, opt)
+                same_load = sum(torch.equal(a, b) for a, b in zip(saved, leaves(tr) + leaves(mu)
+                                                                  + leaves(nu)))
+                del mu, nu
+                loss4 = resumed(tr, opt, None, (3,))
+            else:                   # resumed at the mesh: steps 4 and 5
+                resumed(tr, opt, m, (3, 4))
+                same_resume = sum(torch.equal(a, b)
+                                  for a, b in zip(straight, leaves(gather_train(tr))))
+            del tr, opt
+            torch.cuda.empty_cache()
+        state_bytes = sum(os.path.getsize(os.path.join(state, f)) for f in os.listdir(state))
+    n = len(straight)
+    resume_rel = abs(loss4 - losses[3][0]) / abs(losses[3][0])
+    print(f"training mesh, save and resume (reduced depth, B={TRAIN_BATCH}): two runs of 5 "
+          f"steps: {same_runs} of {n} leaves bit-identical; 3 steps + save + a load at the mesh "
+          f"+ 2 against 5 straight: {same_resume} of {n} bit-identical; the step-3 state "
+          f"({state_bytes} bytes; {usage.free} bytes free) loaded on one device: {same_load} of "
+          f"{3 * n} leaves and moments bit-identical, its step-4 loss {loss4:.7f} vs "
+          f"{losses[3][0]:.7f} at the mesh (rel {resume_rel:.3e}); 3 steps and a save "
+          f"{t_three:.2f} s, a load at the mesh {loads[0]:.2f} s, on one device {loads[1]:.2f} s "
+          f"[{card}]", flush=True)
+    assert same_runs == n and same_resume == n and same_load == 3 * n, (same_runs, same_resume,
+                                                                         same_load, n)
+    assert resume_rel <= TRAIN_MESH_RESUME_RTOL, resume_rel
+
+
+def train_mesh_phase(card: str, data_dir: str) -> None:
+    """The training-mesh pass (docstring item 14a) on the unequal batches in
+    ``data_dir``."""
+    import torch
+
+    gpt, s2 = train_configs(reduced=False)
+    before = read_counts()
+    mesh_step_against_single(gpt, s2, data_dir, card)
+    mesh = dict(data_dir=data_dir, dp=TRAIN_MESH_DP, tp=TRAIN_MESH_TP, device=TRAIN_MESH_DEVICES)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, losses, seconds = mesh_trained(train_args(**mesh), gpt, s2)
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    print(f"training mesh (dp={TRAIN_MESH_DP} x tp={TRAIN_MESH_TP} on {TRAIN_MESH_DEVICES}, full "
+          f"width, B={TRAIN_BATCH}, rows' (frames, prompt) {TRAIN_MESH_FRAMES}): losses (total, "
+          f"gpt, cfm) " + "; ".join(f"step {i + 1} {a:.4f} {b:.4f} {c:.4f}"
+                                    for i, (a, b, c) in enumerate(losses))
+          + "; step seconds " + ", ".join(f"{x:.3f}" for x in seconds)
+          + f"; median of steps 2-{TRAIN_STEPS} {float(np.median(seconds[1:])):.3f} s; peak "
+          f"allocated {peak} bytes [{card}]", flush=True)
+    assert len(losses) == TRAIN_STEPS and np.isfinite(losses).all(), losses
+    mesh_save_and_resume(*train_configs(reduced=True), data_dir, card)
+    after = read_counts()
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert not launched, f"a training-mesh step launched kernels: {launched}"
 
 
 def dvae_phase(card: str) -> None:
@@ -4686,8 +4913,8 @@ def main() -> int:
                                    ("gpt", "gpt_forward", "s2mel", "bigvgan", "total"))
             + f" audio={st['audio_s']:.4f}s RTF={st['rtf']:.4f}"
             for label, st in (("int8", lf_int8), ("bf16", lf_bf16))) + f" [{card}]", flush=True)
-    train_phase(card)
-    mark("training pass done")
+    training_phases(card)
+    mark("training and training-mesh passes done")
     dvae_phase(card)
     mark("DVAE pass done")
     assert "jax" not in sys.modules, "the port imported jax"

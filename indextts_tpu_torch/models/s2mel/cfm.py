@@ -126,16 +126,12 @@ def cfm_noise(x1: torch.Tensor, generator: torch.Generator):
     return t.to(x1.device), z.to(x1.device)
 
 
-def cfm_loss(params: Params, s2: S2MelConfig, x1: torch.Tensor, x_lens: torch.Tensor,
-             prompt_lens: torch.Tensor, mu: torch.Tensor, style: torch.Tensor,
-             t: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """OT-CFM training loss at the draws (t, z) of `cfm_noise`: x1 (B, T, 80)
-    target mel, x_lens (B,) valid frames, prompt_lens (B,) the prompt region
-    (its target goes in as the prompt, its y is zeroed, and it is left out of
-    the loss), mu (B, T, content_dim), style (B, 192). The L1 (or, for
-    ``reg_loss_type == "l2"``, squared) error over [prompt_len, x_len),
-    averaged. The DiT runs its dense attention tier, the one with a
-    backward."""
+def cfm_loss_sums(params: Params, s2: S2MelConfig, x1: torch.Tensor, x_lens: torch.Tensor,
+                  prompt_lens: torch.Tensor, mu: torch.Tensor, style: torch.Tensor,
+                  t: torch.Tensor, z: torch.Tensor):
+    """`cfm_loss`'s numerator and denominator: (the summed error over the
+    valid frames, f32; their count times the channels, before the clamp at
+    1). A dp rank sums its rows' error over the whole batch's count."""
     B, T, C = x1.shape
     sigma_min = 1e-6
     y = (1 - (1 - sigma_min) * t) * z + t * x1
@@ -149,5 +145,18 @@ def cfm_loss(params: Params, s2: S2MelConfig, x1: torch.Tensor, x_lens: torch.Te
     valid = nn.sequence_mask(x_lens, T)[:, :, None] & ~prompt_region
     err = (v - u).square() if s2.reg_loss_type == "l2" else (v - u).abs()
     err = torch.where(valid, err, torch.zeros_like(err))
-    denom = torch.clamp(valid.sum().float() * C, min=1.0)
-    return err.float().sum() / denom
+    return err.float().sum(), valid.sum().float() * C
+
+
+def cfm_loss(params: Params, s2: S2MelConfig, x1: torch.Tensor, x_lens: torch.Tensor,
+             prompt_lens: torch.Tensor, mu: torch.Tensor, style: torch.Tensor,
+             t: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """OT-CFM training loss at the draws (t, z) of `cfm_noise`: x1 (B, T, 80)
+    target mel, x_lens (B,) valid frames, prompt_lens (B,) the prompt region
+    (its target goes in as the prompt, its y is zeroed, and it is left out of
+    the loss), mu (B, T, content_dim), style (B, 192). The L1 (or, for
+    ``reg_loss_type == "l2"``, squared) error over [prompt_len, x_len),
+    averaged over the batch's valid frames and channels. The DiT runs its
+    dense attention tier, the one with a backward."""
+    total, count = cfm_loss_sums(params, s2, x1, x_lens, prompt_lens, mu, style, t, z)
+    return total / torch.clamp(count, min=1.0)

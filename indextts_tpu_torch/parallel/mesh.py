@@ -50,6 +50,16 @@ transformer the same way (wqkv and ff.w1 / ff.w3 column-parallel, attn.wo
 and ff.w2 row-parallel, the adaptive norms replicated) and copies the rest
 of the DiT to every sp rank.
 
+`shard_train` is the training layout of the trainable tree over a (dp, tp)
+mesh, the JAX train step's (`indextts_tpu/parallel/mesh.py::_spec_for_path`
+on the UnifiedVoice tree): of the GPT-2 stack's c_attn weight and bias and
+c_fc weight and bias (column-parallel, c_attn head-aligned) and the two
+c_proj weights (row-parallel), each tp rank holds its cut on its device
+(`TrainShards`); every other leaf stays one tensor on rank 0's device,
+which the other ranks read through a differentiable copy, so autograd sums
+every rank's gradient into it and no replica can drift. `gather_train` is
+its inverse.
+
 `Replicated` holds a decode input that every rank reads (``kv_valid``, the
 beam ancestry map) on each of the mesh's devices, as shard_map replicates
 it; the engines update the copies in place, so the step copies no mask or
@@ -354,3 +364,116 @@ def shard_dit(dit: Params, mesh: Mesh) -> Params:
                        "transformer": {"shards": shards,
                                        "norm": place(dit["transformer"]["norm"], dev0)}})
     return {"sp": blocks, "mesh": mesh}
+
+
+class TrainShards(list):
+    """A leaf of the training layout cut over tp (`shard_train`): one tensor
+    a tp rank, on the rank's device. ``axis`` 0 cuts the output rows, in
+    ``groups`` equal blocks cut alike (c_attn's q | k | v: head-aligned), as
+    `_rows` does; ``axis`` 1 the contraction columns, as `_cols` does."""
+
+    def __init__(self, parts, axis: int, groups: int = 1):
+        super().__init__(parts)
+        self.axis, self.groups = axis, groups
+
+    @classmethod
+    def cut(cls, full: torch.Tensor, devices: Sequence[torch.device], axis: int,
+            groups: int = 1) -> "TrainShards":
+        """``full`` cut over ``devices`` (each part its own copy)."""
+        tp = len(devices)
+        if axis == 0:
+            parts = [_rows({"w": full}, t, tp, groups, d)["w"] for t, d in enumerate(devices)]
+        else:
+            parts = [_cols({"weight": full}, t, tp, d)["weight"] for t, d in enumerate(devices)]
+        return cls([p.clone() for p in parts], axis, groups)
+
+    def like(self, parts) -> "TrainShards":
+        """Other tensors (gradients, moments) cut the same way."""
+        return TrainShards(parts, self.axis, self.groups)
+
+    def gather(self) -> torch.Tensor:
+        """The whole tensor, on the first rank's device."""
+        dev = self[0].device
+        if self.axis == 1:
+            return torch.cat([p.to(dev) for p in self], dim=1)
+        g = self.groups
+        full = torch.cat([p.to(dev).reshape(g, p.shape[0] // g, *p.shape[1:]) for p in self],
+                         dim=1)
+        return full.reshape(-1, *full.shape[2:])
+
+
+# the GPT-2 stack's leaves that the JAX train step shards over tp (its
+# `_spec_for_path` on the UnifiedVoice tree), by their path under a layer of
+# ``trainable["gpt"]["gpt"]["h"]`` -> (axis, groups) of `TrainShards`
+TRAIN_TP_LEAVES = {("attn", "c_attn", "weight"): (0, 3), ("attn", "c_attn", "bias"): (0, 3),
+                   ("mlp", "c_fc", "weight"): (0, 1), ("mlp", "c_fc", "bias"): (0, 1),
+                   ("attn", "c_proj", "weight"): (1, 1), ("mlp", "c_proj", "weight"): (1, 1)}
+
+
+def _map_train(tree: Params, fn: Callable, path: tuple = ()) -> Params:
+    """``fn(layer_path, leaf)`` on every leaf, container types kept;
+    ``layer_path`` is a GPT-2 layer leaf's path under its layer, else
+    None."""
+    if isinstance(tree, dict):
+        return type(tree)((k, _map_train(v, fn, path + (k,))) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, TrainShards):
+        return type(tree)(_map_train(v, fn, path + (i,)) for i, v in enumerate(tree))
+    in_layer = len(path) == 7 and path[:3] == ("gpt", "gpt", "h")
+    return fn(path[4:] if in_layer else None, tree)
+
+
+def shard_train(trainable: Params, mesh: Mesh) -> Params:
+    """The trainable tree ``{"gpt": <UnifiedVoice>, "s2mel": ...}`` (the
+    port's layouts) in its training layout over ``mesh`` (dp x tp, sp 1):
+    the six `TRAIN_TP_LEAVES` kinds of every GPT-2 layer as `TrainShards`
+    on dp rank 0's tp devices when tp > 1, every other leaf on
+    ``mesh.devices[0]`` (the same tensor where it is there already)."""
+    if mesh.sp != 1:
+        raise ValueError(f"shard_train: the train step has no sp axis, got {mesh}")
+    devs, dev0 = mesh.tp_mesh(0).devices, mesh.devices[0]
+
+    def place_leaf(key, leaf):
+        if isinstance(leaf, TrainShards):
+            raise ValueError("shard_train: the tree is sharded already")
+        if mesh.tp > 1 and key in TRAIN_TP_LEAVES:
+            return TrainShards.cut(leaf.detach(), devs, *TRAIN_TP_LEAVES[key])
+        return leaf if leaf.device == dev0 else leaf.detach().to(dev0)
+
+    return _map_train(trainable, place_leaf)
+
+
+def check_train_layout(tree: Params, mesh: Mesh) -> None:
+    """Raise ValueError unless ``tree`` is in `shard_train`'s layout over
+    ``mesh`` (a step on another layout would compute on the wrong cuts)."""
+    devs, dev0 = list(mesh.tp_mesh(0).devices), mesh.devices[0]
+
+    def check(key, leaf):
+        cut = mesh.tp > 1 and key in TRAIN_TP_LEAVES
+        where = [p.device for p in leaf] if isinstance(leaf, TrainShards) else leaf.device
+        if where != (devs if cut else dev0):
+            raise ValueError(f"a leaf lies on {where}, not where shard_train(tree, {mesh}) "
+                             "puts it")
+        return leaf
+
+    _map_train(tree, check)
+
+
+def gather_train(tree: Params) -> Params:
+    """The inverse of `shard_train`, on a tree of parameters, gradients or
+    moments: each `TrainShards` whole on its first rank's device, every
+    other leaf as it is (the port's unsharded layout)."""
+    return _map_train(tree, lambda _, leaf: leaf.gather()
+                      if isinstance(leaf, TrainShards) else leaf)
+
+
+def shard_like(full: Params, like: Params) -> Params:
+    """An unsharded tree (a checkpoint's parameters or moments) in the
+    training layout of ``like``: each `TrainShards` of ``like`` cut alike
+    onto its devices, every other leaf moved to ``like``'s leaf's device."""
+    if isinstance(like, TrainShards):
+        return TrainShards.cut(full, [p.device for p in like], like.axis, like.groups)
+    if isinstance(like, dict):
+        return type(like)((k, shard_like(full[k], v)) for k, v in like.items())
+    if isinstance(like, (list, tuple)):
+        return type(like)(shard_like(f, v) for f, v in zip(full, like))
+    return full.to(like.device)

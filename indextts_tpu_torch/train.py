@@ -2,26 +2,33 @@
 package's `tools/train.py`).
 
     python -m indextts_tpu_torch.train --steps 1000 --ckpt-dir runs/exp0 \
-        --save-every 100 [--resume] [--data-dir DIR] [--device cuda]
+        --save-every 100 [--resume] [--data-dir DIR] [--dp 2 --tp 2] [--device cuda]
 
 One step is `parallel/train.py`'s: GPT cross-entropy + the CFM
-flow-matching loss, AdamW, in f32 on one device. Data comes from the JAX
-tool's synthetic generator (the same numpy draws) or from a directory of
-``.npz`` batches, each file one batch with the step's input keys.
+flow-matching loss, AdamW, in f32, on one device or, with ``--dp`` /
+``--tp`` above 1, over a dp x tp mesh (`parallel/mesh.py::make_mesh`; the
+tree in `shard_train`'s layout). Data comes from the JAX tool's synthetic
+generator (the same numpy draws) or from a directory of ``.npz`` batches,
+each file one batch with the step's input keys.
 
-Differences from `tools/train.py`, and only these: ``--device`` (default
-``cuda``, which raises without a card: there is no CPU fallback; the tests
-pass ``cpu``); dp and tp other than 1 raise NotImplementedError; the DiT
+``--device`` names one device, which then holds every rank (``cpu``: dp x
+tp CPU ranks; ``cuda:0``: the ranks co-located on the card), or a comma
+list of dp x tp devices, one a rank in the mesh's row-major order. Its
+default is ``cuda``, which raises without a card: there is no CPU
+fallback; the tests pass ``cpu``.
+
+Differences from `tools/train.py`, and only these: ``--device``; the DiT
 trains on its dense attention tier; each step's CFM draws come from a
 `torch.Generator` on the host seeded from (seed, step), where the JAX tool
 folds the step into its key. So save and resume at any step reproduce the
-uninterrupted run, as there.
+uninterrupted run, as there; the draws do not depend on the mesh.
 
 Checkpoint layout, the JAX tool's: ``<ckpt-dir>/state-<step>/params.npz``
-(the trainable tree in the JAX layouts, `utils/jax_params.py::to_jax`),
-``opt_state.npz`` (optax's entry names: ``0/count``, ``0/mu/<param
-path>``, ``0/nu/<param path>``) and ``STEP``. Resume picks the newest state
-dir. Either package resumes the other's state.
+(the unsharded trainable tree in the JAX layouts, `utils/jax_params.py::
+to_jax`), ``opt_state.npz`` (optax's entry names: ``0/count``,
+``0/mu/<param path>``, ``0/nu/<param path>``) and ``STEP``. Resume picks
+the newest state dir. Either package resumes the other's state, at any
+mesh.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from indextts_tpu_torch.models.gpt import unified_voice as uv
 from indextts_tpu_torch.models.s2mel.cfm import cfm_noise
 from indextts_tpu_torch.models.s2mel.dit import init_dit
 from indextts_tpu_torch.nn import InitRng
+from indextts_tpu_torch.parallel.mesh import gather_train, make_mesh, shard_like, shard_train
 from indextts_tpu_torch.parallel.train import (leaves, make_train_state, make_train_step,
                                                tree_map)
 from indextts_tpu_torch.utils.checkpoint import load_params_npz, save_params_npz
@@ -97,13 +105,14 @@ def latest_state_dir(ckpt_dir: str):
 
 
 def adam_moments(trainable, optimizer):
-    """(count, mu, nu): the AdamW state as trees shaped like ``trainable``
-    (zeros before the first step, as optax.adamw's init)."""
+    """(count, mu, nu): the AdamW state as unsharded trees shaped like
+    ``gather_train(trainable)`` (zeros before the first step, as
+    optax.adamw's init)."""
     def moment(name):
         def get(p):
             st = optimizer.state.get(p)
             return st[name] if st else torch.zeros_like(p)
-        return tree_map(get, trainable)
+        return gather_train(tree_map(get, trainable))
 
     states = [optimizer.state.get(p) for g in optimizer.param_groups for p in g["params"]]
     count = int(states[0]["step"]) if states[0] else 0
@@ -113,7 +122,7 @@ def adam_moments(trainable, optimizer):
 def save_state(ckpt_dir: str, step: int, trainable, optimizer) -> str:
     d = os.path.join(ckpt_dir, f"state-{step}")
     os.makedirs(d, exist_ok=True)
-    save_params_npz(os.path.join(d, "params.npz"), to_jax(trainable))
+    save_params_npz(os.path.join(d, "params.npz"), to_jax(gather_train(trainable)))
     count, mu, nu = adam_moments(trainable, optimizer)
     save_params_npz(os.path.join(d, "opt_state.npz"),
                     {"0": {"count": np.asarray(count, np.int32), "mu": to_jax(mu),
@@ -124,11 +133,21 @@ def save_state(ckpt_dir: str, step: int, trainable, optimizer) -> str:
 
 
 def load_state(state_dir: str, trainable, optimizer) -> int:
-    """Read a state dir (either package's) into ``trainable`` and
-    ``optimizer`` in place; returns its step."""
-    like = to_jax(trainable)
+    """Read a state dir (either package's, saved at any mesh) into
+    ``trainable`` and ``optimizer`` in place, cut to ``trainable``'s layout;
+    returns its step."""
+    # the entry names in the JAX layouts: one element a leaf, nothing copied
+    # off the device
+    like = to_jax(tree_map(lambda p: p.detach()[(slice(0, 1),) * p.ndim],
+                           gather_train(trainable)))
     params = leaves(trainable)
-    loaded = leaves(to_torch(load_params_npz(os.path.join(state_dir, "params.npz"), like)))
+
+    def cut(tree):
+        # converted on the trainable's device (on the card: no host copies or
+        # transposes), then cut as the trainable is
+        return leaves(shard_like(to_torch(tree, params[0].device), trainable))
+
+    loaded = cut(load_params_npz(os.path.join(state_dir, "params.npz"), like))
     opt = load_params_npz(os.path.join(state_dir, "opt_state.npz"),
                           {"0": {"count": 0, "mu": like, "nu": like}})["0"]
     count = int(opt["count"])
@@ -137,7 +156,7 @@ def load_state(state_dir: str, trainable, optimizer) -> int:
             p.copy_(v)
     optimizer.state.clear()
     if count:
-        for p, m, v in zip(params, leaves(to_torch(opt["mu"])), leaves(to_torch(opt["nu"]))):
+        for p, m, v in zip(params, cut(opt["mu"]), cut(opt["nu"])):
             optimizer.state[p] = {"step": torch.tensor(float(count)),
                                   "exp_avg": m.to(p.device).contiguous(),
                                   "exp_avg_sq": v.to(p.device).contiguous()}
@@ -171,19 +190,36 @@ def init_trainable(gpt_cfg, s2_cfg, seed: int, device) -> dict:
                      "s2mel": {"cfm": init_dit(rng, s2_cfg)}})
 
 
+def train_mesh(device: str, dp: int, tp: int):
+    """(the first device, the mesh or None): ``device`` is one device for
+    every rank or a comma list of dp * tp devices (`make_mesh` raises
+    ValueError where the count is not dp * tp); None at dp = tp = 1 on one
+    device, the single-device step. A CUDA device without a card raises
+    RuntimeError."""
+    names = [n.strip() for n in device.split(",")]
+    devices = [torch.device(n) for n in names]
+    if any(d.type == "cuda" for d in devices) and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {device}: CUDA is not available (the trainer has no "
+                           "CPU fallback; pass --device cpu to train on the host)")
+    if len(names) == 1 and dp * tp == 1:
+        return devices[0], None
+    mesh = make_mesh(names * (dp * tp) if len(names) == 1 else names, tp=tp, dp=dp)
+    return mesh.devices[0], mesh
+
+
 def run(args, gpt_cfg=None, s2_cfg=None):
     """The loop. Returns (trainable, optimizer, losses, step_seconds):
-    ``losses`` holds (loss, gpt, cfm) at every ``log_every``-th step,
+    ``trainable`` in the mesh's layout (`gather_train` gives the unsharded
+    tree), ``losses`` (loss, gpt, cfm) at every ``log_every``-th step,
     ``step_seconds`` each step's wall time (synchronized on the card)."""
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: CUDA is not available (the trainer has no "
-                           "CPU fallback; pass --device cpu to train on the host)")
+    device, mesh = train_mesh(args.device, args.dp, args.tp)
     if gpt_cfg is None:
         gpt_cfg, s2_cfg = tiny_configs()
+    train_step = make_train_step(gpt_cfg, s2_cfg, mesh=mesh)
     trainable = init_trainable(gpt_cfg, s2_cfg, args.seed, device)
-    optimizer = make_train_state(trainable, dp=args.dp, tp=args.tp)
-    train_step = make_train_step(gpt_cfg, s2_cfg, dp=args.dp, tp=args.tp)
+    if mesh is not None:
+        trainable = shard_train(trainable, mesh)
+    optimizer = make_train_state(trainable, mesh=mesh)
 
     start_step = 0
     if args.resume:
@@ -207,7 +243,8 @@ def run(args, gpt_cfg=None, s2_cfg=None):
         t, z = cfm_noise(batch["mel_target"], step_generator(args.seed, step))
         loss, parts = train_step(trainable, optimizer, batch, t, z)
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            for d in dict.fromkeys(mesh.devices if mesh is not None else [device]):
+                torch.cuda.synchronize(d)
         seconds.append(time.perf_counter() - ts)
         if (step + 1) % args.log_every == 0:
             row = (float(loss), float(parts["gpt"]), float(parts["cfm"]))
@@ -236,7 +273,8 @@ def main(argv=None):
                     help="Directory of .npz batches (default: synthetic)")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda",
-                    help="Torch device to train on (default: the card; no CPU fallback)")
+                    help="Torch device of every rank, or a comma list of dp x tp devices "
+                         "(default: the card; no CPU fallback)")
     args = ap.parse_args(argv)
     run(args)
     return 0

@@ -153,10 +153,11 @@ def _unkernel(w: torch.Tensor, transpose_conv: bool) -> torch.Tensor:
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach()
-    if t.dtype in (torch.bfloat16, torch.float16):
-        t = t.float()
-    return np.ascontiguousarray(t.cpu().numpy())
+    """A host copy of ``t``, never a view of a CPU tensor's storage (which
+    a training step updates in place)."""
+    half = t.dtype in (torch.bfloat16, torch.float16)
+    t = t.detach().to("cpu", torch.float32 if half else t.dtype, copy=True)
+    return np.ascontiguousarray(t.numpy())
 
 
 def _stack(layers: list) -> Any:
@@ -171,7 +172,8 @@ def to_jax(tree: Any, _transpose_conv: bool = False) -> Any:
     """The inverse of `to_torch` on a float tree: numpy arrays in the JAX
     package's layouts (weights of `Kernel` layers back to kernels,
     `LayerStack` lists stacked on a leading axis; bf16 and fp16 leaves
-    widened to f32). ``to_jax(to_torch(t))`` returns every leaf of a JAX
+    widened to f32), copies that share no memory with ``tree``.
+    ``to_jax(to_torch(t))`` returns every leaf of a JAX
     float tree exactly. Weight-only quantized layers raise: their scale's
     JAX shape is not kept."""
     if isinstance(tree, LayerStack):

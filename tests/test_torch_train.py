@@ -15,7 +15,7 @@ losses at the same tolerance and the parameters within atol 1e-3 (where a
 gradient entry is ~0 its sign is noise, and one Adam step then moves the
 entry by up to 2 * lr = 2e-4 either way). Checkpoints are held exactly;
 the port's resume against its uninterrupted run at atol 1e-6 / rtol 1e-5,
-`tests/test_train_loop.py`'s.
+`tests/test_train_loop.py`'s. The dp x tp step: `test_torch_train_mesh.py`.
 """
 
 import argparse
@@ -289,13 +289,20 @@ def test_port_resume_matches_uninterrupted(tmp_path):
 
 
 def test_trainer_defaults_to_the_card_and_refuses_dp_tp():
+    """The bare ``cuda`` default raises without a card (no CPU fallback);
+    dp x tp on CPU ranks trains; a device list that is not dp x tp ranks,
+    and a tp that does not divide the heads, are refused."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default device trains")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttrain.main(["--steps", "1"])
-    for flag in ("--dp", "--tp"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            ttrain.main(["--steps", "1", "--device", "cpu", flag, "2"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttrain.main(["--steps", "1", "--dp", "2", "--tp", "2"])
+    assert ttrain.main(["--steps", "1", "--device", "cpu", "--dp", "2", "--tp", "2"]) == 0
+    with pytest.raises(ValueError, match="make_mesh"):
+        ttrain.main(["--steps", "1", "--device", "cpu,cpu", "--dp", "2", "--tp", "2"])
+    with pytest.raises(ValueError, match="heads"):
+        ttrain.main(["--steps", "1", "--device", "cpu", "--tp", "8"])
 
 
 # -- the kernels refuse gradients ---------------------------------------------
