@@ -24,7 +24,7 @@
      CUDA graph of 20 calls; K7a and the int4 GEMV, and F.linear beside them,
      are timed 5 times in turns (`timing_spread`: median and range, graph
      replay and eager);
-   - K1 `fused_decode_step` (the persistent kernel, `csrc/decode_step.cu`:
+   - K1 `fused_decode_step` (the persistent kernel, `csrc/decode_step.cuh`:
      one launch a step) at L=24, D=1280, H=20, B*K=3, S=512, pos=300,
      staggered starts and a random ancestry map (hidden state rel-L2 <= 1e-2;
      written k/v rows of layer 0 within 1 bf16 ulp, of every layer rel-L2 <=
@@ -66,7 +66,15 @@
      logscale values, with K3's gates and K3's timing. K2', K5 and K3' have
      no caller on the
      port's pipeline (the JAX package calls them from tests, tools and its
-     unported stage-folded vocoder): their launches are this phase's.
+     unported stage-folded vocoder): their launches are this phase's;
+   - K1 and K6 co-located at fp16 (`k1_fp16_phase`: their E = fp16
+     instantiations, `csrc/decode_step_fp16.cu`): every K1 variant at
+     group=3 and 1, K1 at group=2 and at 24 rows, and K6 at group=3 and 1,
+     each on an fp16 tree whose biases and LayerNorm vectors bf16 cannot
+     hold, layer by layer against the fp16 twin (rel-L2 <= 1e-2), and on an
+     fp16 tree of bf16 values bit-identical to the bf16 instantiation on
+     bf16 copies of x and the cache (every layer's output, the written
+     rows); timed by graph replay beside the bf16 instantiation.
 3. bf16 pipeline pass: `IndexTTS2(cfg_path=None, device="cuda")` at the
    shipped widths with seeded random weights, a synthetic bpe.model and a 5 s
    prompt wav; two single-segment requests with the default generation
@@ -124,7 +132,7 @@
    dict. Held: the f32 prefill logits on the card against the host CPU
    (TF32 off), rel-L2 <= 1e-3, and the first 8 f32 greedy tokens equal (the
    bf16 logits against f32 printed). Then one `use_emo_text=True` request
-   with an ``emo_text``, pinned to 400 codes (stage seconds, RTF; K2 / K3
+   with an ``emo_text``, pinned to EMO_REQUEST_CODES (200) codes (stage seconds, RTF; K2 / K3
    as one bf16 request), and the CLI: ``python -m indextts_tpu_torch.cli_v2
    synth --emotion-text ... --model-dir <dir>`` in a subprocess at its
    defaults (num_beams=3, up to 1500 codes): exit code 0 and the wav
@@ -186,12 +194,13 @@
    Between them, the aux pass (`aux_phase`, int8): diverse beam search
    (num_beams=4, two groups: K1 at group=2 once a step), contrastive
    search (top_k=4, alpha 0.6) and DoLa ("high"), both on the plain step,
-   one request each at 400 codes with exact launch counts. The kernel
+   one request each at AUX_CODES (200) codes with exact launch counts. The kernel
    phase holds K1 at group=2 (4 rows, a random ancestry map) against its
    twin layer by layer and bit-identical to its chain, timed beside both
    (`k1_group2_phase`).
 8. Decode profile, after the bf16, int8, int8kv, int4 and tp passes: one
-   request's `generate_beam` (399 steps) timed unprofiled, then under
+   request's `generate_beam` (399 steps; the bf16 pass's BF16_PROFILE_STEPS,
+   100) timed unprofiled, then under
    `torch.profiler` (its window opens after a discarded warm-up step and
    closes after a pad of spin kernels, on which the records the profiler
    drops at a window's end then fall): the device's busy share (the union
@@ -264,6 +273,17 @@
    inside the valid run (they attend exactly the marked slots), and the
    speculative passes assert that speculation on and off share all 400
    tokens at int8 and at bf16.
+13a. fp16 quantized passes (`fp16_quant_phase`):
+   `IndexTTS2(use_fp16=True, quantization=q)` for int8, int8kv, int4 and
+   int4kv, one num_beams=3 request each at 400 codes (stage times, RTF, K1
+   once a step at fp16 and exact launches, the first 8 K1 calls against
+   the fp16 twin layer by layer, a finite wav); the int8 model also at
+   num_beams=1 (K1 at group=1) and one 8-segment request at
+   FP16_LONGFORM_CODES (100) codes a segment (one 24-row decode); tp=2
+   int8 at fp16 with both shards on the card (K6 once a step, its first 8
+   calls against the twin); then one `dtype=torch.float32` int8 request at
+   F32_CODES (100) codes on the plain step (no K1 launch; the DiT's and
+   BigVGAN's 16-bit kernels swapped for their twins).
 
 14. training pass (`train_phase`), `python -m indextts_tpu_torch.train`'s
    `run` on the card: the shipped GPTConfig() and S2MelConfig() (956.8 M
@@ -362,6 +382,14 @@ BF16_REQUESTS, INT8_REQUESTS = 2, 2
 SAMPLING_REQUESTS = 2
 DECODE_STEPS = 399                         # 400 codes: 399 steps after prefill
 TWIN_CHECKED_STEPS = 8
+# depths cut to keep the script inside its time limit: the bf16 pass's
+# profiled decode (the plain step's ~1100 launches a step make its records
+# slow to read), the aux pass's three requests, the emotion-text pass's
+# use_emo_text request and the mesh pass's dp=2 long-form request, in codes
+BF16_PROFILE_STEPS = 100
+AUX_CODES = 200
+EMO_REQUEST_CODES = 200
+MESH_DP_CODES = 200
 # the memory-knob passes: quantization -> (requests, profiled)
 QUANT_PASSES = {"int8kv": (1, True), "int4": (1, True), "int4kv": (1, False)}
 # K1's variants in the kernel phase: name -> (int4 weights, int8 cache)
@@ -391,6 +419,9 @@ STREAM_KWARGS = dict(num_beams=1, max_mel_tokens=60, min_new_tokens=59, more_seg
 SPEC_GAMMA = 8
 SPEC_CHUNK_REL_L2 = 1e-2
 SPEC_ORACLE_CODES = 200                    # the forced oracle decode's depth
+# the bf16 requests' depth (int8: 400): past the first cache span (256), so
+# that the span growth is still taken
+SPEC_BF16_CODES = 300
 AUX_REQUESTS = {"diverse beam": dict(num_beams=4, num_beam_groups=2, diversity_penalty=1.0,
                                      do_sample=False),
                 "contrastive": dict(num_beams=1, penalty_alpha=0.6, top_k=4, do_sample=False),
@@ -1229,11 +1260,11 @@ def k1_phase(card: str) -> dict:
                                                         K1_POS + CHUNK_SLOTS, ci, vi, ai, group))
             del ci
             print(f"K1 {name} group={group} K1 case: twin layer by layer rel_l2 <= "
-                  f"{tw['layer']:.3e}, hidden {tw['hidden']:.3e}, rows {tw['rows_exact']}; "
+                  f"{tw['layer']:.3e}, hidden {tw['hidden']:.3e}, rows {tw['rows']}; "
                   f"against the chain {vs}; an invalid chunk inserted inside the valid run "
                   f"changes nothing: {inserted} [{card}]", flush=True)
             assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2, (name, group, tw)
-            assert tw["rows_exact"] and vs["ok"] and inserted, (name, group, tw, vs, inserted)
+            assert tw["rows"] and vs["ok"] and inserted, (name, group, tw, vs, inserted)
             n += 1
         for label, (rows, S, pos) in K1_EDGE_CASES.items():
             kv_e, valid_e, x_e, anc_e = k1_edge_inputs(g, rows, S, pos)
@@ -1571,13 +1602,43 @@ def k1_group2_phase(card: str) -> dict:
     print(f"K1 fused_decode_step group=2 (diverse beam: 2 groups of 2) L={K1_L} D={K1_D} "
           f"H={K1_H} rows={M} S={K1_S} pos={K1_POS} starts={starts}: hidden rel_l2 {err:.3e} "
           f"max_abs {mab:.3e}; twin layer by layer rel_l2 <= {tw['layer']:.3e}, hidden "
-          f"{tw['hidden']:.3e}, rows {tw['rows_exact']}; against the chain {vs}; device: "
+          f"{tw['hidden']:.3e}, rows {tw['rows']}; against the chain {vs}; device: "
           f"{timing_text(t)}, plain {pms:.4f} ms, bound {b['bound_ms']:.4f} ms "
           f"({b['bound_by']}) [{card}]", flush=True)
-    assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2 and tw["rows_exact"], tw
+    assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2 and tw["rows"], tw
     assert err <= K1_REL_L2 and np.isfinite(err) and vs["ok"], (err, vs)
     return {"fused_decode_step_g2": dict(err=err, abs=mab, plain_ms=pms, library_ms=None, **t,
                                          **b)}
+
+
+# the written fp16 k / v rows against the twin's: tests/test_torch_fp16_quant.py's
+# atol = rtol on them (the twin's qkv differs from the kernel's by the f32
+# summation order); int8 cache values within 1 count, their bf16 scale rows
+# within 1 bf16 ulp
+FP16_ROWS_TOL = 2e-2
+
+
+def rows_close(got: dict, ref: dict) -> tuple:
+    """Whether the rows a 16-bit K1 / K6 step wrote at fp16 (``got``: the
+    cache's tensors at one layer and slot, by name) are within the
+    FP16_ROWS_TOL bounds of the twin's (``ref``), and the largest absolute
+    error of the k / v values (int8 counts for the int8 cache)."""
+    import torch
+
+    ok, err = True, 0.0
+    for k, g in got.items():
+        r = ref[k].to(g.device)
+        d = (g.float() - r.float()).abs()
+        if g.dtype == torch.int8:
+            ok &= d.max().item() <= 1
+        elif k == "kvs":
+            ulp = torch.exp2(torch.floor(torch.log2(r.float().abs().clamp(min=1e-30))) - 7)
+            ok &= bool((d <= ulp).all())
+            continue
+        else:
+            ok &= torch.allclose(g.float(), r.float(), atol=FP16_ROWS_TOL, rtol=FP16_ROWS_TOL)
+        err = max(err, d.max().item())
+    return ok, err
 
 
 def twin_by_layer(args, h) -> dict:
@@ -1591,7 +1652,12 @@ def twin_by_layer(args, h) -> dict:
     qkv: the qkv GEMV is launched again for that, uncounted (it repeats its
     result exactly), since the twin's qkv differs from the kernel's by the
     f32 summation order, and a LayerNorm value that rounds the other way
-    moves a near-zero k/v value by several of its ulps."""
+    moves a near-zero k/v value by several of its ulps. At fp16 the
+    standalone GEMV, which takes bf16 biases and LayerNorm vectors, cannot
+    repeat the kernel's qkv, so the rows are held against the twin's own
+    write (`rows_close`; their largest error under "rows_err"), and
+    `k1_fp16_phase` holds them bit-identical to the bf16 instantiation's on
+    a tree of bf16 values."""
     import torch
 
     from indextts_tpu_torch import nn
@@ -1602,19 +1668,26 @@ def twin_by_layer(args, h) -> dict:
     rest = dict(heads=args["dims"].heads, pos=pos, kv_valid=args["kv_valid"],
                 anc=args["anc"], group=args["group"])
     twin = {k: t.clone() for k, t in kv.items()}
-    out = {"layer": 0.0, "rows_exact": True}
+    bf16_step = args["x"].dtype == torch.bfloat16
+    out = {"layer": 0.0, "rows": True, "rows_err": 0.0}
     for li, lp in enumerate(args["params"]["h"]):
         layer = {k: t[li].clone() for k, t in twin.items()}
         y = decode_layer(TWINS, lp, xs[li], ck=twin["k"][li], cv=twin["v"][li],
                          kvs=twin["kvs"][li] if "kvs" in twin else None, **rest)
         out["layer"] = max(out["layer"], rel_l2(xs[li + 1], y))
+        if not bf16_step:
+            ok, err = rows_close({k: t[li, :, pos] for k, t in kv.items()},
+                                 {k: t[li, :, pos] for k, t in twin.items()})
+            out["rows"] &= ok
+            out["rows_err"] = max(out["rows_err"], err)
+            continue
         c_attn, ln = lp["attn"]["c_attn"], (lp["ln_1"]["weight"], lp["ln_1"]["bias"])
         w4 = "q4" in c_attn
         qkv = _gemv_cuda(xs[li], c_attn["q4" if w4 else "q"], ln, c_attn["scale"],
                          c_attn["bias"], EPI_BIAS, None, w4=w4)
         TWINS.attention(qkv, layer["k"], layer["v"], kvs=layer.get("kvs"), **rest)
-        out["rows_exact"] &= all(torch.equal(kv[k][li, :, pos], layer[k][:, pos]) for k in kv)
-    out["hidden"] = rel_l2(h, nn.layer_norm(args["params"]["ln_f"], y))
+        out["rows"] &= all(torch.equal(kv[k][li, :, pos], layer[k][:, pos]) for k in kv)
+    out["hidden"] = rel_l2(h, nn.layer_norm(args["params"]["ln_f"], y.to(args["x"].dtype)))
     return out
 
 
@@ -1706,7 +1779,7 @@ def quant_kernel_phase(card: str, int8_k1: dict) -> dict:
         print(f"K1 {name} L={K1_L} D={K1_D} H={K1_H} B*K={M} S={K1_S} pos={K1_POS}: layer by "
               f"layer on the kernel path's inputs: layer outputs rel_l2 <= {tw['layer']:.3e}, "
               f"hidden after ln_f {tw['hidden']:.3e}, written rows bit-identical to the twin's"
-              f" write of the kernel's qkv: {tw['rows_exact']}; 24-layer chain against the "
+              f" write of the kernel's qkv: {tw['rows']}; 24-layer chain against the "
               f"twin {chain:.3e}"
               f" (max_abs {mab:.3e}); ancestry bit-identical to the gathered cache: {exact};"
               f" against the chain {vs}; device: {timing_text(t)}, plain {pms:.4f} ms, bound "
@@ -1714,7 +1787,7 @@ def quant_kernel_phase(card: str, int8_k1: dict) -> dict:
               f"{int8_k1['ms']:.4f} ms, bf16 gpt2_decode_step {int8_k1['bf16_step_ms']:.4f} ms "
               f"[{card}]", flush=True)
         assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2, (name, tw)
-        assert tw["rows_exact"], (name, tw)
+        assert tw["rows"], (name, tw)
         assert exact, f"K1 {name} with the ancestry map differs from the gathered cache"
         assert vs["ok"], f"K1 {name} against the chain: {vs}"
         res[name] = dict(err=tw["hidden"], abs=mab, plain_ms=pms, library_ms=None, **t, **b)
@@ -1743,7 +1816,9 @@ def tp_twin_by_layer(args, h, full_layers) -> dict:
     after ln_f, whether the two shards' residual streams are bit-identical
     at every layer, and whether every layer's written k/v rows are
     bit-identical to K1's qkv GEMV on the same input (the unsharded weight
-    and ln_1 of ``full_layers[li]``; launched uncounted), per head slice."""
+    and ln_1 of ``full_layers[li]``; launched uncounted), per head slice; at
+    fp16 within `rows_close` of the twin's write (`twin_by_layer` says
+    why)."""
     import torch
 
     from indextts_tpu_torch import nn
@@ -1757,7 +1832,8 @@ def tp_twin_by_layer(args, h, full_layers) -> dict:
     D = args["dims"].dim
     Dl = D // len(caches)
     valids, ancs = per_rank(args["kv_valid"], devs), per_rank(args["anc"], devs)
-    out = {"layer": 0.0, "streams_equal": True, "rows_exact": True}
+    bf16_step = args["x"].dtype == torch.bfloat16
+    out = {"layer": 0.0, "streams_equal": True, "rows": True, "rows_err": 0.0}
 
     def same(a, b):
         return torch.equal(a, b.to(a.device))
@@ -1767,16 +1843,23 @@ def tp_twin_by_layer(args, h, full_layers) -> dict:
         y = decode_layer_tp(TWINS, layers, list(xs[li]), args["dims"].heads // len(caches), pos,
                             twin, li, valids, ancs, args["group"])
         out["layer"] = max(out["layer"], rel_l2(xs[li + 1][0], y[0]))
+        if not bf16_step:
+            for c, tc in zip(caches, twin):
+                ok, err = rows_close({k: c[k][li, :, pos] for k in "kv"},
+                                     {k: tc[k][li, :, pos] for k in "kv"})
+                out["rows"] &= ok
+                out["rows_err"] = max(out["rows_err"], err)
+            continue
         lp = full_layers[li]
         ca = lp["c_attn"]
         qkv = _gemv_cuda(xs[li][0], ca["q"], (lp["ln_1"]["weight"], lp["ln_1"]["bias"]),
                          ca["scale"], ca["bias"], EPI_BIAS, None)
         for t, c in enumerate(caches):
             for j, key in ((1, "k"), (2, "v")):
-                out["rows_exact"] &= same(qkv[:, j * D + t * Dl:j * D + (t + 1) * Dl],
+                out["rows"] &= same(qkv[:, j * D + t * Dl:j * D + (t + 1) * Dl],
                                           c[key][li, :, pos])
     out["streams_equal"] &= all(same(xs[-1][0], x) for x in xs[-1])
-    out["hidden"] = rel_l2(h, nn.layer_norm(tp["ln_f"], y[0]))
+    out["hidden"] = rel_l2(h, nn.layer_norm(tp["ln_f"], y[0].to(args["x"].dtype)))
     return out
 
 
@@ -1916,10 +1999,10 @@ def k6_phase(card: str) -> int:
         del ci
         print(f"K6 group={group} K1 case: twin layer by layer rel_l2 <= {tw['layer']:.3e}, "
               f"hidden {tw['hidden']:.3e}, residual streams {tw['streams_equal']}, rows "
-              f"{tw['rows_exact']}; against the chain {vs}; an invalid chunk inserted inside "
+              f"{tw['rows']}; against the chain {vs}; an invalid chunk inserted inside "
               f"the valid run changes nothing: {inserted} [{card}]", flush=True)
         assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2, (group, tw)
-        assert tw["streams_equal"] and tw["rows_exact"] and vs["ok"] and inserted, \
+        assert tw["streams_equal"] and tw["rows"] and vs["ok"] and inserted, \
             (group, tw, vs, inserted)
         n += 1
     for label, (rows, S, pos) in K1_EDGE_CASES.items():
@@ -1936,6 +2019,303 @@ def k6_phase(card: str) -> int:
         del base_e
         torch.cuda.empty_cache()
     return n
+
+
+# K1 and K6 at fp16 (IndexTTS2(use_fp16=True) with a quantization): case
+# name -> (int4 weights, int8 cache, rows, group, a kernels-line row: timed);
+# each case of more than one group also runs at group=1 on its first row
+# (checks only), and K6 takes the int8 rows
+K1_FP16_CASES = {"fused_decode_step_fp16": (False, False, K1_ROWS, K1_ROWS, True),
+                 "fused_decode_step_fp16_kvq": (False, True, K1_ROWS, K1_ROWS, True),
+                 "fused_decode_step_fp16_w4": (True, False, K1_ROWS, K1_ROWS, True),
+                 "fused_decode_step_fp16_w4_kvq": (True, True, K1_ROWS, K1_ROWS, True),
+                 "fused_decode_step_fp16_g1": (False, False, 1, 1, True),
+                 "fused_decode_step_fp16_g2": (False, False, 4, 2, False),
+                 "fused_decode_step_fp16_24rows": (False, False, 24, K1_ROWS, True)}
+FP16_OFF_GRID = 1e-3                       # noise that takes fp16 leaves off the bf16 grid
+
+
+def as_fp16(tree, g=None):
+    """A quantized GPT-2 tree with its float leaves (biases, LayerNorm
+    vectors; not the f32 scales) at fp16: the same values (bf16 -> fp16 is
+    exact here), or with ``g`` moved off the bf16 grid by FP16_OFF_GRID
+    noise, so that a bias read through bf16 would show."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: v if k == "scale" else as_fp16(v, g) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [as_fp16(v, g) for v in tree]
+    if not tree.is_floating_point():
+        return tree
+    t = tree.float()
+    if g is not None:
+        t = t + FP16_OFF_GRID * torch.randn(t.shape, generator=g, device=t.device)
+    return t.to(torch.float16)
+
+
+# each per-layer vector of a decode step: the LayerNorms' and the GEMVs' biases
+FP16_VECTORS = (("ln_1", "weight"), ("ln_1", "bias"), ("ln_2", "weight"), ("ln_2", "bias"),
+                ("attn", "c_attn", "bias"), ("attn", "c_proj", "bias"),
+                ("mlp", "c_fc", "bias"), ("mlp", "c_proj", "bias"))
+
+
+def through_bf16(tree, path):
+    """The GPT-2 tree with the fp16 vector at ``path`` of every layer
+    rounded to bf16 and stored at fp16 again: what a read of it through
+    bf16 would see."""
+    import torch
+
+    def at(node, keys):
+        if not keys:
+            return node.to(torch.bfloat16).half()
+        return {**node, keys[0]: at(node[keys[0]], keys[1:])}
+
+    return {**tree, "h": [at(lp, path) for lp in tree["h"]]}
+
+
+def reads_vectors_exactly(run, tree) -> bool:
+    """Whether the output of ``run`` (one decode step on the fp16 tree it is
+    given) on ``tree``, whose vectors are off the bf16 grid, differs from
+    its output on `through_bf16` of each FP16_VECTORS path in turn: a step
+    that read one of them through bf16 would give both the same bits."""
+    import torch
+
+    h = run(tree)
+    return all(not torch.equal(h, run(through_bf16(tree, path))) for path in FP16_VECTORS)
+
+
+def jitter_vectors(tree, g):
+    """The tree with 0.05 normal noise on every 1-D float leaf (biases and
+    LayerNorm vectors, zeros and ones at init), at its type: the biases and
+    vectors then take part in the bit-identity checks."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: jitter_vectors(v, g) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [jitter_vectors(v, g) for v in tree]
+    if tree.ndim != 1 or not tree.is_floating_point():
+        return tree
+    noise = 0.05 * torch.randn(tree.shape, generator=g, device=tree.device)
+    return (tree.float() + noise).to(tree.dtype)
+
+
+def fp16_inputs(g, rows: int, group: int, kvq: bool):
+    """fp16 decode-step inputs at the K1 case's S and pos: x and the cache
+    random fp16 (off the bf16 grid), staggered starts, an in-group ancestry
+    map (group > 1); the int8 cache quantizes the fp16 values. Returns
+    (x, cache, valid, anc, starts)."""
+    import torch
+
+    from indextts_tpu_torch.models.gpt.gpt2 import kv_quantize_flat
+
+    shape = (K1_L, rows, K1_S, K1_D)
+    kv = [torch.randn(shape, generator=g, device="cuda").half() for _ in range(2)]
+    for t in kv:
+        t[:, :, K1_POS:] = 0
+    starts = [(37 * r) % (K1_POS + 1) for r in range(rows)]
+    valid = torch.zeros((rows, K1_S), dtype=torch.bool, device="cuda")
+    for r, s in enumerate(starts):
+        valid[r, s:K1_POS + 1] = True
+    x = torch.randn((rows, K1_D), generator=g, device="cuda").half()
+    anc = (torch.randint(0, group, (rows, K1_S), generator=g, device="cuda", dtype=torch.int32)
+           if group > 1 else None)
+    if kvq:
+        kq, vq, kvs = kv_quantize_flat(kv[0], kv[1], K1_H)
+        cache = {"k": kq, "v": vq, "kvs": kvs}
+    else:
+        cache = {"k": kv[0], "v": kv[1]}
+    return x, cache, valid, anc, starts
+
+
+def bf16_copy(cache: dict) -> dict:
+    """The cache with its 16-bit values rounded to bf16 (the int8 cache and
+    its scale rows as they are)."""
+    import torch
+
+    return {k: t.to(torch.bfloat16) if k != "kvs" and t.is_floating_point() else t.clone()
+            for k, t in cache.items()}
+
+
+def same_body(step, p16, pb, x, dims, cache, valid, anc, group, pos=K1_POS) -> bool:
+    """``step`` (K1 or K6 co-located) at fp16 on (p16, x, cache) and at bf16
+    on (pb: the same values at bf16, bf16(x), bf16(cache)): every layer's
+    output (bf16 in both) and the rows written at pos (fp16's against
+    bf16's cast to fp16; the int8 cache's bytes and scale rows) bit for
+    bit."""
+    import torch
+
+    def rows(c):
+        return [t[..., pos, :] for sh in c.get("shards", [c]) for t in sh.values()]
+
+    def copy(fn):
+        return {"shards": [fn(sh) for sh in cache["shards"]]} if "shards" in cache else fn(cache)
+
+    c16, cb = copy(lambda c: {k: t.clone() for k, t in c.items()}), copy(bf16_copy)
+    l16, lb = [], []
+    step(p16, x, dims, pos, c16, valid, anc, group, layer_inputs=l16)
+    step(pb, x.to(torch.bfloat16), dims, pos, cb, valid, anc, group, layer_inputs=lb)
+    torch.cuda.synchronize()
+    first = l16[0][0] if isinstance(l16[0], tuple) else l16[0]
+    assert first.dtype == torch.float16
+    layers = all(torch.equal(a[0] if isinstance(a, tuple) else a,
+                             b[0] if isinstance(b, tuple) else b)
+                 for a, b in zip(l16[1:], lb[1:])) and len(l16) == len(lb)
+    written = all(torch.equal(a, b.to(a.dtype)) for a, b in zip(rows(c16), rows(cb)))
+    return layers and written
+
+
+def k1_fp16_phase(card: str) -> dict:
+    """K1 and K6 co-located at fp16 (`IndexTTS2(use_fp16=True)` with a
+    quantization) at full width, each case: (1) on an fp16 tree whose
+    biases and LayerNorm vectors are off the bf16 grid, layer by layer
+    against the fp16 twin (`twin_by_layer`, `tp_twin_by_layer`; <=
+    K1_REL_L2), and the whole step against the twin (max_abs); (2) on an
+    fp16 tree holding bf16 values, bit-identical to the bf16 instantiation
+    on bf16(x) and bf16(cache) (`same_body`): the fp16 path is the bf16
+    body; (3) kernel and twin on the off-grid tree against the same with
+    one kind of vector rounded to bf16 (`reads_vectors_exactly`): the
+    vectors reach f32 exactly. Each K1 case also at group=1 on its first
+    row (checks (1) and (2)).
+    Times by graph replay, with the bf16 instantiation's beside them.
+    Returns the kernels-line rows."""
+    import torch
+
+    from indextts_tpu_torch import nn
+    from indextts_tpu_torch.models.gpt.gpt2 import (GPT2Dims, init_gpt2, quantize_gpt2_int4,
+                                                    quantize_gpt2_int8)
+    from indextts_tpu_torch.nn import InitRng
+    from indextts_tpu_torch.ops.decode_step import fused_decode_step, fused_decode_step_plain
+    from indextts_tpu_torch.ops.decode_step_tp import (fused_decode_step_tp,
+                                                       fused_decode_step_tp_plain)
+    from indextts_tpu_torch.parallel.mesh import make_mesh, shard_gpt2_tp
+    from indextts_tpu_torch.utils.jax_params import to_torch
+
+    dev = torch.device("cuda")
+    dims = GPT2Dims(K1_L, K1_D, K1_H)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    bf = jitter_vectors(to_torch(init_gpt2(InitRng(0, dev), dims), dev, torch.bfloat16), g)
+    trees = {False: quantize_gpt2_int8(bf), True: quantize_gpt2_int4(bf)}
+    del bf
+    grid = {w4: as_fp16(t) for w4, t in trees.items()}          # bf16 values at fp16
+    off = {w4: as_fp16(t, g) for w4, t in trees.items()}        # off the bf16 grid
+    res = {}
+    for name, (w4, kvq, rows, group, row) in K1_FP16_CASES.items():
+        x, cache, valid, anc, starts = fp16_inputs(g, rows, group, kvq)
+        for grp, sl in ((group, slice(0, rows)),) + (((1, slice(0, 1)),) if group > 1 else ()):
+            xs, vs = x[sl].contiguous(), valid[sl].contiguous()
+            cs = {k: t[:, sl].contiguous() for k, t in cache.items()}
+            a = anc if grp > 1 else None
+            args = dict(params=off[w4], x=xs, dims=dims, pos=K1_POS,
+                        kv_cache={k: t.clone() for k, t in cs.items()}, kv_valid=vs, anc=a,
+                        group=grp, layer_inputs=[])
+            h = fused_decode_step(**args)
+            ref = fused_decode_step_plain(off[w4], xs, dims, K1_POS,
+                                          {k: t.clone() for k, t in cs.items()}, vs, a, grp)
+            torch.cuda.synchronize()
+            tw = twin_by_layer(args, h)
+            mab = (h.float() - ref.float()).abs().max().item()
+            same = same_body(fused_decode_step, grid[w4], trees[w4], xs, dims, cs, vs, a, grp)
+            print(f"K1 fp16 {name} group={grp} ({xs.shape[0]} rows, S={K1_S}, pos={K1_POS}): "
+                  f"dtype {h.dtype}; twin layer by layer rel_l2 <= {tw['layer']:.3e}, hidden "
+                  f"{tw['hidden']:.3e}, written rows within atol = rtol {FP16_ROWS_TOL} of the "
+                  f"twin's {tw['rows']} (max_abs {tw['rows_err']:.3e}), step max_abs "
+                  f"{mab:.3e}; the bf16 instantiation on bf16 inputs bit-identical (layer "
+                  f"outputs, written rows): {same} [{card}]", flush=True)
+            assert h.dtype == torch.float16 and bool(torch.isfinite(h).all()), name
+            assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2, (name, grp, tw)
+            assert tw["rows"] and same, (name, grp, tw)
+            if grp != group:
+                continue
+            exact = {label: reads_vectors_exactly(lambda t, f=f: f(
+                t, xs, dims, K1_POS, {k: v.clone() for k, v in cs.items()}, vs, a, grp),
+                off[w4]) for label, f in (("kernel", fused_decode_step),
+                                          ("twin", fused_decode_step_plain))}
+            print(f"K1 fp16 {name}: on the tree with one kind of its {len(FP16_VECTORS)} "
+                  f"biases / LayerNorm vectors rounded to bf16, each in turn, the output "
+                  f"differs (the vectors are read exactly): {exact} [{card}]", flush=True)
+            assert all(exact.values()), (name, exact)
+            if not row:
+                continue
+            c = {k: t.clone() for k, t in cs.items()}
+            cb = bf16_copy(cs)
+            xb = xs.to(torch.bfloat16)
+            ms = graph_ms(lambda: fused_decode_step(off[w4], xs, dims, K1_POS, c, vs, a,
+                                                    grp))
+            bms = graph_ms(lambda: fused_decode_step(trees[w4], xb, dims, K1_POS, cb, vs,
+                                                     a, grp))
+            pms = graph_ms(lambda: fused_decode_step_plain(off[w4], xs, dims, K1_POS, c, vs,
+                                                           a, grp), iters=3, replays=2)
+            b = k1_bound(starts[:xs.shape[0]], off[w4], xs.shape[0], K1_S, K1_L, K1_D, K1_H, kvq)
+            print(f"K1 fp16 {name}: device {ms:.4f} ms (graph replay), the bf16 instantiation "
+                  f"{bms:.4f} ms ({ms / bms:.3f}x), plain {pms:.4f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]", flush=True)
+            res[name] = dict(err=tw["hidden"], abs=mab, ms=ms, bf16_ms=bms, plain_ms=pms,
+                             library_ms=None, **b)
+        del x, cache
+        torch.cuda.empty_cache()
+
+    # K6 co-located at fp16: both shards on this card, int8 weights
+    mesh = make_mesh(list(TP_DEVICES))
+    tps = {k: shard_gpt2_tp(t, mesh) for k, t in (("off", off[False]), ("grid", grid[False]),
+                                                  ("bf16", trees[False]))}
+    full = [{"c_attn": lp["attn"]["c_attn"], "ln_1": lp["ln_1"]} for lp in off[False]["h"]]
+    x, cache, valid, anc, starts = fp16_inputs(g, K1_ROWS, K1_ROWS, False)
+    for grp, sl in ((K1_ROWS, slice(0, K1_ROWS)), (1, slice(0, 1))):
+        xs, vs = x[sl].contiguous(), valid[sl].contiguous()
+        cs = tp_split_cache([cache[k][:, sl] for k in "kv"])
+        a = anc if grp > 1 else None
+
+        def fresh():
+            return {"shards": [{k: t.clone() for k, t in sh.items()} for sh in cs["shards"]]}
+
+        args = dict(params=tps["off"], x=xs, dims=dims, pos=K1_POS, kv_cache=fresh(),
+                    kv_valid=vs, anc=a, group=grp, layer_inputs=[])
+        h = nn.layer_norm(tps["off"]["ln_f"], fused_decode_step_tp(**args))
+        ref = nn.layer_norm(tps["off"]["ln_f"], fused_decode_step_tp_plain(
+            tps["off"], xs, dims, K1_POS, fresh(), vs, a, grp))
+        torch.cuda.synchronize()
+        tw = tp_twin_by_layer(args, h, full)
+        mab = (h.float() - ref.float()).abs().max().item()
+        same = same_body(fused_decode_step_tp, tps["grid"], tps["bf16"], xs, dims, cs, vs, a,
+                         grp)
+        print(f"K6 fp16 group={grp} ({xs.shape[0]} rows): dtype {h.dtype}; twin layer by layer "
+              f"rel_l2 <= {tw['layer']:.3e}, hidden {tw['hidden']:.3e}, residual streams "
+              f"{tw['streams_equal']}, written rows within atol = rtol {FP16_ROWS_TOL} of the "
+              f"twin's {tw['rows']} (max_abs {tw['rows_err']:.3e}), step max_abs {mab:.3e}; "
+              f"the bf16 instantiation on bf16 inputs bit-identical: {same} [{card}]",
+              flush=True)
+        assert h.dtype == torch.float16 and bool(torch.isfinite(h).all())
+        assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2, (grp, tw)
+        assert tw["streams_equal"] and tw["rows"] and same, (grp, tw, same)
+        if grp != K1_ROWS:
+            continue
+        exact = {label: reads_vectors_exactly(lambda t, f=f: f(
+            shard_gpt2_tp(t, mesh), xs, dims, K1_POS, fresh(), vs, a, grp), off[False])
+            for label, f in (("kernel", fused_decode_step_tp),
+                             ("twin", fused_decode_step_tp_plain))}
+        print(f"K6 fp16: on the tree with one kind of its {len(FP16_VECTORS)} biases / "
+              f"LayerNorm vectors rounded to bf16, each in turn, the output differs (the "
+              f"vectors are read exactly): {exact} [{card}]", flush=True)
+        assert all(exact.values()), exact
+        c, cb, xb = fresh(), {"shards": [bf16_copy(sh) for sh in cs["shards"]]}, \
+            xs.to(torch.bfloat16)
+        ms = graph_ms(lambda: fused_decode_step_tp(tps["off"], xs, dims, K1_POS, c, vs, a,
+                                                   grp))
+        bms = graph_ms(lambda: fused_decode_step_tp(tps["bf16"], xb, dims, K1_POS, cb, vs,
+                                                    a, grp))
+        pms = graph_ms(lambda: fused_decode_step_tp_plain(tps["off"], xs, dims, K1_POS, c,
+                                                          vs, a, grp), iters=3, replays=2)
+        b = tp_bound(tps["off"], starts, K1_ROWS, K1_S)
+        print(f"K6 fp16 co-located: device {ms:.4f} ms (graph replay), the bf16 instantiation "
+              f"{bms:.4f} ms ({ms / bms:.3f}x), plain {pms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}) [{card}]", flush=True)
+        res["fused_decode_step_tp_fp16"] = dict(err=tw["hidden"], abs=mab, ms=ms, bf16_ms=bms,
+                                                plain_ms=pms, library_ms=None, **b)
+    del tps, off, grid, trees
+    torch.cuda.empty_cache()
+    return res
 
 
 def tp_kernel_phase(card: str, kres: dict) -> dict:
@@ -1995,14 +2375,14 @@ def tp_kernel_phase(card: str, kres: dict) -> dict:
               f"S={K1_S} pos={K1_POS}, shards co-located: layer by layer on the "
               f"kernel path's inputs: layer outputs rel_l2 <= {tw['layer']:.3e}, hidden after "
               f"ln_f {tw['hidden']:.3e}; residual streams bit-identical: {tw['streams_equal']};"
-              f" written rows bit-identical to K1's qkv kernel: {tw['rows_exact']}; against "
+              f" written rows bit-identical to K1's qkv kernel: {tw['rows']}; against "
               f"the chain {vs}; hidden against K1 on the same inputs {vs_k1:.3e} (max_abs "
               f"{mab:.3e}); device: {timing_text(t)}, plain {pms:.4f} ms, K1 {k1_ms:.4f} ms, "
               f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); bound of one shard on two "
               f"cards (half the weight bytes a card; not measured) {shard_b['bound_ms']:.4f} ms "
               f"[{card}]", flush=True)
         assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2, (name, tw)
-        assert tw["streams_equal"] and tw["rows_exact"], (name, tw)
+        assert tw["streams_equal"] and tw["rows"], (name, tw)
         assert vs["ok"], f"K6 {name} against the chain: {vs}"
         assert vs_k1 <= K1_REL_L2 and np.isfinite(vs_k1), (name, vs_k1)
         res[name] = dict(err=tw["hidden"], abs=mab, plain_ms=pms, library_ms=None, **t, **b)
@@ -2107,13 +2487,14 @@ def reference_check(tts, card: str, flash: bool = False) -> None:
     assert bool(torch.isfinite(v).all()) and bool(torch.isfinite(w[0, :60 * 256]).all())
 
 
-def run_requests(tts, prompt: str, n: int, card: str, label: str, **kwargs) -> list:
-    """``n`` requests pinned to 400 codes, with the generation ``kwargs``;
-    checks and prints each."""
+def run_requests(tts, prompt: str, n: int, card: str, label: str, codes: int = 400,
+                 **kwargs) -> list:
+    """``n`` requests pinned to ``codes`` codes, with the generation
+    ``kwargs``; checks and prints each."""
     reports = []
     for i in range(n):
         sr, wav = tts.infer(spk_audio_prompt=prompt, text=SENTENCE, output_path=None,
-                            max_mel_tokens=400, min_new_tokens=399, **kwargs)
+                            max_mel_tokens=codes, min_new_tokens=codes - 1, **kwargs)
         st = dict(tts.last_stage_times)
         clen = st["codes"]
         expect = int(np.float32(clen) * np.float32(1.72)) * 256
@@ -2305,8 +2686,8 @@ def profile_s2mel(tts, prompt: str, card: str, label: str, **kwargs) -> None:
     assert n_attn == tts.cfg.s2mel.DiT.depth * 25, attn
 
 
-def profile_decode(tts, prompt: str, card: str, label: str) -> None:
-    """The decode of one request (`generate_beam`, 399 steps after the
+def profile_decode(tts, prompt: str, card: str, label: str, steps: int = DECODE_STEPS) -> None:
+    """The decode of one request (`generate_beam`, ``steps`` steps after the
     prefill) with the request's own prefix: unprofiled wall (the best of
     `PROFILE_UNPROFILED_RUNS`), then under `torch.profiler` (device activity
     only: recording every host op of the bf16 decode costs minutes): device
@@ -2328,12 +2709,12 @@ def profile_decode(tts, prompt: str, card: str, label: str) -> None:
     text_ids = np.zeros((1, pick_bucket(len(ids), tts.cfg.engine.text_buckets)), np.int64)
     text_ids[0, :len(ids)] = ids
     _, _, embeds, mask = tts.prefix(spk, emo, 1.0, text_ids, len(ids))
-    sampling = tts._sampling({"min_new_tokens": DECODE_STEPS})
+    sampling = tts._sampling({"min_new_tokens": steps})
 
     def run():
         with torch.inference_mode():
             generate_beam(tts.gpt_params, tts.cfg.gpt, tts.gpt_dims, embeds, mask,
-                          tts.generator, DECODE_STEPS + 1, sampling, tts.dtype)
+                          tts.generator, steps + 1, sampling, tts.dtype)
         torch.cuda.synchronize()
 
     walls = []
@@ -2376,12 +2757,12 @@ def profile_decode(tts, prompt: str, card: str, label: str) -> None:
             "gemv": counts["int8_matvec"] + counts["int4_matvec"]
             + 2 * (counts["int8_mlp"] + counts["int4_mlp"]),
             "attention": counts["decode_attention"] + counts["decode_attention_kvq"],
-            "allreduce": counts["tp_allreduce"], "topk": 2 * (DECODE_STEPS + 1)}
-    print(f"{label} decode profile ({DECODE_STEPS} steps): wall {min(walls):.4f} s unprofiled "
+            "allreduce": counts["tp_allreduce"], "topk": 2 * (steps + 1)}
+    print(f"{label} decode profile ({steps} steps): wall {min(walls):.4f} s unprofiled "
           f"(runs {', '.join(f'{w:.4f}' for w in walls)}), device time {device_s:.4f} s (sum over "
           f"records), busy {busy_ns / 1e9:.4f} s = {100 * busy_ns / 1e9 / min(walls):.1f} % "
           f"(union over streams), {launches} launches "
-          f"({launches / DECODE_STEPS:.0f} per step); recorded launches {got}, counters "
+          f"({launches / steps:.0f} per step); recorded launches {got}, counters "
           f"{want}; profiled window and records read in {time.perf_counter() - t_prof:.1f} s "
           f"(reading {t_parse:.1f} s); {pads_kept(pads, spans)} [{card}]", flush=True)
     for key, (n, ns) in device[:6]:
@@ -2417,13 +2798,13 @@ def pipeline_phase(card: str, prompt: str, model_dir: str) -> dict:
     assert counts["fused_decode_step"] == 0 and counts["kv_gathers"] > 0, counts
     reference_check(tts, card)
     profile_s2mel(tts, prompt, card, "bf16 (DiT packed tier, K2)")
-    profile_decode(tts, prompt, card, "bf16")
+    profile_decode(tts, prompt, card, "bf16", BF16_PROFILE_STEPS)
     del tts
     torch.cuda.empty_cache()
     return counts
 
 
-def want_counts(tts, quantization: str, n: int) -> dict:
+def want_counts(tts, quantization: str, n: int, steps: int = DECODE_STEPS) -> dict:
     """The launches ``n`` requests of a quantized pass must make: K1 once a
     decode step (under the tp mesh, both shards on this card, K6 once a
     decode step), and none of the standalone GEMV, attention or
@@ -2434,7 +2815,7 @@ def want_counts(tts, quantization: str, n: int) -> dict:
     a caller on this path."""
     from indextts_tpu_torch.models.vocoder.bigvgan import activation1d_calls
 
-    steps = n * DECODE_STEPS
+    steps = n * steps
     tp = tts.mesh is not None
     k2 = n * tts.cfg.s2mel.DiT.depth * 25 * (tts.mesh.tp if tp else 1)   # once a DiT shard
     return {"attention_rope": k2,
@@ -2454,8 +2835,8 @@ def k1_twin_check():
     24-layer chain of the twin with f32 and with f64 sums beside it; and
     the ``site`` dict it fills (``groups`` records every call's group and
     whether it had an ancestry map)."""
-    site = {"n": 0, "layer": 0.0, "hidden": 0.0, "rows_exact": True, "chain": 0.0,
-            "floor": 0.0, "groups": set()}
+    site = {"n": 0, "layer": 0.0, "hidden": 0.0, "rows": True, "rows_err": 0.0,
+            "chain": 0.0, "floor": 0.0, "groups": set()}
 
     def check(args, h):
         site["groups"].add((args["group"], args["anc"] is not None))
@@ -2463,9 +2844,9 @@ def k1_twin_check():
             return
         site["n"] += 1
         tw = twin_by_layer(args, h)
-        for key in ("layer", "hidden"):
+        for key in ("layer", "hidden", "rows_err"):
             site[key] = max(site[key], tw[key])
-        site["rows_exact"] &= tw["rows_exact"]
+        site["rows"] &= tw["rows"]
         chains = twin_chains(args)
         site["chain"] = max(site["chain"], rel_l2(h, chains[0]))
         site["floor"] = max(site["floor"], rel_l2(chains[1], chains[0]))
@@ -2489,21 +2870,23 @@ def twin_chains(args) -> list:
         for li, lp in enumerate(args["params"]["h"]):
             x = decode_layer(ops, lp, x, ck=twin["k"][li], cv=twin["v"][li],
                              kvs=twin["kvs"][li] if "kvs" in twin else None, **rest)
-        chains.append(nn.layer_norm(args["params"]["ln_f"], x))
+        chains.append(nn.layer_norm(args["params"]["ln_f"], x.to(args["x"].dtype)))
     return chains
 
 
-def report_k1_twin_check(site: dict, label: str, card: str) -> None:
+def report_k1_twin_check(site: dict, label: str, card: str, fp16: bool = False) -> None:
+    rows = (f"within atol = rtol {FP16_ROWS_TOL} of the twin's write (int8 1 count, scales 1 "
+            f"ulp): {site['rows']}, max_abs {site['rows_err']:.3e}" if fp16 else
+            f"bit-identical to the twin's write of the kernel's qkv: {site['rows']}")
     print(f"{label} twin check of the first {site['n']} K1 calls, layer by layer on the "
           f"kernel path's inputs: layer outputs rel_l2 <= {site['layer']:.3e}, hidden after "
-          f"ln_f {site['hidden']:.3e}, written rows bit-identical to the twin's write of the "
-          f"kernel's qkv: {site['rows_exact']}; the 24-layer chain of the twin: "
+          f"ln_f {site['hidden']:.3e}, written rows {rows}; the 24-layer chain of the twin: "
           f"{site['chain']:.3e} "
           f"(noise floor, twin with f64 against f32 sums: {site['floor']:.3e}) [{card}]",
           flush=True)
     assert site["n"] == TWIN_CHECKED_STEPS, site
     assert site["layer"] <= K1_REL_L2 and site["hidden"] <= K1_REL_L2, site
-    assert site["rows_exact"], site
+    assert site["rows"], site
 
 
 def quant_pipeline_phase(card: str, prompt: str, model_dir: str, quantization: str,
@@ -2845,8 +3228,8 @@ def emo_text_phase(card: str, prompt: str, d: str) -> dict:
     infer_emo = qe.inference
     qe.inference = lambda text: dicts.append(infer_emo(text)) or dicts[-1]
     reset_counts()
-    run_requests(tts, prompt, 1, card, "emotion-text (bf16, use_emo_text)", use_emo_text=True,
-                 emo_text=EMO_TEXT)
+    run_requests(tts, prompt, 1, card, "emotion-text (bf16, use_emo_text)", EMO_REQUEST_CODES,
+                 use_emo_text=True, emo_text=EMO_TEXT)
     counts = read_counts()
     del qe.inference
     assert len(dicts) == 1 and list(dicts[0]) == te.EMOTION_KEYS, dicts
@@ -2891,8 +3274,8 @@ def tp_twin_check():
     twin layer by layer (`tp_twin_by_layer`), and the ``site`` dict it
     fills (``groups``: every call's group and whether it had an ancestry
     map)."""
-    site = {"n": 0, "layer": 0.0, "hidden": 0.0, "streams_equal": True, "rows_exact": True,
-            "groups": set()}
+    site = {"n": 0, "layer": 0.0, "hidden": 0.0, "streams_equal": True, "rows": True,
+            "rows_err": 0.0, "groups": set()}
     full: dict = {}
 
     def check(args, h):
@@ -2904,10 +3287,10 @@ def tp_twin_check():
             full["layers"] = [full_c_attn(args["params"], li)
                               for li in range(len(args["params"]["shards"][0]))]
         tw = tp_twin_by_layer(args, h, full["layers"])
-        for key in ("layer", "hidden"):
+        for key in ("layer", "hidden", "rows_err"):
             site[key] = max(site[key], tw[key])
-        for key in ("streams_equal", "rows_exact"):
-            site[key] &= tw[key]
+        site["streams_equal"] &= tw["streams_equal"]
+        site["rows"] &= tw["rows"]
 
     return site, check
 
@@ -2948,11 +3331,11 @@ def tp_pipeline_phase(card: str, prompt: str, model_dir: str, int8_gpt: float) -
         print(f"tp twin check of the first {site['n']} K6 calls, layer by layer on the kernel "
               f"path's inputs: layer outputs rel_l2 <= {site['layer']:.3e}, hidden after ln_f "
               f"{site['hidden']:.3e}, residual streams bit-identical: {site['streams_equal']}, "
-              f"written rows bit-identical to K1's qkv kernel: {site['rows_exact']} [{card}]",
+              f"written rows bit-identical to K1's qkv kernel: {site['rows']} [{card}]",
               flush=True)
         assert site["n"] == TWIN_CHECKED_STEPS, site
         assert site["layer"] <= K1_REL_L2 and site["hidden"] <= K1_REL_L2, site
-        assert site["streams_equal"] and site["rows_exact"], site
+        assert site["streams_equal"] and site["rows"], site
         assert counts["tp"] == want, (counts["tp"], want)
         assert beam.last_use_anc is True and site["groups"] == {(3, True)}, site["groups"]
 
@@ -3265,8 +3648,9 @@ def chunk_against_steps(tts, embeds, mask, codes, card: str, label: str) -> dict
 
 def spec_phase(card: str, prompt: str, model_dir: str, quantization=None) -> tuple:
     """The speculative decoder at full width (bf16, or int8 weights): one
-    num_beams=1 request pinned to 400 codes with speculation on (the
-    default) and one with INDEXTTS_SPEC_DECODE=0, each from the generator
+    num_beams=1 request pinned to 400 codes (bf16: SPEC_BF16_CODES) with
+    speculation on (the default) and one with INDEXTTS_SPEC_DECODE=0, each
+    from the generator
     seeded 0: `last_spec_stats`, gpt stage seconds, K1 / chunk / plain step
     counts (exact), and the tokens the two share before their first
     difference; a forced oracle decode (greedy, drafts = the sequential
@@ -3281,6 +3665,7 @@ def spec_phase(card: str, prompt: str, model_dir: str, quantization=None) -> tup
     from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
 
     label = quantization or "bf16"
+    codes = 400 if quantization else SPEC_BF16_CODES
     tts = IndexTTS2(cfg_path=None, model_dir=model_dir, device="cuda", seed=0,
                     quantization=quantization)
     # a short warm-up request: the prompt cache and the first calls' set-up
@@ -3299,7 +3684,7 @@ def spec_phase(card: str, prompt: str, model_dir: str, quantization=None) -> tup
             tts.generator.manual_seed(0)
             reset_counts()
             st = run_requests(tts, prompt, 1, card, f"{label} num_beams=1, speculation "
-                              f"{'on' if env is None else 'off'}", num_beams=1)[0]
+                              f"{'on' if env is None else 'off'}", codes, num_beams=1)[0]
             runs[mode] = (st, read_counts(), seen[-1][0][0].numpy(), seen[-1][2])
     finally:
         if saved is None:
@@ -3309,19 +3694,19 @@ def spec_phase(card: str, prompt: str, model_dir: str, quantization=None) -> tup
     del tts.decode
     (st_s, c_s, codes_s, stats), (st_p, c_p, codes_p, stats_p) = runs["spec"], runs["plain"]
     step_key = "fused_decode_step" if quantization else "gpt2_decode_step"
-    n = agree(codes_s[:400], codes_p[:400])
-    print(f"{label} speculative pass, num_beams=1 at 400 codes: on: last_spec_stats {stats} "
+    n = agree(codes_s[:codes], codes_p[:codes])
+    print(f"{label} speculative pass, num_beams=1 at {codes} codes: on: last_spec_stats {stats} "
           f"(gamma, verifies, tokens they committed, single steps), gpt {st_s['gpt']:.4f} s, "
           f"K1 launches {c_s['fused_decode_step']}, plain steps {c_s['gpt2_decode_step']}, chunk "
           f"steps {c_s['gpt2_chunk_step']}; off: gpt {st_p['gpt']:.4f} s, K1 launches "
-          f"{c_p['fused_decode_step']}, plain steps {c_p['gpt2_decode_step']}; {n} of 400 "
+          f"{c_p['fused_decode_step']}, plain steps {c_p['gpt2_decode_step']}; {n} of {codes} "
           f"tokens agree before the first difference [{card}]", flush=True)
     assert stats[0] == SPEC_GAMMA and stats_p is None, (stats, stats_p)
     # the speculative decoder keeps the sequential loop's stream: every token
-    assert n == 400, f"{label}: speculation on and off share {n} of 400 tokens"
-    assert c_s[step_key] == DECODE_STEPS - stats[2], (stats, c_s)
+    assert n == codes, f"{label}: speculation on and off share {n} of {codes} tokens"
+    assert c_s[step_key] == codes - 1 - stats[2], (stats, c_s)
     assert c_s["gpt2_chunk_step"] == stats[1] and c_p["gpt2_chunk_step"] == 0, (c_s, c_p)
-    assert c_p[step_key] == DECODE_STEPS and c_s["span_growths"] == 1, c_p
+    assert c_p[step_key] == codes - 1 and c_s["span_growths"] == 1, c_p
 
     embeds, mask = request_prefix(tts, prompt)
     n_orc = SPEC_ORACLE_CODES
@@ -3370,7 +3755,7 @@ def spec_phase(card: str, prompt: str, model_dir: str, quantization=None) -> tup
 
 def aux_phase(tts, card: str, prompt: str) -> dict:
     """The aux decode modes on the int8 model, one request each, pinned to
-    400 codes: diverse beam search (K1 at group=2 with the ancestry map,
+    AUX_CODES codes: diverse beam search (K1 at group=2 with the ancestry map,
     once a decode step), contrastive search and DoLa (the plain step on the
     int8 weights: once a step, the contrastive one over top_k rows). Stage
     seconds and exact launch counts. Returns the counts by request."""
@@ -3380,14 +3765,14 @@ def aux_phase(tts, card: str, prompt: str) -> dict:
     for label, kw in AUX_REQUESTS.items():
         reset_counts()
         beam.last_use_anc = None
-        run_requests(tts, prompt, 1, card, f"int8 {label}", **kw)
+        run_requests(tts, prompt, 1, card, f"int8 {label}", AUX_CODES, **kw)
         counts[label] = read_counts()
-        want = want_counts(tts, "int8", 1)
+        want = want_counts(tts, "int8", 1, AUX_CODES - 1)
         if label == "diverse beam":
             assert beam.last_use_anc is True
         else:
             # contrastive search steps once more: its last step's logits go unused
-            want.update(fused_decode_step=0, gpt2_decode_step=DECODE_STEPS
+            want.update(fused_decode_step=0, gpt2_decode_step=AUX_CODES - 1
                         + (label == "contrastive"))
         print(f"launches of the int8 {label} request: {counts[label]} (expect {want}) [{card}]",
               flush=True)
@@ -3427,7 +3812,8 @@ def fp16_phase(card: str, prompt: str, model_dir: str) -> tuple:
     =0), K4 at fp16 325 times; then from the request's codes and one fixed
     noise, the s2mel mel and the wav of the fp16, bf16 and f32 models (the
     same seeded weights; the kernels take 16-bit operands, so the f32 model
-    runs K2's and K3's plain twins, f32 throughout): fp16's and bf16's
+    attends on the DiT's dense tier and runs K3's plain version, f32
+    throughout): fp16's and bf16's
     rel-L2 to f32, both finite, and fp16's no larger (it has more mantissa
     than bf16, so a larger distance means an overflow). Returns (the
     request's launches, the flash call's, the request's stage times)."""
@@ -3437,8 +3823,6 @@ def fp16_phase(card: str, prompt: str, model_dir: str) -> tuple:
     from indextts_tpu_torch import webui
     from indextts_tpu_torch.models.s2mel import dit
     from indextts_tpu_torch.models.vocoder import bigvgan
-    from indextts_tpu_torch.ops.attn import attention_rope_plain
-    from indextts_tpu_torch.ops.snake import antialias_snake_plain
     from indextts_tpu_torch.pipeline import infer_v2
     from indextts_tpu_torch.pipeline.buckets import pick_bucket
     from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
@@ -3513,7 +3897,6 @@ def fp16_phase(card: str, prompt: str, model_dir: str) -> tuple:
         models[label] = IndexTTS2(cfg_path=None, model_dir=model_dir, device="cuda", seed=0,
                                   dtype=dt)
     vocode = infer_v2.bigvgan_forward
-    kernels = (dit.attention_rope, bigvgan.antialias_snake)
     z = None
     for label, m in models.items():
         spk, emo = m._prepare_spk_prompt(prompt), m._prepare_emo_cond(prompt)
@@ -3528,15 +3911,11 @@ def fp16_phase(card: str, prompt: str, model_dir: str) -> tuple:
             return vocode(params, cfg, mel, lengths)
 
         infer_v2.bigvgan_forward = keep
-        if label == "f32":
-            dit.attention_rope, bigvgan.antialias_snake = attention_rope_plain, \
-                antialias_snake_plain
         try:
             wavs[label] = m.codes_to_wav(spk, cond, emovec, text_ids, len(ids), codes, 400,
                                          z=z.clone())
         finally:
             infer_v2.bigvgan_forward = vocode
-            dit.attention_rope, bigvgan.antialias_snake = kernels
     dist = {label: (rel_l2(mels[label], mels["f32"]),
                     rel_l2(torch.as_tensor(wavs[label]), torch.as_tensor(wavs["f32"])))
             for label in ("fp16", "bf16")}
@@ -3551,6 +3930,149 @@ def fp16_phase(card: str, prompt: str, model_dir: str) -> tuple:
     del models, tts
     torch.cuda.empty_cache()
     return counts, flash, st
+
+
+# the fp16 quantized passes (IndexTTS2(use_fp16=True, quantization=q)): the
+# quantizations served through K1 (int8 also at num_beams=1 and as a 24-row
+# long-form request), then tp=2 int8 through K6; the long-form request's
+# codes a segment; the f32 int8 request's codes (the plain step)
+FP16_QUANT = ("int8", "int8kv", "int4", "int4kv")
+FP16_LONGFORM_CODES = 100
+F32_CODES = 100
+
+
+def fp16_quant_phase(card: str, prompt: str, model_dir: str) -> dict:
+    """`IndexTTS2(use_fp16=True, quantization=q)` at full width for each q
+    of FP16_QUANT: one num_beams=3 request at 400 codes (stage seconds and
+    RTF), K1 once a decode step at fp16 and nothing else of the decode, its
+    first 8 calls held against the fp16 twin layer by layer
+    (`report_k1_twin_check`), a finite wav. The int8 model also takes one
+    num_beams=1 request (the speculative decoder: K1 at group=1 for its
+    single steps) and one long-form request of 8 segments x 3 beams (one
+    24-row decode, K1 once a step) at FP16_LONGFORM_CODES codes a segment.
+    Then tp=2 int8 at fp16 under INDEXTTS_TP_DECODE=kernel, both shards on
+    this card: K6 once a step, its first 8 calls against the twin. Then
+    `IndexTTS2(dtype=torch.float32, quantization="int8")` at F32_CODES
+    codes, through the pipeline's float32 gates: the plain step ("plain":
+    K1 takes 16-bit types), the DiT's dense tier and K3's plain version
+    (K2, K4 and K3 are 16-bit only), none of the four kernels launched.
+    Returns the launches by pass."""
+    import torch
+
+    from indextts_tpu_torch.engine import beam, decode
+    from indextts_tpu_torch.parallel.mesh import make_mesh
+    from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
+
+    counts = {}
+
+    def build(label, **kw):
+        t0 = time.perf_counter()
+        tts = IndexTTS2(cfg_path=None, model_dir=model_dir, seed=0, **kw)
+        torch.cuda.synchronize()
+        print(f"{label} model build (random weights, shipped widths): "
+              f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+        return tts
+
+    for q in FP16_QUANT:
+        tts = build(f"fp16 {q}", device="cuda", use_fp16=True, quantization=q)
+        lp = tts.gpt_params["gpt"]["h"][0]
+        assert tts.dtype == torch.float16 and lp["mlp"]["c_fc"]["bias"].dtype == torch.float16
+        site, check = k1_twin_check()
+        reset_counts()
+        tts.decode_check = check
+        run_requests(tts, prompt, 1, card, f"fp16 {q} (first 8 K1 steps twin-checked)")
+        tts.decode_check = None
+        c, want = read_counts(), want_counts(tts, q, 1)
+        print(f"launches of the fp16 {q} request: {c} (expect {want}); ancestry route: "
+              f"{beam.last_use_anc}", flush=True)
+        report_k1_twin_check(site, f"fp16 {q}", card, fp16=True)
+        assert c == want, (c, want)
+        assert beam.last_use_anc is True and site["groups"] == {(3, True)}, site["groups"]
+        counts[f"fp16_{q}"] = c
+        if q == "int8":
+            calls = set()
+            tts.decode_check = lambda args, h: calls.add(
+                (args["group"], args["anc"] is not None, args["x"].shape[0], args["x"].dtype))
+            reset_counts()
+            run_requests(tts, prompt, 1, card, "fp16 int8 num_beams=1", num_beams=1)
+            c = counts["fp16_int8_g1"] = read_counts()
+            print(f"launches of the fp16 int8 num_beams=1 request: {c}; route "
+                  f"{decode.last_route}; K1 calls (group, ancestry map, rows, x dtype) {calls}",
+                  flush=True)
+            assert decode.last_route == "fused" and c["fused_decode_step"] > 0, c
+            assert c["gpt2_decode_step"] == 0, c
+            assert calls == {(1, False, 1, torch.float16)}, calls
+            calls.clear()
+            reset_counts()
+            text = longform_text(tts)
+            sr, wav = tts.infer(spk_audio_prompt=prompt, text=text, output_path=None,
+                                max_mel_tokens=FP16_LONGFORM_CODES,
+                                min_new_tokens=FP16_LONGFORM_CODES - 1)
+            tts.decode_check = None
+            st = tts.last_stage_times
+            c = counts["fp16_int8_24rows"] = read_counts()
+            stages = " ".join(f"{k}={st[k]:.4f}s" for k in
+                              ("prompt", "gpt", "gpt_forward", "s2mel", "bigvgan", "total"))
+            print(f"fp16 int8 long-form request: {LONGFORM_SEGMENTS} segments x "
+                  f"{FP16_LONGFORM_CODES} codes, {wav.shape[0]} samples, audio="
+                  f"{st['audio_s']:.4f}s {stages} RTF={st['rtf']:.4f}; K1 launches "
+                  f"{c['fused_decode_step']} (expect {FP16_LONGFORM_CODES - 1}), calls {calls} "
+                  f"[{card}]", flush=True)
+            assert st["segment_codes"] == [FP16_LONGFORM_CODES] * LONGFORM_SEGMENTS, st
+            assert sr == 22050 and np.all(np.isfinite(wav)) and np.abs(wav).max() > 0
+            assert c["fused_decode_step"] == FP16_LONGFORM_CODES - 1, c
+            assert calls == {(3, True, 3 * LONGFORM_SEGMENTS, torch.float16)}, calls
+        del tts
+        torch.cuda.empty_cache()
+
+    saved = os.environ.get("INDEXTTS_TP_DECODE")
+    os.environ["INDEXTTS_TP_DECODE"] = "kernel"
+    try:
+        tts = build("fp16 tp int8", use_fp16=True, quantization="int8",
+                    mesh=make_mesh(list(TP_DEVICES)))
+        site, check = tp_twin_check()
+        reset_counts()
+        tts.decode_check = check
+        run_requests(tts, prompt, 1, card, "fp16 tp int8 (first 8 K6 steps twin-checked)")
+        tts.decode_check = None
+        c, want = read_counts(), want_counts(tts, "int8", 1)
+        print(f"launches of the fp16 tp request: {c} (expect {want}); fp16 tp twin check of the "
+              f"first {site['n']} K6 calls: layer outputs rel_l2 <= {site['layer']:.3e}, hidden "
+              f"after ln_f {site['hidden']:.3e}, residual streams bit-identical "
+              f"{site['streams_equal']}, written rows within atol = rtol {FP16_ROWS_TOL} of the "
+              f"twin's write {site['rows']} (max_abs {site['rows_err']:.3e}); K6 calls "
+              f"{site['groups']} [{card}]", flush=True)
+        assert site["n"] == TWIN_CHECKED_STEPS, site
+        assert site["layer"] <= K1_REL_L2 and site["hidden"] <= K1_REL_L2, site
+        assert site["streams_equal"] and site["rows"], site
+        assert c == want and site["groups"] == {(3, True)}, (c, want, site["groups"])
+        counts["fp16_tp"] = c
+    finally:
+        if saved is None:
+            del os.environ["INDEXTTS_TP_DECODE"]
+        else:
+            os.environ["INDEXTTS_TP_DECODE"] = saved
+    del tts
+    torch.cuda.empty_cache()
+
+    tts = build("f32 int8", device="cuda", dtype=torch.float32, quantization="int8")
+    assert decode.decode_route(tts.gpt_params, 3) == "plain"
+    reset_counts()
+    sr, wav = tts.infer(spk_audio_prompt=prompt, text=SENTENCE, output_path=None,
+                        max_mel_tokens=F32_CODES, min_new_tokens=F32_CODES - 1)
+    c = counts["f32_int8"] = read_counts()
+    st = tts.last_stage_times
+    stages = " ".join(f"{k}={st[k]:.4f}s" for k in
+                      ("prompt", "gpt", "gpt_forward", "s2mel", "bigvgan", "total"))
+    print(f"f32 int8 request (the plain step, the DiT's dense tier, K3's plain version): "
+          f"codes={st['codes']} {stages} RTF={st['rtf']:.4f}; launches {c} [{card}]",
+          flush=True)
+    assert st["codes"] == F32_CODES and np.all(np.isfinite(wav)) and np.abs(wav).max() > 0
+    assert c["fused_decode_step"] == 0 and c["gpt2_decode_step"] == F32_CODES - 1, c
+    assert c["attention_rope"] == c["single_block_attention"] == c["antialias_snake"] == 0, c
+    del tts
+    torch.cuda.empty_cache()
+    return counts
 
 
 def longform_text(tts, count: int = LONGFORM_SEGMENTS) -> str:
@@ -3570,21 +4092,22 @@ def longform_text(tts, count: int = LONGFORM_SEGMENTS) -> str:
     return SENTENCE * n
 
 
-def longform_request(tts, prompt: str, text: str, card: str, label: str, **kwargs) -> dict:
-    """One long-form request, every segment pinned to 400 codes: the wav
-    holds 8 segments of int(400 * 1.72) * 256 samples and the 7 silences
-    between them; prints the stage times and the RTF."""
+def longform_request(tts, prompt: str, text: str, card: str, label: str, codes: int = 400,
+                     **kwargs) -> dict:
+    """One long-form request, every segment pinned to ``codes`` codes: the
+    wav holds 8 segments of int(codes * 1.72) * 256 samples and the 7
+    silences between them; prints the stage times and the RTF."""
     sr, wav = tts.infer(spk_audio_prompt=prompt, text=text, output_path=None,
-                        max_mel_tokens=400, min_new_tokens=399, **kwargs)
+                        max_mel_tokens=codes, min_new_tokens=codes - 1, **kwargs)
     st = dict(tts.last_stage_times)
-    expect = (LONGFORM_SEGMENTS * int(np.float32(400) * np.float32(1.72)) * 256
+    expect = (LONGFORM_SEGMENTS * int(np.float32(codes) * np.float32(1.72)) * 256
               + (LONGFORM_SEGMENTS - 1) * SILENCE_SAMPLES)
-    assert st["segment_codes"] == [400] * LONGFORM_SEGMENTS, st["segment_codes"]
+    assert st["segment_codes"] == [codes] * LONGFORM_SEGMENTS, st["segment_codes"]
     assert sr == 22050 and wav.shape == (expect, 1), (wav.shape, expect)
     assert np.abs(wav).max() > 0
     stages = " ".join(f"{k}={st[k]:.4f}s" for k in
                       ("prompt", "gpt", "gpt_forward", "s2mel", "bigvgan", "total"))
-    print(f"{label} long-form request: {LONGFORM_SEGMENTS} segments x 400 codes, "
+    print(f"{label} long-form request: {LONGFORM_SEGMENTS} segments x {codes} codes, "
           f"{wav.shape[0]} samples, audio={st['audio_s']:.4f}s {stages} RTF={st['rtf']:.4f} "
           f"[{card}]", flush=True)
     return st
@@ -3649,11 +4172,11 @@ def longform_k1_row(kept, card: str) -> dict:
         starts = (pos + 1 - valid.sum(1)).tolist()
         print(f"K1 at the long-form decode's inputs ({x.shape[0]} rows, group={group}, pos={pos}"
               f", S={valid.shape[1]}, row starts {sorted(set(starts))}): twin layer by layer "
-              f"rel_l2 <= {tw['layer']:.3e}, hidden {tw['hidden']:.3e}, rows {tw['rows_exact']};"
+              f"rel_l2 <= {tw['layer']:.3e}, hidden {tw['hidden']:.3e}, rows {tw['rows']};"
               f" against the chain {vs}; the twin's 24-layer chain: rel_l2 {err:.3e} max_abs "
               f"{mab:.3e} (noise floor, twin with f64 against f32 sums: "
               f"{rel_l2(ref64, ref):.3e}) [{card}]", flush=True)
-        assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2 and tw["rows_exact"], tw
+        assert tw["layer"] <= K1_REL_L2 and tw["hidden"] <= K1_REL_L2 and tw["rows"], tw
         assert vs["ok"], vs
         row["err"], row["abs"] = max(row["err"], err), max(row["abs"], mab)
     cache = {k: t.clone() for k, t in args["kv_cache"].items()}
@@ -3963,7 +4486,7 @@ def recorded_codes(tts) -> list:
 
 def mesh_dp_pass(card: str, prompt: str, model_dir: str) -> dict:
     """dp=2 x tp=1 with both ranks on this card: the long-form 8-segment
-    int8 request at num_beams=3, do_sample=False, 400 codes a segment, on
+    int8 request at num_beams=3, do_sample=False, MESH_DP_CODES codes a segment, on
     `IndexTTS2(mesh=make_mesh(["cuda:0", "cuda:0"], tp=1))`, against the
     single-device int8 pipeline on the same seed's weights decoding the
     same rows a chunk (MAX_ROWS = 12: chunks of 4 segments, the dp ranks'
@@ -3987,7 +4510,8 @@ def mesh_dp_pass(card: str, prompt: str, model_dir: str) -> dict:
         try:
             one.generator.manual_seed(0)
             longform_request(one, prompt, text, card, f"single-device int8 num_beams=3, "
-                             f"{max_rows}-row chunks (mesh pass)", num_beams=3, do_sample=False)
+                             f"{max_rows}-row chunks (mesh pass)", MESH_DP_CODES, num_beams=3,
+                             do_sample=False)
         finally:
             iv2.MAX_ROWS = rows
     (codes24, lens24), (ref_codes, ref_lens) = seen
@@ -4013,7 +4537,7 @@ def mesh_dp_pass(card: str, prompt: str, model_dir: str) -> dict:
     reset_counts()
     tts.generator.manual_seed(0)
     longform_request(tts, prompt, text, card, "dp=2 int8 num_beams=3 (ranks co-located)",
-                     num_beams=3, do_sample=False)
+                     MESH_DP_CODES, num_beams=3, do_sample=False)
     counts = read_counts()
     codes, lens = seen[-1]
 
@@ -4029,8 +4553,8 @@ def mesh_dp_pass(card: str, prompt: str, model_dir: str) -> dict:
           f"24-row chunk): {100 * share(codes, lens, codes24, lens24):.2f} %; the two "
           f"single-device runs: {100 * share(ref_codes, ref_lens, codes24, lens24):.2f} %; "
           f"launches {counts} [{card}]", flush=True)
-    assert per_rank == [(LONGFORM_SEGMENTS // 2, DECODE_STEPS)] * 2, per_rank
-    assert counts["fused_decode_step"] == 2 * DECODE_STEPS, counts
+    assert per_rank == [(LONGFORM_SEGMENTS // 2, MESH_DP_CODES - 1)] * 2, per_rank
+    assert counts["fused_decode_step"] == 2 * (MESH_DP_CODES - 1), counts
     assert counts["attention_rope"] == 2 * tts.cfg.s2mel.DiT.depth * 25, counts
     assert equal
     del tts, seen
@@ -4853,6 +5377,8 @@ def main() -> int:
     kres.update(tp_kernel_phase(card, kres))
     n_k6 = k6_phase(card)
     mark(f"K6 phase done ({n_k6} cases bit-identical to the chain)")
+    kres.update(k1_fp16_phase(card))
+    mark("K1 / K6 fp16 phase done")
     phase_counts = read_counts()
     # the chains' kernels only: no pipeline caller on one card
     for name in ("int4_matvec", "int4_mlp", "decode_attention_kvq", "int8_matvec", "int8_mlp",
@@ -4906,6 +5432,8 @@ def main() -> int:
         mark("v1 passes done")
         counts["fp16"], counts["fp16_flash"], _ = fp16_phase(card, prompt, d)
         mark("fp16 pass done")
+        counts.update(fp16_quant_phase(card, prompt, d))
+        mark("fp16 quantized passes and the f32 int8 request done")
         counts.update(mesh_phase(card, prompt, d))
         mark("mesh pass done")
         print("long-form stages (one request, 8 segments x 400 codes): " + "; ".join(
@@ -4921,8 +5449,10 @@ def main() -> int:
     assert not any(m == "indextts_tpu" or m.startswith("indextts_tpu.") for m in sys.modules)
 
     k1 = "decode_step.py:460"
-    k1_src = ("decode_step.cu", "gemv_core.cuh", "decode_attention_core.cuh")
+    k1_src = ("decode_step.cuh", "decode_step.cu", "gemv_core.cuh", "decode_attention_core.cuh")
     k6_src = k1_src
+    k1_fp16_src = ("decode_step.cuh", "decode_step_fp16.cu", "gemv_core.cuh",
+                   "decode_attention_core.cuh")
     # name, counter, sources (the first the row's "source"; a decode step's
     # time covers all of them), TPU kernel replaced, the pass whose
     # launches count (None: no pipeline caller, the kernel phase's launches)
@@ -4974,7 +5504,22 @@ def main() -> int:
              ("single_block_attention_fp16", "single_block_attention",
               ("attention_block.cu", "attention_tma.cuh"),
               "attn.py:253 (fp16: the flash tier of IndexTTS2(use_fp16=True))", "fp16_flash"),
-             ("packed_pair_attention_fp16", None, k2_src, "attn.py:76 (fp16)", None))
+             ("packed_pair_attention_fp16", None, k2_src, "attn.py:76 (fp16)", None),
+             ("fused_decode_step_fp16", "fused_decode_step", k1_fp16_src,
+              f"{k1} (fp16: IndexTTS2(use_fp16=True, quantization='int8'), group=3)",
+              "fp16_int8"),
+             ("fused_decode_step_fp16_g1", "fused_decode_step", k1_fp16_src,
+              f"{k1} (fp16, group=1)", "fp16_int8_g1"),
+             ("fused_decode_step_fp16_kvq", "fused_decode_step", k1_fp16_src,
+              f"{k1} (fp16, KVQ)", "fp16_int8kv"),
+             ("fused_decode_step_fp16_w4", "fused_decode_step", k1_fp16_src,
+              f"{k1} (fp16, W4)", "fp16_int4"),
+             ("fused_decode_step_fp16_w4_kvq", "fused_decode_step", k1_fp16_src,
+              f"{k1} (fp16, W4, KVQ)", "fp16_int4kv"),
+             ("fused_decode_step_fp16_24rows", "fused_decode_step", k1_fp16_src,
+              f"{k1} (fp16, group=3, 24 rows: 8 segments x 3 beams)", "fp16_int8_24rows"),
+             ("fused_decode_step_tp_fp16", "fused_decode_step_tp", k1_fp16_src,
+              "decode_step_tp.py:367 (fp16, both shards on one card)", "fp16_tp"))
     # where a row's launches come from when no pipeline pass launches it
     launched_in = {"tp_allreduce": "kernel phase (the chain's exchange; folded into K6's kernel "
                                    "on the co-located route, launched on two cards)"}
@@ -4997,6 +5542,8 @@ def main() -> int:
         if "chain_ms" in r:   # K1, K6: the persistent kernel's eager time, the chain's as "was"
             k.update(eager_ms=r["eager_ms"], was_chain_ms=r["chain_ms"],
                      was_chain_eager_ms=r["chain_eager_ms"])
+        if "bf16_ms" in r:    # K1, K6 at fp16: the bf16 instantiation in the same phase
+            k["bf16_ms"] = r["bf16_ms"]
     assert all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in kernels), kernels
     print(f"kernels line: ms and library_ms of attention_rope, packed_pair_attention, "
           f"single_block_attention, int8_matvec and int4_matvec are graph-replay medians of "
@@ -5014,8 +5561,11 @@ def main() -> int:
           f"fused_decode_step_g1's launches are the sampling request's single steps of its "
           f"speculative decode; the *_fp16 attention rows are the kernels' fp16 "
           f"instantiations in the kernel phase at the bf16 rows' first shapes, with the fp16 "
-          f"request's K2 launches and the fp16 flash-tier CFM call's K4 launches; every other "
-          f"row as timed in its phase", flush=True)
+          f"request's K2 launches and the fp16 flash-tier CFM call's K4 launches; the "
+          f"*_fp16* K1 / K6 rows are the E = fp16 instantiations (graph replay, bf16_ms the "
+          f"bf16 instantiation's beside them) in the kernel phase's fp16 cases, with the "
+          f"launches of the fp16 quantized passes (the 24-row row's from the fp16 long-form "
+          f"request); every other row as timed in its phase", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

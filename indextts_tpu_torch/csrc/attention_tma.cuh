@@ -291,6 +291,38 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
+// 8 values of E in 16 bytes -> 8 bf16, each rounded to nearest (bf16: as
+// they are). K1 and K6 take their activations and cache at E and compute on
+// bf16 (gemv_core.cuh, decode_attention_core.cuh).
+template <typename E>
+__device__ __forceinline__ uint4 to_bf16x8(uint4 v) {
+  if constexpr (is_f16<E>) {
+    const __half2* h = reinterpret_cast<const __half2*>(&v);
+    uint4 o;
+    __nv_bfloat162* b = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) b[i] = __float22bfloat162_rn(__half22float2(h[i]));
+    return o;
+  } else {
+    return v;
+  }
+}
+
+// 8 bf16 in 16 bytes -> 8 values of E (fp16: exact within its range)
+template <typename E>
+__device__ __forceinline__ uint4 from_bf16x8(uint4 v) {
+  if constexpr (is_f16<E>) {
+    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&v);
+    uint4 o;
+    __half2* h = reinterpret_cast<__half2*>(&o);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __float22half2_rn(__bfloat1622float2(b[i]));
+    return o;
+  } else {
+    return v;
+  }
+}
+
 // P.V for one tile: the four k16 steps over its 64 keys, P from registers.
 // V's rows are 16 keys (2048 bytes) a step; a second 64-lane box (D > 64)
 // lies one box further (the LBO).

@@ -6,6 +6,12 @@
 // depends on the chunk and the head alone, so both kernels give the same
 // bits; the merge's products are written as explicit FMAs (__fmaf_rn), so
 // that no compiler choice to fuse them or not can tell the two apart.
+//
+// The cache's element type: bf16, int8 (KVQ), or, in the persistent step
+// at E = fp16, fp16. An fp16 element is rounded to bf16 where it is read
+// from the ring (after the copy: cp.async moves bytes), before the score
+// and p.v, and the token's k / v rows are written back at fp16; so the fp16
+// cache gives the bits of the bf16 cache holding its values rounded to bf16.
 
 #pragma once
 
@@ -49,9 +55,10 @@ constexpr unsigned FULL = 0xffffffffu;
 
 static_assert(THREADS == 4 * CHUNK, "4 threads score a position");
 
-// the cache's element type: bf16, or int8 for KVQ (int8 -> bf16 is exact)
-template <bool KVQ>
-using cache_t = typename std::conditional<KVQ, int8_t, bf16>::type;
+// the cache's element type: E (bf16 or fp16), or int8 for KVQ (int8 -> bf16
+// is exact)
+template <bool KVQ, typename E = bf16>
+using cache_t = typename std::conditional<KVQ, int8_t, E>::type;
 
 struct Plan {
   int heads, chunks, cluster, stages;  // as ops/decode_step.py::attention_plan
@@ -130,6 +137,13 @@ __device__ __forceinline__ float dot16(const bf16* k, const bf16* q) {
   return acc;
 }
 
+// the same on fp16 k, each element rounded to bf16 first
+__device__ __forceinline__ float dot16(const __half* k, const bf16* q) {
+  const uint4 kb[2] = {attn_tma::to_bf16x8<__half>(reinterpret_cast<const uint4*>(k)[0]),
+                       attn_tma::to_bf16x8<__half>(reinterpret_cast<const uint4*>(k)[1])};
+  return dot16(reinterpret_cast<const bf16*>(kb), q);
+}
+
 __device__ __forceinline__ float dot16(const int8_t* k, const bf16* q) {
   const uint4 kv = *reinterpret_cast<const uint4*>(k);
   uint4 qv[2] = {reinterpret_cast<const uint4*>(q)[0], reinterpret_cast<const uint4*>(q)[1]};
@@ -157,6 +171,12 @@ __device__ __forceinline__ void pv8(float (&o)[8], const bf16* v, bf16 p) {
     o[2 * e] += prod.x;
     o[2 * e + 1] += prod.y;
   }
+}
+
+// the same on fp16 v, each element rounded to bf16 first
+__device__ __forceinline__ void pv8(float (&o)[8], const __half* v, bf16 p) {
+  const uint4 vb = attn_tma::to_bf16x8<__half>(*reinterpret_cast<const uint4*>(v));
+  pv8(o, reinterpret_cast<const bf16*>(&vb), p);
 }
 
 __device__ __forceinline__ void pv8(float (&o)[8], const int8_t* v, bf16 p) {
@@ -187,12 +207,13 @@ __device__ __forceinline__ int8_t quantize(float x, bf16 scale) {
 // same offset in every rank's shared memory) for the peers' partials and
 // arrived on the cluster barrier (step 0); rank 0 waits on it at
 // ``parity``. Peers return after sending their partials; rank 0 writes the
-// output and the cache row at pos.
-template <bool KVQ>
+// output and the cache row at pos. E: the element type of the non-KVQ
+// cache (the k / v rows are computed in bf16 and written at E).
+template <bool KVQ, typename E = bf16>
 __device__ __forceinline__ void attend(const Args& a, unsigned char* smem,
                                        unsigned char* bar_ptr, int rank, int run, int h0,
                                        int r, uint32_t parity) {
-  using T = cache_t<KVQ>;
+  using T = cache_t<KVQ, E>;
   const Plan& p = a.p;
   const Layout lay = layout(p, KVQ);
   const int t = threadIdx.x, lane = t % 32, warp = t / 32;
@@ -428,8 +449,9 @@ __device__ __forceinline__ void attend(const Args& a, unsigned char* smem,
   } else {
     for (int i = t; i < 2 * vecs; i += THREADS) {
       const int which = i / vecs, k8 = 8 * (i - which * vecs);
-      bf16* dst = static_cast<bf16*>(which ? a.cv : a.ck) + row * D + h0 * DH + k8;
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>((which ? svc : skc) + k8);
+      E* dst = static_cast<E*>(which ? a.cv : a.ck) + row * D + h0 * DH + k8;
+      *reinterpret_cast<uint4*>(dst) =
+          attn_tma::from_bf16x8<E>(*reinterpret_cast<const uint4*>((which ? svc : skc) + k8));
     }
   }
   if (clustered) mbar_wait(bar, parity);

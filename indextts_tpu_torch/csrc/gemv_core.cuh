@@ -11,10 +11,18 @@
 // written with rounding intrinsics (__fmul_rn, __fmaf_rn, ...): the
 // compiler may fuse a plain a * b + c into an FMA in one kernel and not in
 // the other, which moves the last bit.
+//
+// The persistent step takes its activations, biases and LayerNorm vectors
+// at a 16-bit type E (bf16, or fp16 for IndexTTS2(use_fp16=True)) and
+// computes on bf16 as the TPU kernel does: x's rows are rounded to bf16 as
+// they are staged (`stage_x`'s XT), the bias and LayerNorm vectors are read
+// exactly into f32 (`bf` of either type), and everything between stays
+// bf16 with f32 sums. The standalone kernel takes bf16 throughout.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,6 +50,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 __device__ __forceinline__ float bf(const bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float bf(const __half v) { return __half2float(v); }
 __device__ __forceinline__ float round_bf(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
@@ -139,8 +148,8 @@ __device__ __forceinline__ void row_stats(const bf16* row, int K, int lane, floa
 struct XStage {
   unsigned char* xs;
   int sx;
-  bf16* lnw;   // the span of the LayerNorm weight, then of its bias
-  bf16* lnb;
+  bf16* lnw;   // the span of the LayerNorm weight, then of its bias (16-bit
+  bf16* lnb;   // values of the type `layer_norm_staged` is given)
   float* mu;   // MAXM means, then MAXM 1 / std
   float* rstd;
 };
@@ -150,8 +159,9 @@ __host__ __device__ inline int x_stride(int span) { return (span * 2 + 127) / 12
 // The LayerNorm of x's M staged rows over [kb, kb + ks), in place:
 // statistics one warp a row from shared memory when the block spans K
 // (else `stage_x` took them from device memory), then y = (x - mean) / std
-// * w + b in bf16 against the staged vectors. Ends with the block
-// synchronised.
+// * w + b in bf16 against the staged vectors, which hold E (each read
+// exactly into f32). Ends with the block synchronised.
+template <typename E = bf16>
 __device__ __forceinline__ void layer_norm_staged(int M, int K, int ks, const XStage& s) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int v8 = ks / 8;
@@ -170,9 +180,8 @@ __device__ __forceinline__ void layer_norm_staged(int M, int K, int ks, const XS
     uint4* xv = reinterpret_cast<uint4*>(s.xs + m * s.sx + 2 * k);
     const uint4 xr = *xv, wr = *reinterpret_cast<const uint4*>(s.lnw + k),
                 br = *reinterpret_cast<const uint4*>(s.lnb + k);
-    const bf16 *xe = reinterpret_cast<const bf16*>(&xr),
-               *we = reinterpret_cast<const bf16*>(&wr),
-               *be = reinterpret_cast<const bf16*>(&br);
+    const bf16* xe = reinterpret_cast<const bf16*>(&xr);
+    const E *we = reinterpret_cast<const E*>(&wr), *be = reinterpret_cast<const E*>(&br);
     __align__(16) bf16 y[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -188,20 +197,24 @@ __device__ __forceinline__ void layer_norm_staged(int M, int K, int ks, const XS
 // shared memory in natural order, a thread's loads (up to 4 of 16 bytes)
 // issued together; with LN the LayerNorm runs in place (statistics one warp
 // a row, from device memory when the block does not span K, else from
-// shared memory), then y = (x - mean) / std * w + b in bf16. Ends with the
-// block synchronised.
-template <bool LN>
-__device__ __forceinline__ void stage_x(const bf16* x, const bf16* ln_w, const bf16* ln_b,
+// shared memory), then y = (x - mean) / std * w + b in bf16. x's elements
+// are XT, rounded to bf16 as they are staged (the persistent step's layer 0
+// at fp16, without LN). Ends with the block synchronised.
+template <bool LN, typename XT = bf16>
+__device__ __forceinline__ void stage_x(const XT* x, const bf16* ln_w, const bf16* ln_b,
                                         int M, int K, int kb, int ks, const XStage& s) {
+  static_assert(!LN || std::is_same<XT, bf16>::value, "the LayerNorm prologue reads bf16 x");
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bool whole = ks == K;
-  if (LN && !whole)  // statistics of the whole row from device memory
+  if constexpr (LN) {
+    if (!whole)  // statistics of the whole row from device memory
 #pragma unroll 1
-    for (int m = warp; m < M; m += WARPS) {
-      float mean, inv;
-      row_stats<true>(x + (size_t)m * K, K, lane, mean, inv);
-      if (lane == 0) s.mu[m] = mean, s.rstd[m] = inv;
-    }
+      for (int m = warp; m < M; m += WARPS) {
+        float mean, inv;
+        row_stats<true>(x + (size_t)m * K, K, lane, mean, inv);
+        if (lane == 0) s.mu[m] = mean, s.rstd[m] = inv;
+      }
+  }
   const int v8 = ks / 8, units = (M + (LN ? 2 : 0)) * v8;
   const float inv_v8 = 1.f / v8;  // u / v8 exactly for u < 2^20 (rounded up by 0.5)
 #pragma unroll 1
@@ -214,8 +227,11 @@ __device__ __forceinline__ void stage_x(const bf16* x, const bf16* ln_w, const b
       const int m = (int)((u + 0.5f) * inv_v8), k = 8 * (u - m * v8);
       dst[i] = m < M ? s.xs + m * s.sx + 2 * k
                      : reinterpret_cast<unsigned char*>(m == M ? s.lnw : s.lnb) + 2 * k;
-      if (u < units)
-        v[i] = load16(m < M ? x + (size_t)m * K + kb + k : (m == M ? ln_w : ln_b) + kb + k);
+      if (u < units) {
+        v[i] = m < M ? load16(x + (size_t)m * K + kb + k)
+                     : load16((m == M ? ln_w : ln_b) + kb + k);
+        if (m < M) v[i] = attn_tma::to_bf16x8<XT>(v[i]);
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -402,9 +418,9 @@ struct Pre {
 };
 
 // TP: the kernel takes EPI_TP (decode_step.cu's TP variant; the others
-// compile without it).
-template <bool TP = false>
-__device__ __forceinline__ Pre pre_read(const float* scale, const bf16* bias, const bf16* res,
+// compile without it). E: the bias's type (read exactly into f32).
+template <bool TP = false, typename E = bf16>
+__device__ __forceinline__ Pre pre_read(const float* scale, const E* bias, const bf16* res,
                                         int epi, int M, int N, int n0, int tiles, int tstride) {
   Pre p;
   int m, r, rr, n;
@@ -423,11 +439,12 @@ __device__ __forceinline__ Pre pre_read(const float* scale, const bf16* bias, co
 // here, in turn; else red holds the summed split already. Epilogue: none
 // (f32 out), or acc * scale + bias in f32 rounded to bf16, then gelu_new on
 // that in f32 rounded again, or a bf16 residual add (EPI_TP, with TP: the
-// product and the sum rounded apart, as tp_allreduce.cu).
-template <int NT, bool TP = false>
+// product and the sum rounded apart, as tp_allreduce.cu). The bias is E,
+// read exactly into f32.
+template <int NT, bool TP = false, typename E = bf16>
 __device__ __forceinline__ void epilogue(const float* red, int per, bool whole, int M, int N,
                                          int n0, int tiles, int tstride, int epi,
-                                         const float* scale, const bf16* bias, const bf16* res,
+                                         const float* scale, const E* bias, const bf16* res,
                                          void* out, const Pre& pre) {
 #pragma unroll 1
   for (int e = threadIdx.x; e < M * tiles * 16; e += THREADS) {

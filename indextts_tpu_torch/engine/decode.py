@@ -31,7 +31,7 @@ from indextts_tpu_torch.models.gpt.gpt2 import (GPT2Dims, gpt2_decode_step, gpt2
                                                 init_kv_cache, is_quantized, map_cache)
 from indextts_tpu_torch.models.gpt.unified_voice import mel_logits_from_hidden
 from indextts_tpu_torch.nn import Params
-from indextts_tpu_torch.ops.decode_step import fused_decode_step
+from indextts_tpu_torch.ops.decode_step import STEP_DTYPES, fused_decode_step
 from indextts_tpu_torch.ops.decode_step_tp import fused_decode_step_tp
 from indextts_tpu_torch.ops.int8 import MAX_ROWS
 from indextts_tpu_torch.ops.sampling import sample_logits
@@ -93,19 +93,24 @@ def _embed_mel_token(params: Params, token: torch.Tensor, pos: int, dtype) -> to
 def decode_route(params: Params, batch: int, kv_quant: bool = False) -> str:
     """The decode step a (B*K)-row batch takes (`engine/decode.py::
     _fused_decode_ok` of the JAX package): "fused" (kernel K1) for int8 or
-    int4 GPT-2 weights and B*K <= 24, with the bf16 or (``kv_quant``) the
-    int8 cache; "tp" (kernel K6) for the tensor-parallel tree of
-    `parallel/mesh.py::shard_gpt2_tp` made with ``kernel`` (the pipeline's
-    INDEXTTS_TP_DECODE=kernel) at tp=2 with int8 weights, the bf16 cache
-    and B*K <= 24, the JAX gate's "tp"; "plain" (`gpt2_decode_step`, the
-    JAX package's XLA step, on the shards of a tensor-parallel tree its
-    GSPMD decode) everywhere else: float weights (with either cache),
-    quantized weights past 24 rows, and on a tensor-parallel tree float or
-    int4 weights, the int8 cache, more than 24 rows, tp other than 2, or a
-    tree made without ``kernel``. The JAX package's D % 640 and S % 128
-    gates come from TPU memory tiling; the port's kernels mask ragged
-    tiles."""
+    int4 GPT-2 weights and B*K <= 24, with the cache at the tree's type or
+    (``kv_quant``) the int8 cache; "tp" (kernel K6) for the tensor-parallel
+    tree of `parallel/mesh.py::shard_gpt2_tp` made with ``kernel`` (the
+    pipeline's INDEXTTS_TP_DECODE=kernel) at tp=2 with int8 weights, the
+    cache at the tree's type and B*K <= 24, the JAX gate's "tp"; both only
+    for a tree of a 16-bit type (`STEP_DTYPES`: bf16 or fp16; K1 and K6
+    stage 2-byte cache elements); "plain" (`gpt2_decode_step`, the JAX
+    package's XLA step, on the shards of a tensor-parallel tree its GSPMD
+    decode) everywhere else: an f32 tree (quantized or not: the step the
+    JAX pipeline takes on every backend but the TPU), float weights (with
+    either cache), quantized weights past 24 rows, and on a tensor-parallel
+    tree float or int4 weights, the int8 cache, more than 24 rows, tp other
+    than 2, or a tree made without ``kernel``. The JAX package's D % 640 and
+    S % 128 gates come from TPU memory tiling; the port's kernels mask
+    ragged tiles."""
     gpt = params["gpt"]
+    if gpt["ln_f"]["weight"].dtype not in STEP_DTYPES:
+        return "plain"
     if is_tp(gpt):
         kernel = (gpt.get("kernel", False) and gpt["mesh"].tp == TP
                   and "q" in gpt["shards"][0][0]["attn"]["c_attn"])

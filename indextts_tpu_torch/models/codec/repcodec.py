@@ -67,10 +67,7 @@ def fvq_quantize(p: Params, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
 
 
 def init_repcodec(rng: InitRng, cfg: SemanticCodecConfig) -> Params:
-    if cfg.downsample_scale and cfg.downsample_scale > 1:
-        raise NotImplementedError("RepCodec downsampling is not ported (the "
-                                  "shipped config has downsample_scale=1)")
-    return {
+    p = {
         "encoder": init_vocos_backbone(rng, cfg.hidden_size, cfg.vocos_dim,
                                        cfg.vocos_intermediate_dim, cfg.vocos_num_layers),
         "encoder_out": nn.dense_init(rng, cfg.vocos_dim, cfg.hidden_size, std=0.02),
@@ -80,11 +77,21 @@ def init_repcodec(rng: InitRng, cfg: SemanticCodecConfig) -> Params:
         "quantizer": [init_fvq(rng, cfg.hidden_size, cfg.codebook_size, cfg.codebook_dim)
                       for _ in range(cfg.num_quantizers)],
     }
+    if cfg.downsample_scale and cfg.downsample_scale > 1:
+        # the down conv (stride 2) before the encoder; "up" is the decoder's,
+        # which quantization does not reach
+        p["down"] = nn.conv1d_init(rng, cfg.hidden_size, cfg.hidden_size, 3)
+        p["up"] = nn.conv1d_init(rng, cfg.hidden_size, cfg.hidden_size, 3)
+    return p
 
 
 def repcodec_quantize(p: Params, cfg: SemanticCodecConfig,
                       x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, T, hidden) w2v-bert features -> (codes (B, T), quantized (B, T, hidden))."""
+    """x (B, T, hidden) w2v-bert features -> (codes (B, T'), quantized (B,
+    T', hidden)); T' = T, or with ``downsample_scale`` > 1 the frames of the
+    stride-2 ``down`` conv (padding 1) + exact GELU first."""
+    if "down" in p and cfg.downsample_scale > 1:
+        x = F.gelu(nn.conv1d(p["down"], x, stride=2, padding=1))
     h = nn.dense(p["encoder_out"], vocos_backbone(p["encoder"], x))
     quantized = torch.zeros_like(h)
     residual = h

@@ -1,7 +1,8 @@
 """Wenet-style conformer conditioning encoder (PyTorch counterpart of
-`indextts_tpu/models/gpt/conformer.py`): Conv2dSubsampling2 (or a linear
-input layer) -> rel-pos MHA (u/v biases, no rel_shift) -> conv module ->
-FFN, pre-norm, final norm per block, encoder after_norm."""
+`indextts_tpu/models/gpt/conformer.py`): Conv2dSubsampling2 / 4 / 6 / 8
+(``conv2d2``, ``conv2d``, ``conv2d6``, ``conv2d8``) or a linear input layer
+-> rel-pos MHA (u/v biases, no rel_shift) -> conv module -> FFN, pre-norm,
+final norm per block, encoder after_norm."""
 
 from __future__ import annotations
 
@@ -41,17 +42,30 @@ def sinusoidal_pos_table(max_len: int, d_model: int) -> np.ndarray:
     return pe
 
 
+# the conv subsampling input layers: name -> the (kernel, stride) of each
+# conv after the first (3x3, stride 2), and the mask's slices after the first
+# ([2::2]); the reference's subsampling.py strides
+SUBSAMPLING = {"conv2d2": ((), ()),
+               "conv2d": (((3, 2),), ((2, 2),)),
+               "conv2d6": (((5, 3),), ((4, 3),)),
+               "conv2d8": (((3, 2), (3, 2)), ((2, 2), (2, 2)))}
+
+
 def init_conformer(rng: InitRng, d: ConformerDims) -> Params:
     D, H = d.output_size, d.attention_heads
     if d.input_layer == "linear":
         p: Params = {"embed": {"linear": nn.dense_init(rng, d.input_size, D),
                                "norm": nn.layer_norm_init(rng, D)}}
-    elif d.input_layer == "conv2d2":
-        p = {"embed": {"conv": nn.conv2d_init(rng, 1, D, 3, 3),
-                       "out": nn.dense_init(rng, D * ((d.input_size - 1) // 2), D)}}
+    elif d.input_layer in SUBSAMPLING:
+        embed = {"conv": nn.conv2d_init(rng, 1, D, 3, 3)}
+        f_out = (d.input_size - 1) // 2
+        for i, (k, stride) in enumerate(SUBSAMPLING[d.input_layer][0]):
+            embed[f"conv{i + 2}"] = nn.conv2d_init(rng, D, D, k, k)
+            f_out = (f_out - k) // stride + 1
+        embed["out"] = nn.dense_init(rng, D * f_out, D)
+        p = {"embed": embed}
     else:
-        raise NotImplementedError(f"conformer input_layer {d.input_layer!r} is not "
-                                  "ported (the shipped config uses conv2d2)")
+        raise ValueError(f"unsupported conformer input_layer {d.input_layer!r}")
     p["encoders"] = [{
         "norm_mha": nn.layer_norm_init(rng, D),
         "attn": {
@@ -117,7 +131,9 @@ def _conv_module(cp: Params, x: torch.Tensor, mask: Optional[torch.Tensor],
 def conformer_encode(p: Params, d: ConformerDims, xs: torch.Tensor,
                      xs_lens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """xs (B, T, input_size), xs_lens (B,) -> (out (B, T', D), mask (B, T'));
-    T' = (T - 1) // 2 for conv2d2 (the mask strided as [2::2])."""
+    T' = (T - 1) // 2 for conv2d2 (the mask strided as [2::2]), and each
+    further conv of conv2d / conv2d6 / conv2d8 subsamples again (the mask
+    sliced as `SUBSAMPLING` says)."""
     B, T, _ = xs.shape
     D = d.output_size
     mask = nn.sequence_mask(xs_lens, T)
@@ -126,6 +142,10 @@ def conformer_encode(p: Params, d: ConformerDims, xs: torch.Tensor,
     else:
         h = F.relu(nn.conv2d(p["embed"]["conv"], xs[:, None], stride=(2, 2)))  # (B, D, T', F')
         mask = mask[:, 2::2]
+        convs, slices = SUBSAMPLING[d.input_layer]
+        for i, ((_, stride), (start, step)) in enumerate(zip(convs, slices)):
+            h = F.relu(nn.conv2d(p["embed"][f"conv{i + 2}"], h, stride=(stride, stride)))
+            mask = mask[:, start::step]
         Tp, Fp = h.shape[2], h.shape[3]
         x = nn.dense(p["embed"]["out"], h.permute(0, 2, 1, 3).reshape(B, Tp, D * Fp))
         mask = mask[:, : x.shape[1]]

@@ -1,14 +1,20 @@
 """Flow-matching DiT velocity estimator (PyTorch counterpart of
 `indextts_tpu/models/s2mel/dit.py`).
 
-input = concat[noisy mel 80, prompt mel 80, cond, style 192] -> hidden;
-body  = non-causal rope transformer with AdaptiveLayerNorm (RMSNorm
-        modulated by the timestep embedding); attention by the JAX DiT's
-        three tiers (`attention_tier`): kernel K2 with the rope fused in,
-        kernel K4 through `nn.mha_flash`, or dense `nn.mha`;
+input = concat[noisy mel 80, prompt mel 80, cond, style 192] -> hidden
+        (the style left out with ``style_condition=False`` or
+        ``style_as_token``, as the JAX DiT leaves it out);
+body  = rope transformer with AdaptiveLayerNorm (RMSNorm modulated by the
+        timestep embedding); attention by the JAX DiT's three tiers
+        (`attention_tier`): kernel K2 with the rope fused in, kernel K4
+        through `nn.mha_flash`, or dense `nn.mha`; a causal DiT
+        (``is_causal``) attends on the dense tier under a lower-triangular
+        mask, never the kernels, as in the JAX DiT; so does a float32
+        attention on the card, which the kernels do not take;
 skip  = skip_linear(concat[body, noisy mel]);
 head  = WaveNet (gated tanh/sigmoid, reflect padding around each row's
-        valid region) + FinalLayer (adaLN LayerNorm + linear) + 1x1 conv.
+        valid region) + FinalLayer (adaLN LayerNorm + linear) + 1x1 conv,
+        or (``final_layer_type="mlp"``) linear + SiLU + linear.
 
 Under a mesh (`parallel/mesh.py::shard_dit`), `dit_forward_mesh` runs the
 same network over sp x tp ranks: each tp rank its heads and its part of the
@@ -41,7 +47,7 @@ import torch.nn.functional as F
 from indextts_tpu_torch import nn
 from indextts_tpu_torch.config import DiTConfig, S2MelConfig, WaveNetConfig
 from indextts_tpu_torch.nn import InitRng, Params
-from indextts_tpu_torch.ops.attn import attention_rope
+from indextts_tpu_torch.ops.attn import attention_rope, kernel_takes
 from indextts_tpu_torch.ops.rope import apply_rotary_emb_half
 
 
@@ -91,16 +97,24 @@ def init_dit_backbone(rng: InitRng, cfg: DiTConfig) -> Params:
     return {"layers": nn.stack_layers(layers), "norm": _ada_ln_init(rng, D)}
 
 
-def attention_tier(cfg: DiTConfig, lengths: Optional[torch.Tensor]) -> str:
+def attention_tier(cfg: DiTConfig, lengths: Optional[torch.Tensor],
+                   dtype: Optional[torch.dtype] = None) -> str:
     """The JAX DiT's attention tier, by its own gates and switches
     (`indextts_tpu/models/s2mel/dit.py:157-168`), fastest first:
     "packed" (K2, rope in the kernel) for H even and 2 * head_dim == 128
     unless INDEXTTS_PACKED_ATTN=0; else "flash" (rope outside, then
     `nn.mha_flash`: K4 on the card) unless INDEXTTS_FLASH_DIT=0; else
-    "dense" (`nn.mha`). Both kernels need ``lengths``. The TPU's own caps
-    (T <= 3456 packed, T <= 1536 flash, T % 128 == 0, a TPU backend) are
-    VMEM and tiling limits the card's kernels do not have, and are dropped."""
-    if lengths is None:
+    "dense" (`nn.mha`). Both kernels need ``lengths`` and a non-causal DiT
+    (the JAX ``kernel_ok``), and an attention ``dtype`` (the kernels'
+    operands, ``attn_dtype``) that they take on ``lengths``' device: the
+    card's are bf16 and fp16 only (`ops/attn.py::kernel_takes`), so a
+    float32 DiT attends densely there, as the JAX DiT does off the TPU. The
+    TPU's own caps (T <= 3456 packed, T <= 1536 flash, T % 128 == 0, a TPU
+    backend) are VMEM and tiling limits the card's kernels do not have, and
+    are dropped."""
+    if lengths is None or cfg.is_causal:
+        return "dense"
+    if dtype is not None and not kernel_takes(dtype, lengths.device):
         return "dense"
     if (cfg.num_heads % 2 == 0 and 2 * cfg.head_dim == 128
             and os.environ.get("INDEXTTS_PACKED_ATTN", "1") != "0"):
@@ -113,9 +127,13 @@ def attention_tier(cfg: DiTConfig, lengths: Optional[torch.Tensor]) -> str:
 def _attention(cfg: DiTConfig, tier: str, q, k, v, freqs_cis, lengths,
                attn_dtype) -> torch.Tensor:
     """(B, T, H*Dh) pre-rope q, k, v of the stream -> (B, T, H*Dh) in the
-    stream's dtype; the kernels run in ``attn_dtype``."""
+    stream's dtype; the kernels run in ``attn_dtype``. A causal DiT attends
+    densely under the lower-triangular mask alone (the JAX DiT's mask: the
+    lengths do not enter it)."""
     B, T, _ = q.shape
     H, Dh = cfg.num_heads, cfg.head_dim
+    if cfg.is_causal and tier != "dense":
+        raise ValueError(f"the causal DiT attends on the dense tier, not {tier!r}")
     if tier == "packed":
         q, k, v = (a.to(attn_dtype).contiguous() for a in (q, k, v))
         return attention_rope(q, k, v, lengths, freqs_cis, H)
@@ -126,7 +144,10 @@ def _attention(cfg: DiTConfig, tier: str, q, k, v, freqs_cis, lengths,
         qh, kh, vh = (a.to(attn_dtype) for a in (qh, kh, vh))
         out = nn.mha_flash(qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2), lengths)
     else:
-        mask = None if lengths is None else nn.sequence_mask(lengths, T)[:, None, None, :]
+        if cfg.is_causal:
+            mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()[None, None]
+        else:
+            mask = None if lengths is None else nn.sequence_mask(lengths, T)[:, None, None, :]
         out = nn.mha(qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2), mask=mask)
     return out.transpose(1, 2).reshape(B, T, H * Dh)
 
@@ -164,28 +185,38 @@ def wavenet_forward(p: Params, w: WaveNetConfig, x: torch.Tensor, mask: torch.Te
     return wavenet_forward_mesh([p], w, [x], [mask], [g], lengths, [0], x.shape[1])[0]
 
 
+def _style_in(cfg: DiTConfig) -> bool:
+    """Whether the style vector is concatenated to the input (the JAX DiT
+    leaves it out with ``style_condition=False`` and with ``style_as_token``)."""
+    return cfg.style_condition and not cfg.style_as_token
+
+
 def init_dit(rng: InitRng, s2: S2MelConfig) -> Params:
     cfg, w = s2.DiT, s2.wavenet
     D = cfg.hidden_dim
-    if cfg.final_layer_type != "wavenet" or not cfg.style_condition or cfg.style_as_token:
-        raise NotImplementedError("only the shipped DiT (wavenet head, style "
-                                  "concatenated to the input) is ported")
-    merge_in = D + cfg.in_channels * 2 + s2.style_encoder.dim
-    return {
+    merge_in = D + cfg.in_channels * 2 + s2.style_encoder.dim * int(_style_in(cfg))
+    p = {
         "x_embedder": nn.dense_init(rng, cfg.in_channels, D),
         "cond_projection": nn.dense_init(rng, cfg.content_dim, D),
         "t_embedder": init_timestep_embedder(rng, D),
         "cond_x_merge_linear": nn.dense_init(rng, merge_in, D),
         "skip_linear": nn.dense_init(rng, D + cfg.in_channels, D),
         "transformer": init_dit_backbone(rng, cfg),
-        "t_embedder2": init_timestep_embedder(rng, w.hidden_dim),
-        "conv1": nn.dense_init(rng, D, w.hidden_dim),
-        "wavenet": init_wavenet(rng, w),
-        "res_projection": nn.dense_init(rng, D, w.hidden_dim),
-        "final_layer": {"linear": nn.dense_init(rng, w.hidden_dim, w.hidden_dim),
-                        "adaLN": nn.dense_init(rng, D, 2 * w.hidden_dim)},
-        "conv2": nn.conv1d_init(rng, w.hidden_dim, cfg.in_channels, 1),
     }
+    if cfg.final_layer_type == "wavenet":
+        p.update({
+            "t_embedder2": init_timestep_embedder(rng, w.hidden_dim),
+            "conv1": nn.dense_init(rng, D, w.hidden_dim),
+            "wavenet": init_wavenet(rng, w),
+            "res_projection": nn.dense_init(rng, D, w.hidden_dim),
+            "final_layer": {"linear": nn.dense_init(rng, w.hidden_dim, w.hidden_dim),
+                            "adaLN": nn.dense_init(rng, D, 2 * w.hidden_dim)},
+            "conv2": nn.conv1d_init(rng, w.hidden_dim, cfg.in_channels, 1),
+        })
+    else:
+        p["final_mlp0"] = nn.dense_init(rng, D, D)
+        p["final_mlp2"] = nn.dense_init(rng, D, cfg.in_channels)
+    return p
 
 
 def dit_forward(p: Params, s2: S2MelConfig, x: torch.Tensor, prompt_x: torch.Tensor,
@@ -227,7 +258,8 @@ def _gathered_attention(cfg: DiTConfig, qkv, freqs_cis, lengths, offsets, T: int
     """The sp form of one tp rank's attention: ``qkv[s]`` the (q, k, v)
     (B, Tl, Hs*Dh) of sp block s (frames from ``offsets[s]``); each block's
     rows roped at their own positions, k and v gathered from every block to
-    the querying block's device, the dense masked attention over T frames.
+    the querying block's device, the dense masked attention over T frames
+    (a causal DiT: the lower-triangular mask at the block's frames).
     Returns the (B, Tl, Hs*Dh) outputs, one per block."""
     H, Dh = cfg.num_heads, cfg.head_dim
     roped = []
@@ -238,11 +270,15 @@ def _gathered_attention(cfg: DiTConfig, qkv, freqs_cis, lengths, offsets, T: int
                       apply_rotary_emb_half(k.reshape(B, Tl, H, Dh), fc).transpose(1, 2),
                       v.reshape(B, Tl, H, Dh).transpose(1, 2)))
     outs = []
-    for q, _, _ in roped:
+    for (q, _, _), off in zip(roped, offsets):
         dev = q.device
         k = torch.cat([r[1].to(dev) for r in roped], dim=2)
         v = torch.cat([r[2].to(dev) for r in roped], dim=2)
-        mask = nn.sequence_mask(lengths.to(dev), T)[:, None, None, :]
+        if cfg.is_causal:
+            rows = torch.arange(off, off + q.shape[2], device=dev)[:, None]
+            mask = (torch.arange(T, device=dev)[None, :] <= rows)[None, None]
+        else:
+            mask = nn.sequence_mask(lengths.to(dev), T)[:, None, None, :]
         out = nn.mha(q, k, v, mask=mask)
         outs.append(out.transpose(1, 2).reshape(q.shape[0], q.shape[2], H * Dh))
     return outs
@@ -260,12 +296,10 @@ def dit_backbone_forward_mesh(blocks: List[Params], cfg: DiTConfig, xs: List[tor
     rank). One sp rank attends on the tier (``tier``, default
     `attention_tier` of the shard's heads); more attend in the dense form
     (`_gathered_attention`)."""
-    if cfg.is_causal:
-        raise NotImplementedError("causal DiT is not ported (the shipped DiT is non-causal)")
     tp = len(blocks[0]["transformer"]["shards"])
     sub = _shard_cfg(cfg, tp)
     if len(blocks) == 1 and tier is None:
-        tier = attention_tier(sub, lengths)
+        tier = attention_tier(sub, lengths, attn_dtype)
     shards = [b["transformer"]["shards"] for b in blocks]
     for li in range(len(shards[0][0])):
         lps = [[sh[t][li] for t in range(tp)] for sh in shards]
@@ -369,7 +403,8 @@ def dit_forward_mesh(p: Params, s2: S2MelConfig, xs: List[torch.Tensor],
     (``xs[s]`` etc. on rank (s, 0)'s device, block s from frame
     ``offsets[s]`` of T; one block when sp is 1); x_lens, t and style whole;
     ``tier`` as in `dit_backbone_forward_mesh`. Returns the velocity (B, Tl,
-    80) f32 of each block."""
+    80) f32 of each block. The style enters only where `_style_in` says; an
+    ``mlp`` head is per frame, so each block runs it on its own frames."""
     cfg, w = s2.DiT, s2.wavenet
     blocks = p["sp"]
     x_res, t1s, dts, masks = [], [], [], []
@@ -379,19 +414,24 @@ def dit_forward_mesh(p: Params, s2: S2MelConfig, xs: List[torch.Tensor],
         t1 = timestep_embed(b["t_embedder"], t.to(dev))
         cond_p = nn.dense(b["cond_projection"], cond)
         dt = torch.promote_types(torch.promote_types(x.dtype, prompt_x.dtype), cond_p.dtype)
-        st = style.to(dev)
-        x_in = torch.cat([x.to(dt), prompt_x.to(dt), cond_p.to(dt),
-                          st[:, None, :].to(dt).expand(B, Tl, st.shape[-1])], dim=-1)
+        parts = [x.to(dt), prompt_x.to(dt), cond_p.to(dt)]
+        if _style_in(cfg):
+            st = style.to(dev)
+            parts.append(st[:, None, :].to(dt).expand(B, Tl, st.shape[-1]))
+        x_in = torch.cat(parts, dim=-1)
         x_res.append(nn.dense(b["cond_x_merge_linear"], x_in))
         t1s.append(t1)
         dts.append(dt)
         masks.append(nn.sequence_mask(x_lens.to(dev), T)[:, off:off + Tl])
     x_res = dit_backbone_forward_mesh(blocks, cfg, x_res, [t1[:, None, :] for t1 in t1s],
                                       freqs_cis, x_lens, conds[0].dtype, offsets, T, tier)
-    hs, resid, gs = [], [], []
-    for b, xr, x, dt in zip(blocks, x_res, xs, dts):
-        xr = nn.dense(b["skip_linear"], torch.cat([xr, x.to(dt)], dim=-1))
-        resid.append(xr)
+    resid = [nn.dense(b["skip_linear"], torch.cat([xr, x.to(dt)], dim=-1))
+             for b, xr, x, dt in zip(blocks, x_res, xs, dts)]
+    if cfg.final_layer_type != "wavenet":
+        return [nn.dense(b["final_mlp2"], F.silu(nn.dense(b["final_mlp0"], xr))).float()
+                for b, xr in zip(blocks, resid)]
+    hs, gs = [], []
+    for b, xr, x, dt in zip(blocks, resid, xs, dts):
         hs.append(nn.dense(b["conv1"], xr))
         gs.append(timestep_embed(b["t_embedder2"], t.to(x.device))[:, None, :].to(dt))
     hs = wavenet_forward_mesh([b["wavenet"] for b in blocks], w, hs, masks, gs, x_lens,

@@ -1,9 +1,12 @@
 """Length regulator (PyTorch counterpart of
 `indextts_tpu/models/s2mel/length_regulator.py`): continuous codec features
--> nearest-neighbour interpolation to the mel rate -> conv + GroupNorm(1) +
-Mish stack -> 1x1 out conv, masked by the target lengths."""
+through ``content_in_proj`` (or, for a discrete regulator, embedded code
+ids) -> nearest-neighbour interpolation to the mel rate -> conv +
+GroupNorm(1) + Mish stack -> 1x1 out conv, masked by the target lengths."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -37,13 +40,18 @@ def nearest_interpolate(x: torch.Tensor, in_len: torch.Tensor, out_len: torch.Te
 
 def length_regulate(p: Params, cfg: LengthRegulatorConfig, code_lens: torch.Tensor,
                     ylens: torch.Tensor, out_size: int,
-                    features: torch.Tensor) -> torch.Tensor:
-    """features (B, T_code, in_channels), code_lens / ylens (B,) -> (B,
-    out_size, out_channels), zero past ylens. Continuous-input path only
-    (the shipped config; `is_discrete` regulators are not ported)."""
+                    features: Optional[torch.Tensor] = None,
+                    codes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """code_lens / ylens (B,) -> (B, out_size, out_channels), zero past
+    ylens: a continuous regulator projects ``features`` (B, T_code,
+    in_channels), a discrete one (``is_discrete``) embeds ``codes`` (B,
+    T_code) int, which only it takes."""
     if cfg.is_discrete:
-        raise NotImplementedError("discrete-code length regulator is not ported")
-    x = nn.dense(p["content_in_proj"], features)
+        if codes is None:
+            raise ValueError("a discrete length regulator embeds codes: pass codes=")
+        x = nn.embedding(p["embedding"], codes.long())
+    else:
+        x = nn.dense(p["content_in_proj"], features)
     x = nearest_interpolate(x, code_lens, ylens, out_size)
     mask = nn.sequence_mask(ylens, out_size)
     m = mask[:, :, None].to(x.dtype)

@@ -3,8 +3,9 @@
 conv_pre -> per stage: ConvTranspose1d upsample -> mean of AMPBlock1
 resblocks (anti-aliased SnakeBeta between dilated convs) -> final
 anti-aliased SnakeBeta -> conv_post -> clamp. Every anti-aliased activation
-is kernel K3 (`ops/snake.py::antialias_snake`); the resblock convs are plain
-library convolutions. All ops mask by each row's valid length.
+is kernel K3 (`ops/snake.py::antialias_snake`), or its plain version for a
+float32 stream on the card, which K3 does not take; the resblock convs are
+plain library convolutions. All ops mask by each row's valid length.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 from indextts_tpu_torch import nn
 from indextts_tpu_torch.config import BigVGANConfig
 from indextts_tpu_torch.nn import InitRng, Params
-from indextts_tpu_torch.ops.snake import antialias_snake
+from indextts_tpu_torch.ops.snake import antialias_snake, antialias_snake_plain, kernel_takes
 
 
 def init_bigvgan(rng: InitRng, h: BigVGANConfig) -> Params:
@@ -59,6 +60,10 @@ def _mask(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def _act(a: Params, x: torch.Tensor, lengths, logscale: bool) -> torch.Tensor:
+    """K3; a float32 stream on the card, which K3 does not take, runs its
+    plain version (`ops/snake.py::kernel_takes`)."""
+    if not kernel_takes(x.dtype, x.device):
+        return antialias_snake_plain(x, a["alpha"], a.get("beta"), lengths, logscale)
     return antialias_snake(x.contiguous(), a["alpha"], a.get("beta"), lengths, logscale)
 
 

@@ -104,6 +104,15 @@ def _check_aligned(name: str, t: torch.Tensor) -> None:
 KERNEL_DTYPES = (torch.bfloat16, torch.float16)
 
 
+def kernel_takes(dtype: torch.dtype, device) -> bool:
+    """Whether K2 and K4 take a ``dtype`` attention on ``device``: on the
+    card they are instantiated for bf16 and fp16 only, so a float32 DiT
+    attends on the dense tier there (`models/s2mel/dit.py::attention_tier`),
+    as the JAX DiT does off the TPU; on the CPU their plain twins take any
+    dtype."""
+    return torch.device(device).type != "cuda" or dtype in KERNEL_DTYPES
+
+
 def _check_dtype(name: str, q: torch.Tensor) -> None:
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"{name}: q must be bf16 or fp16, got {q.dtype}")

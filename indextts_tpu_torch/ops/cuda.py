@@ -67,19 +67,21 @@ _SIGNATURES = {
     "tp_allreduce_launch": [_P] * 6 + [_I] * 3 + [_P],
     # device, peer
     "tp_enable_peer_access": [_I] * 2,
-    # w4, kvq, n-tiles, cluster, smem, resident clusters (out)
-    "decode_step_occupancy": [_I] * 5 + [_IP],
+    # w4, kvq, fp16, n-tiles, cluster, smem, resident clusters (out)
+    "decode_step_occupancy": [_I] * 6 + [_IP],
     # layers, x_in, xs, xslots, qkv, att, xb, h, ck, cv, kvs, kv_valid, anc,
-    # bar, trace, L, M, D, H, F, S, pos, group, scale, half_d, half_f, the launch
-    # plan (ops/decode_step.py::StepPlan: cluster, blocks, slots, split_d,
-    # span_d, split_f, span_f, heads, chunks, stages, smem), stream
-    "decode_step_launch": [_P] * 3 + [_I] + [_P] * 11 + [_I] * 8 + [_F] + [_I] * 13 + [_P],
-    # n-tiles, cluster, smem, resident clusters (out)
-    "decode_step_tp_occupancy": [_I] * 3 + [_IP],
+    # bar, trace, L, M, D, H, F, S, pos, group, scale, half_d, half_f, fp16
+    # (x, the bf16-cache variant's cache, biases and LayerNorm vectors in
+    # fp16), the launch plan (ops/decode_step.py::StepPlan: cluster, blocks,
+    # slots, split_d, span_d, split_f, span_f, heads, chunks, stages, smem),
+    # stream
+    "decode_step_launch": [_P] * 3 + [_I] + [_P] * 11 + [_I] * 8 + [_F] + [_I] * 14 + [_P],
+    # fp16, n-tiles, cluster, smem, resident clusters (out)
+    "decode_step_tp_occupancy": [_I] * 4 + [_IP],
     # layers, x_in, xs, xslots, qkv, att, xb, h, ck0, cv0, ck1, cv1, kv_valid,
-    # anc, bar, trace, L, M, D, H, F, S, pos, group, scale, the launch plan
-    # (ops/decode_step.py::step_tp_plan: a StepPlan), stream
-    "decode_step_tp_launch": [_P] * 3 + [_I] + [_P] * 12 + [_I] * 8 + [_F] + [_I] * 11 + [_P],
+    # anc, bar, trace, L, M, D, H, F, S, pos, group, scale, fp16, the launch
+    # plan (ops/decode_step.py::step_tp_plan: a StepPlan), stream
+    "decode_step_tp_launch": [_P] * 3 + [_I] + [_P] * 12 + [_I] * 8 + [_F] + [_I] * 12 + [_P],
     # cluster, smem, resident clusters (out)
     "step_barrier_occupancy": [_I, _I, _IP],
     # bar, barriers, blocks, cluster, smem, cooperative, stream

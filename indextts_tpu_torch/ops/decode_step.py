@@ -6,7 +6,7 @@ fused_decode_step` at ``group=1`` and with the beam ancestry map at
 int4 weights (its ``W4`` variant, `nn.quantize_dense_int4`) against the
 flat bf16 (L, B, S, D) cache or the flat int8 cache with its packed bf16
 scale rows ``"kvs"`` (its ``KVQ`` variant, `gpt2.kv_quantize_flat`). As on
-the TPU, it is one kernel over the layers: `csrc/decode_step.cu`, one
+the TPU, it is one kernel over the layers: `csrc/decode_step.cuh`, one
 persistent launch a step, whose blocks walk the layers in phases separated
 by grid-wide barriers, each layer's weights streamed ahead across them
 (`step_plan` is its launch plan). A layer's phases:
@@ -34,6 +34,18 @@ plan.
 Unlike the JAX kernel, which returns the new k/v rows for the caller to
 write, the cache is updated in place (the port's cache is always updated in
 place: the decode loop never holds two copies of it).
+
+The step takes its token x, its non-int8 cache and the tree's biases and
+LayerNorm vectors at one 16-bit type E (`STEP_DTYPES`: bf16, or fp16 for
+``IndexTTS2(use_fp16=True)`` with a quantization) and computes the TPU
+kernel's bf16 body on them: x is rounded to bf16 once, at entry; each fp16
+cache element is rounded to bf16 as it is read, and the token's k / v rows
+are written back at E; the biases and LayerNorm vectors enter the f32
+arithmetic exactly. The last layer's bf16 output is cast to E, then ``ln_f``
+applies at E. So an fp16 step returns what the bf16 step returns on bf16
+copies of its inputs, cast to fp16 before ``ln_f``. The int8 cache and its
+bf16 scale rows are the same at either E. The twin converts where the
+kernel converts (`decode_layer`, `decode_attention_plain`).
 """
 
 from __future__ import annotations
@@ -54,6 +66,9 @@ from indextts_tpu_torch.ops.int8 import (GEMV_WARPS, MAX_ROWS, SMEM_MAX, SMS, ge
                                          int8_mlp, int8_mlp_plain)
 
 CHUNK = 64          # positions a chunk of `decode_attention`: the rounding unit
+# the 16-bit types K1 and K6 take their activations, non-int8 cache, biases and
+# LayerNorm vectors at (the kernels' staging holds 2-byte cache elements)
+STEP_DTYPES = (torch.bfloat16, torch.float16)
 HEAD_DIM = 64       # the CUDA kernel's head dim
 NEG = -1e9          # the TPU kernel's mask value
 
@@ -137,7 +152,9 @@ def decode_attention_plain(qkv: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor
                            anc: Optional[torch.Tensor] = None, group: int = 1,
                            kvs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain twin of `decode_attention` (any device); writes the cache
-    rows at ``pos`` in place like the kernel."""
+    rows at ``pos`` in place like the kernel. A 16-bit cache of another type
+    than bf16 (K1's fp16 instantiation) is read rounded to bf16 and written
+    from bf16, as the persistent kernel reads and writes it."""
     M, D = qkv.shape[0], qkv.shape[1] // 3
     Dh, S, dev = D // heads, ck.shape[1], qkv.device
     bf16 = torch.bfloat16
@@ -262,17 +279,18 @@ def _check_step(params, x, kv_cache, group: int, anc) -> None:
     if "q" not in c_attn and "q4" not in c_attn:
         raise ValueError("fused_decode_step takes int8 or int4 weights "
                          "(quantize_gpt2_int8 / quantize_gpt2_int4)")
-    bf16_cache = set(kv_cache) == {"k", "v"} and kv_cache["k"].dtype == torch.bfloat16
+    if x.dtype not in STEP_DTYPES:
+        raise ValueError(f"fused_decode_step takes bf16 or fp16 activations, got {x.dtype}")
+    float_cache = set(kv_cache) == {"k", "v"} and kv_cache["k"].dtype == x.dtype
     int8_cache = set(kv_cache) == {"k", "v", "kvs"} and kv_cache["k"].dtype == torch.int8
-    if not (bf16_cache or int8_cache) or kv_cache["k"].ndim != 4:
-        raise ValueError("fused_decode_step takes the flat (L, B, S, D) bf16 cache or the "
-                         "flat int8 cache with its 'kvs' scale rows (init_kv_cache), got "
+    if not (float_cache or int8_cache) or kv_cache["k"].ndim != 4:
+        raise ValueError(f"fused_decode_step takes the flat (L, B, S, D) {x.dtype} cache (x's "
+                         "type) or the flat int8 cache with its 'kvs' scale rows "
+                         "(init_kv_cache), got "
                          f"{ {k: (t.dtype, tuple(t.shape)) for k, t in kv_cache.items()} }")
     B = x.shape[0]
     if B > MAX_ROWS:
         raise ValueError(f"fused_decode_step takes at most {MAX_ROWS} rows, got {B}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"fused_decode_step takes bf16 activations, got {x.dtype}")
     if group > 1 and anc is None:
         raise ValueError("fused_decode_step: group > 1 needs the ancestry map")
 
@@ -294,7 +312,9 @@ def decode_layer(ops: StepOps, lp, x: torch.Tensor, heads: int, pos: int, ck: to
     cache (ck, cv, and the int8 cache's scale rows kvs); the int8 or int4
     GEMVs of ``ops`` by the weight leaf the layer carries ("q" or "q4").
     Checks hold each layer of the kernel path against the twins on that
-    layer's input."""
+    layer's input. x of another 16-bit type is rounded to bf16 first (the
+    kernel's entry), and the output is bf16."""
+    x = x.to(torch.bfloat16)
     a, f = lp["attn"], lp["mlp"]
     w4 = "q4" in a["c_attn"]
     matvec, mlp, w = (ops.matvec4, ops.mlp4, "q4") if w4 else (ops.matvec, ops.mlp, "q")
@@ -315,7 +335,7 @@ TWINS = StepOps(int8_matvec_plain, int8_mlp_plain, int4_matvec_plain, int4_mlp_p
 
 def _step(ops, params, x, heads: int, pos: int, kv_cache, kv_valid, anc, group: int,
           layer_inputs: Optional[list]) -> torch.Tensor:
-    kvs = kv_cache.get("kvs")
+    kvs, dtype = kv_cache.get("kvs"), x.dtype
     for li, lp in enumerate(params["h"]):
         if layer_inputs is not None:
             layer_inputs.append(x)
@@ -323,7 +343,7 @@ def _step(ops, params, x, heads: int, pos: int, kv_cache, kv_valid, anc, group: 
                          kv_valid, anc, group, None if kvs is None else kvs[li])
     if layer_inputs is not None:
         layer_inputs.append(x)
-    return nn.layer_norm(params["ln_f"], x)
+    return nn.layer_norm(params["ln_f"], x.to(dtype))
 
 
 def fused_decode_step_plain(params, x: torch.Tensor, dims, pos: int,
@@ -351,7 +371,7 @@ def fused_decode_step_chain(params, x: torch.Tensor, dims, pos: int,
 
 
 # ---------------------------------------------------------------------------
-# the persistent step kernel (`csrc/decode_step.cu`, whose header says why)
+# the persistent step kernel (`csrc/decode_step.cuh`, whose header says why)
 
 STEP_MAX_SLOTS = 16         # weight slots of a block's ring
 STEP_MAX_CLUSTER = 8
@@ -408,7 +428,7 @@ def _step_gemv_region(M: int, span: int, cluster: int) -> int:
 def _step_layout(M: int, D: int, F: int, w4: bool, cluster: int, split_d: int, span_d: int,
                  split_f: int, span_f: int, slots: int, shards: int = 1):
     """(slot bytes, region, shared-memory bytes) of a block: the kernel's
-    `layout` (`csrc/decode_step.cu`) in the same formula; F is the MLP
+    `layout` (`csrc/decode_step.cuh`) in the same formula; F is the MLP
     projection's K (K6, ``shards`` 2: a shard's F / 2)."""
     span = max(D if split_d == 1 else span_d, F if split_f == 1 else span_f)
     slot_bytes = -(-(16 * (span // 2 if w4 else span) + 64) // 128) * 128
@@ -655,13 +675,14 @@ def step_tp_units(plan: StepPlan, M: int, H: int, pos: int):
 
 @functools.lru_cache(maxsize=64)
 def _step_blocks(device: torch.device, w4: bool, kvq: bool, nt: int, cluster: int,
-                 smem: int) -> int:
+                 smem: int, fp16: bool = False) -> int:
     """The persistent grid: the resident clusters the occupancy query
-    allows for this variant, times the cluster."""
+    allows for this variant (``fp16``: its E = fp16 instantiation), times
+    the cluster."""
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
-        code = cuda.library().decode_step_occupancy(int(w4), int(kvq), nt, cluster, smem,
-                                                    ctypes.byref(n))
+        code = cuda.library().decode_step_occupancy(int(w4), int(kvq), int(fp16), nt, cluster,
+                                                    smem, ctypes.byref(n))
     cuda.check(code, "decode_step occupancy")
     if n.value < 1:
         raise RuntimeError(f"decode step: no cluster of {cluster} blocks with {smem} bytes of "
@@ -692,13 +713,15 @@ def step_barrier(device: torch.device) -> torch.Tensor:
 
 
 def _layer_table(layers, device: torch.device, shapes, D: int, w4: bool,
-                 name: str = "fused_decode_step") -> torch.Tensor:
+                 name: str = "fused_decode_step",
+                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """The (L, shards * 16) int64 table of the layers' weight pointers the
-    kernel reads (`Layer` in `csrc/decode_step.cu`): ``layers`` holds, per
+    kernel reads (`Layer` in `csrc/decode_step.cuh`): ``layers`` holds, per
     layer, its shards' trees (one for K1; K6's two, each with its own
     pointers) and ``shapes`` the (N, K) of the four weights of one shard's
-    (their scale and bias have N entries). Checked and uploaded once per
-    set of pointers."""
+    (their f32 scale and ``dtype`` bias have N entries; the LayerNorm
+    vectors are ``dtype`` too). Checked and uploaded once per set of
+    pointers."""
     w = "q4" if w4 else "q"
     mats = [(lp["attn"]["c_attn"], lp["attn"]["c_proj"], lp["mlp"]["c_fc"], lp["mlp"]["c_proj"])
             for shards in layers for lp in shards]
@@ -718,7 +741,7 @@ def _layer_table(layers, device: torch.device, shapes, D: int, w4: bool,
         for m, (N, K) in zip(ms, shapes):
             for leaf, t, dtype, shape in ((w, m.get(w), torch.int8, (N, K // 2 if w4 else K)),
                                           ("scale", m["scale"], torch.float32, (N,)),
-                                          ("bias", m["bias"], torch.bfloat16, (N,))):
+                                          ("bias", m["bias"], dtype, (N,))):
                 if t is None or t.dtype != dtype or tuple(t.shape) != shape \
                         or t.device != device or not t.is_contiguous():
                     raise ValueError(f"{name}: a layer's {leaf} must be contiguous {dtype} "
@@ -726,10 +749,10 @@ def _layer_table(layers, device: torch.device, shapes, D: int, w4: bool,
             if m[w].data_ptr() % 16:
                 raise ValueError(f"{name}: weights must be 16-byte aligned (TMA)")
         for t in ln:
-            if t.dtype != torch.bfloat16 or tuple(t.shape) != (D,) or t.device != device \
+            if t.dtype != dtype or tuple(t.shape) != (D,) or t.device != device \
                     or not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError(f"{name}: LayerNorm vectors must be contiguous, 16-byte "
-                                 f"aligned bf16 ({D},) on {device}")
+                                 f"aligned {dtype} ({D},) on {device}")
     if len(_TABLES) >= 16:
         _TABLES.clear()
     table = torch.tensor(ptrs, dtype=torch.int64).view(len(layers), -1).to(device)
@@ -748,8 +771,8 @@ def _persistent_step(params, x, dims, pos: int, kv_cache, kv_valid, anc, group: 
     F = c_fc["scale"].shape[0]
     ck, cv, kvs = kv_cache["k"], kv_cache["v"], kv_cache.get("kvs")
     S = ck.shape[2]
-    cache_dtype = torch.bfloat16 if kvs is None else torch.int8
-    checks = [("x", x, torch.bfloat16, (M, D)), ("k cache", ck, cache_dtype, (L, M, S, D)),
+    cache_dtype = x.dtype if kvs is None else torch.int8
+    checks = [("x", x, x.dtype, (M, D)), ("k cache", ck, cache_dtype, (L, M, S, D)),
               ("v cache", cv, cache_dtype, (L, M, S, D)), ("kv_valid", kv_valid, torch.bool, (M, S))]
     if kvs is not None:
         checks.append(("scale rows", kvs, torch.bfloat16, (L, M, S, SCALE_LANES)))
@@ -770,11 +793,11 @@ def _persistent_step(params, x, dims, pos: int, kv_cache, kv_valid, anc, group: 
         raise ValueError(f"fused_decode_step: the kernel takes at most {STEP_MAX_LAYERS} layers, "
                          f"got {L}")
     sh = step_shape(M, D, F, w4)
-    kvq = kvs is not None
-    blocks = _step_blocks(dev, w4, kvq, -(-M // 8), sh.cluster, sh.smem)
+    kvq, fp16 = kvs is not None, x.dtype == torch.float16
+    blocks = _step_blocks(dev, w4, kvq, -(-M // 8), sh.cluster, sh.smem, fp16)
     plan = step_plan(M, D, H, F, S, pos, kvq, w4, blocks)
     table = _layer_table([(lp,) for lp in params["h"]], dev,
-                         ((3 * D, D), (D, D), (F, D), (D, F)), D, w4)
+                         ((3 * D, D), (D, D), (F, D), (D, F)), D, w4, dtype=x.dtype)
     bar = step_barrier(dev)
     xslots = 2 if layer_inputs is None else L + 1
     bf16 = torch.bfloat16
@@ -796,22 +819,25 @@ def _persistent_step(params, x, dims, pos: int, kv_cache, kv_valid, anc, group: 
             None if kvs is None else kvs.data_ptr(), kv_valid.data_ptr(),
             anc.data_ptr() if group > 1 else None, bar.data_ptr(),
             None if stamps is None else stamps.data_ptr(), L, M, D, H, F, S, pos,
-            group, 1.0 / math.sqrt(HEAD_DIM), half_d, half_f, *plan, cuda.stream_ptr(x))
+            group, 1.0 / math.sqrt(HEAD_DIM), half_d, half_f, int(fp16), *plan,
+            cuda.stream_ptr(x))
     cuda.check(code, "decode_step")
     if layer_inputs is not None:
         layer_inputs.append(x)
         layer_inputs.extend(xs[1:])
-    return nn.layer_norm(params["ln_f"], xs[L % xslots])
+    return nn.layer_norm(params["ln_f"], xs[L % xslots].to(x.dtype))
 
 
 def fused_decode_step(params, x: torch.Tensor, dims, pos: int,
                       kv_cache: Dict[str, torch.Tensor], kv_valid: torch.Tensor,
                       anc: Optional[torch.Tensor] = None, group: int = 1,
                       layer_inputs: Optional[list] = None) -> torch.Tensor:
-    """K1: one token x (B, D) bf16 through every layer of the int8 or int4
-    GPT-2 tree ``params`` against the flat cache (L, B, S, D), B <= 24:
-    {"k", "v"} bf16, or {"k", "v"} int8 with "kvs" (L, B, S, 256) bf16 scale
-    rows. Writes each layer's k and v at slot ``pos`` in place (quantized
+    """K1: one token x (B, D) bf16 or fp16 (E, the tree's type) through
+    every layer of the int8 or int4 GPT-2 tree ``params`` against the flat
+    cache (L, B, S, D), B <= 24: {"k", "v"} at E, or {"k", "v"} int8 with
+    "kvs" (L, B, S, 256) bf16 scale rows (the module docstring says how E
+    enters the bf16 body). Writes each layer's k and v at slot ``pos`` in
+    place (quantized
     for the int8 cache) and attends exactly the slots kv_valid (B, S) marks
     (those below ``pos``, and the token itself where it marks ``pos``), as
     the mask-based `gpt2_decode_step` does; the JAX kernel takes the window
@@ -820,11 +846,13 @@ def fused_decode_step(params, x: torch.Tensor, dims, pos: int,
     cache is unordered and ``anc`` (B, S) int32 names, for each row and
     position, the row of its beam group that holds the entry and whose
     kv_valid byte counts (as a gather route would gather both). Returns
-    (B, D) after ``ln_f``; a ``layer_inputs`` list receives each layer's input and
-    the last layer's output. CPU tensors run the plain twin; CUDA tensors
+    (B, D) after ``ln_f`` at E; a ``layer_inputs`` list receives each layer's
+    input (x, then bf16) and the last layer's output. CPU tensors run the
+    plain twin; CUDA tensors
     launch the persistent kernel, one launch a step
     (``fused_decode_step.launches``); anything else raises, as does what it
-    does not take: float weights, another cache layout, B > 24."""
+    does not take: float weights, another cache layout or type, f32
+    activations, B > 24."""
     cuda.refuse_grad("fused_decode_step", params, x, kv_cache)
     _check_step(params, x, kv_cache, group, anc)
     if x.device.type == "cpu":

@@ -29,7 +29,7 @@ after a failure):
 
 - both shards on one card (`make_mesh(["cuda:0", "cuda:0"])`, the tp
   pipeline's and `chip_smoke.py`'s layout): ONE launch a step of the
-  persistent kernel's TP variant (`csrc/decode_step.cu`,
+  persistent kernel's TP variant (`csrc/decode_step.cuh`,
   `decode_step_tp_launch`; `decode_step.step_tp_plan` is its plan), which
   runs both shards' layers and folds each all-reduce into the row-parallel
   product's own sum (the out-projection's in one block, which takes both
@@ -57,6 +57,13 @@ placed on each shard's device, as shard_map replicates it (on one card
 that is the same tensor); kv_valid and the ancestry map come as
 `parallel.mesh.Replicated`, a copy on each device that the engines keep up
 to date, so the step copies neither.
+
+The co-located kernel takes x, each shard's cache and the tree's biases and
+LayerNorm vectors at bf16 or fp16, as K1 does (`ops/decode_step.py`'s
+module docstring: the body stays bf16, x is rounded at entry, an fp16 cache
+element as it is read, and the result is cast back). The chain's standalone
+kernels take bf16 only: on two cards an fp16 step raises ValueError (the
+two-card fp16 chain is not ported). The twins take either.
 """
 
 from __future__ import annotations
@@ -70,8 +77,8 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import torch
 
 from indextts_tpu_torch.ops import cuda
-from indextts_tpu_torch.ops.decode_step import (HEAD_DIM, STEP_MARKS, STEP_MAX_LAYERS,
-                                                _layer_table, decode_attention,
+from indextts_tpu_torch.ops.decode_step import (HEAD_DIM, STEP_DTYPES, STEP_MARKS,
+                                                STEP_MAX_LAYERS, _layer_table, decode_attention,
                                                 decode_attention_plain, step_barrier,
                                                 step_tp_plan, step_tp_shape)
 from indextts_tpu_torch.ops.int8 import (MAX_ROWS, int8_matvec, int8_matvec_plain, int8_mlp,
@@ -167,9 +174,11 @@ def decode_layer_tp(ops: TpOps, layers, xs: List[torch.Tensor], heads: int, pos:
                     keep: Optional[list] = None) -> List[torch.Tensor]:
     """One block of the step on both shards: ``layers[t]`` is rank t's layer
     tree, ``xs[t]`` its (B, D) input, ``caches[t]`` its cache (layer ``li``
-    is used), ``heads`` per shard. Returns each shard's output. ``keep``
-    receives the partial buffers, which the peer may read until the step's
-    streams join."""
+    is used), ``heads`` per shard. Returns each shard's output (bf16; an
+    input of another 16-bit type is rounded to bf16 first, the kernel's
+    entry). ``keep`` receives the partial buffers, which the peer may read
+    until the step's streams join."""
+    xs = [t.to(torch.bfloat16) for t in xs]
     parts = []
     for t, lp in enumerate(layers):
         with _on(streams, t):
@@ -206,16 +215,16 @@ def _check_step_tp(params, x: torch.Tensor, dims, kv_cache, group: int, anc) -> 
     B = x.shape[0]
     if B > MAX_ROWS:
         raise ValueError(f"the tp decode step takes at most {MAX_ROWS} rows, got {B}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"the tp decode step takes bf16 activations, got {x.dtype}")
+    if x.dtype not in STEP_DTYPES:
+        raise ValueError(f"the tp decode step takes bf16 or fp16 activations, got {x.dtype}")
     D = dims.dim // mesh.tp
     for dev, cache in zip(mesh.devices, kv_cache["shards"]):
         if set(cache) != {"k", "v"} or any(
-                t.dtype != torch.bfloat16 or t.ndim != 4 or t.shape[-1] != D or t.device != dev
+                t.dtype != x.dtype or t.ndim != 4 or t.shape[-1] != D or t.device != dev
                 for t in cache.values()):
             got = {k: (t.dtype, tuple(t.shape), str(t.device)) for k, t in cache.items()}
-            raise ValueError(f"the tp decode step takes each shard's flat bf16 (L, B, S, {D}) "
-                             f"cache on its device, got {got}")
+            raise ValueError(f"the tp decode step takes each shard's flat {x.dtype} (L, B, S, "
+                             f"{D}) cache on its device, got {got}")
     if group > 1 and anc is None:
         raise ValueError("the tp decode step: group > 1 needs the ancestry map")
 
@@ -256,7 +265,7 @@ def _step_tp(ops: TpOps, params, x, dims, pos: int, kv_cache, kv_valid, anc, gro
     if streams is not None:
         for d, s in zip(devs, streams):
             torch.cuda.current_stream(d).wait_stream(s)
-    return xs[0]
+    return xs[0].to(x.dtype)
 
 
 def fused_decode_step_tp_plain(params, x: torch.Tensor, dims, pos: int, kv_cache: Dict,
@@ -276,7 +285,12 @@ def fused_decode_step_tp_chain(params, x: torch.Tensor, dims, pos: int, kv_cache
     shard, on a stream a shard (any mesh): the route of a mesh over two
     cards; on one card `chip_smoke.py` holds the persistent kernel
     bit-identical to it and `tools/torch_kernel_bench.py` times it beside
-    it. CPU tensors run the twins."""
+    it. CPU tensors run the twins. Its standalone kernels take bf16: an
+    fp16 x on the card raises ValueError."""
+    if x.device.type == "cuda" and x.dtype != torch.bfloat16:
+        raise ValueError(f"the tp decode chain (the shards on two cards) takes bf16, got "
+                         f"{x.dtype}: the fp16 chain over two cards is not ported; fp16 runs "
+                         "with both shards on one card")
     return _step_tp(KERNELS, params, x, dims, pos, kv_cache, kv_valid, anc, group, layer_inputs)
 
 
@@ -288,12 +302,15 @@ def co_located(mesh) -> bool:
 
 
 @functools.lru_cache(maxsize=16)
-def _step_tp_blocks(device: torch.device, nt: int, cluster: int, smem: int) -> int:
+def _step_tp_blocks(device: torch.device, nt: int, cluster: int, smem: int,
+                    fp16: bool = False) -> int:
     """K6's persistent grid: the resident clusters the occupancy query
-    allows for its kernel, times the cluster."""
+    allows for its kernel (``fp16``: the E = fp16 instantiation), times the
+    cluster."""
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
-        code = cuda.library().decode_step_tp_occupancy(nt, cluster, smem, ctypes.byref(n))
+        code = cuda.library().decode_step_tp_occupancy(int(fp16), nt, cluster, smem,
+                                                       ctypes.byref(n))
     cuda.check(code, "decode_step_tp occupancy")
     if n.value < 1:
         raise RuntimeError(f"tp decode step: no cluster of {cluster} blocks with {smem} bytes "
@@ -312,8 +329,8 @@ def _persistent_step_tp(params, x, dims, pos: int, kv_cache, kv_valid, anc, grou
     Dl = D // 2
     S = caches[0]["k"].shape[2]
     valid, a = per_rank(kv_valid, params["mesh"].devices)[0], None
-    checks = [("x", x, torch.bfloat16, (M, D)), ("kv_valid", valid, torch.bool, (M, S))]
-    checks += [(f"shard {t}'s {k} cache", c[k], torch.bfloat16, (L, M, S, Dl))
+    checks = [("x", x, x.dtype, (M, D)), ("kv_valid", valid, torch.bool, (M, S))]
+    checks += [(f"shard {t}'s {k} cache", c[k], x.dtype, (L, M, S, Dl))
                for t, c in enumerate(caches) for k in "kv"]
     if group > 1:
         if M % group:
@@ -330,11 +347,12 @@ def _persistent_step_tp(params, x, dims, pos: int, kv_cache, kv_valid, anc, grou
         raise ValueError(f"fused_decode_step_tp: the kernel takes at most {STEP_MAX_LAYERS} "
                          f"layers, got {L}")
     sh = step_tp_shape(M, D, F)
-    blocks = _step_tp_blocks(dev, -(-M // 8), sh.cluster, sh.smem)
+    fp16 = x.dtype == torch.float16
+    blocks = _step_tp_blocks(dev, -(-M // 8), sh.cluster, sh.smem, fp16)
     plan = step_tp_plan(M, D, H, F, S, pos, blocks)
     table = _layer_table(list(zip(*shards)), dev,
                          ((3 * Dl, D), (D, Dl), (F // 2, D), (D, F // 2)), D, False,
-                         "fused_decode_step_tp")
+                         "fused_decode_step_tp", x.dtype)
     bar = step_barrier(dev)
     xslots = 2 if layer_inputs is None else L + 1
     bf16 = torch.bfloat16
@@ -354,23 +372,24 @@ def _persistent_step_tp(params, x, dims, pos: int, kv_cache, kv_valid, anc, grou
             caches[0]["v"].data_ptr(), caches[1]["k"].data_ptr(), caches[1]["v"].data_ptr(),
             valid.data_ptr(), None if a is None else a.data_ptr(), bar.data_ptr(),
             None if stamps is None else stamps.data_ptr(), L, M, D, H, F, S, pos, group,
-            1.0 / math.sqrt(HEAD_DIM), *plan, cuda.stream_ptr(x))
+            1.0 / math.sqrt(HEAD_DIM), int(fp16), *plan, cuda.stream_ptr(x))
     cuda.check(code, "decode_step_tp")
     if layer_inputs is not None:
         layer_inputs.extend((t, t) for t in (x, *xs[1:]))
-    return xs[L % xslots]
+    return xs[L % xslots].to(x.dtype)
 
 
 def fused_decode_step_tp(params, x: torch.Tensor, dims, pos: int, kv_cache: Dict,
                          kv_valid: torch.Tensor, anc: Optional[torch.Tensor] = None,
                          group: int = 1, layer_inputs: Optional[list] = None) -> torch.Tensor:
-    """K6: one token x (B, D) bf16, B <= 24, through every layer of the
+    """K6: one token x (B, D) bf16 or fp16 (the tree's and the cache's
+    type), B <= 24, through every layer of the
     tensor-parallel int8 tree ``params`` (`shard_gpt2_tp`) against the
     per-shard cache ``kv_cache`` (`init_kv_cache(mesh=...)`); x on rank 0's
     device, kv_valid (B, S) and anc (B, S) int32 (``group`` > 1: the
     in-group ancestry map, as for K1) on every rank's (`per_rank`). Writes each shard's k/v rows at ``pos``
-    in place. Returns the hidden state before ``ln_f``, (B, D) on rank 0's
-    device; a ``layer_inputs`` list receives, per layer, the tuple of the
+    in place. Returns the hidden state before ``ln_f``, (B, D) at x's type on
+    rank 0's device; a ``layer_inputs`` list receives, per layer, the tuple of the
     shards' inputs, and the shards' outputs last (on one card both entries
     are the one residual stream). CPU tensors run the twins; with both
     shards on one card, ONE launch of the persistent kernel

@@ -138,6 +138,15 @@ SNAKE_THREADS = 128
 SNAKE_DTYPES = (torch.bfloat16, torch.float16)
 
 
+def kernel_takes(dtype: torch.dtype, device) -> bool:
+    """Whether K3 takes a ``dtype`` activation on ``device``: on the card it
+    is instantiated for bf16 and fp16 only, so a float32 BigVGAN runs the
+    plain activation there (`models/vocoder/bigvgan.py::_act`), as the JAX
+    BigVGAN does off the TPU; on the CPU the plain version takes any
+    dtype."""
+    return torch.device(device).type != "cuda" or dtype in SNAKE_DTYPES
+
+
 class SnakePlan(NamedTuple):
     rows: int       # output rows a thread
     threads: int    # threads a block

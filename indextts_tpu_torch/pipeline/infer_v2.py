@@ -32,12 +32,12 @@ One request runs, on ``device``:
       with a ``quantization`` every single-token step up to 24 rows runs
       kernel K1 (with the in-kernel beam ancestry map under beams, at
       group=1 when sampling), on a tp mesh under INDEXTTS_TP_DECODE=kernel
-      kernel K6 (int8, the bf16 cache, up to 24 rows), else the plain step
-      on the shards
+      kernel K6 (int8, the cache at the pipeline's type, up to 24 rows),
+      else the plain step on the shards; at float32 the plain step
   [S1] teacher-forced GPT latents -> gpt_layer + vq2emb
   [S2] length regulator -> 25-step CFM Euler solve under CFG (DiT: kernel
-      K2, or K4 on its flash tier)
-  [V] BigVGAN-v2 (kernel K3) -> 22.05 kHz wav
+      K2, or K4 on its flash tier; at float32 the dense tier)
+  [V] BigVGAN-v2 (kernel K3; at float32 its plain version) -> 22.05 kHz wav
 
 Long-form text, as in the JAX pipeline (`infer_generator`): with more than
 one segment and ``cfg.engine.batch_segments`` (the default), all segments
@@ -57,11 +57,12 @@ silence after it; the segments are joined with ``interval_silence`` ms of
 silence. An empty text gives no segment and a 0-sample wav.
 
 Decodes run beam search (num_beams > 1) or the sampling decode (num_beams=1,
-typical sampling accepted), with bf16 weights
-or with one of the JAX pipeline's quantizations, all bf16-only:
+typical sampling accepted), with float weights at the pipeline's type
+(bf16, fp16 with ``use_fp16=True``, or float32)
+or with one of the JAX pipeline's quantizations at any of those types:
 ``"int8"`` (the serving configuration: weight-only int8 for the four dense
-layers of every GPT-2 block, quantized after the cast to bf16 as the JAX
-pipeline does), ``"int4"`` (the same layers nibble-packed int4), and the
+layers of every GPT-2 block, quantized after the cast to the pipeline's
+type as the JAX pipeline does), ``"int4"`` (the same layers nibble-packed int4), and the
 memory knobs ``"int8kv"`` / ``"int4kv"`` (those weights with the flat int8
 KV cache). With ``mesh`` (`parallel/mesh.py::make_mesh`: dp x sp x tp
 ranks over named devices, the same device named twice co-locating two
@@ -76,7 +77,7 @@ shard; each sp rank its frames, dense attention against the gathered k and
 v); conditioning runs on rank 0's device, the synthesis's other stages on
 each dp rank's first device. With ``quantization="int8"``, tp=2 and
 ``INDEXTTS_TP_DECODE=kernel`` (the JAX pipeline's own switch) decode steps
-of up to 24 rows on the bf16 cache run kernel K6 (`ops/decode_step_tp.py`);
+of up to 24 rows on the bf16 or fp16 cache run kernel K6 (`ops/decode_step_tp.py`);
 every other tp decode (float, int4, the int8 cache, more rows, no switch)
 is the plain step on the shards. At num_beams=1 a segment decoded alone
 takes the JAX pipeline's default, the self-gating speculative decoder (gamma 8;
@@ -313,8 +314,17 @@ class IndexTTS2:
         accepted and ignored, as there. ``use_fp16=True`` runs the pipeline at
         float16 in place of ``dtype``, as the JAX pipeline does: every tree but
         CAMPPlus's is cast to it, and the DiT's attention (K2, K4) and BigVGAN's
-        activation (K3) run their fp16 instantiations; with a ``quantization``
-        it raises ValueError (K1 takes bf16 activations). The weights are read
+        activation (K3) run their fp16 instantiations. A ``quantization``
+        takes any ``dtype``, as in the JAX pipeline (the tree is cast, then
+        quantized): at bf16 and at fp16 every decode step up to 24 rows runs
+        K1 (with tp=2 ``int8`` under INDEXTTS_TP_DECODE=kernel and both shards
+        on one card, K6) at that type, its body bf16 as on the TPU. K1, K2,
+        K4 and K3 are 16-bit only, so a float32 pipeline, with or without a
+        quantization, runs on the card by explicit dtype gates, as the JAX
+        pipeline does on every backend but the TPU: the plain decode step
+        (`engine/decode.py::decode_route` names the types K1 takes), the
+        DiT's dense tier (`attention_tier`) and K3's plain version
+        (`models/vocoder/bigvgan.py::_act`). The weights are read
         from ``model_dir`` (and ``aux_paths``) as the JAX pipeline reads them
         (`_load_models`); a
         family without a file is drawn at random from ``seed``; with
@@ -327,9 +337,6 @@ class IndexTTS2:
             raise ValueError(f"quantization={quantization!r}: takes None or one of "
                              f"{sorted(QUANTIZATIONS)} (the weight and cache formats of "
                              "the decode kernel K1)")
-        if quantization is not None and dtype != torch.bfloat16:
-            raise ValueError(f"quantization={quantization!r} runs kernel K1, which takes bf16 "
-                             f"activations and cache; got dtype={dtype}")
         self.quantization = quantization
         # ``device`` defaults to the card, or under a mesh to rank 0's device
         if mesh is not None:

@@ -11,8 +11,9 @@ against the JAX package's at float16, on the CPU.
   DiT at fp16 (the dense `nn.mha` off the TPU): rel-L2 <= 1e-2 over valid
   rows (fp16 activations through two blocks);
 - the constructor: ``use_fp16=True`` gives float16 everywhere but CAMPPlus
-  (f32), as the JAX pipeline casts; with a quantization it raises
-  ValueError (K1 takes bf16 activations);
+  (f32), as the JAX pipeline casts; with each quantization it builds, routes
+  the decode to K1 ("fused", its fp16 twin here) and answers a 12-code
+  request with a finite wav;
 - the slice: greedy (do_sample=False) num_beams=3 codes token-equal with
   the JAX fp16 pipeline's; from those codes and the JAX side's CFM noise,
   the wav within rel-L2 2e-2 of JAX's fp16 wav, with the DiT on its packed
@@ -198,11 +199,27 @@ def test_use_fp16_casts_every_tree_but_campplus(model_dir):  # noqa: F811
 
 @pytest.mark.parametrize("quantization", ["int8", "int8kv", "int4", "int4kv"])
 def test_use_fp16_with_a_quantization_raises(model_dir, quantization):  # noqa: F811
+    """Once a refusal (K1 took bf16 only); now the fp16 pipeline with each
+    quantization builds and decodes on K1 at fp16 (the twin on the CPU):
+    the plain step is never called."""
+    from indextts_tpu_torch.engine.decode import decode_route
+    from indextts_tpu_torch.models.gpt.gpt2 import gpt2_decode_step
     from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
 
-    with pytest.raises(ValueError, match="bf16"):
-        IndexTTS2(cfg_path=None, model_dir=model_dir, device="cpu", cfg=tiny_config(),
-                  use_fp16=True, quantization=quantization)
+    tts = IndexTTS2(cfg_path=None, model_dir=model_dir, device="cpu", cfg=tiny_config(),
+                    use_fp16=True, quantization=quantization)
+    gpt = tts.gpt_params["gpt"]
+    w = "q4" if quantization.startswith("int4") else "q"
+    assert gpt["h"][0]["mlp"]["c_fc"][w].dtype == torch.int8
+    assert gpt["h"][0]["mlp"]["c_fc"]["bias"].dtype == torch.float16
+    assert decode_route(tts.gpt_params, 3, quantization.endswith("kv")) == "fused"
+    calls = gpt2_decode_step.calls
+    sr, wav = tts.infer(spk_audio_prompt=os.path.join(model_dir, "prompt.wav"), text=TEXT,
+                        output_path=None, max_mel_tokens=12, min_new_tokens=11)
+    assert tts.last_stage_times["codes"] == 12 and sr == 22050
+    assert wav.shape == (int(np.float32(12) * np.float32(1.72)) * 256, 1)
+    assert np.all(np.isfinite(wav))
+    assert gpt2_decode_step.calls == calls
 
 
 def test_fp16_slice_codes_token_equal_and_wav_matches_jax(  # noqa: F811

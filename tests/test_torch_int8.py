@@ -307,15 +307,36 @@ def test_int8_pipeline_answers_a_request(tmp_path):
 
 
 def test_int8_pipeline_refuses_other_dtypes_and_quantizations(tmp_path):
+    """Once a refusal of every quantization at float32; now the documented
+    f32 route: the tree is cast to f32, then quantized (as the JAX pipeline
+    does), and every decode step takes the plain step ("plain": K1 stages
+    2-byte elements), answering a request with a finite wav."""
+    from indextts_tpu.text.spm import build_model_file
+    from indextts_tpu.utils.wav_io import write_wav
+    from indextts_tpu_torch.engine.decode import decode_route
+    from indextts_tpu_torch.models.gpt.gpt2 import gpt2_decode_step
     from indextts_tpu_torch.pipeline.infer_v2 import IndexTTS2
 
-    with pytest.raises(ValueError, match="bf16"):
-        IndexTTS2(cfg_path=None, model_dir=str(tmp_path), device="cpu", cfg=tiny_config(),
-                  quantization="int8", dtype=torch.float32)
-    for quantization in ("int8kv", "int4", "int4kv"):
-        with pytest.raises(ValueError, match="bf16"):
-            IndexTTS2(cfg_path=None, model_dir=str(tmp_path), device="cpu", cfg=tiny_config(),
-                      quantization=quantization, dtype=torch.float32)
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+    vocab = [w[:i] for w in ["▁HELLO", "▁WORLD", "▁."] for i in range(2, len(w) + 1)]
+    for i, w in enumerate(vocab + ["▁", ".", "▁,", "E", "L", "O"]):
+        pieces.append((w, -1.0 - i, 1))
+    build_model_file(pieces, str(tmp_path / "bpe.model"))
+    tt = np.arange(int(0.8 * 16000)) / 16000
+    write_wav(str(tmp_path / "prompt.wav"), (0.3 * np.sin(2 * np.pi * 220 * tt)).astype(np.float32),
+              16000)
+    for quantization in ("int8", "int8kv", "int4", "int4kv"):
+        tts = IndexTTS2(cfg_path=None, model_dir=str(tmp_path), device="cpu", cfg=tiny_config(),
+                        quantization=quantization, dtype=torch.float32)
+        gpt = tts.gpt_params["gpt"]
+        assert gpt["h"][0]["mlp"]["c_fc"]["bias"].dtype == torch.float32
+        assert decode_route(tts.gpt_params, 3, quantization.endswith("kv")) == "plain"
+        calls = gpt2_decode_step.calls
+        sr, wav = tts.infer(spk_audio_prompt=str(tmp_path / "prompt.wav"), text="hello world .",
+                            output_path=None, max_mel_tokens=6, min_new_tokens=5)
+        assert tts.last_stage_times["codes"] == 6 and sr == 22050
+        assert np.all(np.isfinite(wav)) and wav.shape[0] > 0
+        assert gpt2_decode_step.calls > calls, quantization
 
 
 def test_int8_decode_route_takes_the_plain_step_past_k1(k1_case):

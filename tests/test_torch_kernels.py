@@ -1137,3 +1137,181 @@ def test_greedy_tp_decodes_on_two_cards_token_equal_co_located():
         (t0, l0), (t1, l1) = (out[(layouts[i], *key)] for i in range(2))
         assert torch.equal(t0, t1) and list(l0) == list(l1), key
     assert torch.equal(out[layouts[1], "beam", False][0], out[layouts[1], "beam", True][0])
+
+
+# ---------------------------------------------------------------------------
+# K1 and K6 at fp16: the E = fp16 instantiations (`csrc/decode_step_fp16.cu`)
+
+
+def _fp16_tree(tree):
+    """A quantized tree's bf16 leaves (biases, LayerNorm vectors) at fp16:
+    the same values."""
+    if isinstance(tree, dict):
+        return {k: _fp16_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_fp16_tree(v) for v in tree]
+    return tree.half() if tree.dtype == torch.bfloat16 else tree
+
+
+def _fp16_inputs(kv, x):
+    """fp16 x and cache off the bf16 grid (bf16 values plus small noise)."""
+    g = torch.Generator().manual_seed(16)
+    noise = lambda t: (1e-3 * torch.randn(t.shape, generator=g)).to(t.device)  # noqa: E731
+    return (kv.float() + noise(kv)).half(), (x.float() + noise(x)).half()
+
+
+def _bf16_copy(cache):
+    return {k: t.to(torch.bfloat16) if t.dtype == torch.float16 else t.clone()
+            for k, t in cache.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [1, 150])
+@pytest.mark.parametrize("group", [3, 1])
+@pytest.mark.parametrize("variant", ["int8", "kvq", "w4", "w4-kvq"])
+def test_fused_decode_step_fp16_is_the_bf16_body(cuda_device, variant, group, pos):
+    """K1's fp16 instantiation (fp16 x, cache, biases and LayerNorm vectors)
+    against the bf16 instantiation on bf16 copies of the same values: every
+    layer's output and the rows written at pos bit-identical (the fp16 rows
+    equal to the bf16 ones cast); one launch; the output fp16 and within
+    rel-L2 1e-2 of the fp16 twin."""
+    kvq = variant.endswith("kvq")
+    quantize = quantize_gpt2_int4 if variant.startswith("w4") else quantize_gpt2_int8
+    params, dims, x, kv, valid, anc, _ = _k1_case(cuda_device, quantize=quantize, pos=pos)
+    kv16, x16 = _fp16_inputs(kv, x)
+    rows = slice(0, group)
+    x16, valid = x16[rows].contiguous(), valid[rows].contiguous()
+    anc = anc if group > 1 else None
+    base = _kvq_cache(kv16.to(torch.bfloat16)) if kvq else {"k": kv16[0], "v": kv16[1]}
+    base = {k: t[:, rows].contiguous() for k, t in base.items()}
+    c16, cb, ct = ({k: t.clone() for k, t in base.items()}, _bf16_copy(base),
+                   {k: t.clone() for k, t in base.items()})
+    p16 = _fp16_tree(params)
+    before = decode_step.fused_decode_step.launches
+    l16, lb = [], []
+    h = decode_step.fused_decode_step(p16, x16, dims, pos, c16, valid, anc, group,
+                                      layer_inputs=l16)
+    decode_step.fused_decode_step(params, x16.to(torch.bfloat16), dims, pos, cb, valid, anc,
+                                  group, layer_inputs=lb)
+    ref = decode_step.fused_decode_step_plain(p16, x16, dims, pos, ct, valid, anc, group)
+    torch.cuda.synchronize()
+    assert decode_step.fused_decode_step.launches == before + 2
+    assert h.dtype == torch.float16 and len(l16) == len(lb) == dims.layers + 1
+    assert all(torch.equal(a, b) for a, b in zip(l16[1:], lb[1:]))
+    for key in base:
+        assert torch.equal(c16[key][:, :, pos], cb[key][:, :, pos].to(c16[key].dtype))
+    assert rel_l2(h, ref) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 3])
+def test_fused_decode_step_tp_fp16_is_the_bf16_body(cuda_device, group):
+    """K6 co-located at fp16 against its bf16 instantiation on bf16 copies:
+    every layer's residual stream and both shards' written rows
+    bit-identical; the output fp16, within rel-L2 1e-2 of the fp16 twin."""
+    params, dims, x, kv, valid, anc, pos = _k1_case(cuda_device)
+    kv16, x16 = _fp16_inputs(kv, x)
+    rows = slice(0, group)
+    x16, valid = x16[rows].contiguous(), valid[rows].contiguous()
+    anc = anc if group > 1 else None
+    mesh = make_mesh([cuda_device, cuda_device])
+    t16, tb = shard_gpt2_tp(_fp16_tree(params), mesh), shard_gpt2_tp(params, mesh)
+    Dl = dims.dim // 2
+
+    def cache(dtype):
+        return {"shards": [{k: kv16[i][:, rows, ..., t * Dl:(t + 1) * Dl].to(dtype).contiguous()
+                            for i, k in enumerate("kv")} for t in range(2)]}
+
+    c16, cb = cache(torch.float16), cache(torch.bfloat16)
+    l16, lb = [], []
+    h = decode_step_tp.fused_decode_step_tp(t16, x16, dims, pos, c16, valid, anc, group,
+                                            layer_inputs=l16)
+    decode_step_tp.fused_decode_step_tp(tb, x16.to(torch.bfloat16), dims, pos, cb, valid, anc,
+                                        group, layer_inputs=lb)
+    ref = decode_step_tp.fused_decode_step_tp_plain(t16, x16, dims, pos, cache(torch.float16),
+                                                    valid, anc, group)
+    torch.cuda.synchronize()
+    assert h.dtype == torch.float16
+    assert all(torch.equal(a[0], b[0]) for a, b in zip(l16[1:], lb[1:]))
+    for a, b in zip(c16["shards"], cb["shards"]):
+        for key in "kv":
+            assert torch.equal(a[key][:, :, pos], b[key][:, :, pos].half())
+    assert rel_l2(h, ref) <= 1e-2
+
+
+# each per-layer vector of the step: the LayerNorms' and the GEMVs' biases
+FP16_VECTORS = [("ln_1", "weight"), ("ln_1", "bias"), ("ln_2", "weight"), ("ln_2", "bias"),
+                ("attn", "c_attn", "bias"), ("attn", "c_proj", "bias"),
+                ("mlp", "c_fc", "bias"), ("mlp", "c_proj", "bias")]
+
+
+def _off_grid(tree, g):
+    """`_fp16_tree` with every fp16 leaf (biases, LayerNorm vectors) moved
+    by N(0, 0.05) noise: values bf16 cannot hold."""
+    if isinstance(tree, dict):
+        return {k: _off_grid(v, g) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_off_grid(v, g) for v in tree]
+    if tree.dtype != torch.float16:
+        return tree
+    return (tree.float() + 0.05 * torch.randn(tree.shape, generator=g).to(tree.device)).half()
+
+
+def _through_bf16(tree, path):
+    """The tree with the fp16 vector at ``path`` of every layer rounded to
+    bf16 and stored at fp16 again: what a read of it through bf16 sees."""
+    def at(node, keys):
+        if not keys:
+            return node.to(torch.bfloat16).half()
+        return {**node, keys[0]: at(node[keys[0]], keys[1:])}
+
+    return {**tree, "h": [at(lp, path) for lp in tree["h"]]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["int8", "kvq", "w4", "w4-kvq", "tp"])
+def test_fused_decode_step_fp16_reads_biases_and_layernorm_vectors_exactly(cuda_device,
+                                                                          variant):
+    """K1's fp16 instantiation (each variant, group 3) and K6's co-located
+    on a tree whose biases and LayerNorm vectors bf16 cannot hold, against
+    the same kernel on the tree with one kind of vector rounded to bf16
+    (each of the eight in turn): the outputs differ. A kernel that read
+    that vector through bf16 would give both trees the same bits."""
+    kvq = variant.endswith("kvq")
+    quantize = quantize_gpt2_int4 if variant.startswith("w4") else quantize_gpt2_int8
+    params, dims, x, kv, valid, anc, pos = _k1_case(cuda_device, quantize=quantize)
+    kv16, x16 = _fp16_inputs(kv, x)
+    tree = _off_grid(_fp16_tree(params), torch.Generator().manual_seed(5))
+    base = _kvq_cache(kv16.to(torch.bfloat16)) if kvq else {"k": kv16[0], "v": kv16[1]}
+    mesh = make_mesh([cuda_device, cuda_device])
+    Dl = dims.dim // 2
+
+    def step(t):
+        if variant != "tp":
+            cache = {k: v.clone() for k, v in base.items()}
+            return decode_step.fused_decode_step(t, x16, dims, pos, cache, valid, anc, 3)
+        cache = {"shards": [{k: kv16[i][..., s * Dl:(s + 1) * Dl].contiguous()
+                             for i, k in enumerate("kv")} for s in range(2)]}
+        return decode_step_tp.fused_decode_step_tp(shard_gpt2_tp(t, mesh), x16, dims, pos,
+                                                   cache, valid, anc, 3)
+
+    h = step(tree)
+    assert h.dtype == torch.float16
+    for path in FP16_VECTORS:
+        assert not torch.equal(h, step(_through_bf16(tree, path))), path
+
+
+@pytest.mark.cuda
+def test_fused_decode_step_tp_fp16_on_two_cards_raises():
+    """The chain over two cards runs the bf16-only standalone kernels: at
+    fp16 it raises (the two-card fp16 chain is not ported)."""
+    _, layout = _two_cards()
+    params, dims, x, kv, valid, anc, pos = _k1_case(torch.device("cuda:0"))
+    mesh = make_mesh(list(layout))
+    tp = shard_gpt2_tp(_fp16_tree(params), mesh)
+    Dl = dims.dim // 2
+    cache = {"shards": [{k: kv[i][..., t * Dl:(t + 1) * Dl].half().contiguous().to(d)
+                         for i, k in enumerate("kv")} for t, d in enumerate(mesh.devices)]}
+    with pytest.raises(ValueError, match="not ported"):
+        decode_step_tp.fused_decode_step_tp(tp, x.half(), dims, pos, cache,
+                                            Replicated.of(valid, mesh))

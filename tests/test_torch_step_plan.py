@@ -1,5 +1,5 @@
 """PyTorch port: the launch plan of the persistent decode step, K1
-(`indextts_tpu_torch/ops/decode_step.py::step_plan`, `csrc/decode_step.cu`),
+(`indextts_tpu_torch/ops/decode_step.py::step_plan`, `csrc/decode_step.cuh`),
 held on the CPU at the shipped widths (D=1280, F=5120, H=20): every GEMV
 output tile of every phase owned by exactly one block (or, where K is
 split, one cluster whose ranks each take one span); each GEMV's split and
@@ -23,7 +23,7 @@ from indextts_tpu_torch.ops import decode_step as ds
 from indextts_tpu_torch.ops import int8
 
 D, F, H = 1280, 5120, 20
-SOURCE = Path(ds.__file__).resolve().parents[1] / "csrc" / "decode_step.cu"
+SOURCE = Path(ds.__file__).resolve().parents[1] / "csrc" / "decode_step.cuh"
 
 
 @pytest.mark.parametrize("blocks", [128, 132, 64, 8])

@@ -1,6 +1,6 @@
 """PyTorch port: the launch plan of K6 with both tp shards on one card, the
 TP variant of the persistent decode step (`indextts_tpu_torch/ops/
-decode_step.py::step_tp_plan`, `csrc/decode_step.cu`), held on the CPU at
+decode_step.py::step_tp_plan`, `csrc/decode_step.cuh`), held on the CPU at
 the shipped widths (D=1280, F=5120, H=20, 10 heads a shard): every GEMV
 slab of both shards owned by exactly one block (an out-projection tile's
 two slabs by one block, an MLP projection tile by one cluster, whose ranks
@@ -29,7 +29,7 @@ from indextts_tpu_torch.ops.decode_step_tp import co_located, tp_allreduce_plain
 from indextts_tpu_torch.parallel.mesh import Mesh
 
 D, F, H = 1280, 5120, 20
-SOURCE = Path(ds.__file__).resolve().parents[1] / "csrc" / "decode_step.cu"
+SOURCE = Path(ds.__file__).resolve().parents[1] / "csrc" / "decode_step.cuh"
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -139,8 +139,9 @@ def test_barrier_count_is_the_k1_loops():
     one kernel): 5 barriers a layer but the last layer's last, and none for
     the exchange, which stays inside the cluster."""
     src = SOURCE.read_text()
-    assert re.search(r"template <bool W4, bool KVQ, int NT, bool TP>\s*__global__", src)
-    assert "decode_step_kernel<W4, KVQ, 1, TP>" in src
+    assert re.search(r"template <bool W4, bool KVQ, int NT, bool TP, typename E>\s*__global__",
+                     src)
+    assert "decode_step_kernel<W4, KVQ, 1, TP, E>" in src
     loop = src[src.index("for (int l = 0; l < a.L; ++l) {"):]
     loop = loop[:loop.index("\n  }\n")]
     assert len(re.findall(r"gb\.sync\(\);", loop)) == 1
